@@ -274,8 +274,7 @@ def main() -> int:
     full = CV.depuncture(llr, C.PUNCTURE_P1_PIDS_FM,
                          C.P1_FRAME_LEN_FM * 3).reshape(
         -1, C.P1_FRAME_LEN_FM, 3)
-    seg_idx, _ = CV._plan_tensors(C.P1_FRAME_LEN_FM, CV.CHUNK, CV.OVERLAP,
-                                  str(dev))
+    seg_idx, _ = CV._plan_tensors(C.P1_FRAME_LEN_FM, str(dev))
     segs = full[:, seg_idx].reshape(-1, seg_idx.shape[1], 3).contiguous()
     llr = pm.reshape(s_n * n_blocks, -1)[
         :, torch.from_numpy(IL.pids_fm_table()).long().to(dev)].float()

@@ -140,16 +140,15 @@ extern "C" int viterbi_k7(const void* ext, void* bits, void* margin,
                           void* stream) {
   const size_t per_warp = (size_t)n_steps * 8 + (STAGE * 3 + 64) * 4;
   const size_t smem = per_warp * WARPS;
-  // above 48 KB of dynamic shared memory the kernel must opt in; the
-  // opt-in only ever grows, so it is made once per size class and never
-  // while a launch might be captured into a CUDA graph after warm-up
-  static size_t opted_in = 48 * 1024;
-  if (smem > opted_in) {
+  // above 48 KB of dynamic shared memory the kernel must opt in.  The
+  // attribute belongs to the current device, so it is set on every such
+  // launch (a host-side call, no stream work) rather than remembered once
+  // per process
+  if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         viterbi_k7_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
-    opted_in = smem;
   }
   dim3 block(32 * WARPS);
   dim3 grid((n_seg + WARPS - 1) / WARPS);

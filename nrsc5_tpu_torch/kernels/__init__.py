@@ -137,11 +137,13 @@ def _func(name: str):
 
 
 def launch(name: str, *args, device: torch.device) -> None:
-    """Launch kernel ``name`` on the current stream of ``device``; raise
-    if the launch was refused, else count it."""
+    """Launch kernel ``name`` on the current stream of ``device``, with
+    ``device`` current (the CUDA runtime launches on, and sets kernel
+    attributes for, the current device); raise if the launch was refused,
+    else count it."""
     fn = _func(name)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*args, stream)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {err})")

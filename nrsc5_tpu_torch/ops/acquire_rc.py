@@ -129,15 +129,3 @@ def demod_fold(samples, offset, phase, samperr, angle, cfo):
              TWO_PI_OVER_FFT, folded.data_ptr(), phase_out.data_ptr(),
              keep.data_ptr(), s, device=dev)
     return folded, phase_out, keep
-
-
-def demod_rc(window, phase, samperr, angle, cfo):
-    """Per-station form of the reference's ``demod_rc``: window
-    [WINDOW_FM, 2] conjugated rc, phase [2], samperr int32, angle float32,
-    cfo int32 (0-dim tensors).  Returns (spectra [32, 2048, 2],
-    phase_out [2], samperr, keep)."""
-    zero = torch.zeros(1, dtype=torch.int32, device=window.device)
-    folded, phase_out, keep = demod_fold(
-        window[None], zero, phase[None], samperr.reshape(1),
-        angle.reshape(1), cfo.reshape(1))
-    return rc.dft(folded[0], shift=True), phase_out[0], samperr, keep[0]

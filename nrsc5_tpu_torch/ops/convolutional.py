@@ -107,7 +107,7 @@ def depuncture(llr: torch.Tensor, pattern: tuple[int, ...],
 
 
 @functools.lru_cache(maxsize=32)
-def _chunk_plan(t: int, chunk: int, overlap: int, multiple: int = 1):
+def _chunk_plan(t: int, chunk: int, overlap: int):
     """Static plan for the overlapping-chunk Viterbi: the circular frame is
     cut into ``n`` near-equal segments; segment i covers frame positions
     [b_i - overlap, b_{i+1} + overlap) mod t and only its middle survivor
@@ -116,7 +116,6 @@ def _chunk_plan(t: int, chunk: int, overlap: int, multiple: int = 1):
     bounds = np.floor(np.linspace(0, t, n + 1)).astype(np.int64)
     keep = np.diff(bounds)
     length = int(keep.max() + 2 * overlap)
-    length += (-length) % multiple
     seg_idx = ((bounds[:-1, None] - overlap + np.arange(length)[None, :]) % t
                ).astype(np.int32)
     pos = np.arange(t)
@@ -126,8 +125,8 @@ def _chunk_plan(t: int, chunk: int, overlap: int, multiple: int = 1):
 
 
 @functools.lru_cache(maxsize=8)
-def _plan_tensors(t: int, chunk: int, overlap: int, device: str):
-    seg_idx, src_chunk, src_off = _chunk_plan(t, chunk, overlap)
+def _plan_tensors(t: int, device: str):
+    seg_idx, src_chunk, src_off = _chunk_plan(t, CHUNK, OVERLAP)
     n, length = seg_idx.shape
     keep_flat = src_chunk.astype(np.int64) * length + src_off
     return (torch.from_numpy(seg_idx.astype(np.int64)).to(device),
@@ -230,20 +229,21 @@ def viterbi_decode(llr: torch.Tensor, gens: tuple[int, int, int],
 
 
 def viterbi_decode_chunked(llr: torch.Tensor, gens: tuple[int, int, int],
-                           chunk: int = CHUNK, overlap: int = OVERLAP,
                            plain: bool = False):
     """Chunk-parallel tail-biting K=7 Viterbi: the circular frame is cut
-    into overlapping segments decoded in parallel with free boundary
-    metrics, and only each segment's middle bits are kept.
+    into segments of CHUNK bits overlapping by OVERLAP on each side,
+    decoded in parallel with free boundary metrics, and only each
+    segment's middle bits are kept.  A frame no longer than one segment
+    takes :func:`viterbi_decode`.
 
     llr: [..., T, 3].  Returns (bits [..., T] uint8, margin [...] float32
     — the minimum per-segment metric margin)."""
     llr = llr.float()
     t = llr.shape[-2]
-    if chunk + 2 * overlap >= t:
+    if CHUNK + 2 * OVERLAP >= t:
         return viterbi_decode(llr, gens, plain=plain)
     batch = llr.shape[:-2]
-    seg_idx, keep_flat = _plan_tensors(t, chunk, overlap, str(llr.device))
+    seg_idx, keep_flat = _plan_tensors(t, str(llr.device))
     n, length = seg_idx.shape
     flat = llr.reshape(-1, t, 3)
     segs = flat[:, seg_idx]  # [B, n, L, 3]

@@ -38,17 +38,15 @@ def _descramble_dev(bits: torch.Tensor, length: int) -> torch.Tensor:
     return bits ^ _keystream(length, str(bits.device))
 
 
-def p1_decode(pm_matrix: torch.Tensor, chunked: bool = True,
-              plain: bool = False):
+def p1_decode(pm_matrix: torch.Tensor, plain: bool = False):
     """pm_matrix: [B, 16*32*720] int8 (one P1 frame of soft bits per row).
     Returns (bits [B, 146176] uint8, Viterbi margin [B] float32, re-encode
-    bit errors [B] int32).  ``chunked`` selects the chunk-parallel
-    Viterbi, as the chain runs it; ``plain`` runs K7's plain version."""
+    bit errors [B] int32) from the chunk-parallel Viterbi; ``plain`` runs
+    K7's plain version."""
     llr = pm_matrix[:, _gather_table("p1", str(pm_matrix.device))].float()
     full = depuncture(llr, C.PUNCTURE_P1_PIDS_FM, C.P1_FRAME_LEN_FM * 3)
     full = full.reshape(-1, C.P1_FRAME_LEN_FM, 3)
-    decode = viterbi_decode_chunked if chunked else viterbi_decode
-    bits, margin = decode(full, C.CONV_K7_GEN, plain=plain)
+    bits, margin = viterbi_decode_chunked(full, C.CONV_K7_GEN, plain=plain)
     errors = reencode_bit_errors(full, bits, C.CONV_K7_GEN,
                                  C.PUNCTURE_P1_PIDS_FM)
     return _descramble_dev(bits, C.P1_FRAME_LEN_FM), margin, errors

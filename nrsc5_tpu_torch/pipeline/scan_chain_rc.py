@@ -52,10 +52,6 @@ class ChainCarryRC(NamedTuple):
     samperr_fb: torch.Tensor  # int32 [S]
     angle_fb: torch.Tensor  # float32 [S]
     cfo: torch.Tensor  # int32 [S] accumulated integer CFO (bins)
-    px1_internal: torch.Tensor  # int8 [S, 0]: no PX channel in the port yet
-    px1_phase: torch.Tensor  # int32 [S]
-    px2_internal: torch.Tensor  # int8 [S, 0]
-    px2_phase: torch.Tensor  # int32 [S]
 
 
 def check_psmi(psmi: int) -> None:
@@ -87,10 +83,6 @@ def chain_rc_init_carry(offset: int = 0, psmi: int = 1, cfo: int = 0, *,
         samperr_fb=full((s,), 0, torch.int32),
         angle_fb=full((s,), 0.0, torch.float32),
         cfo=full((s,), cfo, torch.int32),
-        px1_internal=full((s, 0), 0, torch.int8),
-        px1_phase=full((s,), 0, torch.int32),
-        px2_internal=full((s, 0), 0, torch.int8),
-        px2_phase=full((s,), 0, torch.int32),
     )
 
 
@@ -369,7 +361,7 @@ def fm_chain_batch_rc(samples, carries: ChainCarryRC, n_blocks: int,
     if n_frames > 0:
         frames = pm[:, skip: skip + n_frames * C.P1_FM_BLOCKS]
         flat = frames.reshape(s * n_frames, -1)
-        p1, margin, errors = p1_decode(flat, chunked=True, plain=plain)
+        p1, margin, errors = p1_decode(flat, plain=plain)
         out["p1"] = p1.reshape(s, n_frames, -1)
         out["p1_margin"] = margin.reshape(s, n_frames)
         out["p1_bit_errors"] = errors.reshape(s, n_frames)

@@ -20,18 +20,25 @@ _DTYPES = {
     "prev_angle": torch.float32, "costas_phase": torch.float32,
     "costas_freq": torch.float32, "samperr_fb": torch.int32,
     "angle_fb": torch.float32, "cfo": torch.int32,
-    "px1_internal": torch.int8, "px1_phase": torch.int32,
-    "px2_internal": torch.int8, "px2_phase": torch.int32,
 }
+# the reference carry's PX interleaver state; the port decodes no PX
+# channel yet, so it takes these only while they hold nothing
+_PX_FIELDS = ("px1_internal", "px1_phase", "px2_internal", "px2_phase")
 
 
 def carry_from_numpy(d: dict, *, device="cuda") -> ChainCarryRC:
     """{field: array} -> the port's carry on ``device``.  Arrays without a
     leading station axis (one station's carry) get one; ``d`` must hold
-    exactly the carry's fields."""
-    if set(d) != set(ChainCarryRC._fields):
+    exactly the carry's fields, plus the reference's PX fields if they are
+    all zero (no PX state, as in a service mode without PX channels)."""
+    px = set(d) & set(_PX_FIELDS)
+    if set(d) - px != set(ChainCarryRC._fields):
         raise ValueError(f"carry fields {sorted(d)} != "
                          f"{sorted(ChainCarryRC._fields)}")
+    for name in px:
+        if np.any(np.asarray(d[name])):
+            raise ValueError(f"{name} holds PX state, which the port does "
+                             "not decode yet")
     dev = K.resolve_device(device)
     single = np.ndim(d["offset"]) == 0
     leaves = {}

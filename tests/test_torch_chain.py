@@ -57,6 +57,7 @@ from nrsc5_tpu_torch.ops import acquire_rc as TAQ
 from nrsc5_tpu_torch.ops import convolutional as TCV
 from nrsc5_tpu_torch.ops import decode_fm as TDF
 from nrsc5_tpu_torch.ops import frontend as TFE
+from nrsc5_tpu_torch.ops import rcplx as rc
 from nrsc5_tpu_torch.pipeline import scan_chain as TSC
 from nrsc5_tpu_torch.pipeline import scan_chain_rc as TRC
 from nrsc5_tpu_torch.tx import channel as ch
@@ -157,11 +158,16 @@ def block_window():
 
 
 def _demod_both(win, phase, samperr, angle, cfo):
+    """The reference's ``demod_rc`` on one window, and its port: K2 on a
+    one-station buffer whose window starts at 0, then the DFT matmul."""
     j = JAQ.demod_rc(jnp.asarray(win), jnp.asarray(phase), jnp.int32(samperr),
                      jnp.float32(angle), jnp.int32(cfo))
-    t = TAQ.demod_rc(_t(win), _t(phase), torch.tensor(samperr, dtype=torch.int32),
-                     torch.tensor(angle, dtype=torch.float32),
-                     torch.tensor(cfo, dtype=torch.int32))
+    folded, phase_out, keep = TAQ.demod_fold(
+        _t(win)[None], torch.zeros(1, dtype=torch.int32), _t(phase)[None],
+        torch.tensor([samperr], dtype=torch.int32),
+        torch.tensor([angle], dtype=torch.float32),
+        torch.tensor([cfo], dtype=torch.int32))
+    t = (rc.dft(folded[0], shift=True), phase_out[0], keep[0])
     return [np.asarray(a) for a in j], [b.numpy() for b in t]
 
 
@@ -174,12 +180,12 @@ DEMOD_CASES = [(1080, 0.01, 0), (1083, -0.2, 3), (1075, 0.3, -5),
 @pytest.mark.parametrize("samperr,angle,cfo", DEMOD_CASES)
 def test_demod_rc_matches(block_window, samperr, angle, cfo):
     phase = np.array([0.6, 0.8], np.float32)
-    (js, jp, jse, jk), (ts, tp, tse, tk) = _demod_both(
+    (js, jp, jse, jk), (ts, tp, tk) = _demod_both(
         block_window, phase, samperr, angle, cfo)
     np.testing.assert_allclose(ts, js, rtol=1e-4,
                                atol=1e-5 * np.abs(js).max())
     np.testing.assert_allclose(tp, jp, rtol=1e-4, atol=ANGLE_ATOL)
-    assert int(tse) == int(jse) and int(tk) == int(jk)
+    assert int(jse) == samperr and int(tk) == int(jk)
 
 
 @pytest.fixture(scope="module")
@@ -324,8 +330,12 @@ _ANGLES = ("phase", "prev_angle", "costas_phase", "costas_freq", "angle_fb")
 def test_slice_carry_matches_jax(slice_run):
     got = state.carry_to_numpy(slice_run["carry"])
     for s, (_, jc) in enumerate(slice_run["jax"]):
-        for k, v in jc._asdict().items():
-            v = np.asarray(v)
+        ref = jc._asdict()
+        # MP1 leaves the reference's PX state empty: the port carries none
+        assert set(ref) - set(got) == set(state._PX_FIELDS)
+        assert not any(np.any(np.asarray(ref[k])) for k in state._PX_FIELDS)
+        for k in got:
+            v = np.asarray(ref[k])
             if k in _ANGLES:
                 np.testing.assert_allclose(got[k][s], v, rtol=1e-4,
                                            atol=CHAIN_ANGLE_ATOL, err_msg=k)
@@ -358,3 +368,18 @@ def test_carry_numpy_roundtrip():
         assert a.dtype == b.dtype and torch.equal(a, b)
     single = {k: v[0] for k, v in state.carry_to_numpy(carry).items()}
     assert state.carry_from_numpy(single, device="cpu").offset.shape == (1,)
+
+
+def test_carry_from_numpy_refuses_px_state():
+    d = state.carry_to_numpy(TRC.chain_rc_init_carry(device="cpu"))
+    d.update(px1_internal=np.zeros((1, 0), np.int8),
+             px1_phase=np.zeros(1, np.int32),
+             px2_internal=np.zeros((1, 0), np.int8),
+             px2_phase=np.zeros(1, np.int32))
+    state.carry_from_numpy(d, device="cpu")
+    d["px1_internal"] = np.ones((1, 4), np.int8)
+    with pytest.raises(ValueError, match="PX state"):
+        state.carry_from_numpy(d, device="cpu")
+    del d["offset"]
+    with pytest.raises(ValueError, match="carry fields"):
+        state.carry_from_numpy(d, device="cpu")
