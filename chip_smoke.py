@@ -8,19 +8,30 @@ Run from the root of the repository on a machine with a CUDA card and
 Phases, each printing one JSON line:
 
 1. device: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
-2. build: the four hand kernels (K1, K2, K3, K7) built from
-   ``nrsc5_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``;
-3. signal: 16 stations x 2 P1 frames of MP1 (32 L1 blocks each), random
-   P1/PIDS bits from a fixed seed, modulated with the port's ``tx`` copy,
-   AWGN at 25 dB, upsampled to the 1.488 MS/s cu8 wire;
+2. build: the seven hand kernels (K1, K2, K3, K4, K7, K9 and the needle
+   count of K10) built from ``nrsc5_tpu_torch/csrc`` with ``nvcc`` for
+   ``sm_90a``, all in parallel;
+3. signal: 16 stations of MP1, each modulated once with the port's ``tx``
+   copy from random bits of a fixed seed: 2 lead blocks (block counts 14
+   and 15), then 2 P1 frames.  From that one baseband come two cu8 wires
+   at 1.488 MS/s with AWGN at 25 dB: the steady wire (the 2 frames,
+   frame-aligned) and the cold-start capture (all 34 blocks behind a
+   timing offset of 1000-3999 samples, with an integer CFO of ±1..±12
+   bins, both signs present, plus a fractional part within ±60 Hz);
 4. one line per kernel: the kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it, with times;
-5. slice: ``serve.chain_step`` on the wire — launch counts taken from that
-   one dispatch, every P1 frame and PIDS word held bit-exact against the
-   transmitted bits, wall time per dispatch and real-time factor, a stage
-   breakdown, one block's pieces timed alone, the device's busy time from
-   the profiler, and the same dispatch through the plain versions, which
-   must decode the same bits.
+5. coldstart: ``serve.cold_start`` on the capture must lock 16/16 stations
+   with the true |CFO| under one sign convention, first_bc 14 and psmi 1;
+   then ``serve.chain_step`` from the locks over 34 blocks must decode
+   every P1 frame and PIDS word bit-exact, and the same path through the
+   plain versions the same locks and bits.  Launch counts of the cold start
+   and of that dispatch, and the cold start's wall time;
+6. slice: ``serve.chain_step`` on the steady wire — launch counts taken
+   from that one dispatch, every P1 frame and PIDS word held bit-exact
+   against the transmitted bits, wall time per dispatch and real-time
+   factor, a stage breakdown, one block's pieces timed alone, the device's
+   busy time from the profiler, and the same dispatch through the plain
+   versions, which must decode the same bits.
 
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -30,15 +41,19 @@ with no CUDA card it exits 2 before printing anything.
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
 N_STATIONS = 16
 N_FRAMES = 2
+LEAD = 2  # lead blocks (bc 14, 15) ahead of the frames in the capture
 SNR_DB = 25.0
 SEED = 0x5EED
 # the card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms
@@ -55,7 +70,15 @@ KERNELS = {
                      "nrsc5_tpu/pipeline/scan_chain_rc.py:107"),
     "viterbi_k7": ("nrsc5_tpu_torch/csrc/viterbi_k7.cu",
                    "nrsc5_tpu/ops/convolutional.py:154"),
+    "sync_block": ("nrsc5_tpu_torch/csrc/sync_block.cu",
+                   "nrsc5_tpu/pipeline/scan_chain_rc.py:128"),
+    "coarse_timing": ("nrsc5_tpu_torch/csrc/coarse_timing.cu",
+                      "nrsc5_tpu/ops/acquire_rc.py:43"),
+    "needle_count": ("nrsc5_tpu_torch/csrc/needle_count.cu",
+                     "nrsc5_tpu/ops/acquire_rc.py:123"),
 }
+# the kernels each path launches
+STEADY = ("halfband_cu8", "demod_fold", "sync_block", "viterbi_k7")
 
 
 def emit(obj) -> None:
@@ -101,37 +124,79 @@ def time_ms(torch, fn, reps: int = 7, inner: int = 10,
     return statistics.median(times)
 
 
-def make_wire(n_stations: int, n_frames: int, rng):
-    """cu8 wire [S, wire_pairs(n_blocks), 2] of frame-aligned MP1 streams
-    and the transmitted bits: p1 [S, F, 146176], pids [S, 16F, 80]."""
+def capture_len() -> int:
+    """Chain samples of a station's cold-start capture: the chain's buffer
+    for all its blocks past the largest timing offset."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch.pipeline.scan_chain import buffer_len
+    return buffer_len(LEAD + N_FRAMES * C.P1_FM_BLOCKS) + 2 * C.FFTCP_FM
+
+
+def make_station(index: int) -> dict:
+    """Station ``index``, from its own seed: one MP1 baseband of LEAD lead
+    blocks and N_FRAMES P1 frames, cut into the steady wire (the frames,
+    frame-aligned) and impaired into the cold-start capture.  Returns the
+    two cu8 queues and the transmitted bits: p1 [F, 146176], pids
+    [LEAD + 16F, 80] (the lead blocks' words first), and the capture's
+    timing offset and CFO."""
     from nrsc5_tpu_torch import constants as C
     from nrsc5_tpu_torch import serve
+    from nrsc5_tpu_torch.ops import frontend as FE
     from nrsc5_tpu_torch.pipeline.scan_chain import buffer_len
     from nrsc5_tpu_torch.tx import channel as ch
     from nrsc5_tpu_torch.tx.encoder import build_pm_matrix
     from nrsc5_tpu_torch.tx.modulator import modulate_fm
 
-    n_blocks = n_frames * C.P1_FM_BLOCKS
-    pairs = serve.wire_pairs(n_blocks)
-    p1 = rng.integers(0, 2, (n_stations, n_frames, C.P1_FRAME_LEN_FM),
-                      dtype=np.uint8)
-    pids = rng.integers(0, 2, (n_stations, n_blocks, C.PIDS_FRAME_LEN),
+    rng = np.random.default_rng([SEED, index])
+    blk, fftcp = C.P1_FM_BLOCKS, C.FFTCP_FM
+    n_blocks = N_FRAMES * blk
+    p1 = rng.integers(0, 2, (N_FRAMES, C.P1_FRAME_LEN_FM), dtype=np.uint8)
+    pids = rng.integers(0, 2, (LEAD + n_blocks, C.PIDS_FRAME_LEN),
                         dtype=np.uint8)
-    bc_seq = np.tile(np.arange(C.P1_FM_BLOCKS), n_frames)
-    wire = np.empty((n_stations, pairs, 2), np.uint8)
-    for s in range(n_stations):
-        matrix = np.concatenate([
-            build_pm_matrix(p1[s, f], pids[s, 16 * f:16 * (f + 1)])
-            for f in range(n_frames)])
-        sig = ch.impair(modulate_fm(matrix, bc_seq, 1), snr_db=SNR_DB,
-                        rng=rng)
-        # the stream starts FFTCP//2 samples before the first symbol, and
-        # runs a few samples past what the dispatch reads
-        buf = np.zeros(buffer_len(n_blocks) + 8, np.complex64)
-        buf[C.FFTCP_FM // 2:C.FFTCP_FM // 2 + len(sig)] = sig
-        queue = serve.stream_wire(ch.to_cu8(ch.upsample2(buf)))
-        wire[s] = queue[:pairs]
-    return wire, p1, pids
+    lead_frame = build_pm_matrix(
+        rng.integers(0, 2, C.P1_FRAME_LEN_FM, dtype=np.uint8),
+        np.concatenate([np.zeros((blk - LEAD, C.PIDS_FRAME_LEN), np.uint8),
+                        pids[:LEAD]]))
+    matrix = np.concatenate(
+        [lead_frame[(blk - LEAD) * C.BLKSZ:]]
+        + [build_pm_matrix(p1[f], pids[LEAD + blk * f:LEAD + blk * (f + 1)])
+           for f in range(N_FRAMES)])
+    bc_seq = np.r_[np.arange(blk - LEAD, blk), np.tile(np.arange(blk),
+                                                        N_FRAMES)]
+    clean = modulate_fm(matrix, bc_seq, 1)
+
+    # steady: the frames; the stream starts FFTCP//2 samples before the
+    # first symbol and runs a few samples past what the dispatch reads
+    sig = ch.impair(clean[LEAD * C.BLKSZ * fftcp:], snr_db=SNR_DB, rng=rng)
+    buf = np.zeros(buffer_len(n_blocks) + 8, np.complex64)
+    buf[fftcp // 2:fftcp // 2 + len(sig)] = sig
+    steady = serve.stream_wire(ch.to_cu8(ch.upsample2(buf)))
+    steady = steady[:serve.wire_pairs(n_blocks)]
+
+    # cold start: all blocks, behind the offset, shifted by the CFO
+    n_cap = capture_len()
+    offset = int(rng.integers(1000, 4000))
+    cfo_bins = int(rng.integers(1, 13)) * (1 if index % 2 else -1)
+    cfo_hz = cfo_bins * C.SAMPLE_RATE_CS16_FM / C.FFT_FM \
+        + float(rng.uniform(-60.0, 60.0))
+    buf = np.zeros(n_cap + 8, np.complex64)
+    buf[fftcp // 2:fftcp // 2 + len(clean)] = clean
+    noisy = ch.impair(buf, sample_offset=offset, cfo_hz=cfo_hz,
+                      snr_db=SNR_DB, rng=rng)[:n_cap + 8]
+    capture = serve.stream_wire(ch.to_cu8(ch.upsample2(noisy)))
+    capture = capture[:FE.rc_overlap(1) + 2 * n_cap]
+    return {"steady": steady, "capture": capture, "p1": p1, "pids": pids,
+            "offset": offset, "cfo_bins": cfo_bins, "cfo_hz": cfo_hz}
+
+
+def make_fleet() -> dict:
+    """Every station, built in parallel by spawned worker processes (numpy
+    only; the pool ends with the call)."""
+    workers = min(N_STATIONS, os.cpu_count() or 1)
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        stations = list(pool.map(make_station, range(N_STATIONS)))
+    return {k: np.stack([st[k] for st in stations]) for k in stations[0]}
 
 
 def main() -> int:
@@ -144,9 +209,12 @@ def main() -> int:
     from nrsc5_tpu_torch import serve
     from nrsc5_tpu_torch.ops import acquire_rc as AQ
     from nrsc5_tpu_torch.ops import convolutional as CV
+    from nrsc5_tpu_torch.ops import costas as CO
+    from nrsc5_tpu_torch.ops import detect_cfo as DC
     from nrsc5_tpu_torch.ops import frontend as FE
     from nrsc5_tpu_torch.ops import interleavers as IL
     from nrsc5_tpu_torch.ops import rcplx as rc
+    from nrsc5_tpu_torch.ops import sync_fm as SF
     from nrsc5_tpu_torch.ops.bits import unpack_bits
     from nrsc5_tpu_torch.ops.decode_fm import p1_decode, pids_decode
     from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
@@ -175,24 +243,33 @@ def main() -> int:
 
     n_blocks = N_FRAMES * C.P1_FM_BLOCKS
     t0 = time.perf_counter()
-    wire_np, p1_tx, pids_tx = make_wire(N_STATIONS, N_FRAMES,
-                                        np.random.default_rng(SEED))
+    fleet = make_fleet()
     emit({"phase": "signal", "seconds": round(time.perf_counter() - t0, 3),
           "stations": N_STATIONS, "blocks": n_blocks,
-          "wire_bytes": int(wire_np.nbytes)})
-    wire = torch.from_numpy(wire_np).to(dev)
+          "capture_blocks": LEAD + n_blocks,
+          "wire_bytes": int(fleet["steady"].nbytes),
+          "capture_bytes": int(fleet["capture"].nbytes),
+          "offsets": fleet["offset"].tolist(),
+          "cfo_bins": fleet["cfo_bins"].tolist(),
+          "cfo_hz": fleet["cfo_hz"].tolist()})
+    wire = torch.from_numpy(fleet["steady"]).to(dev)
+    capture = torch.from_numpy(fleet["capture"]).to(dev)
+    p1_tx, pids_all = fleet["p1"], fleet["pids"]
+    pids_tx = pids_all[:, LEAD:]
     s_n, n_in, _ = wire.shape
     report = {}
 
     def check(name, err, tol, kernel, plain, bnd, library, shape,
-              plain_reps=7, plain_inner=10):
+              plain_reps=7, plain_inner=10, ok=None, **extra):
         """Hold a kernel against its plain version and time both (and the
         library call, if any) as CUDA graphs: device time per call.
-        ``launched_ms`` also times the kernel launched from Python."""
-        ok = err <= tol
+        ``launched_ms`` also times the kernel launched from Python.  ``ok``
+        overrides ``err <= tol`` where a kernel's outputs carry several
+        tolerances (``extra`` records them)."""
+        ok = err <= tol if ok is None else ok
         row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
                "replaces": KERNELS[name][1], "launches": None,
-               "max_abs_err": err, "tolerance": tol,
+               "max_abs_err": err, "tolerance": tol, **extra,
                "ms": time_ms(torch, kernel, graph=True),
                "plain_ms": time_ms(torch, plain, reps=plain_reps,
                                    inner=plain_inner, graph=True),
@@ -204,7 +281,7 @@ def main() -> int:
         emit({"phase": "kernel", **row, "pass": ok})
         if not ok:
             raise AssertionError(f"{name}: kernel and plain version differ "
-                                 f"by {err} > {tol}")
+                                 f"beyond their tolerances ({row})")
 
     # --- K1: cu8 ingest + halfband (bit-identical: no FMA, same order) ---
     got = FE.ingest_fm_cu8(wire)
@@ -249,24 +326,101 @@ def main() -> int:
 
     # --- K3: Costas PLL on the reference subcarriers of real spectra ---
     spectra = rc.dft(got[0], shift=True)
-    bins = torch.from_numpy(
-        rcc.SF._ref_bins(C.partitions_per_band(1)).astype(np.int64)).to(dev)
+    ppb = C.partitions_per_band(1)
+    bins = torch.from_numpy(SF._ref_bins(ppb).astype(np.int64)).to(dev)
     refs = spectra[:, :, bins].transpose(0, 1).reshape(
         C.BLKSZ, -1, 2).contiguous()
     n_tr = refs.shape[1]
     ph0 = ((torch.rand(n_tr, generator=g) - 0.5) * 0.2).to(dev)
     fr0 = ((torch.rand(n_tr, generator=g) - 0.5) * 0.01).to(dev)
-    got = rcc.costas_track_rc(refs, ph0, fr0)
-    want = rcc.costas_track_rc_plain(refs, ph0, fr0)
+    got = CO.costas_track_rc(refs, ph0, fr0)
+    want = CO.costas_track_rc_plain(refs, ph0, fr0)
     err = max((a - b).abs().max().item() for a, b in zip(got, want))
     check("costas_track", err, 1e-4,
-          lambda: rcc.costas_track_rc(refs, ph0, fr0),
-          lambda: rcc.costas_track_rc_plain(refs, ph0, fr0),
+          lambda: CO.costas_track_rc(refs, ph0, fr0),
+          lambda: CO.costas_track_rc_plain(refs, ph0, fr0),
           bound(n_tr * (C.BLKSZ * 8 * 2 + C.BLKSZ * 4 + 16),
                 n_tr * C.BLKSZ * 35),
           None, [C.BLKSZ, n_tr, 2])
 
-    # --- K7: Viterbi on the chain's own LLRs, P1 segments and PIDS ---
+    # --- K4: the sync block at block 1 of the steady chain: the spectra,
+    # Costas state and timing_adj the main path hands it after block 0 ---
+    _, _, cy = rcc.frontend_scan_rc(
+        samples, rcc.chain_rc_init_carry(n_stations=s_n, device=dev), 1)
+    samperr1 = C.FFTCP_FM // 2 + cy.samperr_fb
+    spectra1 = rc.dft(AQ.demod_fold(samples, cy.offset, cy.phase, samperr1,
+                                    cy.prev_angle - cy.angle_fb,
+                                    cy.cfo)[0], shift=True)
+    sync_args = (spectra1, cy.costas_phase, cy.costas_freq, 1,
+                 C.FFTCP_FM // 2 - samperr1)
+    ko, kph, kfr = rcc.sync_block_rc(*sync_args)
+    po, pph, pfr = rcc.sync_block_rc_plain(*sync_args)
+    exact = all(torch.equal(ko[k], po[k])
+                for k in ("ref_ok", "ref_bc", "ref_psmi", "samperr"))
+    pm_diff = (ko["pm"].int() - po["pm"].int()).abs()
+    pm_max, pm_share = int(pm_diff.max()), float((pm_diff > 0).float().mean())
+    floats = [(ko[k], po[k]) for k in ("angle", "error_lb", "error_ub")]
+    floats += [(kph, pph), (kfr, pfr)]
+    err = max((a - b).abs().max().item() for a, b in floats)
+    rel = max(((a - b).abs().max() / b.abs().max().clamp(min=1)).item()
+              for a, b in floats)
+    r2, n_data = bins.numel(), 2 * ppb * (C.PARTITION_WIDTH_FM - 1)
+    check("sync_block", err, "floats 1e-5 of max(|plain|, 1); ref_ok, bc, "
+          "psmi, samperr exact; pm within 1 on at most 0.1 % of values",
+          lambda: rcc.sync_block_rc(*sync_args),
+          lambda: rcc.sync_block_rc_plain(*sync_args),
+          bound(s_n * (C.BLKSZ * (r2 + n_data) * 8 + 4 * C.FFT_FM * 4
+                       + C.PM_BLOCK_SIZE + r2 * 9 + 16),
+                s_n * (r2 * C.BLKSZ * 35 + C.BLKSZ * n_data * 40
+                       + C.PM_BLOCK_SIZE * 6)),
+          None, [s_n, C.BLKSZ, C.FFT_FM, 2],
+          ok=exact and pm_max <= 1 and pm_share <= 1e-3 and rel <= 1e-5,
+          ints_exact=exact, float_rel_err=rel, pm_max_diff=pm_max,
+          pm_diff_share=pm_share)
+
+    # --- K9: coarse timing on the cold-start capture (bit-identical) ---
+    cap_samples = FE.ingest_fm_cu8(capture)
+    ks, kv = AQ.coarse_timing_rc(cap_samples)
+    ps, pv = AQ.coarse_timing_rc_plain(cap_samples)
+    err = max(float((ks != ps).any()), (kv - pv).abs().max().item())
+    win = AQ.WINDOW_FM
+    check("coarse_timing", err, 0.0,
+          lambda: AQ.coarse_timing_rc(cap_samples),
+          lambda: AQ.coarse_timing_rc_plain(cap_samples),
+          bound(s_n * (win * 8 + 12),
+                s_n * (win * 32 * 2 * 2 + C.FFTCP_FM * C.BLKSZ * 8
+                       + C.FFTCP_FM * C.CP_FM * 4)),
+          None, [s_n, win, 2], plain_reps=3, plain_inner=2)
+
+    # --- K10: the needle count on the probe's spectra (K9's timing and
+    # angle, K2 at CFO 0, the DFT, K3 over 76 CFOs × 22 refs) ---
+    zero = torch.zeros(s_n, dtype=torch.int32, device=dev)
+    unit = torch.tensor([[1.0, 0.0]], device=dev).repeat(s_n, 1)
+    probe = rc.dft(AQ.demod_fold(cap_samples, zero, unit, ks, rc.angle(kv),
+                                 zero)[0], shift=True)
+    t = DC._scan_tables(str(dev))
+    refs = probe[:, :, t["bins"]].transpose(0, 1).reshape(
+        C.BLKSZ, -1, 2).contiguous()
+    cf = t["cfo_freq"].repeat(s_n)
+    zf = torch.zeros_like(cf)
+    derot = CO.costas_track_rc(refs, zf, zf, cf)[0].view(
+        C.BLKSZ, s_n, DC.N_TRACKS, 2)
+    kc = DC.needle_count(derot)
+    pc = DC.needle_count_plain(derot)
+    err = float((kc - pc).abs().max())
+    check("needle_count", err, 0.0,
+          lambda: DC.needle_count(derot),
+          lambda: DC.needle_count_plain(derot),
+          bound(derot.numel() // 2 * 4 + kc.numel() * 4,
+                kc.numel() * 2 * DC.N_REFS * 8),
+          None, list(derot.shape),
+          # K10's other half: K3 lockstep over the 76 × 22 tracks
+          costas_ms=time_ms(torch, lambda: CO.costas_track_rc(
+              refs, zf, zf, cf), graph=True),
+          costas_shape=list(refs.shape))
+
+    # --- K7: Viterbi on the steady chain's own LLRs, P1 segments and
+    # PIDS ---
     carries = rcc.chain_rc_init_carry(n_stations=s_n, device=dev)
     pm, _, _ = rcc.frontend_scan_rc(samples, carries, n_blocks)
     flat = pm.reshape(s_n * N_FRAMES, -1)
@@ -300,7 +454,87 @@ def main() -> int:
         torch, lambda: CV.acs_traceback(pext, C.CONV_K7_GEN), graph=True)
     report["viterbi_k7"]["pids_shape"] = list(pext.shape)
 
-    # --- the slice: one dispatch through the kernels, counted ---
+    # --- coldstart: lock the capture, then decode it from the locks ---
+    cap_blocks = LEAD + n_blocks
+    torch.cuda.synchronize()
+    K.reset_counts()
+    locks = serve.cold_start(capture)
+    torch.cuda.synchronize()
+    counts_cs = dict(K.COUNTS)
+    true_cfo = fleet["cfo_bins"]
+    n_locked = sum(lock is not None for lock in locks)
+    got_cfo = [None if lock is None else lock["cfo"] for lock in locks]
+    cfo_ok = n_locked == s_n and (
+        all(c == t for c, t in zip(got_cfo, true_cfo))
+        or all(c == -t for c, t in zip(got_cfo, true_cfo)))
+    lock_ok = cfo_ok and all(lock["first_bc"] == C.P1_FM_BLOCKS - LEAD
+                             and lock["psmi"] == 1 for lock in locks)
+    if not lock_ok:
+        emit({"phase": "coldstart", "locked": n_locked, "cfo": got_cfo,
+              "true_cfo": true_cfo.tolist(), "locks": [
+                  None if lk is None else {k: lk[k] for k in (
+                      "offset", "first_bc", "psmi", "cfo")}
+                  for lk in locks], "pass": False})
+        raise AssertionError("the cold start did not lock every station "
+                             "at the true |CFO|, first_bc 14 and psmi 1")
+    carry, psmi, first_bc = serve.carry_from_locks(locks)
+    K.reset_counts()
+    out, _ = serve.chain_step(capture, carry, cap_blocks, psmi, first_bc,
+                              packed=True)
+    torch.cuda.synchronize()
+    counts_cd = dict(K.COUNTS)
+    cs_p1_ok = int((unpack_bits(out["p1"]) == p1_tx).all(axis=-1).sum())
+    cs_pids_ok = int((unpack_bits(out["pids"]) == pids_all)
+                     .all(axis=-1).sum())
+
+    cs_times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve.cold_start(capture)
+        torch.cuda.synchronize()
+        cs_times.append((time.perf_counter() - t0) * 1e3)
+    plain_locks = serve.cold_start(capture, plain=True)
+    keys = ("offset", "first_bc", "psmi", "cfo")
+    locks_same = all(pl is not None and all(pl[k] == lk[k] for k in keys)
+                     for pl, lk in zip(plain_locks, locks))
+    plain_carry, _, _ = serve.carry_from_locks(plain_locks) \
+        if locks_same else (None, None, None)
+    cs_same = locks_same
+    if locks_same:
+        out_plain, _ = serve.chain_step(capture, plain_carry, cap_blocks,
+                                        psmi, first_bc, packed=True,
+                                        plain=True)
+        cs_same = all(torch.equal(out[k], out_plain[k])
+                      for k in ("p1", "pids"))
+    launched = {n for n in KERNELS if counts_cs[n] + counts_cd[n] > 0}
+    cs_ok = (cs_p1_ok == s_n * N_FRAMES and cs_pids_ok == s_n * cap_blocks
+             and cs_same and launched == set(KERNELS))
+    emit({"phase": "coldstart", "stations": s_n, "locked": n_locked,
+          "cfo": got_cfo, "true_cfo": true_cfo.tolist(),
+          "cfo_convention": "negated" if got_cfo[0] == -true_cfo[0]
+          else "same",
+          "offsets": [lk["offset"] for lk in locks],
+          "true_offsets": fleet["offset"].tolist(),
+          "first_bc": first_bc, "psmi": psmi, "blocks": cap_blocks,
+          "p1_frames_ok": cs_p1_ok, "p1_frames": s_n * N_FRAMES,
+          "pids_words_ok": cs_pids_ok, "pids_words": s_n * cap_blocks,
+          "p1_bit_errors": out["p1_bit_errors"].cpu().tolist(),
+          "launches_cold_start": counts_cs, "launches_dispatch": counts_cd,
+          "cold_start_wall_ms": statistics.median(cs_times[1:]),
+          "cold_start_wall_ms_runs": cs_times,
+          "plain_same_locks": locks_same, "plain_same_bits": cs_same,
+          "pass": cs_ok})
+    if not cs_ok:
+        raise AssertionError("the cold-start path did not decode bit-exact "
+                             "through every kernel")
+    for name in KERNELS:
+        report[name]["launches"] = counts_cs[name] + counts_cd[name]
+        report[name]["launches_by_path"] = {
+            "cold_start": counts_cs[name],
+            "dispatch_from_lock": counts_cd[name]}
+
+    # --- the steady slice: one dispatch through the kernels, counted ---
     carries = rcc.chain_rc_init_carry(n_stations=s_n, device=dev)
     torch.cuda.synchronize()
     K.reset_counts()
@@ -312,7 +546,7 @@ def main() -> int:
     p1_ok = int((p1 == p1_tx).all(axis=-1).sum())
     pids_ok = int((pids == pids_tx).all(axis=-1).sum())
     for name in KERNELS:
-        report[name]["launches"] = counts[name]
+        report[name]["launches_by_path"]["steady"] = counts[name]
 
     def dispatch():
         return serve.chain_step(wire, carries, n_blocks, packed=True)
@@ -345,18 +579,22 @@ def main() -> int:
                       (ev[i].elapsed_time(ev[i + 1]) for i in range(4))))
 
     # one block of the frontend scan, piece by piece: K2, the DFT matmul,
-    # and the sync block (K3 and the plain PyTorch equalize/demap)
+    # and the sync block (K4, and its plain version), each launched from
+    # Python
     samperr0 = C.FFTCP_FM // 2 + carries.samperr_fb
     fold_args = (x, carries.offset, carries.phase, samperr0,
                  carries.prev_angle - carries.angle_fb, carries.cfo)
     folded = AQ.demod_fold(*fold_args)[0]
     spec = rc.dft(folded, shift=True)
-    adj = C.FFTCP_FM // 2 - samperr0
+    block_sync = (spec, carries.costas_phase, carries.costas_freq, 1,
+                  C.FFTCP_FM // 2 - samperr0)
     per_block = {
         "demod_fold_ms": time_ms(torch, lambda: AQ.demod_fold(*fold_args)),
         "dft_ms": time_ms(torch, lambda: rc.dft(folded, shift=True)),
-        "sync_block_ms": time_ms(torch, lambda: rcc.sync_block_rc(
-            spec, carries.costas_phase, carries.costas_freq, 1, adj))}
+        "sync_block_ms": time_ms(
+            torch, lambda: rcc.sync_block_rc(*block_sync)),
+        "sync_block_plain_ms": time_ms(
+            torch, lambda: rcc.sync_block_rc_plain(*block_sync))}
 
     # device busy time of one dispatch: the sum of the kernel, copy and
     # set spans the profiler records on the card (one stream, no overlap)
@@ -391,7 +629,7 @@ def main() -> int:
     plain_wall = (time.perf_counter() - t0) * 1e3
     same = all(torch.equal(out[k], out_plain[k]) for k in ("p1", "pids"))
     slice_ok = (p1_ok == s_n * N_FRAMES and pids_ok == s_n * n_blocks
-                and same and all(counts[n] > 0 for n in KERNELS))
+                and same and all(counts[n] > 0 for n in STEADY))
     emit({"phase": "slice", "stations": s_n, "blocks": n_blocks,
           "p1_frames_ok": p1_ok, "p1_frames": s_n * N_FRAMES,
           "pids_words_ok": pids_ok, "pids_words": s_n * n_blocks,
@@ -406,8 +644,7 @@ def main() -> int:
                              "every kernel")
 
     print(smi, flush=True)
-    emit({"kernels": [{k: v for k, v in report[n].items()}
-                      for n in KERNELS]})
+    emit({"kernels": [dict(report[n]) for n in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

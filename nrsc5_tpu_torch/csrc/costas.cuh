@@ -1,0 +1,37 @@
+// The reference-subcarrier Costas PLL step, shared by K3 (costas_track.cu)
+// and K4 (sync_block.cu), so that the two kernels track bit-identically.
+//
+// One step on reference sample v with phase ph and frequency fr:
+//   v2     = v*v
+//   err    = 0.5 * wrap_pi(angle(v2) - 2*ph)
+//   derot  = v * e^{-i ph}                      (returned)
+//   fr     = clip(fr + beta*err, -0.5, 0.5)
+//   ph     = wrap_pi(ph + fr + cf + alpha*err)
+// with wrap_pi(x) = x - 2pi*rint(x / 2pi) (round half to even, as
+// jnp.round).  f32 in the reference's order: the build passes -fmad=false,
+// and the constants come in as floats so nothing promotes to double.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace nrsc5 {
+
+__device__ __forceinline__ float wrap_pi(float x, float two_pi) {
+  return x - two_pi * rintf(x / two_pi);
+}
+
+__device__ __forceinline__ float2 costas_step(float2 v, float& ph, float& fr,
+                                              float cf, float alpha,
+                                              float beta, float two_pi) {
+  const float v2r = v.x * v.x - v.y * v.y;
+  const float v2i = v.x * v.y + v.y * v.x;
+  const float err = 0.5f * wrap_pi(atan2f(v2i, v2r) - 2.0f * ph, two_pi);
+  const float c = cosf(-ph), s = sinf(-ph);
+  const float2 derot = make_float2(v.x * c - v.y * s, v.x * s + v.y * c);
+  fr = fminf(fmaxf(fr + beta * err, -0.5f), 0.5f);
+  ph = wrap_pi(ph + fr + cf + alpha * err, two_pi);
+  return derot;
+}
+
+}  // namespace nrsc5

@@ -2,13 +2,9 @@
 //
 // Replaces the JAX device function
 // nrsc5_tpu/pipeline/scan_chain_rc.py:costas_track_rc (lines 107-125), a
-// lax.scan over the 32 symbols of a block.  Per track and step k:
-//   v2     = v*v
-//   err    = 0.5 * wrap_pi(angle(v2) - 2*ph)
-//   derot  = v * e^{-i ph}                      (output, with phases = ph)
-//   fr     = clip(fr + BETA*err, -0.5, 0.5)
-//   ph     = wrap_pi(ph + fr + cfo_freq + ALPHA*err)
-// with wrap_pi(x) = x - 2pi*rint(x / 2pi) (round half to even, as jnp.round).
+// lax.scan over the 32 symbols of a block.  Per track and step k, the PLL
+// step of costas.cuh (shared with K4), with cf = cfo_freq; derot and
+// phases = ph (the phase before the step) are the outputs.
 //
 // refs [n_steps, n_tracks, 2] f32 (step-major, as the reference scans),
 // phase0/freq0/cfo_freq [n_tracks] f32 (cfo_freq may be null: 0) ->
@@ -24,11 +20,9 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "costas.cuh"
 
-__device__ __forceinline__ float wrap_pi(float x, float two_pi) {
-  return x - two_pi * rintf(x / two_pi);
-}
+namespace {
 
 __global__ void costas_track_kernel(const float2* __restrict__ refs,
                                     const float* __restrict__ phase0,
@@ -47,15 +41,8 @@ __global__ void costas_track_kernel(const float2* __restrict__ refs,
   const float cf = cfo_freq ? cfo_freq[t] : 0.0f;
   for (int k = 0; k < n_steps; ++k) {
     const long long at = (long long)k * n_tracks + t;
-    const float2 v = refs[at];
-    const float v2r = v.x * v.x - v.y * v.y;
-    const float v2i = v.x * v.y + v.y * v.x;
-    const float err = 0.5f * wrap_pi(atan2f(v2i, v2r) - 2.0f * ph, two_pi);
-    const float c = cosf(-ph), s = sinf(-ph);
-    derot[at] = make_float2(v.x * c - v.y * s, v.x * s + v.y * c);
     phases[at] = ph;
-    fr = fminf(fmaxf(fr + beta * err, -0.5f), 0.5f);
-    ph = wrap_pi(ph + fr + cf + alpha * err, two_pi);
+    derot[at] = nrsc5::costas_step(refs[at], ph, fr, cf, alpha, beta, two_pi);
   }
   ph_out[t] = ph;
   fr_out[t] = fr;

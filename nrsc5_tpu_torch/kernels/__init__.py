@@ -4,9 +4,9 @@ Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point
 (``extern "C" int <name>(...)`` returning ``cudaGetLastError()``).  It is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repo
 root (gitignored), at first use, into a library whose file name carries a
-hash of the source and the flags: a changed source builds anew.  The
-library is loaded with ctypes; pointers and the stream go in as
-``c_void_p``.
+hash of the source, of every ``csrc/`` header it includes and of the
+flags: a changed source or header builds anew.  The library is loaded
+with ctypes; pointers and the stream go in as ``c_void_p``.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine with no ``nvcc`` and no card.
@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -50,6 +51,18 @@ SIGNATURES = {
     "costas_track": (P, P, P, P, P, P, P, P, I, I, F, F, F, P),
     # ext, bits, margin, n_seg, n_steps, g0, g1, g2, stream
     "viterbi_k7": (P, P, P, I, I, I, I, I, P),
+    # spectra, costas_phase, costas_freq, timing_adj, sync_signs,
+    # needle_vals, needle_known, pm, ref_ok, ref_bc, ref_psmi, samperr,
+    # angle, error_lb, error_ub, new_phase, new_freq, n_stations, ppb,
+    # alpha, beta, two_pi, pi, two_pi_over_fft, stream
+    "sync_block": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I,
+                   F, F, F, F, F, P),
+    # samples, n_samples, taps, shape_kernel, filter_delay, samperr, max_v,
+    # n_stations, stream
+    "coarse_timing": (P, L, P, P, I, P, P, I, P),
+    # derot, needle_vals, needle_known, count, n_stations, n_cfo, n_refs,
+    # stream
+    "needle_count": (P, P, P, P, I, I, I, P),
 }
 
 COUNTS = {name: 0 for name in SIGNATURES}
@@ -84,10 +97,29 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: dict | None = None) -> dict:
+    """``{path: bytes}`` of ``path`` and of every file it includes with
+    ``#include "..."`` from its own directory, transitively."""
+    seen = {} if seen is None else seen
+    if path not in seen:
+        seen[path] = path.read_bytes()
+        for inc in _INCLUDE.findall(seen[path]):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                _sources(dep, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"{name}-{digest[:16]}.so"
+    """Where kernel ``name``'s library lies: the file name carries a hash of
+    the source, the headers it includes and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path, text in sorted(_sources(CSRC / f"{name}.cu").items()):
+        h.update(path.name.encode() + b"\0" + text)
+    return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict:

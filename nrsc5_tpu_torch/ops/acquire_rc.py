@@ -1,16 +1,21 @@
-"""Acquire demodulation (fine path) in the real-valued (rc) formulation.
+"""Acquisition in the real-valued (rc) formulation: coarse timing and the
+acquire demodulation.
 
-PyTorch counterpart of ``nrsc5_tpu/ops/acquire_rc.py:demod_rc`` and of
-``WINDOW_FM`` (``nrsc5_tpu/ops/acquire.py:34``).  Per L1 block and station:
-the derotation ramp (fractional angle plus integer CFO mod 2048), the
-32 x 2160-sample slice at ``samperr``, and the shaped 112-sample
-cyclic-prefix fold, then the 2048-point DFT.
+PyTorch counterpart of ``nrsc5_tpu/ops/acquire_rc.py``'s
+``coarse_timing_rc`` and ``demod_rc``, and of ``WINDOW_FM`` and
+``_shape_kernel`` (``nrsc5_tpu/ops/acquire.py:34, 50-53``; pinned equal by
+tests/test_torch_tables.py).
 
-:func:`demod_fold` is kernel K2 (``csrc/demod_fold.cu``): everything but
-the DFT, for all stations at once, reading each station's window straight
-from its sample buffer.  :func:`demod_fold_plain` is its plain PyTorch
-version.  The DFT stays a matmul (:func:`nrsc5_tpu_torch.ops.rcplx.dft`),
-as the reference leaves it to a plain matmul outside any kernel.
+:func:`coarse_timing_rc` is kernel K9 (``csrc/coarse_timing.cu``): the
+cold start's cyclic-prefix correlation over all 2160 timings of the first
+33-symbol window, for all stations at once.  :func:`demod_fold` is kernel
+K2 (``csrc/demod_fold.cu``): per L1 block and station, the derotation ramp
+(fractional angle plus integer CFO mod 2048), the 32 x 2160-sample slice
+at ``samperr``, and the shaped 112-sample cyclic-prefix fold, reading each
+station's window straight from its sample buffer.  Each has its plain
+PyTorch version beside it.  The DFT stays a matmul
+(:func:`nrsc5_tpu_torch.ops.rcplx.dft`), as the reference leaves it to a
+plain matmul outside any kernel.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 
 from nrsc5_tpu_torch import constants as C
@@ -33,6 +39,79 @@ TWO_PI_OVER_FFT = 2 * math.pi / C.FFT_FM
 @functools.lru_cache(maxsize=4)
 def _shape(device: str) -> torch.Tensor:
     return torch.from_numpy(C.ofdm_shape(C.FFT_FM, C.CP_FM)).to(device)
+
+
+@functools.lru_cache(maxsize=4)
+def _shape_kernel(fft: int, cp: int) -> np.ndarray:
+    w = C.ofdm_shape(fft, cp)
+    return (w[:cp] * w[fft:]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def _k9_tables(device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The band filter's taps and the CP window's shape kernel, as K9
+    reads them."""
+    taps = np.asarray(C.ACQ_TAPS_FM, np.float32)
+    return (torch.from_numpy(taps).to(device),
+            torch.from_numpy(_shape_kernel(C.FFT_FM, C.CP_FM)).to(device))
+
+
+def _check_window(samples):
+    if samples.ndim != 3 or samples.shape[-1] != 2 \
+            or samples.shape[1] < WINDOW_FM:
+        raise ValueError(f"samples: expected [S, >= {WINDOW_FM}, 2], got "
+                         f"{tuple(samples.shape)}")
+
+
+def coarse_timing_rc_plain(samples):
+    """Plain version of K9.
+
+    samples [S, N, 2] float32 conjugated rc (N >= WINDOW_FM); each station's
+    first WINDOW_FM samples are its window.  Returns (samperr int32 [S],
+    max_v float32 [S, 2]): the 32-tap band filter f[n] = Σ_o taps[o]·x[n−1−o]
+    (f[0] = 0), the CP product summed over the 32 symbols for each of the
+    2160 timings, the shaped circular window sum over the 112-sample CP,
+    and the first argmax of |v|², shifted back by the filter's delay.
+    Every sum runs in index order, as the kernel's do."""
+    _check_window(samples)
+    fftcp, fft, cp = C.FFTCP_FM, C.FFT_FM, C.CP_FM
+    s = samples.shape[0]
+    x = samples[:, :WINDOW_FM]
+    f = torch.zeros_like(x)
+    for o, tap in enumerate(np.asarray(C.ACQ_TAPS_FM, np.float32)):
+        f[:, 1 + o:] += float(tap) * x[:, :WINDOW_FM - 1 - o]
+    a = f[:, :NSAMP].reshape(s, C.ACQUIRE_SYMBOLS, fftcp, 2)
+    b = f[:, fft:fft + NSAMP].reshape(s, C.ACQUIRE_SYMBOLS, fftcp, 2)
+    prod = rc.mul_conj(a, b)
+    sums = torch.zeros_like(prod[:, 0])
+    for k in range(C.ACQUIRE_SYMBOLS):
+        sums = sums + prod[:, k]
+    ext = torch.cat([sums, sums[:, :cp - 1]], dim=1)  # circular extension
+    v = torch.zeros_like(sums)
+    for j, w in enumerate(_shape_kernel(fft, cp)):
+        v = v + float(w) * ext[:, j:j + fftcp]
+    i_max = torch.argmax(rc.abs2(v), dim=1)
+    samperr = ((i_max + fftcp - C.ACQ_FILTER_DELAY) % fftcp).to(torch.int32)
+    return samperr, v[torch.arange(s, device=v.device), i_max]
+
+
+def coarse_timing_rc(samples):
+    """K9: the argument and results of :func:`coarse_timing_rc_plain`.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (one CTA per station, bit-identical to the plain version)."""
+    if samples.device.type == "cpu":
+        return coarse_timing_rc_plain(samples)
+    _check_window(samples)
+    K.check(samples, "samples", torch.float32)
+    s, dev = samples.shape[0], samples.device
+    taps, kern = _k9_tables(str(dev))
+    samperr = torch.empty(s, dtype=torch.int32, device=dev)
+    max_v = torch.empty(s, 2, dtype=torch.float32, device=dev)
+    K.launch("coarse_timing", samples.data_ptr(), samples.shape[1],
+             taps.data_ptr(), kern.data_ptr(), C.ACQ_FILTER_DELAY,
+             samperr.data_ptr(), max_v.data_ptr(), s, device=dev)
+    return samperr, max_v
 
 
 def dynamic_start(start, dim: int, size: int):

@@ -1,22 +1,28 @@
-"""Real-valued fused FM chain: acquire -> sync -> FEC over L1 blocks.
+"""Real-valued fused FM chain: cold start, then acquire -> sync -> FEC over
+L1 blocks.
 
 PyTorch counterpart of ``nrsc5_tpu/pipeline/scan_chain_rc.py`` (lines
-37-436) for service modes without PX channels.  The reference ``vmap``s a
-per-station ``lax.scan``; here the station axis is written out and leads
-every tensor, and the block scan is a Python loop whose body runs for all
-stations at once:
+37-478 and 510-553) for service modes without PX channels.  The reference
+``vmap``s a per-station ``lax.scan``; here the station axis is written out
+and leads every tensor, and the block scan is a Python loop whose body
+runs for all stations at once:
 
   * K2 (:func:`nrsc5_tpu_torch.ops.acquire_rc.demod_fold`) reads each
     station's window at its own offset and folds it, the DFT is a matmul;
-  * :func:`sync_block_rc` tracks the reference subcarriers with the Costas
-    PLL, kernel K3 (:func:`costas_track_rc`), then equalizes and soft-demaps
-    to int8 in plain PyTorch;
+  * :func:`sync_block_rc` is kernel K4: the Costas PLL on the reference
+    subcarriers, then the flip, needles, equalizer, timing regression and
+    int8 soft demap, one launch per block for all stations;
   * after the loop the P1 and PIDS FEC run flat-batched over stations ×
     frames through kernel K7.
 
-Every function takes ``plain=True`` to run the kernels' plain PyTorch
-versions instead (on any device); on a CPU tensor the kernel wrappers take
-the plain versions anyway.
+The cold start (:func:`cold_start_rc`) locks a capture with unknown timing
+and CFO in two device dispatches for the whole fleet: the timing/CFO probe
+(K9, K2, the DFT, K3 and the needle count of K10), then the block-count
+probe (K2, the DFT, K4), with the reference's argmax and votes on the host.
+
+The chain and cold-start functions take ``plain=True`` to run the
+kernels' plain PyTorch versions instead (on any device); on a CPU tensor
+the kernel wrappers take the plain versions anyway.
 """
 
 from __future__ import annotations
@@ -32,14 +38,17 @@ from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops import rcplx as rc
 from nrsc5_tpu_torch.ops import sync_fm as SF
-from nrsc5_tpu_torch.ops.acquire_rc import (WINDOW_FM, demod_fold,
-                                            demod_fold_plain)
+from nrsc5_tpu_torch.ops.acquire_rc import (WINDOW_FM, coarse_timing_rc,
+                                            coarse_timing_rc_plain,
+                                            demod_fold, demod_fold_plain)
 from nrsc5_tpu_torch.ops.bits import pack_out
+from nrsc5_tpu_torch.ops.costas import TWO_PI, costas_track_rc_plain, wrap_pi
 from nrsc5_tpu_torch.ops.decode_fm import p1_decode, pids_decode
+from nrsc5_tpu_torch.ops.detect_cfo import (CFO_RANGE, bit_masks,
+                                            detect_cfo_scan_rc)
 from nrsc5_tpu_torch.pipeline.scan_chain import px_frame_lens
 
 W = C.PARTITION_WIDTH_FM
-TWO_PI = 2 * math.pi
 
 
 class ChainCarryRC(NamedTuple):
@@ -86,79 +95,13 @@ def chain_rc_init_carry(offset: int = 0, psmi: int = 1, cfo: int = 0, *,
     )
 
 
-# ---------------------------------------------------------------------------
-# K3: Costas PLL
-# ---------------------------------------------------------------------------
-
-def _wrap_pi(x):
-    return x - TWO_PI * torch.round(x / TWO_PI)
-
-
 def _phase_diff(a, b):
     d = a - b
     return d - math.pi * torch.round(d / math.pi)
 
 
-def _check_costas(refs, phase0, freq0, cfo_freq):
-    if refs.ndim != 3 or refs.shape[-1] != 2:
-        raise ValueError(f"refs: expected [T, R, 2], got {tuple(refs.shape)}")
-    r = refs.shape[1]
-    for name, t in (("phase0", phase0), ("freq0", freq0),
-                    ("cfo_freq", cfo_freq)):
-        if t is not None and tuple(t.shape) != (r,):
-            raise ValueError(f"{name}: expected shape ({r},), got "
-                             f"{tuple(t.shape)}")
-
-
-def costas_track_rc_plain(refs, phase0, freq0, cfo_freq=None):
-    """Plain version of K3.  refs: [T, R, 2] (T symbols of R independent
-    tracks); phase0, freq0 and the optional static per-track frequency
-    ``cfo_freq``: [R].  Returns (derot [T, R, 2], phases [T, R],
-    ph_out [R], fr_out [R])."""
-    _check_costas(refs, phase0, freq0, cfo_freq)
-    ph, fr = phase0, freq0
-    derots, phases = [], []
-    for v in refs:
-        v2 = rc.mul(v, v)
-        err = 0.5 * _wrap_pi(rc.angle(v2) - 2 * ph)
-        derots.append(rc.mul(v, rc.exp_i(-ph)))
-        phases.append(ph)
-        fr = torch.clamp(fr + SF.BETA * err, -0.5, 0.5)
-        step = ph + fr if cfo_freq is None else ph + fr + cfo_freq
-        ph = _wrap_pi(step + SF.ALPHA * err)
-    return torch.stack(derots), torch.stack(phases), ph, fr
-
-
-def costas_track_rc(refs, phase0, freq0, cfo_freq=None):
-    """K3: the arguments and results of :func:`costas_track_rc_plain`.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one thread per track, the recurrence in registers)."""
-    if refs.device.type == "cpu":
-        return costas_track_rc_plain(refs, phase0, freq0, cfo_freq)
-    _check_costas(refs, phase0, freq0, cfo_freq)
-    n_steps, n_tracks, _ = refs.shape
-    K.check(refs, "refs", torch.float32)
-    K.check(phase0, "phase0", torch.float32)
-    K.check(freq0, "freq0", torch.float32)
-    if cfo_freq is not None:
-        K.check(cfo_freq, "cfo_freq", torch.float32)
-    dev = refs.device
-    derot = torch.empty_like(refs)
-    phases = torch.empty(n_steps, n_tracks, dtype=torch.float32, device=dev)
-    ph_out = torch.empty(n_tracks, dtype=torch.float32, device=dev)
-    fr_out = torch.empty(n_tracks, dtype=torch.float32, device=dev)
-    K.launch("costas_track", refs.data_ptr(), phase0.data_ptr(),
-             freq0.data_ptr(),
-             None if cfo_freq is None else cfo_freq.data_ptr(),
-             derot.data_ptr(), phases.data_ptr(), ph_out.data_ptr(),
-             fr_out.data_ptr(), n_steps, n_tracks, SF.ALPHA, SF.BETA,
-             TWO_PI, device=dev)
-    return derot, phases, ph_out, fr_out
-
-
 # ---------------------------------------------------------------------------
-# sync block (MP1-style geometry, any partitions-per-band)
+# K4: sync block (MP1-style geometry, any partitions-per-band)
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=8)
@@ -180,6 +123,9 @@ def _sync_tables(ppb: int, device: str) -> dict:
         "wbc": np.array([8, 4, 2, 1], np.int32),
         "wps": np.array([32, 16, 8, 4, 2, 1], np.int32),
         "k": np.arange(1, W, dtype=np.float32),
+        # the needles as bit masks (bit k = symbol k), as K4 reads them
+        "vals_mask": bit_masks(vals),
+        "known_mask": bit_masks(known),
     }
     out = {k: torch.from_numpy(v).to(device) for k, v in tables.items()}
     out["k_rel"] = (out["bins"] - C.FFT_FM // 2).float()
@@ -190,14 +136,29 @@ def _demod(z, mult):
     return torch.round(torch.clamp(z, -1, 1) * mult).to(torch.int8)
 
 
-def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj,
-                  plain: bool = False):
-    """spectra: [S, 32, 2048, 2]; costas_phase/costas_freq [S, 2048];
-    timing_adj int32 [S].  Returns (out dict of per-station tensors,
-    new_phase, new_freq): ``pm`` int8 [S, 23040], ``ref_ok`` [S, R],
-    ``ref_bc``/``ref_psmi`` [S, R], ``samperr`` int32 [S], ``angle``,
-    ``error_lb``, ``error_ub`` float32 [S]."""
+def _check_sync(spectra, costas_phase, costas_freq, timing_adj):
+    if spectra.ndim != 4 or spectra.shape[1:] != (C.BLKSZ, C.FFT_FM, 2):
+        raise ValueError(f"spectra: expected [S, {C.BLKSZ}, {C.FFT_FM}, 2],"
+                         f" got {tuple(spectra.shape)}")
+    s = spectra.shape[0]
+    for name, t, shape in (("costas_phase", costas_phase, (s, C.FFT_FM)),
+                           ("costas_freq", costas_freq, (s, C.FFT_FM)),
+                           ("timing_adj", timing_adj, (s,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+
+
+def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
+                        timing_adj):
+    """Plain version of K4.  spectra: [S, 32, 2048, 2];
+    costas_phase/costas_freq [S, 2048]; timing_adj int32 [S].  Returns (out
+    dict of per-station tensors, new_phase, new_freq): ``pm`` int8
+    [S, 23040], ``ref_ok`` bool [S, 2R], ``ref_bc``/``ref_psmi`` int32
+    [S, 2R], ``samperr`` int32 [S], ``angle``, ``error_lb``, ``error_ub``
+    float32 [S]."""
     check_psmi(psmi)
+    _check_sync(spectra, costas_phase, costas_freq, timing_adj)
     ppb = C.partitions_per_band(psmi)
     t = _sync_tables(ppb, str(spectra.device))
     s = spectra.shape[0]
@@ -210,8 +171,7 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj,
 
     # stations x refs as independent tracks, step-major: [32, S*2R, 2]
     refs = spectra[:, :, bins].transpose(0, 1).reshape(C.BLKSZ, s * r2, 2)
-    costas = costas_track_rc_plain if plain else costas_track_rc
-    derot, phases, ph_out, fr_out = costas(
+    derot, phases, ph_out, fr_out = costas_track_rc_plain(
         refs.contiguous(), phase0.reshape(-1), freq0.reshape(-1))
     derot = derot.reshape(C.BLKSZ, s, r2, 2).transpose(0, 1)  # [S, 32, 2R, 2]
     phases = phases.reshape(C.BLKSZ, s, r2).transpose(0, 1)
@@ -229,8 +189,10 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj,
     ref_ok = match.all(dim=1)
     data = signs ^ torch.cat([torch.zeros_like(signs[:, :1]), signs[:, :-1]],
                              dim=1)
-    ref_bc = (data[:, 16:20].int() * t["wbc"][:, None]).sum(1)
-    ref_psmi = (data[:, 25:31].int() * t["wps"][:, None]).sum(1)
+    ref_bc = (data[:, 16:20].int() * t["wbc"][:, None]).sum(
+        1, dtype=torch.int32)
+    ref_psmi = (data[:, 25:31].int() * t["wps"][:, None]).sum(
+        1, dtype=torch.int32)
 
     # equalization
     smag = derot[..., 0].abs().mean(dim=1)  # [S, 2R]
@@ -261,8 +223,10 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj,
     err2 = rc.abs2(ideal - data_eq)  # [S, 32, 2ppb, 18]
     error_lb = err2[:, :, :ppb].sum(dim=(1, 2, 3))
     error_ub = err2[:, :, ppb:].sum(dim=(1, 2, 3))
-    sig_block = error_lb.new_tensor(2.0 * C.BLKSZ
-                                    * (ppb * C.PARTITION_DATA_CARRIERS))
+    # a fill, not a host copy, so that the plain version can run inside a
+    # CUDA graph
+    sig_block = torch.full_like(
+        error_lb, 2.0 * C.BLKSZ * (ppb * C.PARTITION_DATA_CARRIERS))
     mult_lb = torch.clamp(sig_block / error_lb * 10, 1, 127)
     mult_ub = torch.clamp(sig_block / error_ub * 10, 1, 127)
 
@@ -294,9 +258,53 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj,
         "error_ub": error_ub,
     }
     new_phase = costas_phase.clone()
-    new_phase[:, bins] = _wrap_pi(ph_out)
+    new_phase[:, bins] = wrap_pi(ph_out)
     new_freq = costas_freq.clone()
     new_freq[:, bins] = fr_out
+    return out, new_phase, new_freq
+
+
+def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj):
+    """K4: the arguments and results of :func:`sync_block_rc_plain`.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (one CTA per station; it writes whole new Costas rows)."""
+    if spectra.device.type == "cpu":
+        return sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi,
+                                   timing_adj)
+    check_psmi(psmi)
+    _check_sync(spectra, costas_phase, costas_freq, timing_adj)
+    K.check(spectra, "spectra", torch.float32)
+    K.check(costas_phase, "costas_phase", torch.float32)
+    K.check(costas_freq, "costas_freq", torch.float32)
+    K.check(timing_adj, "timing_adj", torch.int32)
+    ppb = C.partitions_per_band(psmi)
+    dev = spectra.device
+    t = _sync_tables(ppb, str(dev))
+    s, r2 = spectra.shape[0], 2 * (ppb + 1)
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = {"pm": empty((s, C.PM_BLOCK_SIZE), torch.int8),
+           "ref_ok": empty((s, r2), torch.bool),
+           "ref_bc": empty((s, r2), torch.int32),
+           "ref_psmi": empty((s, r2), torch.int32),
+           "samperr": empty((s,), torch.int32),
+           "angle": empty((s,), torch.float32),
+           "error_lb": empty((s,), torch.float32),
+           "error_ub": empty((s,), torch.float32)}
+    new_phase = torch.empty_like(costas_phase)
+    new_freq = torch.empty_like(costas_freq)
+    K.launch("sync_block", spectra.data_ptr(), costas_phase.data_ptr(),
+             costas_freq.data_ptr(), timing_adj.data_ptr(),
+             t["sync_signs"].data_ptr(), t["vals_mask"].data_ptr(),
+             t["known_mask"].data_ptr(),
+             *(out[k].data_ptr() for k in (
+                 "pm", "ref_ok", "ref_bc", "ref_psmi", "samperr", "angle",
+                 "error_lb", "error_ub")),
+             new_phase.data_ptr(), new_freq.data_ptr(), s, ppb, SF.ALPHA,
+             SF.BETA, TWO_PI, math.pi, TWO_PI / C.FFT_FM, device=dev)
     return out, new_phase, new_freq
 
 
@@ -311,6 +319,7 @@ def frontend_scan_rc(samples, carry: ChainCarryRC, n_blocks: int,
     [S, n_blocks] tensors, new carry)."""
     fftcp = C.FFTCP_FM
     fold = demod_fold_plain if plain else demod_fold
+    sync = sync_block_rc_plain if plain else sync_block_rc
     cy = carry
     pms, samperrs, elbs, eubs = [], [], [], []
     for _ in range(n_blocks):
@@ -319,9 +328,8 @@ def frontend_scan_rc(samples, carry: ChainCarryRC, n_blocks: int,
         folded, phase, keep = fold(samples, cy.offset, cy.phase, samperr,
                                    angle, cy.cfo)
         spectra = rc.dft(folded, shift=True)
-        out, cph, cfr = sync_block_rc(spectra, cy.costas_phase,
-                                      cy.costas_freq, psmi,
-                                      fftcp // 2 - samperr, plain=plain)
+        out, cph, cfr = sync(spectra, cy.costas_phase, cy.costas_freq, psmi,
+                             fftcp // 2 - samperr)
         cy = cy._replace(
             offset=cy.offset + (WINDOW_FM - keep), phase=phase,
             prev_angle=angle, costas_phase=cph, costas_freq=cfr,
@@ -381,3 +389,119 @@ def fm_chain_scan_rc(samples, carry: ChainCarryRC, n_blocks: int,
     out = {k: ({d: v[0] for d, v in val.items()} if k == "diag" else val[0])
            for k, val in out.items()}
     return out, ChainCarryRC(*(x[0] for x in new))
+
+
+# ---------------------------------------------------------------------------
+# cold start: coarse timing + integer-CFO/block-offset search + bc probe
+# ---------------------------------------------------------------------------
+
+def _unit_phase(s: int, device) -> torch.Tensor:
+    return torch.tensor([[1.0, 0.0]], device=device).repeat(s, 1)
+
+
+def coldstart_probe_rc(samples, plain: bool = False):
+    """Probe 1, for every station: coarse CP-correlation timing on the
+    first 33-symbol window (K9), demodulate that window with the phasor
+    1, the timing's angle and CFO 0 (K2, the DFT), and run the batched
+    CFO × offset needle search (K3, the needle count).
+
+    samples: [S, >= WINDOW_FM, 2] conjugated rc.  Returns (samperr int32
+    [S], angle float32 [S], count int32 [S, 76, 32])."""
+    s, dev = samples.shape[0], samples.device
+    timing = coarse_timing_rc_plain if plain else coarse_timing_rc
+    samperr, max_v = timing(samples)
+    angle = rc.angle(max_v)
+    zero = torch.zeros(s, dtype=torch.int32, device=dev)
+    fold = demod_fold_plain if plain else demod_fold
+    folded, _, _ = fold(samples, zero, _unit_phase(s, dev), samperr, angle,
+                        zero)
+    count = detect_cfo_scan_rc(rc.dft(folded, shift=True), plain=plain)
+    return samperr, angle, count
+
+
+def bc_probe_rc(samples, offset, angle, cfo, plain: bool = False):
+    """Probe 2, for every station: demodulate one block at ``offset`` (int32
+    [S]) with the phasor 1, samperr FFTCP//2, ``angle`` and ``cfo`` (K2, the
+    DFT), and read the reference subcarriers' control words with a fresh
+    Costas state (K4).
+
+    Returns (ref_ok bool [S, 2R], ref_bc int32 [S, 2R], ref_psmi int32
+    [S, 2R])."""
+    s, dev = samples.shape[0], samples.device
+    samperr = torch.full((s,), C.FFTCP_FM // 2, dtype=torch.int32,
+                         device=dev)
+    fold = demod_fold_plain if plain else demod_fold
+    folded, _, _ = fold(samples, offset, _unit_phase(s, dev), samperr, angle,
+                        cfo)
+    zeros = torch.zeros(s, C.FFT_FM, dtype=torch.float32, device=dev)
+    sync = sync_block_rc_plain if plain else sync_block_rc
+    out, _, _ = sync(rc.dft(folded, shift=True), zeros, zeros, 1,
+                     torch.zeros_like(samperr))
+    return out["ref_ok"], out["ref_bc"], out["ref_psmi"]
+
+
+def cold_start_rc(samples_rc, *, device="cuda", plain: bool = False):
+    """Cold start of every station of a conjugated rc capture with unknown
+    timing, fractional and integer CFO, on ``device``.
+
+    samples_rc: float32 [S, N, 2] (array or tensor), or [N, 2] for one
+    station, with N >= WINDOW_FM and room for a block past the lock point
+    (the reference receiver probes ``buffer_len(6)`` samples).  Two device
+    dispatches for the whole
+    fleet, the timing/CFO probe then the bc/psmi probe at each station's
+    aligned offset, with the reference's host steps per station between
+    and after them.  Returns one lock per station, each
+    ``{"offset", "first_bc", "psmi", "cfo", "carry"}`` as the reference's
+    ``cold_start_rc`` gives it (``carry`` without the station axis, for
+    :func:`fm_chain_scan_rc` on ``samples[offset:]``), or None where the
+    station did not lock: a list for [S, N, 2], a lock or None for
+    [N, 2]."""
+    dev = K.resolve_device(device)
+    samples = torch.as_tensor(samples_rc, device=dev)
+    single = samples.ndim == 2
+    if single:
+        samples = samples[None]
+    s = samples.shape[0]
+    fftcp = C.FFTCP_FM
+    samperr, angle, count = coldstart_probe_rc(samples, plain=plain)
+    samperr_h = samperr.cpu().numpy()
+    count_h = count.cpu().numpy()  # [S, 76, 32]
+
+    starts = np.zeros(s, np.int32)
+    cfos = np.zeros(s, np.int32)
+    found = np.zeros(s, bool)
+    for i in range(s):
+        ci, off = np.unravel_index(np.argmax(count_h[i]), count_h[i].shape)
+        if count_h[i, ci, off] < 3:
+            continue
+        found[i] = True
+        cfos[i] = int(ci) - CFO_RANGE
+        # the needle (block boundary) starts at probe-symbol index ``off``;
+        # the chain and the bc probe demodulate with samperr = FFTCP//2
+        start = int(samperr_h[i]) - fftcp // 2 + int(off) * fftcp
+        while start < 0:
+            start += C.BLKSZ * fftcp
+        starts[i] = start
+
+    locks = [None] * s
+    if found.any():
+        cfo = torch.from_numpy(cfos).to(dev)
+        ok, bcs, psmis = (x.cpu().numpy() for x in bc_probe_rc(
+            samples, torch.from_numpy(starts).to(dev), angle, cfo,
+            plain=plain))
+        # the carry holds no mode-dependent state: the same fresh carry
+        # serves every mode the chain decodes
+        carries = chain_rc_init_carry(n_stations=s, device=dev)._replace(
+            prev_angle=angle, cfo=cfo)
+        for i in np.flatnonzero(found):
+            good = ok[i]
+            if good.sum() < 4:
+                continue
+            first_bc = int(np.bincount(bcs[i][good]).argmax())
+            psmi = int(np.bincount(psmis[i][good]).argmax())
+            if not 0 <= psmi < len(C.COMPATIBILITY_MODE):
+                psmi = 1
+            locks[i] = {"offset": int(starts[i]), "first_bc": first_bc,
+                        "psmi": psmi, "cfo": int(cfos[i]),
+                        "carry": ChainCarryRC(*(x[i] for x in carries))}
+    return locks[0] if single else locks

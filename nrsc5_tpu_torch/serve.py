@@ -1,10 +1,13 @@
-"""Multi-station serving, device half: the steady-state FM dispatch.
+"""Multi-station serving, device half: the FM cold start and the
+steady-state FM dispatch.
 
 Counterpart of the device side of ``nrsc5_tpu/serve.py``'s
-``MultiStationReceiver``: its cu8 ingest (lines 308-324) and its steady
-dispatch ``_chain`` (lines 401-404), which runs the batched chain on the
-ingested wire.  The receiver class around it (sample queues, transports,
-events, cold start) is not ported yet.
+``MultiStationReceiver``: its cu8 ingest (lines 308-324), the device half
+of its cold start ``_try_relock`` (lines 820-861) for a station batch, and
+its steady dispatch ``_chain`` (lines 401-404), which runs the batched
+chain on the ingested wire.  The receiver class around it (sample queues,
+transports, events, the per-station frame alignment after a lock) is not
+ported yet.
 
 The wire is the reference's native 1.488 MS/s cu8 format.  Each station's
 row holds ``rc_overlap(1) // 2 = 7`` pairs of history ahead of its logical
@@ -53,6 +56,40 @@ def chain_step(wire_u8, carries: rcc.ChainCarryRC, n_blocks: int,
     samples = ingest(wire_u8, device=device, plain=plain)
     return rcc.fm_chain_batch_rc(samples, carries, n_blocks, psmi, first_bc,
                                  packed, plain=plain)
+
+
+def cold_start(wire_u8, *, device="cuda", plain: bool = False) -> list:
+    """Cold start of every station of a cu8 capture with unknown timing
+    and CFO: wire [S, 14 + 2N, 2] in :func:`chain_step`'s layout -> one
+    lock per station (:func:`nrsc5_tpu_torch.pipeline.scan_chain_rc.
+    cold_start_rc`), or None where a station did not lock.  Each lock's
+    ``offset`` counts chain samples from the start of the station's wire.
+    ``plain=True`` runs every kernel's plain version."""
+    samples = ingest(wire_u8, device=device, plain=plain)
+    return rcc.cold_start_rc(samples, device=device, plain=plain)
+
+
+def carry_from_locks(locks: list) -> tuple[rcc.ChainCarryRC, int, int]:
+    """Stack the locks of :func:`cold_start` into one carry whose offsets
+    are the lock points, so that :func:`chain_step` on the same wire
+    decodes every station from its lock.  Returns (carry, psmi, first_bc).
+
+    One dispatch serves one service mode and one block count, and the
+    per-station frame alignment is not ported yet, so this raises if a
+    station did not lock or if the locks disagree on psmi or first_bc."""
+    missing = [i for i, lock in enumerate(locks) if lock is None]
+    if not locks or missing:
+        raise ValueError(f"stations {missing} did not lock")
+    for key in ("psmi", "first_bc"):
+        values = sorted({lock[key] for lock in locks})
+        if len(values) > 1:
+            raise ValueError(f"the locks disagree on {key}: {values}")
+    carry = rcc.ChainCarryRC(*(torch.stack(leaves) for leaves in zip(
+        *(lock["carry"] for lock in locks))))
+    offset = torch.tensor([lock["offset"] for lock in locks],
+                          dtype=torch.int32, device=carry.offset.device)
+    return (carry._replace(offset=offset), locks[0]["psmi"],
+            locks[0]["first_bc"])
 
 
 def stream_wire(station_cu8: np.ndarray) -> np.ndarray:

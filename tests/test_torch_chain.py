@@ -55,6 +55,7 @@ from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import serve, state
 from nrsc5_tpu_torch.ops import acquire_rc as TAQ
 from nrsc5_tpu_torch.ops import convolutional as TCV
+from nrsc5_tpu_torch.ops import costas as TCO
 from nrsc5_tpu_torch.ops import decode_fm as TDF
 from nrsc5_tpu_torch.ops import frontend as TFE
 from nrsc5_tpu_torch.ops import rcplx as rc
@@ -208,7 +209,7 @@ def test_costas_track_matches(spectra, with_cfo):
     j = JRC.costas_track_rc(jnp.asarray(refs), jnp.asarray(ph0),
                             jnp.asarray(fr0),
                             0.0 if cf is None else jnp.asarray(cf))
-    t = TRC.costas_track_rc(_t(refs), _t(ph0), _t(fr0),
+    t = TCO.costas_track_rc(_t(refs), _t(ph0), _t(fr0),
                             None if cf is None else _t(cf))
     # derot scales with the spectra (as the DFT's atol does); the phases
     # and frequencies are angles

@@ -1,6 +1,7 @@
 """The PyTorch port imports neither JAX nor the JAX package, and its entry
 points never fall back to the CPU unasked."""
 
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -8,6 +9,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch import serve, state
 from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
 
@@ -51,6 +53,9 @@ _ENTRY_POINTS = {
     "ingest": lambda: serve.ingest(torch.full((1, 16, 2), 127,
                                               dtype=torch.uint8)),
     "chain_rc_init_carry": lambda: rcc.chain_rc_init_carry(),
+    "cold_start": lambda: serve.cold_start(torch.full((1, 16, 2), 127,
+                                                      dtype=torch.uint8)),
+    "cold_start_rc": lambda: rcc.cold_start_rc(torch.zeros(80_000, 2)),
     "carry_from_numpy": lambda: state.carry_from_numpy(state.carry_to_numpy(
         rcc.chain_rc_init_carry(device="cpu"))),
 }
@@ -63,3 +68,19 @@ def test_entry_points_default_to_cuda(entry):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _ENTRY_POINTS[entry]()
+
+
+def test_library_path_hashes_headers(tmp_path, monkeypatch):
+    """A kernel's library name changes with its source and with every
+    header it includes from csrc/, and with nothing else there."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(K.CSRC, csrc)
+    monkeypatch.setattr(K, "CSRC", csrc)
+    names = ("costas_track", "sync_block", "demod_fold")
+    before = {n: K.library_path(n) for n in names}
+    with open(csrc / "costas.cuh", "a") as f:
+        f.write("// changed\n")
+    after = {n: K.library_path(n) for n in names}
+    assert after["costas_track"] != before["costas_track"]
+    assert after["sync_block"] != before["sync_block"]
+    assert after["demod_fold"] == before["demod_fold"]

@@ -7,10 +7,19 @@ without a card every test here skips.  On the card, run
 (``--noconftest``: tests/conftest.py imports JAX, which these tests do not
 need.)
 
-Tolerances: K1 (halfband) and K7 (Viterbi) exact — no FMA contraction and
-the same operation order, and integer path metrics; K2 (demod fold) and K3
-(Costas) 1e-5 of the largest value — float32 sin, cos and atan2 may differ
-in the last bit between the kernel's build and PyTorch's.
+Tolerances:
+
+- K1 (halfband), K7 (Viterbi), K9 (coarse timing) and the needle count of
+  K10 exact: no FMA contraction and the same operation order, integer path
+  metrics and integer counts;
+- K2 (demod fold), K3 (Costas) and the float outputs of K4 (sync block)
+  within 1e-5 of the largest value (at least 1): float32 sin, cos and
+  atan2 may differ in the last bit between the kernel's build and
+  PyTorch's, and K4 sums its 180- and 5760-term reductions in another order
+  than PyTorch does;
+- K4's ref_ok, ref_bc, ref_psmi and samperr exact; its int8 soft bits
+  within ±1 on at most 0.1 % of values (a reduction's last bit can move a
+  product across a .5 rounding edge).
 """
 
 import numpy as np
@@ -21,8 +30,16 @@ from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops import acquire_rc as AQ
 from nrsc5_tpu_torch.ops import convolutional as CV
+from nrsc5_tpu_torch.ops import costas as CO
+from nrsc5_tpu_torch.ops import detect_cfo as DC
 from nrsc5_tpu_torch.ops import frontend as FE
+from nrsc5_tpu_torch.ops import rcplx as rc
 from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
+from nrsc5_tpu_torch.tx import channel as ch
+from nrsc5_tpu_torch.tx.encoder import build_pm_matrix
+from nrsc5_tpu_torch.tx.modulator import modulate_fm
+
+BIN_HZ = C.SAMPLE_RATE_CS16_FM / C.FFT_FM
 
 pytestmark = pytest.mark.cuda
 
@@ -81,8 +98,8 @@ def test_costas_track(card, with_cfo):
     fr0 = ((torch.rand(n, generator=g) - 0.5) * 0.01).to(card)
     cf = ((torch.rand(n, generator=g) - 0.5) * 0.5).to(card) \
         if with_cfo else None
-    got = rcc.costas_track_rc(refs, ph0, fr0, cf)
-    want = rcc.costas_track_rc_plain(refs, ph0, fr0, cf)
+    got = CO.costas_track_rc(refs, ph0, fr0, cf)
+    want = CO.costas_track_rc_plain(refs, ph0, fr0, cf)
     for a, b in zip(got, want):
         _close(a, b, 1e-5)
 
@@ -101,3 +118,87 @@ def test_viterbi_k7(card, length, sigma):
     pb, pm = CV.acs_traceback_plain(ext, C.CONV_K7_GEN)
     assert torch.equal(kb, pb)
     assert torch.equal(km, pm)
+
+
+def _capture(rng, psmi, sample_offset, cfo_hz):
+    """Two blocks of one station at 25 dB, delayed and shifted in
+    frequency, as the conjugated rc chain input [N, 2]."""
+    matrix = build_pm_matrix(
+        rng.integers(0, 2, C.P1_FRAME_LEN_FM).astype(np.uint8),
+        rng.integers(0, 2, (16, C.PIDS_FRAME_LEN)).astype(np.uint8))[:64]
+    sig = ch.impair(modulate_fm(matrix, np.array([3, 4]), psmi),
+                    sample_offset=sample_offset, cfo_hz=cfo_hz, snr_db=25.0,
+                    rng=rng)
+    return np.stack([sig.real, -sig.imag], -1).astype(np.float32)
+
+
+def _spectra(card, captures, samperr, angle, cfo):
+    x = torch.from_numpy(np.stack(captures)).to(card)
+    s = x.shape[0]
+    folded = AQ.demod_fold_plain(
+        x, torch.zeros(s, dtype=torch.int32, device=card),
+        torch.tensor([[1.0, 0.0]], device=card).repeat(s, 1),
+        torch.tensor(samperr, dtype=torch.int32, device=card),
+        torch.tensor(angle, dtype=torch.float32, device=card),
+        torch.tensor(cfo, dtype=torch.int32, device=card))[0]
+    return x, rc.dft(folded, shift=True)
+
+
+@pytest.mark.parametrize("psmi", [1, 5])
+def test_sync_block(card, psmi):
+    """K4 on three stations' real blocks, with a nonzero Costas state and
+    timing_adj per station."""
+    rng = np.random.default_rng(5)
+    caps = [_capture(rng, psmi, 0, f) for f in (0.0, 20.0, -35.0)]
+    _, spectra = _spectra(card, caps, [1080, 1081, 1079], [0.0] * 3, [0] * 3)
+    g = torch.Generator().manual_seed(5)
+    cph = (torch.randn(3, C.FFT_FM, generator=g) * 0.1).to(card)
+    cfr = (torch.randn(3, C.FFT_FM, generator=g) * 0.01).to(card)
+    adj = torch.tensor([0, 2, -3], dtype=torch.int32, device=card)
+    before = K.COUNTS["sync_block"]
+    ko, kph, kfr = rcc.sync_block_rc(spectra, cph, cfr, psmi, adj)
+    assert K.COUNTS["sync_block"] == before + 1
+    po, pph, pfr = rcc.sync_block_rc_plain(spectra, cph, cfr, psmi, adj)
+    for k in ("ref_ok", "ref_bc", "ref_psmi", "samperr"):
+        assert ko[k].dtype == po[k].dtype and torch.equal(ko[k], po[k]), k
+    diff = (ko["pm"].int() - po["pm"].int()).abs()
+    assert int(diff.max()) <= 1
+    assert int((diff > 0).sum()) <= 1e-3 * diff.numel()
+    for k in ("angle", "error_lb", "error_ub"):
+        _close(ko[k], po[k], 1e-5)
+    _close(kph, pph, 1e-5)
+    _close(kfr, pfr, 1e-5)
+
+
+def test_coarse_timing(card):
+    """K9 on three impaired windows: timing offsets, fractional and
+    integer CFOs, noise."""
+    rng = np.random.default_rng(6)
+    caps = [_capture(rng, 1, off, f)[:AQ.WINDOW_FM + 100] for off, f in
+            ((1357, 5 * BIN_HZ + 41.0), (2789, -7 * BIN_HZ - 30.0),
+             (100, 12.0))]
+    x = torch.from_numpy(np.stack(caps)).to(card)
+    ks, kv = AQ.coarse_timing_rc(x)
+    ps, pv = AQ.coarse_timing_rc_plain(x)
+    assert torch.equal(ks, ps)
+    assert torch.equal(kv, pv)
+
+
+def test_needle_count(card):
+    """The CFO scan on the probe's spectra of stations with a negative and
+    a positive integer CFO: the needle count exact, and its peak at the
+    true CFO (negated by the FM ingest's conjugation)."""
+    rng = np.random.default_rng(7)
+    true = (-7, 5)
+    caps = [_capture(rng, 1, 0, c * BIN_HZ + 20.0) for c in true]
+    x = torch.from_numpy(np.stack(caps)).to(card)
+    samperr, max_v = AQ.coarse_timing_rc(x)
+    _, spectra = _spectra(card, caps, samperr.tolist(),
+                          rc.angle(max_v).tolist(), [0, 0])
+    before = K.COUNTS["needle_count"]
+    count = DC.detect_cfo_scan_rc(spectra)
+    assert K.COUNTS["needle_count"] == before + 1
+    assert torch.equal(count, DC.detect_cfo_scan_rc(spectra, plain=True))
+    for s, c in enumerate(true):
+        ci = int(count[s].flatten().argmax()) // C.BLKSZ
+        assert ci - DC.CFO_RANGE == -c

@@ -8,6 +8,7 @@ import pytest
 from nrsc5_tpu import constants as JC
 from nrsc5_tpu.ops import acquire as JAQ
 from nrsc5_tpu.ops import convolutional as JCV
+from nrsc5_tpu.ops import detect_cfo as JDC
 from nrsc5_tpu.ops import frontend as JFE
 from nrsc5_tpu.ops import interleavers as JIL
 from nrsc5_tpu.ops import rcplx as JRC
@@ -20,6 +21,7 @@ from nrsc5_tpu.tx import modulator as JMO
 from nrsc5_tpu_torch import constants as TC
 from nrsc5_tpu_torch.ops import acquire_rc as TAQ
 from nrsc5_tpu_torch.ops import convolutional as TCV
+from nrsc5_tpu_torch.ops import detect_cfo as TDC
 from nrsc5_tpu_torch.ops import frontend as TFE
 from nrsc5_tpu_torch.ops import interleavers as TIL
 from nrsc5_tpu_torch.ops import rcplx as TRC
@@ -61,6 +63,11 @@ TABLES = {
     "rc_overlap": (lambda: [JFE.rc_overlap(s) for s in range(6)],
                    lambda: [TFE.rc_overlap(s) for s in range(6)]),
     "window_fm": (lambda: JAQ.WINDOW_FM, lambda: TAQ.WINDOW_FM),
+    "shape_kernel": (lambda: JAQ._shape_kernel(JC.FFT_FM, JC.CP_FM),
+                     lambda: TAQ._shape_kernel(TC.FFT_FM, TC.CP_FM)),
+    "needle_tables": (JDC._needle_tables, TDC._needle_tables),
+    "cfo_range": (lambda: (JDC.CFO_RANGE, JDC.N_REFS),
+                  lambda: (TDC.CFO_RANGE, TDC.N_REFS)),
     "ref_bins": (lambda: (JSF._ref_bins(10), JSF._ref_bins(14)),
                  lambda: (TSF._ref_bins(10), TSF._ref_bins(14))),
     "needles": (lambda: JSF._needles(10) + JSF._needles(14),
