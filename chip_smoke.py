@@ -324,24 +324,8 @@ def main() -> int:
                 s_n * (n_samp * 17 + C.BLKSZ * C.CP_FM * 6)),
           None, [s_n, C.BLKSZ, C.FFT_FM, 2])
 
-    # --- K3: Costas PLL on the reference subcarriers of real spectra ---
-    spectra = rc.dft(got[0], shift=True)
     ppb = C.partitions_per_band(1)
     bins = torch.from_numpy(SF._ref_bins(ppb).astype(np.int64)).to(dev)
-    refs = spectra[:, :, bins].transpose(0, 1).reshape(
-        C.BLKSZ, -1, 2).contiguous()
-    n_tr = refs.shape[1]
-    ph0 = ((torch.rand(n_tr, generator=g) - 0.5) * 0.2).to(dev)
-    fr0 = ((torch.rand(n_tr, generator=g) - 0.5) * 0.01).to(dev)
-    got = CO.costas_track_rc(refs, ph0, fr0)
-    want = CO.costas_track_rc_plain(refs, ph0, fr0)
-    err = max((a - b).abs().max().item() for a, b in zip(got, want))
-    check("costas_track", err, 1e-4,
-          lambda: CO.costas_track_rc(refs, ph0, fr0),
-          lambda: CO.costas_track_rc_plain(refs, ph0, fr0),
-          bound(n_tr * (C.BLKSZ * 8 * 2 + C.BLKSZ * 4 + 16),
-                n_tr * C.BLKSZ * 35),
-          None, [C.BLKSZ, n_tr, 2])
 
     # --- K4: the sync block at block 1 of the steady chain: the spectra,
     # Costas state and timing_adj the main path hands it after block 0 ---
@@ -392,8 +376,10 @@ def main() -> int:
                        + C.FFTCP_FM * C.CP_FM * 4)),
           None, [s_n, win, 2], plain_reps=3, plain_inner=2)
 
-    # --- K10: the needle count on the probe's spectra (K9's timing and
-    # angle, K2 at CFO 0, the DFT, K3 over 76 CFOs × 22 refs) ---
+    # --- K3 and K10 on the probe's spectra (K9's timing and angle, K2 at
+    # CFO 0, the DFT): K3 over 76 CFOs × 22 refs with each CFO's static
+    # frequency, the only shape and argument the main path gives K3 (on
+    # the steady path it runs inside K4); then the needle count ---
     zero = torch.zeros(s_n, dtype=torch.int32, device=dev)
     unit = torch.tensor([[1.0, 0.0]], device=dev).repeat(s_n, 1)
     probe = rc.dft(AQ.demod_fold(cap_samples, zero, unit, ks, rc.angle(kv),
@@ -403,8 +389,17 @@ def main() -> int:
         C.BLKSZ, -1, 2).contiguous()
     cf = t["cfo_freq"].repeat(s_n)
     zf = torch.zeros_like(cf)
-    derot = CO.costas_track_rc(refs, zf, zf, cf)[0].view(
-        C.BLKSZ, s_n, DC.N_TRACKS, 2)
+    n_tr = refs.shape[1]
+    got = CO.costas_track_rc(refs, zf, zf, cf)
+    want = CO.costas_track_rc_plain(refs, zf, zf, cf)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    check("costas_track", err, 1e-4,
+          lambda: CO.costas_track_rc(refs, zf, zf, cf),
+          lambda: CO.costas_track_rc_plain(refs, zf, zf, cf),
+          bound(n_tr * (C.BLKSZ * 8 * 2 + C.BLKSZ * 4 + 20),
+                n_tr * C.BLKSZ * 36),
+          None, [C.BLKSZ, n_tr, 2])
+    derot = got[0].view(C.BLKSZ, s_n, DC.N_TRACKS, 2)
     kc = DC.needle_count(derot)
     pc = DC.needle_count_plain(derot)
     err = float((kc - pc).abs().max())
@@ -413,11 +408,7 @@ def main() -> int:
           lambda: DC.needle_count_plain(derot),
           bound(derot.numel() // 2 * 4 + kc.numel() * 4,
                 kc.numel() * 2 * DC.N_REFS * 8),
-          None, list(derot.shape),
-          # K10's other half: K3 lockstep over the 76 × 22 tracks
-          costas_ms=time_ms(torch, lambda: CO.costas_track_rc(
-              refs, zf, zf, cf), graph=True),
-          costas_shape=list(refs.shape))
+          None, list(derot.shape))
 
     # --- K7: Viterbi on the steady chain's own LLRs, P1 segments and
     # PIDS ---

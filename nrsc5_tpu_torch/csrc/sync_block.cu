@@ -21,11 +21,11 @@
 //      at the reference bins.
 //
 // Bound on the H100: device-memory bytes (382 of 2048 bins of the spectra,
-// the two Costas rows in and out, 23 KB of pm), about 1.3 MB a station;
-// the work is a few hundred flops a data bin.  A simple design, kept right
-// first: the 32-step Costas chain runs on one warp while the rest of the
-// CTA copies the Costas rows; the equalized data and its MMSE weights of
-// the PM partitions stay in shared memory (data_eq [32, 20, 18] float2 =
+// the two Costas rows in and out, 23 KB of pm), about 154 KB a station
+// and 2.46 MB for 16; the work is a few hundred flops a data bin.  A
+// simple design, kept right first: the 32-step Costas chain runs on one
+// warp while the rest of the CTA copies the Costas rows; the equalized
+// data and its MMSE weights of the PM partitions stay in shared memory (data_eq [32, 20, 18] float2 =
 // 92 KB and h2 [32, 20, 18] f32 = 46 KB, dynamic, past the 48 KB default
 // by the opt-in) between the sums and the demap.  The short sums (22
 // tracks, 20 phase steps, 32 symbols) run in one thread in index order;

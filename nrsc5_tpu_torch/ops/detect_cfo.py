@@ -21,6 +21,7 @@ import torch
 
 from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
+from nrsc5_tpu_torch.ops import sync_fm as SF
 from nrsc5_tpu_torch.ops.costas import costas_track_rc, costas_track_rc_plain
 
 CFO_RANGE = 2 * C.PARTITION_WIDTH_FM  # +-38 bins
@@ -29,30 +30,11 @@ N_CFO = 2 * CFO_RANGE
 N_TRACKS = N_CFO * 2 * N_REFS  # 1672 tracks per station
 
 
-@functools.lru_cache(maxsize=1)
 def _needle_tables():
     """(vals uint8 [22, 32], known bool [22, 32]) for refs i=0..10 on both
-    sidebands (rsid = (30-i) & 3)."""
-    base = np.array(C.REF_SIGNS_FIXED, dtype=np.int64)
-    vals = np.zeros((2 * N_REFS, C.BLKSZ), np.uint8)
-    known = np.zeros((2 * N_REFS, C.BLKSZ), bool)
-    for i in range(N_REFS):
-        s = base.copy()
-        rsid = (C.MIDDLE_REF_SC - i) & 0x3
-        s[10] = rsid >> 1
-        s[11] = (rsid >> 1) ^ (rsid & 1)
-        k = s >= 0
-        for row in (i, N_REFS + i):
-            vals[row] = np.where(k, s, 0).astype(np.uint8)
-            known[row] = k
-    return vals, known
-
-
-def bit_masks(bits: np.ndarray) -> np.ndarray:
-    """[R, 32] 0/1 rows -> int32 [R] words, bit n = column n (the needle
-    masks the kernels read as unsigned words)."""
-    w = (np.asarray(bits, np.uint64) << np.arange(C.BLKSZ, dtype=np.uint64))
-    return w.sum(axis=1).astype(np.uint32).view(np.int32)
+    sidebands (rsid = (30-i) & 3): the sync block's needles at the PM
+    partition count."""
+    return SF._needles(C.PM_PARTITIONS)
 
 
 @functools.lru_cache(maxsize=4)
@@ -67,13 +49,14 @@ def _scan_tables(device: str) -> dict:
     cfo_freq = (np.float32(2 * np.pi) * cfos.astype(np.float32)
                 * np.float32(C.CP_FM) / np.float32(C.FFT_FM))
     vals, known = _needle_tables()
+    vals_mask, known_mask = SF.needle_masks(C.PM_PARTITIONS)
     tables = {
         "bins": bins.reshape(-1).astype(np.int64),
         "cfo_freq": np.repeat(cfo_freq, 2 * N_REFS),
         "vals": np.ascontiguousarray(vals.T.astype(bool)),  # [32, 22]
         "known": np.ascontiguousarray(known.T),
-        "vals_mask": bit_masks(vals),
-        "known_mask": bit_masks(known),
+        "vals_mask": vals_mask,
+        "known_mask": known_mask,
     }
     return {k: torch.from_numpy(v).to(device) for k, v in tables.items()}
 

@@ -56,6 +56,20 @@ def _needles(ppb: int):
     return vals, known
 
 
+def _bit_masks(bits: np.ndarray) -> np.ndarray:
+    """[R, 32] 0/1 rows -> int32 [R] words, bit n = column n."""
+    w = (np.asarray(bits, np.uint64) << np.arange(C.BLKSZ, dtype=np.uint64))
+    return w.sum(axis=1).astype(np.uint32).view(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def needle_masks(ppb: int):
+    """The needles of :func:`_needles` as bit masks, as the kernels read
+    them: (values int32 [R], known int32 [R]), bit k = symbol k."""
+    vals, known = _needles(ppb)
+    return _bit_masks(vals), _bit_masks(known)
+
+
 @functools.lru_cache(maxsize=1)
 def _sync_signs() -> np.ndarray:
     """+-1 expected signs with 0 at variable positions (pi-ambiguity check;

@@ -44,8 +44,7 @@ from nrsc5_tpu_torch.ops.acquire_rc import (WINDOW_FM, coarse_timing_rc,
 from nrsc5_tpu_torch.ops.bits import pack_out
 from nrsc5_tpu_torch.ops.costas import TWO_PI, costas_track_rc_plain, wrap_pi
 from nrsc5_tpu_torch.ops.decode_fm import p1_decode, pids_decode
-from nrsc5_tpu_torch.ops.detect_cfo import (CFO_RANGE, bit_masks,
-                                            detect_cfo_scan_rc)
+from nrsc5_tpu_torch.ops.detect_cfo import CFO_RANGE, detect_cfo_scan_rc
 from nrsc5_tpu_torch.pipeline.scan_chain import px_frame_lens
 
 W = C.PARTITION_WIDTH_FM
@@ -112,6 +111,7 @@ def _sync_tables(ppb: int, device: str) -> dict:
     low_bins = C.LB_START + part[:, None] * W + kk[None, :]
     up_bins = C.UB_END - (part[:, None] + 1) * W + kk[None, :]
     vals, known = SF._needles(ppb)
+    vals_mask, known_mask = SF.needle_masks(ppb)
     tables = {
         "bins": SF._ref_bins(ppb).astype(np.int64),
         "sync_signs": SF._sync_signs(),
@@ -124,8 +124,8 @@ def _sync_tables(ppb: int, device: str) -> dict:
         "wps": np.array([32, 16, 8, 4, 2, 1], np.int32),
         "k": np.arange(1, W, dtype=np.float32),
         # the needles as bit masks (bit k = symbol k), as K4 reads them
-        "vals_mask": bit_masks(vals),
-        "known_mask": bit_masks(known),
+        "vals_mask": vals_mask,
+        "known_mask": known_mask,
     }
     out = {k: torch.from_numpy(v).to(device) for k, v in tables.items()}
     out["k_rel"] = (out["bins"] - C.FFT_FM // 2).float()
