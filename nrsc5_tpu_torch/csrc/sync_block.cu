@@ -1,8 +1,8 @@
 // K4: the FM sync block of one L1 block, fused, one CTA per station.
 //
 // Replaces the JAX device function
-// nrsc5_tpu/pipeline/scan_chain_rc.py:sync_block_rc (lines 128-267) for the
-// service modes without PX channels (ppb = 10 or 14 partitions per band,
+// nrsc5_tpu/pipeline/scan_chain_rc.py:sync_block_rc (lines 128-267) for
+// every FM service mode (ppb = 10, 11, 12 or 14 partitions per band,
 // 2R = 2*(ppb+1) reference subcarriers), for all stations of a dispatch in
 // one launch.  Per station, on spectra [32, 2048, 2]:
 //   1. the Costas PLL (costas.cuh, shared with K3) on the 2R reference
@@ -16,7 +16,10 @@
 //   4. the linear-interpolated equalizer of every data bin, the MER error
 //      sums of each sideband, and the MMSE weights' per-symbol means;
 //   5. the int8 soft demap of the 2x10 PM partitions (upper ones in
-//      reversed partition order) with mult = clip(sig/err*10, 1, 127);
+//      reversed partition order) with mult = clip(sig/err*10, 1, 127),
+//      then of the PX1/PX2 columns the host lists (lines 240-263: a
+//      partition, its side, and which sideband's mult it takes — MP11's
+//      px2 takes the lower one's on both sides, as the reference does);
 //   6. whole new Costas rows: the old row, with wrap_pi(ph) and fr - angle
 //      at the reference bins.
 //
@@ -27,7 +30,11 @@
 // warp while the rest of the CTA copies the Costas rows; the equalized
 // data and its MMSE weights of the PM partitions stay in shared memory (data_eq [32, 20, 18] float2 =
 // 92 KB and h2 [32, 20, 18] f32 = 46 KB, dynamic, past the 48 KB default
-// by the opt-in) between the sums and the demap.  The short sums (22
+// by the opt-in) between the sums and the demap.  The PX partitions (up
+// to 8 more, 69 KB) are not kept: the demap equalizes them again from the
+// spectra with the same arithmetic (the same device function), so they
+// round as if stored, and the shared memory stays at 138 KB for every
+// mode.  The short sums (22
 // tracks, 20 phase steps, 32 symbols) run in one thread in index order;
 // the 180-term sums run over a warp in a butterfly, so they round in
 // another order than PyTorch's reductions: pm may move by one where a
@@ -73,8 +80,10 @@ __global__ void __launch_bounds__(THREADS) sync_block_kernel(
     int* __restrict__ ref_psmi, int* __restrict__ samperr_out,
     float* __restrict__ angle_out, float* __restrict__ error_lb,
     float* __restrict__ error_ub, float* __restrict__ cph_out,
-    float* __restrict__ cfr_out, int ppb, float alpha, float beta,
-    float two_pi, float pi, float two_pi_over_fft) {
+    float* __restrict__ cfr_out, int8_t* __restrict__ px1,
+    int8_t* __restrict__ px2, const int* __restrict__ px_cols, int n_px1,
+    int n_px2, int ppb, float alpha, float beta, float two_pi, float pi,
+    float two_pi_over_fft) {
   extern __shared__ float4 smem_raw[];
   float2* data_eq = reinterpret_cast<float2*>(smem_raw);  // [32][20][18]
   float* h2s = reinterpret_cast<float*>(data_eq + NSYM * 2 * PMP * NDC);
@@ -179,6 +188,24 @@ __global__ void __launch_bounds__(THREADS) sync_block_kernel(
   }
   __syncthreads();
 
+  // the equalized data bin kk of partition pp of a sideband at symbol k,
+  // and its MMSE weight numerator h = 1 / |eq|^2
+  auto equalize = [&](int k, int side, int pp, int kk, float2& z, float& h) {
+    const int p = side * ppb + pp;
+    const float2 ah = amp[k][hi_idx(p)], al = amp[k][lo_idx(p)];
+    const float kf = (float)(kk + 1), wk = (float)(W - (kk + 1));
+    const float dr = kf * ah.x + wk * al.x;
+    const float di = kf * ah.y + wk * al.y;
+    const float a2 = dr * dr + di * di;
+    const float er = ((float)W * dr + (float)W * di) / a2;
+    const float ei = ((float)W * dr - (float)W * di) / a2;
+    const int bin = side == 0 ? LB_START + pp * W + kk + 1
+                              : UB_END - (pp + 1) * W + kk + 1;
+    const float2 x = spec[k * FFT + bin];
+    z = make_float2(x.x * er - x.y * ei, x.x * ei + x.y * er);
+    h = 1.0f / fmaxf(er * er + ei * ei, 1e-12f);
+  };
+
   // 4. equalize; MER and MMSE sums, one warp per (symbol, sideband)
   const int per_side = ppb * NDC;
   for (int g = warp; g < NSYM * 2; g += WARPS) {
@@ -186,21 +213,11 @@ __global__ void __launch_bounds__(THREADS) sync_block_kernel(
     float e_acc = 0.0f, h_acc = 0.0f;
     for (int i = lane; i < per_side; i += 32) {
       const int pp = i / NDC, kk = i % NDC;
-      const int p = side * ppb + pp;
-      const float2 ah = amp[k][hi_idx(p)], al = amp[k][lo_idx(p)];
-      const float kf = (float)(kk + 1), wk = (float)(W - (kk + 1));
-      const float dr = kf * ah.x + wk * al.x;
-      const float di = kf * ah.y + wk * al.y;
-      const float a2 = dr * dr + di * di;
-      const float er = ((float)W * dr + (float)W * di) / a2;
-      const float ei = ((float)W * dr - (float)W * di) / a2;
-      const int bin = side == 0 ? LB_START + pp * W + kk + 1
-                                : UB_END - (pp + 1) * W + kk + 1;
-      const float2 x = spec[k * FFT + bin];
-      const float2 z = make_float2(x.x * er - x.y * ei, x.x * ei + x.y * er);
+      float2 z;
+      float h;
+      equalize(k, side, pp, kk, z, h);
       const float tr = sign(z.x) - z.x, ti = sign(z.y) - z.y;
       e_acc = e_acc + (tr * tr + ti * ti);
-      const float h = 1.0f / fmaxf(er * er + ei * ei, 1e-12f);
       h_acc = h_acc + h;
       if (pp < PMP) {
         const int at = (k * 2 * PMP + side * PMP + pp) * NDC + kk;
@@ -250,6 +267,30 @@ __global__ void __launch_bounds__(THREADS) sync_block_kernel(
         (int8_t)rintf(clip(z, -1.0f, 1.0f) * (mult[side] * w));
   }
 
+  // 5c. the PX demaps: [32][columns][18][2]; column code = side
+  // + 2 * mult_side + 4 * partition, px1's columns then px2's
+  for (int ch = 0; ch < 2; ++ch) {
+    const int ncols = ch ? n_px2 : n_px1;
+    int8_t* dst = ch ? px2 : px1;
+    const int* cols = px_cols + (ch ? n_px1 : 0);
+    const int per = NSYM * ncols * NDC * 2;
+    for (int o = tid; o < per; o += THREADS) {
+      const int c = o & 1;
+      int t = o >> 1;
+      const int kk = t % NDC;
+      t /= NDC;
+      const int col = t % ncols, k = t / ncols;
+      const int code = cols[col];
+      const int side = code & 1, ms = (code >> 1) & 1, pp = code >> 2;
+      float2 z;
+      float h;
+      equalize(k, side, pp, kk, z, h);
+      const float w = clip(h / h_mean[k][side], 0.0f, 1.0f);
+      dst[(size_t)s * per + o] = (int8_t)rintf(
+          clip(c ? z.y : z.x, -1.0f, 1.0f) * (mult[ms] * w));
+    }
+  }
+
   // 6. the new Costas state at the reference bins
   if (tid < r2) {
     const int bin = ref_bin(tid);
@@ -266,10 +307,14 @@ extern "C" int sync_block(const void* spectra, const void* costas_phase,
                           const void* needle_known, void* pm, void* ref_ok,
                           void* ref_bc, void* ref_psmi, void* samperr,
                           void* angle, void* error_lb, void* error_ub,
-                          void* new_phase, void* new_freq, int n_stations,
-                          int ppb, float alpha, float beta, float two_pi,
-                          float pi, float two_pi_over_fft, void* stream) {
-  if (ppb < PMP || 2 * (ppb + 1) > MAX_R2) return (int)cudaErrorInvalidValue;
+                          void* new_phase, void* new_freq, void* px1,
+                          void* px2, const void* px_cols, int n_px1,
+                          int n_px2, int n_stations, int ppb, float alpha,
+                          float beta, float two_pi, float pi,
+                          float two_pi_over_fft, void* stream) {
+  if (ppb < PMP || 2 * (ppb + 1) > MAX_R2 || (n_px1 > 0) != (px1 != nullptr)
+      || (n_px2 > 0) != (px2 != nullptr))
+    return (int)cudaErrorInvalidValue;
   // the opt-in is a host-side call, made on every launch for the current
   // device rather than remembered once per process
   cudaError_t err = cudaFuncSetAttribute(
@@ -283,6 +328,7 @@ extern "C" int sync_block(const void* spectra, const void* costas_phase,
       (const unsigned*)needle_known, (int8_t*)pm, (uint8_t*)ref_ok,
       (int*)ref_bc, (int*)ref_psmi, (int*)samperr, (float*)angle,
       (float*)error_lb, (float*)error_ub, (float*)new_phase,
-      (float*)new_freq, ppb, alpha, beta, two_pi, pi, two_pi_over_fft);
+      (float*)new_freq, (int8_t*)px1, (int8_t*)px2, (const int*)px_cols,
+      n_px1, n_px2, ppb, alpha, beta, two_pi, pi, two_pi_over_fft);
   return (int)cudaGetLastError();
 }

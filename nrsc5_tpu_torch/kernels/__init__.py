@@ -53,10 +53,22 @@ SIGNATURES = {
     "viterbi_k7": (P, P, P, I, I, I, I, I, P),
     # spectra, costas_phase, costas_freq, timing_adj, sync_signs,
     # needle_vals, needle_known, pm, ref_ok, ref_bc, ref_psmi, samperr,
-    # angle, error_lb, error_ub, new_phase, new_freq, n_stations, ppb,
-    # alpha, beta, two_pi, pi, two_pi_over_fft, stream
-    "sync_block": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I,
-                   F, F, F, F, F, P),
+    # angle, error_lb, error_ub, new_phase, new_freq, px1, px2, px_cols,
+    # n_px1, n_px2, n_stations, ppb, alpha, beta, two_pi, pi,
+    # two_pi_over_fft, stream
+    "sync_block": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
+                   P, I, I, I, I, F, F, F, F, F, P),
+    # pm, k7_map, out, n_groups, frames_per_group, group_stride,
+    # frame_stride, map_len, stream
+    "fec_gather": (P, P, P, I, I, L, L, I, P),
+    # bits, keep, bits_per_frame, pm, code_map, frames_per_group,
+    # group_stride, frame_stride, keystream, out, errors, n_frames,
+    # frame_len, packed, g0, g1, g2, stream
+    "fec_epilogue": (P, P, I, P, P, I, L, L, P, P, P, I, I, I, I, I, I, P),
+    # llr, internal, phase, read_idx, hazard, k7_map, ext, new_internal,
+    # new_phase, n_stations, pairs, frame_len, state_len, calls, map_len,
+    # stream
+    "px_deinterleave": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
     # samples, n_samples, taps, shape_kernel, filter_delay, samperr, max_v,
     # n_stations, stream
     "coarse_timing": (P, L, P, P, I, P, P, I, P),

@@ -3,7 +3,10 @@
 PyTorch counterpart of ``nrsc5_tpu/ops/bits.py``: decoded frames are
 bits-as-bytes, so packing them 8-to-a-byte on the device before they are
 copied to the host moves an eighth of the bytes.  Little-endian bit order
-within each byte, matching ``np.unpackbits(..., bitorder="little")``.
+within each byte, matching ``np.unpackbits(..., bitorder="little")``.  On
+the chain's path kernel K8 packs as it descrambles
+(:func:`nrsc5_tpu_torch.ops.decode_fm.fec_epilogue`); :func:`pack_bits` is
+its plain version's pack.
 """
 
 from __future__ import annotations
@@ -11,7 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-PACKED_KEYS = ("p1", "pids")
+# the chain outputs that ``packed=True`` packs (the reference's list; the
+# port's chain has no p3)
+PACKED_KEYS = ("p1", "px1", "px2", "p3", "pids")
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -29,10 +34,3 @@ def unpack_bits(packed) -> np.ndarray:
         packed = packed.cpu().numpy()
     return np.unpackbits(np.asarray(packed), axis=-1, bitorder="little")
 
-
-def pack_out(out: dict) -> dict:
-    """Pack the decoded-bit entries of a chain output dict."""
-    for k in PACKED_KEYS:
-        if k in out:
-            out[k] = pack_bits(out[k])
-    return out

@@ -12,11 +12,14 @@ pre-loads the register with the frame's last K-1 bits.
 
 :func:`acs_traceback` is kernel K7 (``csrc/viterbi_k7.cu``): ACS forward
 recursion and traceback over free-start segments.  :func:`acs_traceback_plain`
-is its plain PyTorch version.  The tail-biting wrap extension
-(:func:`viterbi_decode`), the overlapping-segment plan and the keep-middle
-gather (:func:`viterbi_decode_chunked`) stay in PyTorch around it.  The
-chunk plan is the reference's CPU default: chunk 1152 with overlap 96, one
-trellis step per ACS step (radix 1), which sets which bits come out.
+is its plain PyTorch version.  :func:`viterbi_decode` (tail-biting wrap
+extension) and :func:`viterbi_decode_chunked` (overlapping segments, the
+keep-middle gather) decode any LLRs around it, as the reference's
+functions of those names do; the chain's channels instead reach K7
+through the static index maps of :mod:`nrsc5_tpu_torch.ops.decode_fm`
+(kernels K6, K11 and K8), which compose the same wrap and segment plan.
+The chunk plan is the reference's CPU default: chunk 1152 with overlap 96,
+one trellis step per ACS step (radix 1), which sets which bits come out.
 """
 
 from __future__ import annotations
@@ -94,15 +97,23 @@ def puncture(coded: np.ndarray, pattern: tuple[int, ...]) -> np.ndarray:
     return coded[..., mask]
 
 
+@functools.lru_cache(maxsize=8)
+def _kept_columns(pattern: tuple[int, ...], device: str) -> torch.Tensor:
+    return torch.tensor([i for i, bit in enumerate(pattern) if bit],
+                        dtype=torch.int64, device=device)
+
+
 def depuncture(llr: torch.Tensor, pattern: tuple[int, ...],
                coded_len: int) -> torch.Tensor:
     """Insert zero LLRs at punctured positions: [..., kept] -> [..., coded_len].
-    ``coded_len`` must tile the pattern (every FM channel's does)."""
+    ``coded_len`` must tile the pattern (every FM channel's does).  Once
+    the pattern's columns are cached on the device it makes no host copy,
+    so it can run inside a CUDA graph."""
     period, kept = len(pattern), int(sum(pattern))
     assert coded_len % period == 0, (coded_len, period)
     cols = llr.reshape(llr.shape[:-1] + (coded_len // period, kept))
     out = cols.new_zeros(cols.shape[:-1] + (period,))
-    out[..., [i for i, bit in enumerate(pattern) if bit]] = cols
+    out[..., _kept_columns(pattern, str(llr.device))] = cols
     return out.reshape(llr.shape[:-1] + (coded_len,))
 
 

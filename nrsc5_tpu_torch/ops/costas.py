@@ -23,7 +23,7 @@ TWO_PI = 2 * math.pi
 
 
 def wrap_pi(x):
-    return x - TWO_PI * torch.round(x / TWO_PI)
+    return x - TWO_PI * torch.round(rc.fdiv(x, TWO_PI))
 
 
 def _check_costas(refs, phase0, freq0, cfo_freq):

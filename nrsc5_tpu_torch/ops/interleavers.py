@@ -1,6 +1,6 @@
-"""NRSC-5 FM channel interleavers I and II as static gather tables.
+"""NRSC-5 FM channel interleavers I, II and IV as static gather tables.
 
-A numpy copy of the FM P1/PIDS part of ``nrsc5_tpu/ops/interleavers.py``
+A numpy copy of the FM part of ``nrsc5_tpu/ops/interleavers.py``
 (the port imports nothing of the JAX package; tests/test_torch_tables.py
 pins each table equal).  Every formula depends only on the stream position,
 so each (de)interleaver is a constant int32 index table computed once.
@@ -81,3 +81,66 @@ def pm_inverse_table() -> np.ndarray:
         inv[cells] = base + bc * len(pids) + np.arange(len(pids))
     assert not np.any(inv == -1), "P1 + PIDS must tile the PM matrix"
     return inv.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Interleaver IV — FM P3/P4 with internal two-frame delay (1012s 10.3.6;
+# reference: src/decode.c:344-376).
+#
+# The per-partition counters are deterministic in the cycle position, so one
+# interleaver *cycle* (N bits = 16 frames) has a constant read-index table.
+# The carried state is the N-entry internal buffer, written linearly; reads
+# within the already-written region of the current call take the fresh value
+# (the reference interleaves read/write per position).
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=4)
+def p3_iv_tables(frame_len: int):
+    """Returns (read_idx [N] int32, n, calls_per_cycle).
+
+    read_idx[i]: index into the internal buffer read at cycle position i.
+    N = 147456 (MP3/MP11, J=4) or 73728 (MP2, J=2); one call consumes
+    2*frame_len positions (two L1 blocks)."""
+    j = 4 if frame_len == C.P3_FRAME_LEN_MP3_MP11 else 2
+    b = 32
+    cc = 36
+    m = 2 if frame_len == C.P3_FRAME_LEN_MP3_MP11 else 4
+    n = 147456 if frame_len == C.P3_FRAME_LEN_MP3_MP11 else 73728
+    bk_bits = 32 * cc
+    bk_adj = bk_bits - 1
+
+    i = np.arange(n, dtype=np.int64)
+    partition = ((i + 2 * (m // 4)) // m) % j
+    # pti = running count of positions with this partition value before i
+    pti = np.empty(n, dtype=np.int64)
+    for p in range(j):
+        sel = partition == p
+        pti[sel] = np.arange(np.count_nonzero(sel))
+        assert np.count_nonzero(sel) == n // j
+    block = (pti + partition * 7 - bk_adj * (pti // bk_bits)) % b
+    row = ((11 * pti) % bk_bits) // cc
+    col = (pti * 11) % cc
+    idx = (block * 32 + row) * (j * cc) + partition * cc + col
+    assert len(np.unique(idx)) == n, "interleaver IV must be a permutation"
+    calls_per_cycle = n // (2 * frame_len)
+    return idx.astype(np.int32), n, calls_per_cycle
+
+
+@functools.lru_cache(maxsize=4)
+def p3_iv_hazard(frame_len: int):
+    """Boolean [N]: True where read index falls inside the current call's
+    already-written region (intra-call read-after-write)."""
+    idx, n, calls = p3_iv_tables(frame_len)
+    call_len = n // calls
+    i = np.arange(n, dtype=np.int64)
+    call_start = (i // call_len) * call_len
+    return (idx >= call_start) & (idx < i)
+
+
+@functools.lru_cache(maxsize=4)
+def p3_iv_inverse(frame_len: int) -> np.ndarray:
+    """TX scatter: internal-buffer position -> cycle stream position."""
+    idx, n, _ = p3_iv_tables(frame_len)
+    inv = np.empty(n, dtype=np.int32)
+    inv[idx] = np.arange(n, dtype=np.int32)
+    return inv

@@ -48,6 +48,15 @@ def angle(a):
     return torch.atan2(a[..., 1], a[..., 0])
 
 
+def fdiv(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, a float division by the number d, as the kernels and the
+    reference divide.  On a CUDA tensor PyTorch divides by a Python number
+    as a product with its reciprocal, which can round one ulp apart; a
+    divisor held on the tensor's device keeps the true division (on the
+    CPU the two agree already)."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def div(a, b):
     """a / b elementwise."""
     return mul_conj(a, b) / abs2(b)[..., None]

@@ -1,7 +1,7 @@
 """Geometry helpers of the fused FM chain.
 
 Counterpart of the helpers of ``nrsc5_tpu/pipeline/scan_chain.py``
-(``SLACK``, ``buffer_len``, ``px_frame_lens``).  The chain reads blocks at a
+(``SLACK``, ``buffer_len``, ``px_frame_lens``, ``iv_state_len``).  The chain reads blocks at a
 bounded offset walk inside a fixed-size buffer: in FINE state a block
 consumes ``32·FFTCP + samperr_fb`` samples, so the caller provides ``SLACK``
 extra samples of headroom (reference: src/acquire.c:259-262).
@@ -10,6 +10,7 @@ extra samples of headroom (reference: src/acquire.c:259-262).
 from __future__ import annotations
 
 from nrsc5_tpu_torch import constants as C
+from nrsc5_tpu_torch.ops import interleavers as IL
 
 SLACK = C.FFTCP_FM  # offset headroom for clock drift over a scan
 
@@ -22,6 +23,15 @@ def px_frame_lens(psmi: int) -> tuple[int, int]:
            11: C.P3_FRAME_LEN_MP3_MP11}.get(cm, 0)
     px2 = C.P3_FRAME_LEN_MP3_MP11 if cm == 11 else 0
     return px1, px2
+
+
+def iv_state_len(frame_len: int) -> int:
+    """Entries of the carried interleaver-IV state of a PX channel of
+    ``frame_len`` bits (0: the channel is absent)."""
+    if frame_len == 0:
+        return 0
+    _, n, _ = IL.p3_iv_tables(frame_len)
+    return n
 
 
 def buffer_len(n_blocks: int) -> int:

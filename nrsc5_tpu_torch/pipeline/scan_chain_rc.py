@@ -2,7 +2,7 @@
 L1 blocks.
 
 PyTorch counterpart of ``nrsc5_tpu/pipeline/scan_chain_rc.py`` (lines
-37-478 and 510-553) for service modes without PX channels.  The reference
+37-478 and 510-553), PX channels of MP2/MP3/MP11 included.  The reference
 ``vmap``s a per-station ``lax.scan``; here the station axis is written out
 and leads every tensor, and the block scan is a Python loop whose body
 runs for all stations at once:
@@ -11,9 +11,12 @@ runs for all stations at once:
     station's window at its own offset and folds it, the DFT is a matmul;
   * :func:`sync_block_rc` is kernel K4: the Costas PLL on the reference
     subcarriers, then the flip, needles, equalizer, timing regression and
-    int8 soft demap, one launch per block for all stations;
-  * after the loop the P1 and PIDS FEC run flat-batched over stations ×
-    frames through kernel K7.
+    int8 soft demap of the PM and PX partitions, one launch per block for
+    all stations;
+  * after the loop the P1, PIDS and PX FEC run flat-batched over stations
+    × frames (or block pairs): K6 or K11 (gather, depuncture, and for PX
+    the interleaver-IV state), K7 (Viterbi), K8 (re-encode, descramble,
+    pack), through :mod:`nrsc5_tpu_torch.ops.decode_fm`.
 
 The cold start (:func:`cold_start_rc`) locks a capture with unknown timing
 and CFO in two device dispatches for the whole fleet: the timing/CFO probe
@@ -41,11 +44,11 @@ from nrsc5_tpu_torch.ops import sync_fm as SF
 from nrsc5_tpu_torch.ops.acquire_rc import (WINDOW_FM, coarse_timing_rc,
                                             coarse_timing_rc_plain,
                                             demod_fold, demod_fold_plain)
-from nrsc5_tpu_torch.ops.bits import pack_out
 from nrsc5_tpu_torch.ops.costas import TWO_PI, costas_track_rc_plain, wrap_pi
-from nrsc5_tpu_torch.ops.decode_fm import p1_decode, pids_decode
+from nrsc5_tpu_torch.ops.decode_fm import (p1_decode, pids_decode,
+                                           px_deinterleave, px_fec)
 from nrsc5_tpu_torch.ops.detect_cfo import CFO_RANGE, detect_cfo_scan_rc
-from nrsc5_tpu_torch.pipeline.scan_chain import px_frame_lens
+from nrsc5_tpu_torch.pipeline.scan_chain import iv_state_len, px_frame_lens
 
 W = C.PARTITION_WIDTH_FM
 
@@ -60,24 +63,37 @@ class ChainCarryRC(NamedTuple):
     samperr_fb: torch.Tensor  # int32 [S]
     angle_fb: torch.Tensor  # float32 [S]
     cfo: torch.Tensor  # int32 [S] accumulated integer CFO (bins)
+    px1_internal: torch.Tensor  # int8 [S, N or 0] interleaver-IV state
+    px1_phase: torch.Tensor  # int32 [S] IV call phase
+    px2_internal: torch.Tensor  # int8 [S, N or 0]
+    px2_phase: torch.Tensor  # int32 [S]
 
 
 def check_psmi(psmi: int) -> None:
-    """The port decodes P1 and PIDS only: service modes with PX channels
-    (MP2/MP3/MP11) are not ported yet."""
-    if any(px_frame_lens(psmi)):
-        raise NotImplementedError(
-            f"psmi {psmi} carries PX channels, which the port does not "
-            "decode yet")
+    """A service-mode index the chain decodes: any entry of the
+    compatibility-mode table."""
+    if not 0 <= psmi < len(C.COMPATIBILITY_MODE):
+        raise ValueError(f"psmi {psmi} is not a service mode index")
+
+
+def check_px_state(carry: ChainCarryRC, psmi: int) -> None:
+    """The carry's interleaver-IV state is sized for ``psmi``."""
+    for key, fl in zip(("px1", "px2"), px_frame_lens(psmi)):
+        n = getattr(carry, f"{key}_internal").shape[-1]
+        if n != iv_state_len(fl):
+            raise ValueError(f"{key}_internal holds {n} entries; psmi "
+                             f"{psmi} carries {iv_state_len(fl)}")
 
 
 def chain_rc_init_carry(offset: int = 0, psmi: int = 1, cfo: int = 0, *,
                         n_stations: int = 1,
                         device="cuda") -> ChainCarryRC:
-    """Initial carry for ``n_stations`` stations on ``device``."""
+    """Initial carry for ``n_stations`` stations of service mode ``psmi``
+    on ``device``."""
     check_psmi(psmi)
     dev = K.resolve_device(device)
     s = n_stations
+    fl1, fl2 = px_frame_lens(psmi)
 
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=dev)
@@ -91,17 +107,36 @@ def chain_rc_init_carry(offset: int = 0, psmi: int = 1, cfo: int = 0, *,
         samperr_fb=full((s,), 0, torch.int32),
         angle_fb=full((s,), 0.0, torch.float32),
         cfo=full((s,), cfo, torch.int32),
+        px1_internal=full((s, iv_state_len(fl1)), 0, torch.int8),
+        px1_phase=full((s,), 0, torch.int32),
+        px2_internal=full((s, iv_state_len(fl2)), 0, torch.int8),
+        px2_phase=full((s,), 0, torch.int32),
     )
 
 
 def _phase_diff(a, b):
     d = a - b
-    return d - math.pi * torch.round(d / math.pi)
+    return d - math.pi * torch.round(rc.fdiv(d, math.pi))
 
 
 # ---------------------------------------------------------------------------
-# K4: sync block (MP1-style geometry, any partitions-per-band)
+# K4: sync block (any partitions-per-band, with the PX demaps)
 # ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def px_columns(psmi: int) -> tuple[tuple, tuple]:
+    """The partitions each PX channel demaps, in output order: one
+    ``(side, partition, mult_side)`` per column for px1 and for px2, with
+    side 0 lower and 1 upper, and the MER multiplier of ``mult_side``
+    (rc twin of the reference's src/sync.c:537-595; its px2 takes the lower
+    sideband's multiplier on both sidebands)."""
+    cm = C.COMPATIBILITY_MODE[psmi]
+    px1 = {2: ((0, 10, 0), (1, 10, 1)),
+           3: ((0, 10, 0), (0, 11, 0), (1, 11, 1), (1, 10, 1)),
+           11: ((0, 10, 0), (0, 11, 0), (1, 11, 1), (1, 10, 1))}.get(cm, ())
+    px2 = ((0, 12, 0), (0, 13, 0), (1, 13, 0), (1, 12, 0)) if cm == 11 \
+        else ()
+    return px1, px2
 
 @functools.lru_cache(maxsize=8)
 def _sync_tables(ppb: int, device: str) -> dict:
@@ -129,7 +164,39 @@ def _sync_tables(ppb: int, device: str) -> dict:
     }
     out = {k: torch.from_numpy(v).to(device) for k, v in tables.items()}
     out["k_rel"] = (out["bins"] - C.FFT_FM // 2).float()
+    # the PX columns of every service mode with this ppb, as K4 reads them:
+    # side + 2 * mult_side + 4 * partition, px1's then px2's
+    out["px_cols"] = {
+        psmi: torch.tensor([side + 2 * ms + 4 * part for cols in
+                            px_columns(psmi) for side, part, ms in cols]
+                           + [0], dtype=torch.int32, device=device)
+        for psmi in range(len(C.COMPATIBILITY_MODE))
+        if C.partitions_per_band(psmi) == ppb}
     return out
+
+
+def _ordered_sum(x, dim: int):
+    """Sum over ``dim`` from the first element to the last, one add at a
+    time: the order K4 sums its short sums in, so that the plain version
+    rounds as the kernel does."""
+    x = x.movedim(dim, 0)
+    acc = x[0]
+    for v in x[1:]:
+        acc = acc + v
+    return acc
+
+
+def _warp_sum(x):
+    """Sum over the last axis in the order one warp of K4 does: lane l adds
+    elements l, l + 32, ... in turn, then the 32 lane sums meet in a
+    butterfly (lane l + lane l + o, o = 16, 8, 4, 2, 1)."""
+    n = x.shape[-1]
+    lanes = -(-n // 32) * 32
+    x = torch.nn.functional.pad(x, (0, lanes - n))
+    acc = _ordered_sum(x.reshape(x.shape[:-1] + (lanes // 32, 32)), -2)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc[..., :o] + acc[..., o:2 * o]
+    return acc[..., 0]
 
 
 def _demod(z, mult):
@@ -156,7 +223,8 @@ def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
     dict of per-station tensors, new_phase, new_freq): ``pm`` int8
     [S, 23040], ``ref_ok`` bool [S, 2R], ``ref_bc``/``ref_psmi`` int32
     [S, 2R], ``samperr`` int32 [S], ``angle``, ``error_lb``, ``error_ub``
-    float32 [S]."""
+    float32 [S], and for the modes that carry them ``px1`` int8 [S, 2304]
+    (MP2) or [S, 4608] (MP3/MP11) and ``px2`` int8 [S, 4608] (MP11)."""
     check_psmi(psmi)
     _check_sync(spectra, costas_phase, costas_freq, timing_adj)
     ppb = C.partitions_per_band(psmi)
@@ -178,7 +246,9 @@ def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
     ph_out = ph_out.reshape(s, r2)
     fr_out = fr_out.reshape(s, r2)
 
-    score = (derot[..., 0] * t["sync_signs"][:, None]).sum(dim=1)  # [S, 2R]
+    # the sums below run in K4's order (_ordered_sum, _warp_sum), so that
+    # the plain version and the kernel round alike
+    score = _ordered_sum(derot[..., 0] * t["sync_signs"][:, None], 1)
     flip = score < 0
     derot = torch.where(flip[:, None, :, None], -derot, derot)
     phases = torch.where(flip[:, None, :], phases + math.pi, phases)
@@ -195,7 +265,7 @@ def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
         1, dtype=torch.int32)
 
     # equalization
-    smag = derot[..., 0].abs().mean(dim=1)  # [S, 2R]
+    smag = _ordered_sum(derot[..., 0].abs(), 1) / C.BLKSZ  # [S, 2R]
     phi_lo = phases[:, :, t["lo_idx"]]  # [S, 32, 2ppb]
     phi_hi = phases[:, :, t["hi_idx"]]
     smag_lo = smag[:, t["lo_idx"]][:, None, :]
@@ -209,20 +279,24 @@ def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
     data_sc = spectra[:, :, t["data_bins"]]  # [S, 32, 2ppb, 18, 2]
     data_eq = rc.mul(data_sc, eq)
 
-    samperr = _phase_diff(phi_lo[:, 0], phi_hi[:, 0]).sum(dim=-1)
-    samperr = samperr / (ppb * 2) * C.FFT_FM / W / TWO_PI
+    samperr = _ordered_sum(_phase_diff(phi_lo[:, 0], phi_hi[:, 0]), -1)
+    # divisions by numbers through rc.fdiv: true divisions, as K4 divides
+    samperr = rc.fdiv(rc.fdiv(rc.fdiv(samperr, ppb * 2) * C.FFT_FM, W),
+                      TWO_PI)
     x = k_rel
     y = fr_out
-    slope = (x * y).sum(dim=-1) / (x * x).sum()
-    samperr = samperr - slope * C.FFT_FM / TWO_PI * C.ACQUIRE_SYMBOLS
+    slope = _ordered_sum(x * y, -1) / _ordered_sum(x * x, -1)
+    samperr = samperr - rc.fdiv(slope * C.FFT_FM, TWO_PI) \
+        * C.ACQUIRE_SYMBOLS
     samperr_i = torch.round(samperr).to(torch.int32)
-    angle = fr_out.mean(dim=-1)
+    angle = rc.fdiv(_ordered_sum(fr_out, -1), r2)
     fr_out = fr_out - angle[:, None]
 
     ideal = torch.sign(data_eq)
     err2 = rc.abs2(ideal - data_eq)  # [S, 32, 2ppb, 18]
-    error_lb = err2[:, :, :ppb].sum(dim=(1, 2, 3))
-    error_ub = err2[:, :, ppb:].sum(dim=(1, 2, 3))
+    # per symbol and sideband over a warp, then over the symbols in order
+    error_lb = _ordered_sum(_warp_sum(err2[:, :, :ppb].flatten(2)), 1)
+    error_ub = _ordered_sum(_warp_sum(err2[:, :, ppb:].flatten(2)), 1)
     # a fill, not a host copy, so that the plain version can run inside a
     # CUDA graph
     sig_block = torch.full_like(
@@ -234,9 +308,12 @@ def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
     # weighting, ops/sync_fm.py EQ_MMSE): deep fades become near-erasures
     h2 = 1.0 / torch.clamp(rc.abs2(eq), min=1e-12)  # [S, 32, 2ppb, 18]
     h2_lb, h2_ub = h2[:, :, :ppb], h2[:, :, ppb:]
-    w_lb = torch.clamp(h2_lb / h2_lb.mean(dim=(2, 3), keepdim=True),
+    per_side = ppb * (W - 1)
+    w_lb = torch.clamp(h2_lb / rc.fdiv(_warp_sum(h2_lb.flatten(2)),
+                                       per_side)[:, :, None, None],
                        0.0, 1.0)[..., None]
-    w_ub = torch.clamp(h2_ub / h2_ub.mean(dim=(2, 3), keepdim=True),
+    w_ub = torch.clamp(h2_ub / rc.fdiv(_warp_sum(h2_ub.flatten(2)),
+                                       per_side)[:, :, None, None],
                        0.0, 1.0)[..., None]
     mlb = mult_lb[:, None, None, None, None] * w_lb
     mub = mult_ub[:, None, None, None, None] * w_ub
@@ -257,6 +334,15 @@ def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
         "error_lb": error_lb,
         "error_ub": error_ub,
     }
+    mults = (mult_lb[:, None, None, None, None], mult_ub[:, None, None, None,
+                                                         None])
+    ws = (w_lb, w_ub)
+    for key, cols in zip(("px1", "px2"), px_columns(psmi)):
+        if cols:
+            out[key] = torch.stack([
+                _demod(data_eq[:, :, side * ppb + part],
+                       mults[ms][:, :, 0] * ws[side][:, :, part])
+                for side, part, ms in cols], dim=2).reshape(s, -1)
     new_phase = costas_phase.clone()
     new_phase[:, bins] = wrap_pi(ph_out)
     new_freq = costas_freq.clone()
@@ -268,7 +354,8 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj):
     """K4: the arguments and results of :func:`sync_block_rc_plain`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (one CTA per station; it writes whole new Costas rows)."""
+    (one CTA per station; it writes whole new Costas rows and the PX
+    channels' soft bits)."""
     if spectra.device.type == "cpu":
         return sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi,
                                    timing_adj)
@@ -294,6 +381,11 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj):
            "angle": empty((s,), torch.float32),
            "error_lb": empty((s,), torch.float32),
            "error_ub": empty((s,), torch.float32)}
+    px1, px2 = px_columns(psmi)
+    for key, cols in (("px1", px1), ("px2", px2)):
+        if cols:
+            out[key] = empty((s, C.BLKSZ * len(cols) * 2 * (W - 1)),
+                             torch.int8)
     new_phase = torch.empty_like(costas_phase)
     new_freq = torch.empty_like(costas_freq)
     K.launch("sync_block", spectra.data_ptr(), costas_phase.data_ptr(),
@@ -303,8 +395,12 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj):
              *(out[k].data_ptr() for k in (
                  "pm", "ref_ok", "ref_bc", "ref_psmi", "samperr", "angle",
                  "error_lb", "error_ub")),
-             new_phase.data_ptr(), new_freq.data_ptr(), s, ppb, SF.ALPHA,
-             SF.BETA, TWO_PI, math.pi, TWO_PI / C.FFT_FM, device=dev)
+             new_phase.data_ptr(), new_freq.data_ptr(),
+             *(out[k].data_ptr() if k in out else None
+               for k in ("px1", "px2")),
+             t["px_cols"][psmi].data_ptr(), len(px1), len(px2), s, ppb,
+             SF.ALPHA, SF.BETA, TWO_PI, math.pi, TWO_PI / C.FFT_FM,
+             device=dev)
     return out, new_phase, new_freq
 
 
@@ -316,12 +412,15 @@ def frontend_scan_rc(samples, carry: ChainCarryRC, n_blocks: int,
                      psmi: int = 1, plain: bool = False):
     """The per-block acquire + sync loop.  samples: [S, N, 2] conjugated
     rc.  Returns (pm int8 [S, n_blocks, 23040], diag dict of
-    [S, n_blocks] tensors, new carry)."""
+    [S, n_blocks] tensors, px dict of the PX channels' soft bits
+    ``{"px1": int8 [S, n_blocks, 2304 or 4608], "px2": ...}`` for the
+    channels ``psmi`` carries, new carry)."""
     fftcp = C.FFTCP_FM
     fold = demod_fold_plain if plain else demod_fold
     sync = sync_block_rc_plain if plain else sync_block_rc
     cy = carry
     pms, samperrs, elbs, eubs = [], [], [], []
+    px = {k: [] for k, fl in zip(("px1", "px2"), px_frame_lens(psmi)) if fl}
     for _ in range(n_blocks):
         samperr = fftcp // 2 + cy.samperr_fb
         angle = cy.prev_angle - cy.angle_fb
@@ -338,10 +437,13 @@ def frontend_scan_rc(samples, carry: ChainCarryRC, n_blocks: int,
         samperrs.append(out["samperr"])
         elbs.append(out["error_lb"])
         eubs.append(out["error_ub"])
+        for k in px:
+            px[k].append(out[k])
     diag = {"samperr": torch.stack(samperrs, dim=1),
             "error_lb": torch.stack(elbs, dim=1),
             "error_ub": torch.stack(eubs, dim=1)}
-    return torch.stack(pms, dim=1), diag, cy
+    px = {k: torch.stack(v, dim=1) for k, v in px.items()}
+    return torch.stack(pms, dim=1), diag, px, cy
 
 
 def fm_chain_batch_rc(samples, carries: ChainCarryRC, n_blocks: int,
@@ -349,32 +451,52 @@ def fm_chain_batch_rc(samples, carries: ChainCarryRC, n_blocks: int,
                       packed: bool = False, plain: bool = False):
     """Station batch: samples [S, N, 2] conjugated rc at 744187.5 S/s
     (N >= buffer_len(n_blocks) for a full walk).  The P1 FEC is
-    flat-batched over stations × frames, as in the reference.
+    flat-batched over stations × frames and the PX FEC over stations ×
+    block pairs, as in the reference.
 
     Returns (out, new carries) with ``out["pids"]`` uint8 [S, n_blocks, 80],
     ``out["p1"]`` uint8 [S, F, 146176], ``out["p1_margin"]`` [S, F],
     ``out["p1_bit_errors"]`` [S, F] (when a whole frame lies in the
-    dispatch) and ``out["diag"]``.  ``packed=True`` packs p1 and pids 8
-    bits to a byte (:mod:`nrsc5_tpu_torch.ops.bits`)."""
+    dispatch), for the modes with PX channels ``out["px1"]`` (and
+    ``"px2"``) uint8 [S, n_blocks // 2, frame_len] with ``"px1_margin"``
+    [S, n_blocks // 2], decoded through the carried interleaver-IV state
+    (``first_bc`` and ``n_blocks`` even: one IV call per block pair), and
+    ``out["diag"]``.  ``packed=True`` packs the decoded bits 8 to a byte
+    (:mod:`nrsc5_tpu_torch.ops.bits`)."""
     check_psmi(psmi)
-    pm, diag, carry = frontend_scan_rc(samples, carries, n_blocks, psmi,
-                                       plain=plain)
+    check_px_state(carries, psmi)
+    if any(px_frame_lens(psmi)) and (first_bc % 2 or n_blocks % 2):
+        raise ValueError(f"PX decode needs pair-aligned blocks: first_bc "
+                         f"{first_bc} and n_blocks {n_blocks} must be even")
+    pm, diag, px, carry = frontend_scan_rc(samples, carries, n_blocks, psmi,
+                                           plain=plain)
     s = pm.shape[0]
     out = {"diag": diag}
-    out["pids"] = pids_decode(pm.reshape(s * n_blocks, -1),
+    out["pids"] = pids_decode(pm, packed=packed,
                               plain=plain).reshape(s, n_blocks, -1)
 
     skip = (C.P1_FM_BLOCKS - first_bc) % C.P1_FM_BLOCKS
     n_frames = (n_blocks - skip) // C.P1_FM_BLOCKS
     if n_frames > 0:
-        frames = pm[:, skip: skip + n_frames * C.P1_FM_BLOCKS]
-        flat = frames.reshape(s * n_frames, -1)
-        p1, margin, errors = p1_decode(flat, plain=plain)
+        frames = pm[:, skip: skip + n_frames * C.P1_FM_BLOCKS].view(
+            s, n_frames, -1)
+        p1, margin, errors = p1_decode(frames, packed=packed, plain=plain)
         out["p1"] = p1.reshape(s, n_frames, -1)
         out["p1_margin"] = margin.reshape(s, n_frames)
         out["p1_bit_errors"] = errors.reshape(s, n_frames)
-    if packed:
-        out = pack_out(out)
+
+    # PX channels: one interleaver-IV call per block pair, the state
+    # carried across dispatches; the K=7 FEC flat over stations × pairs
+    for key, llr in px.items():
+        fl = llr.shape[-1]
+        ext, internal, phase = px_deinterleave(
+            llr, getattr(carry, f"{key}_internal"),
+            getattr(carry, f"{key}_phase"), plain=plain)
+        bits, margin = px_fec(ext, fl, packed=packed, plain=plain)
+        out[key] = bits.reshape(s, n_blocks // 2, -1)
+        out[key + "_margin"] = margin.reshape(s, n_blocks // 2)
+        carry = carry._replace(**{f"{key}_internal": internal,
+                                  f"{key}_phase": phase})
     return out, carry
 
 
@@ -489,10 +611,9 @@ def cold_start_rc(samples_rc, *, device="cuda", plain: bool = False):
         ok, bcs, psmis = (x.cpu().numpy() for x in bc_probe_rc(
             samples, torch.from_numpy(starts).to(dev), angle, cfo,
             plain=plain))
-        # the carry holds no mode-dependent state: the same fresh carry
-        # serves every mode the chain decodes
-        carries = chain_rc_init_carry(n_stations=s, device=dev)._replace(
-            prev_angle=angle, cfo=cfo)
+        # fresh carries for each service mode voted: the PX state is sized
+        # by psmi
+        carries = {}
         for i in np.flatnonzero(found):
             good = ok[i]
             if good.sum() < 4:
@@ -501,7 +622,12 @@ def cold_start_rc(samples_rc, *, device="cuda", plain: bool = False):
             psmi = int(np.bincount(psmis[i][good]).argmax())
             if not 0 <= psmi < len(C.COMPATIBILITY_MODE):
                 psmi = 1
+            if psmi not in carries:
+                carries[psmi] = chain_rc_init_carry(
+                    psmi=psmi, n_stations=s, device=dev)._replace(
+                        prev_angle=angle, cfo=cfo)
             locks[i] = {"offset": int(starts[i]), "first_bc": first_bc,
                         "psmi": psmi, "cfo": int(cfos[i]),
-                        "carry": ChainCarryRC(*(x[i] for x in carries))}
+                        "carry": ChainCarryRC(*(x[i] for x in
+                                                carries[psmi]))}
     return locks[0] if single else locks

@@ -3,8 +3,9 @@
 The receiver has no weights: its parameters are its tables and the carried
 state of the chain.  These two functions hand that state across packages
 and processes as plain numpy arrays keyed by the field names of
-``ChainCarryRC`` (the same names as the reference package's carry), so a
-stream decoded so far by one receiver continues bit-exactly in the other.
+``ChainCarryRC`` (the same names and order as the reference package's
+carry, the PX channels' interleaver-IV state included), so a stream decoded
+so far by one receiver continues bit-exactly in the other.
 """
 
 from __future__ import annotations
@@ -12,7 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
+from nrsc5_tpu_torch.pipeline.scan_chain import iv_state_len, px_frame_lens
 from nrsc5_tpu_torch.pipeline.scan_chain_rc import ChainCarryRC
 
 _DTYPES = {
@@ -20,27 +23,39 @@ _DTYPES = {
     "prev_angle": torch.float32, "costas_phase": torch.float32,
     "costas_freq": torch.float32, "samperr_fb": torch.int32,
     "angle_fb": torch.float32, "cfo": torch.int32,
+    "px1_internal": torch.int8, "px1_phase": torch.int32,
+    "px2_internal": torch.int8, "px2_phase": torch.int32,
 }
-# the reference carry's PX interleaver state; the port decodes no PX
-# channel yet, so it takes these only while they hold nothing
-_PX_FIELDS = ("px1_internal", "px1_phase", "px2_internal", "px2_phase")
 
 
-def carry_from_numpy(d: dict, *, device="cuda") -> ChainCarryRC:
+def _iv_lens(psmi: int | None) -> list[set]:
+    """The interleaver-IV state lengths px1 and px2 may hold: those of
+    ``psmi``, or without it those of any service mode (0: no channel)."""
+    modes = range(len(C.COMPATIBILITY_MODE)) if psmi is None else (psmi,)
+    return [{iv_state_len(px_frame_lens(p)[i]) for p in modes}
+            for i in range(2)]
+
+
+def carry_from_numpy(d: dict, *, psmi: int | None = None,
+                     device="cuda") -> ChainCarryRC:
     """{field: array} -> the port's carry on ``device``.  Arrays without a
     leading station axis (one station's carry) get one; ``d`` must hold
-    exactly the carry's fields, plus the reference's PX fields if they are
-    all zero (no PX state, as in a service mode without PX channels)."""
-    px = set(d) & set(_PX_FIELDS)
-    if set(d) - px != set(ChainCarryRC._fields):
+    exactly the carry's fields.  The interleaver-IV state must have the
+    length of ``psmi``'s PX channels, or, without ``psmi``, the length of
+    some service mode's."""
+    if set(d) != set(ChainCarryRC._fields):
         raise ValueError(f"carry fields {sorted(d)} != "
                          f"{sorted(ChainCarryRC._fields)}")
-    for name in px:
-        if np.any(np.asarray(d[name])):
-            raise ValueError(f"{name} holds PX state, which the port does "
-                             "not decode yet")
-    dev = K.resolve_device(device)
     single = np.ndim(d["offset"]) == 0
+    for name, allowed in zip(("px1_internal", "px2_internal"),
+                             _iv_lens(psmi)):
+        n = np.shape(d[name])[-1]
+        if n not in allowed:
+            raise ValueError(f"{name} holds {n} entries, not the "
+                             "interleaver-IV state of " + (
+                                 "a service mode" if psmi is None
+                                 else f"psmi {psmi}"))
+    dev = K.resolve_device(device)
     leaves = {}
     for name, dtype in _DTYPES.items():
         a = np.asarray(d[name])

@@ -332,11 +332,13 @@ def test_slice_carry_matches_jax(slice_run):
     got = state.carry_to_numpy(slice_run["carry"])
     for s, (_, jc) in enumerate(slice_run["jax"]):
         ref = jc._asdict()
-        # MP1 leaves the reference's PX state empty: the port carries none
-        assert set(ref) - set(got) == set(state._PX_FIELDS)
-        assert not any(np.any(np.asarray(ref[k])) for k in state._PX_FIELDS)
+        # the reference's fields in its order, the PX state included (MP1
+        # carries an empty one)
+        assert list(got) == list(ref)
         for k in got:
             v = np.asarray(ref[k])
+            assert got[k][s].shape == v.shape, k
+            assert got[k][s].dtype == v.dtype, k
             if k in _ANGLES:
                 np.testing.assert_allclose(got[k][s], v, rtol=1e-4,
                                            atol=CHAIN_ANGLE_ATOL, err_msg=k)
@@ -371,15 +373,48 @@ def test_carry_numpy_roundtrip():
     assert state.carry_from_numpy(single, device="cpu").offset.shape == (1,)
 
 
-def test_carry_from_numpy_refuses_px_state():
-    d = state.carry_to_numpy(TRC.chain_rc_init_carry(device="cpu"))
-    d.update(px1_internal=np.zeros((1, 0), np.int8),
-             px1_phase=np.zeros(1, np.int32),
-             px2_internal=np.zeros((1, 0), np.int8),
-             px2_phase=np.zeros(1, np.int32))
-    state.carry_from_numpy(d, device="cpu")
-    d["px1_internal"] = np.ones((1, 4), np.int8)
-    with pytest.raises(ValueError, match="PX state"):
+def _jax_px_carry(psmi, seed):
+    """A JAX carry of service mode ``psmi`` holding nonzero PX state."""
+    rng = np.random.default_rng(seed)
+    jc = JRC.chain_rc_init_carry(offset=7, psmi=psmi, cfo=-2)
+    d = {k: np.asarray(v) for k, v in jc._asdict().items()}
+    for k in ("px1", "px2"):
+        d[k + "_internal"] = rng.integers(
+            -127, 128, d[k + "_internal"].shape).astype(np.int8)
+        d[k + "_phase"] = np.int32(rng.integers(0, 16))
+    d["costas_phase"] = rng.normal(0, 0.1, d["costas_phase"].shape).astype(
+        np.float32)
+    return d
+
+
+@pytest.mark.parametrize("psmi", [2, 3, 11])
+def test_carry_numpy_roundtrip_px_state(psmi):
+    """A JAX carry with nonzero interleaver-IV state crosses into the port
+    and back exactly."""
+    d = _jax_px_carry(psmi, psmi)
+    carry = state.carry_from_numpy(d, psmi=psmi, device="cpu")
+    assert carry.px1_internal.shape == (1, d["px1_internal"].shape[0])
+    back = state.carry_to_numpy(carry)
+    assert list(back) == list(d)
+    for k, v in d.items():
+        assert back[k][0].dtype == v.dtype, k
+        assert np.array_equal(back[k][0], v), k
+    stacked = state.carry_from_numpy(
+        {k: np.stack([v, v]) for k, v in d.items()}, device="cpu")
+    assert torch.equal(stacked.px1_internal[1], carry.px1_internal[0])
+
+
+def test_carry_from_numpy_refuses_wrong_iv_length():
+    """IV state sized for another service mode is refused, against the
+    psmi given or, without one, against every mode's lengths."""
+    d = _jax_px_carry(3, 1)
+    state.carry_from_numpy(d, psmi=3, device="cpu")
+    with pytest.raises(ValueError, match="px1_internal holds 147456"):
+        state.carry_from_numpy(d, psmi=2, device="cpu")
+    with pytest.raises(ValueError, match="px2_internal holds 0"):
+        state.carry_from_numpy(d, psmi=11, device="cpu")
+    d["px1_internal"] = d["px1_internal"][:1000]
+    with pytest.raises(ValueError, match="px1_internal holds 1000"):
         state.carry_from_numpy(d, device="cpu")
     del d["offset"]
     with pytest.raises(ValueError, match="carry fields"):

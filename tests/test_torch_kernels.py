@@ -9,16 +9,17 @@ need.)
 
 Tolerances:
 
-- K1 (halfband), K7 (Viterbi), K9 (coarse timing) and the needle count of
-  K10 exact: no FMA contraction and the same operation order, integer path
-  metrics and integer counts;
+- K1 (halfband), K6 (FEC gather), K7 (Viterbi), K8 (FEC epilogue), K9
+  (coarse timing), the needle count of K10 and K11 (PX deinterleave)
+  exact: no FMA contraction and the same operation order, integer path
+  metrics, integer counts, and gathers of int8 values;
 - K2 (demod fold), K3 (Costas) and the float outputs of K4 (sync block)
   within 1e-5 of the largest value (at least 1): float32 sin, cos and
   atan2 may differ in the last bit between the kernel's build and
-  PyTorch's, and K4 sums its 180- and 5760-term reductions in another order
-  than PyTorch does;
-- K4's ref_ok, ref_bc, ref_psmi and samperr exact; its int8 soft bits
-  within ±1 on at most 0.1 % of values (a reduction's last bit can move a
+  PyTorch's (K4's plain version sums in K4's order and divides by numbers
+  as K4 does, so at chip_smoke.py's inputs the two agree exactly);
+- K4's ref_ok, ref_bc, ref_psmi and samperr exact; its int8 soft bits (pm,
+  px1, px2) within ±1 on at most 0.1 % of values (a reduction's last bit can move a
   product across a .5 rounding edge).  These hold K4 at states the chain
   produces.  Off that path (timing no lock gives, a random Costas state)
   the MER sums error_lb/ub are ill-conditioned in float32, so there they
@@ -38,10 +39,12 @@ from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops import acquire_rc as AQ
 from nrsc5_tpu_torch.ops import convolutional as CV
 from nrsc5_tpu_torch.ops import costas as CO
+from nrsc5_tpu_torch.ops import decode_fm as DF
 from nrsc5_tpu_torch.ops import detect_cfo as DC
 from nrsc5_tpu_torch.ops import frontend as FE
 from nrsc5_tpu_torch.ops import rcplx as rc
 from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
+from nrsc5_tpu_torch.pipeline.scan_chain import px_frame_lens
 from nrsc5_tpu_torch.tx import channel as ch
 from nrsc5_tpu_torch.tx.encoder import build_pm_matrix
 from nrsc5_tpu_torch.tx.modulator import modulate_fm
@@ -129,12 +132,17 @@ def test_viterbi_k7(card, length, sigma):
 
 def _capture(rng, psmi, sample_offset, cfo_hz, n_blocks=2):
     """``n_blocks`` blocks of one station at 25 dB, delayed and shifted in
-    frequency, as the conjugated rc chain input [N, 2]."""
+    frequency, as the conjugated rc chain input [N, 2]; the PX partitions
+    of the modes that have them carry random signs."""
     matrix = build_pm_matrix(
         rng.integers(0, 2, C.P1_FRAME_LEN_FM).astype(np.uint8),
         rng.integers(0, 2, (16, C.PIDS_FRAME_LEN)).astype(np.uint8))[
             :n_blocks * C.BLKSZ]
-    sig = ch.impair(modulate_fm(matrix, np.arange(3, 3 + n_blocks), psmi),
+    px = {f"{k}_signs": rng.choice([-1, 1], (n_blocks * C.BLKSZ, fl // 32))
+          .astype(np.int8) for k, fl in zip(("px1", "px2"),
+                                             px_frame_lens(psmi)) if fl}
+    sig = ch.impair(modulate_fm(matrix, np.arange(3, 3 + n_blocks), psmi,
+                                **px),
                     sample_offset=sample_offset, cfo_hz=cfo_hz, snr_db=25.0,
                     rng=rng)
     return np.stack([sig.real, -sig.imag], -1).astype(np.float32)
@@ -154,18 +162,22 @@ def _spectra(card, captures, samperr, angle, cfo):
 
 def _sync_check(ko, kph, kfr, po, pph, pfr, floats=("angle", "error_lb",
                                                    "error_ub")):
+    assert set(ko) == set(po)
     for k in ("ref_ok", "ref_bc", "ref_psmi", "samperr"):
         assert ko[k].dtype == po[k].dtype and torch.equal(ko[k], po[k]), k
-    diff = (ko["pm"].int() - po["pm"].int()).abs()
-    assert int(diff.max()) <= 1
-    assert int((diff > 0).sum()) <= 1e-3 * diff.numel()
+    for k in ("pm", "px1", "px2"):
+        if k in po:
+            assert ko[k].shape == po[k].shape, k
+            diff = (ko[k].int() - po[k].int()).abs()
+            assert int(diff.max()) <= 1, k
+            assert int((diff > 0).sum()) <= 1e-3 * diff.numel(), k
     for k in floats:
         _close(ko[k], po[k], 1e-5)
     _close(kph, pph, 1e-5)
     _close(kfr, pfr, 1e-5)
 
 
-@pytest.mark.parametrize("psmi", [1, 5])
+@pytest.mark.parametrize("psmi", [1, 2, 3, 5, 11])
 def test_sync_block(card, psmi):
     """K4 at block 1 of three stations' chains: the nonzero Costas state
     that block 0 left, and timing_adj from a samperr feedback moved by 0,
@@ -174,7 +186,7 @@ def test_sync_block(card, psmi):
     caps = [_capture(rng, psmi, 0, f, n_blocks=3) for f in (0.0, 20.0, -35.0)]
     x = torch.from_numpy(np.stack(caps)).to(card)
     carry = rcc.chain_rc_init_carry(psmi=psmi, n_stations=3, device=card)
-    _, _, cy = rcc.frontend_scan_rc(x, carry, 1, psmi, plain=True)
+    _, _, _, cy = rcc.frontend_scan_rc(x, carry, 1, psmi, plain=True)
     assert cy.costas_phase.abs().max() > 0.01
     samperr = C.FFTCP_FM // 2 + cy.samperr_fb + torch.tensor(
         [0, 2, -3], dtype=torch.int32, device=card)
@@ -278,3 +290,68 @@ def test_needle_count(card):
     for s, c in enumerate(true):
         ci = int(count[s].flatten().argmax()) // C.BLKSZ
         assert ci - DC.CFO_RANGE == -c
+
+
+def _pm(seed, s, n_blocks):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-127, 128, (s, n_blocks, C.PM_BLOCK_SIZE),
+                         generator=g, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("name,skip", [("p1", 0), ("p1", 2), ("pids", 0)])
+def test_fec_gather(card, name, skip):
+    """K6 at the path's shapes: 16 stations × 2 P1 frames (read in place
+    from a [16, 34, 23040] pm past 2 lead blocks, as the chain slices it)
+    and 16 × 32 PIDS blocks."""
+    pm = _pm(10, 16, 32 + skip).to(card)
+    if name == "p1":
+        frames = pm[:, skip:skip + 32].view(16, 2, -1)
+    else:
+        frames = pm
+    before = K.COUNTS["fec_gather"]
+    got = DF.fec_gather(frames, name)
+    assert K.COUNTS["fec_gather"] == before + 1
+    assert torch.equal(got, DF.fec_gather_plain(frames, name))
+
+
+@pytest.mark.parametrize("name", ["p1", "pids", "px4608", "px2304"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_fec_epilogue(card, name, packed):
+    """K8 on random K7 bits: 32 P1 frames with their pm (re-encode bit
+    errors), 512 PIDS words, 256 PX frames."""
+    tb = DF.channel_tables(name)
+    b = {"p1": 32, "pids": 512}.get(name, 256)
+    g = torch.Generator().manual_seed(11)
+    bits = torch.randint(0, 2, (b * tb["n_seg"], tb["steps"]), generator=g,
+                         dtype=torch.uint8).to(card)
+    pm = _pm(12, 16, 32).to(card).view(16, 2, -1) if name == "p1" else None
+    before = K.COUNTS["fec_epilogue"]
+    got, errors = DF.fec_epilogue(bits, name, pm, packed)
+    assert K.COUNTS["fec_epilogue"] == before + 1
+    want, want_errors = DF.fec_epilogue_plain(bits, name, pm, packed)
+    assert torch.equal(got, want)
+    if pm is None:
+        assert errors is None and want_errors is None
+    else:
+        assert torch.equal(errors, want_errors)
+
+
+@pytest.mark.parametrize("fl,s,pairs", [(4608, 16, 16), (4608, 3, 18),
+                                        (2304, 16, 16)])
+def test_px_deinterleave(card, fl, s, pairs):
+    """K11 at MP3's and MP2's path shapes (16 stations × 16 pairs) and past
+    a cycle (18 pairs), from a random state and per-station phases."""
+    g = torch.Generator().manual_seed(fl + pairs)
+    _, n, calls = DF.IL.p3_iv_tables(fl)
+    llr = torch.randint(-127, 128, (s, 2 * pairs, fl), generator=g,
+                        dtype=torch.int8).to(card)
+    internal = torch.randint(-127, 128, (s, n), generator=g,
+                             dtype=torch.int8).to(card)
+    phase = torch.randint(0, calls, (s,), generator=g,
+                          dtype=torch.int32).to(card)
+    before = K.COUNTS["px_deinterleave"]
+    got = DF.px_deinterleave(llr, internal, phase)
+    assert K.COUNTS["px_deinterleave"] == before + 1
+    want = DF.px_deinterleave_plain(llr, internal, phase)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)

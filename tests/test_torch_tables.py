@@ -98,7 +98,19 @@ TABLES = {
                           [JSCH.px_frame_lens(p) for p in range(64)]),
                  lambda: (TSCH.SLACK, [TSCH.buffer_len(n) for n in (1, 17)],
                           [TSCH.px_frame_lens(p) for p in range(64)])),
+    "iv_state_len": (lambda: [JSCH.iv_state_len(f) for f in (0, 2304, 4608)],
+                     lambda: [TSCH.iv_state_len(f) for f in (0, 2304, 4608)]),
 }
+for _fl in (2304, 4608):
+    TABLES[f"p3_iv_tables_{_fl}"] = (
+        lambda fl=_fl: JIL.p3_iv_tables(fl),
+        lambda fl=_fl: TIL.p3_iv_tables(fl))
+    TABLES[f"p3_iv_hazard_{_fl}"] = (
+        lambda fl=_fl: JIL.p3_iv_hazard(fl),
+        lambda fl=_fl: TIL.p3_iv_hazard(fl))
+    TABLES[f"p3_iv_inverse_{_fl}"] = (
+        lambda fl=_fl: JIL.p3_iv_inverse(fl),
+        lambda fl=_fl: TIL.p3_iv_inverse(fl))
 
 
 @pytest.mark.parametrize("name", sorted(TABLES))
@@ -139,3 +151,31 @@ def test_modulator_and_channel_equal():
                            rng=np.random.default_rng(13))
         wires.append(mod.to_cu8(mod.upsample2(noisy)))
     _equal(*wires)
+
+
+@pytest.mark.parametrize("fl", [2304, 4608])
+def test_px_encoder_equal(fl):
+    """The PX transmit stream of two IV cycles of fixed-seed frames, and
+    one frame's punctured code."""
+    rng = np.random.default_rng(fl)
+    frames = rng.integers(0, 2, (2, 16, fl)).astype(np.uint8)
+    _equal(JEN.encode_p3_stream(frames[0, 0], fl),
+           TEN.encode_p3_stream(frames[0, 0], fl))
+    _equal(JEN.build_px_stream(frames, fl, np.random.default_rng(3)),
+           TEN.build_px_stream(frames, fl, np.random.default_rng(3)))
+    _equal(JEN.build_px_stream(frames, fl), TEN.build_px_stream(frames, fl))
+
+
+@pytest.mark.parametrize("psmi", [2, 3, 11])
+def test_modulator_px_equal(psmi):
+    """The modulator with PX1 (and MP11's PX2) partitions filled."""
+    rng = np.random.default_rng(psmi)
+    matrix = JEN.build_pm_matrix(
+        rng.integers(0, 2, JC.P1_FRAME_LEN_FM).astype(np.uint8),
+        rng.integers(0, 2, (16, JC.PIDS_FRAME_LEN)).astype(np.uint8))[:64]
+    fl1, fl2 = JSCH.px_frame_lens(psmi)
+    kw = {"px1_signs": rng.choice([-1, 1], (64, fl1 // 32)).astype(np.int8)}
+    if fl2:
+        kw["px2_signs"] = rng.choice([-1, 1], (64, fl2 // 32)).astype(np.int8)
+    _equal(JMO.modulate_fm(matrix, np.array([6, 7]), psmi, **kw),
+           TMO.modulate_fm(matrix, np.array([6, 7]), psmi, **kw))
