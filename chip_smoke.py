@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FM receive chain on one CUDA card.
+"""Drive the PyTorch port's FM and AM receive chains on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,9 +8,9 @@ Run from the root of the repository on a machine with a CUDA card and
 Phases, each printing one JSON line:
 
 1. device: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
-2. build: the ten hand kernels (K1, K2, K3, K4, K6, K7, K8, K9, the needle
-   count of K10, K11) built from ``nrsc5_tpu_torch/csrc`` with ``nvcc``
-   for ``sm_90a``, all in parallel;
+2. build: the fourteen hand kernels (K1, K2, K3, K4, K6, K7 at K=7 and at
+   K=9, K8, K9, the needle count of K10, K11, K12, K13, K15) built from
+   ``nrsc5_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``, all in parallel;
 3. signal: 16 stations of MP1, each modulated once with the port's ``tx``
    copy from random bits of a fixed seed: 2 lead blocks (block counts 14
    and 15), then 2 P1 frames.  From that one baseband come two cu8 wires
@@ -20,11 +20,17 @@ Phases, each printing one JSON line:
    bins, both signs present, plus a fractional part within ±60 Hz).  And
    16 stations of MP3 (psmi 3): 96 frame-aligned blocks of P1, PIDS and 3
    interleaver-IV cycles of PX1 as one cu8 queue each at 25 dB, plus 3
-   blocks of MP2 and of MP11 as chain input for K4's lines;
+   blocks of MP2 and of MP11 as chain input for K4's lines.  And 16 AM
+   stations of MA1: 6 frame-aligned frames of P1, P3 and PIDS each at 35
+   dB AWGN with a fractional CFO within ±10 Hz, as one cs16 queue at
+   46511.7 S/s, plus 2 frames of MA3 as chain input for the MA3 kernel
+   lines;
 4. one line per kernel: the kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it, with times (K4 also at
    psmi 2, 3 and 11, K6 and K8 at P1's and PIDS's shapes, K8 at PX's,
-   K11 at MP3's and MP2's);
+   K11 at MP3's and MP2's; the AM kernels K12 in both passes, K13 and K15
+   in MA1 and MA3, K7 at K=9 on P1, P3 of MA1 and MA3 and PIDS, and K8
+   on the AM P1);
 5. coldstart: ``serve.cold_start`` on the capture must lock 16/16 stations
    with the true |CFO| under one sign convention, first_bc 14 and psmi 1;
    then ``serve.chain_step`` from the locks over 34 blocks must decode
@@ -46,7 +52,16 @@ Phases, each printing one JSON line:
    and no plain version called; the same dispatches through the plain
    versions the same outputs (bits, margins, bit errors) and the same final
    IV state and phases.  Wall per dispatch,
-   real-time factor (at least 1), stage split, device busy time.
+   real-time factor (at least 1), stage split, device busy time;
+8. am: three ``serve.chain_step_am`` dispatches of 2 frames on the AM
+   queues from a fresh carry, the carry (delay lines included) handed on
+   and each queue advanced by what its station consumed.  Gate: every P1
+   subframe and P3 frame of frames 3-5 (384 and 48; frames 0-2 are the
+   diversity warm-up) and all 768 PIDS words bit-exact; the launch counts
+   of each dispatch exactly K12 32, K13 16, K15 1, K7 at K=9 3 and K8 3,
+   and no plain version called; the same dispatches through the plain
+   versions the same bits, margins and final delay lines.  Wall per
+   dispatch, real-time factor, stage split, device busy time.
 
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``:
 the sum over the paths driven, itemised under ``launches_by_path``) and,
@@ -76,6 +91,11 @@ DISPATCH_BLOCKS = 32
 LEAD = 2  # lead blocks (bc 14, 15) ahead of the frames in the capture
 SNR_DB = 25.0
 SEED = 0x5EED
+AM_FRAMES = 2  # frames per AM dispatch (the reference serve's default)
+AM_DISPATCHES = 3
+AM_SNR_DB = 35.0
+AM_CFO_HZ = 10.0  # fractional CFOs within ±AM_CFO_HZ
+AM_RMS = 0.1  # the cs16 wire's rms, of full scale
 # the card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -102,6 +122,14 @@ KERNELS = {
                      "nrsc5_tpu/ops/convolutional.py:511"),
     "px_deinterleave": ("nrsc5_tpu_torch/csrc/px_deinterleave.cu",
                         "nrsc5_tpu/ops/decode_fm.py:106"),
+    "viterbi_k9": ("nrsc5_tpu_torch/csrc/viterbi_k9.cu",
+                   "nrsc5_tpu/ops/convolutional.py:154"),
+    "am_fold": ("nrsc5_tpu_torch/csrc/am_fold.cu",
+                "nrsc5_tpu/pipeline/scan_chain_am_rc.py:84"),
+    "sync_am_block": ("nrsc5_tpu_torch/csrc/sync_am_block.cu",
+                      "nrsc5_tpu/pipeline/scan_chain_am_rc.py:143"),
+    "am_gather": ("nrsc5_tpu_torch/csrc/am_gather.cu",
+                  "nrsc5_tpu/ops/decode_am.py:86"),
 }
 # the kernels each path launches
 STEADY = ("halfband_cu8", "demod_fold", "sync_block", "fec_gather",
@@ -113,6 +141,10 @@ COLD_START = ("halfband_cu8", "demod_fold", "costas_track", "sync_block",
 MP3_LAUNCHES = {"halfband_cu8": 1, "demod_fold": 32, "sync_block": 32,
                 "fec_gather": 2, "viterbi_k7": 3, "fec_epilogue": 3,
                 "px_deinterleave": 1}
+# launches of one AM dispatch of 2 frames (16 blocks): K12 twice a block,
+# K13 once a block, K15 once, K7 at K=9 and K8 for P1, P3 and PIDS
+AM_LAUNCHES = {"am_fold": 32, "sync_am_block": 16, "am_gather": 1,
+               "viterbi_k9": 3, "fec_epilogue": 3}
 
 
 def emit(obj) -> None:
@@ -318,6 +350,62 @@ def make_mp3_station(index: int) -> dict:
     return out
 
 
+def am_queue_len() -> int:
+    """cs16 pairs of an AM station's queue: the chain's buffer for all
+    dispatches' frames, with room for the offset walk."""
+    from nrsc5_tpu_torch.pipeline.scan_chain_am import SLACK_AM, am_buffer_len
+    return am_buffer_len(AM_DISPATCHES * AM_FRAMES) + 2 * SLACK_AM
+
+
+def _am_signal(rng, ma3: bool, n_frames: int, n_out: int):
+    """``n_frames`` frames of random P1, P3 and PIDS of one AM station at
+    AM_SNR_DB with a fractional CFO, frame-aligned (the first symbol
+    FFTCP_AM // 2 in, bc 0 first) in a buffer of ``n_out`` samples, scaled
+    to AM_RMS of full scale and quantized to cs16.  Returns the int16
+    [n_out, 2] wire, the bits and the CFO."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch.tx import channel as ch
+    from nrsc5_tpu_torch.tx import encoder_am as EAM
+    from nrsc5_tpu_torch.tx.modulator_am import modulate_am
+
+    p3_len = C.P3_FRAME_LEN_MA3 if ma3 else C.P3_FRAME_LEN_MA1
+    p1 = rng.integers(0, 2, (n_frames, 8, C.P1_FRAME_LEN_AM), dtype=np.uint8)
+    p3 = rng.integers(0, 2, (n_frames, p3_len), dtype=np.uint8)
+    pids = rng.integers(0, 2, (8 * n_frames, C.PIDS_FRAME_LEN),
+                        dtype=np.uint8)
+    mats = EAM.interleave_frames(
+        [EAM.encode_p1_am(p1[f]) for f in range(n_frames)],
+        [EAM.encode_p3_am(p3[f], ma3) for f in range(n_frames)], ma3)
+    ref = np.stack([EAM.am_ref_bits(b % 8, 2 if ma3 else 1)
+                    for b in range(8 * n_frames)])
+    sig = modulate_am(mats, np.stack([EAM.encode_pids_am(w) for w in pids]),
+                      ref, ma3)
+    cfo_hz = float(rng.uniform(-AM_CFO_HZ, AM_CFO_HZ))
+    buf = np.zeros(n_out, np.complex64)
+    start = C.FFTCP_AM // 2
+    buf[start:start + len(sig)] = sig[:n_out - start]
+    buf = ch.impair(buf, cfo_hz=cfo_hz, snr_db=AM_SNR_DB,
+                    sample_rate=C.SAMPLE_RATE_CS16_AM, rng=rng)
+    buf *= AM_RMS / np.sqrt(np.mean(np.abs(buf) ** 2))
+    iq = np.stack([buf.real, buf.imag], -1) * 32768
+    wire = np.clip(np.round(iq), -32768, 32767).astype(np.int16)
+    return wire, p1, p3, pids, cfo_hz
+
+
+def make_am_station(index: int) -> dict:
+    """AM station ``index``, from its own seed: the MA1 queue of
+    AM_DISPATCHES × AM_FRAMES frames and its bits (p1 [6, 8, 3750], p3
+    [6, 24000], pids [48, 80]), and 2 frames of MA3 as cs16 chain input
+    for the MA3 kernel lines."""
+    from nrsc5_tpu_torch.pipeline.scan_chain_am import am_buffer_len
+    rng = np.random.default_rng([SEED, 0xA3, index])
+    queue, p1, p3, pids, cfo = _am_signal(
+        rng, False, AM_DISPATCHES * AM_FRAMES, am_queue_len())
+    ma3, *_ = _am_signal(rng, True, AM_FRAMES, am_buffer_len(AM_FRAMES))
+    return {"queue": queue, "p1": p1, "p3": p3, "pids": pids,
+            "cfo_hz": cfo, "ma3_wire": ma3}
+
+
 def make_fleet(station=make_station) -> dict:
     """Every station, built in parallel by spawned worker processes (numpy
     only; the pool ends with the call)."""
@@ -346,8 +434,11 @@ def main() -> int:
     from nrsc5_tpu_torch.ops import sync_fm as SF
     from nrsc5_tpu_torch.ops import decode_fm as DF
     from nrsc5_tpu_torch.ops.bits import unpack_bits
+    from nrsc5_tpu_torch.ops import decode_am as DA
+    from nrsc5_tpu_torch.pipeline import scan_chain_am_rc as scar
     from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
     from nrsc5_tpu_torch.pipeline.scan_chain import iv_state_len
+    from nrsc5_tpu_torch.pipeline.scan_chain_am import am_buffer_len
 
     # full float32 for every float32 matmul and convolution (the DFT and
     # the conv1d yardstick); TF32 would keep ~3 decimal digits
@@ -366,7 +457,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = K.build()
-    regs = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    # registers, shared memory and stack of each kernel and of the
+    # subroutines it calls (the slow paths of sinf, cosf, atan2f, division)
+    regs = {n: [ln.strip() for ln in log.splitlines()
+                if any(w in ln for w in ("registers", "Function properties",
+                                         "stack frame"))]
             for n, log in built["ptxas"].items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "built": built["built"], "ptxas": regs})
@@ -376,9 +471,14 @@ def main() -> int:
     fleet = make_fleet()
     t1 = time.perf_counter()
     mp3 = make_fleet(make_mp3_station)
+    t2 = time.perf_counter()
+    am = make_fleet(make_am_station)
     emit({"phase": "signal", "seconds": round(t1 - t0, 3),
-          "mp3_seconds": round(time.perf_counter() - t1, 3),
+          "mp3_seconds": round(t2 - t1, 3),
+          "am_seconds": round(time.perf_counter() - t2, 3),
           "mp3_queue_bytes": int(mp3["queue"].nbytes),
+          "am_queue_bytes": int(am["queue"].nbytes),
+          "am_cfo_hz": am["cfo_hz"].tolist(),
           "stations": N_STATIONS, "blocks": n_blocks,
           "capture_blocks": LEAD + n_blocks,
           "wire_bytes": int(fleet["steady"].nbytes),
@@ -687,6 +787,129 @@ def main() -> int:
                     n_fr * tb["t"] * (3 * 8 if src is not None else 2)),
               None, [n_fr, tb["t"]], plain_reps=3, plain_inner=2, case=case,
               bit_errors=None if errors is None else errors.tolist())
+
+    # --- AM kernels at the AM dispatch's shapes: 16 MA1 stations' first
+    # dispatch of 2 frames (cs16 ingested), and 2 frames of 16 MA3
+    # stations for the MA3 cases ---
+    am_queue = torch.from_numpy(am["queue"]).to(dev)
+    n_am = am_buffer_len(AM_FRAMES)
+    am_blocks = AM_FRAMES * C.P1_AM_BLOCKS
+    am_x = serve.ingest(am_queue[:, :n_am].contiguous(), "am")
+    ma3_x = serve.ingest(torch.from_numpy(am["ma3_wire"]).to(dev), "am")
+    nsamp_am, fold_out = scar.NSAMP, C.BLKSZ * C.FFT_AM * 8
+
+    def am_block1(x, ma3):
+        """K12's arguments at block 1 of the chain (the state block 0
+        leaves), and that block's spectra."""
+        _, _, cy = scar.am_frontend_scan_rc(x, scar.am_chain_rc_init_carry(
+            n_stations=s_n, device=dev), 1, ma3)
+        args = (x, cy.offset, cy.phase, cy.samperr_fb, cy.prev_angle,
+                cy.cfo)
+        return args, scar.acquire_am_fine_rc(*args)[0].contiguous()
+
+    # K12, pass 1 then pass 2 (on pass 1's spectra through the kernel)
+    fold_args, am_spectra = am_block1(am_x, False)
+    got = scar.am_fold(*fold_args)
+    err = (got - scar.am_fold_plain(*fold_args)).abs().max().item()
+    check("am_fold", err, 1e-5,
+          lambda: scar.am_fold(*fold_args),
+          lambda: scar.am_fold_plain(*fold_args),
+          bound(s_n * (nsamp_am * 8 + fold_out + 20),
+                s_n * (nsamp_am * 17 + C.BLKSZ * C.CP_AM * 6)),
+          None, [s_n, C.BLKSZ, C.FFT_AM, 2], case=None, am_pass=1)
+    spectra1 = rc.dft(got, shift=True)
+    got = scar.am_fold(*fold_args, spectra1)
+    want = scar.am_fold_plain(*fold_args, spectra1)
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    check("am_fold", err, 1e-5,
+          lambda: scar.am_fold(*fold_args, spectra1),
+          lambda: scar.am_fold_plain(*fold_args, spectra1),
+          bound(s_n * (nsamp_am * 8 + fold_out + C.BLKSZ * 8 + 32),
+                s_n * (nsamp_am * 17 + C.BLKSZ * C.CP_AM * 6
+                       + C.BLKSZ * 40)),
+          None, [s_n, C.BLKSZ, C.FFT_AM, 2], case="pass2", am_pass=2)
+
+    # K13 on block 1's spectra, MA1 and MA3: every output exact
+    for ma3, x in ((False, am_x), (True, ma3_x)):
+        spec = am_spectra if not ma3 else am_block1(ma3_x, True)[1]
+        ko = scar.sync_am_block_rc(spec, ma3)
+        po = scar.sync_am_block_rc_plain(spec, ma3)
+        diff = {k: int((ko[k] != po[k]).sum()) for k in po}
+        # codes, PIDS codes and reference bits are bytes, samperr an int32
+        out_bytes = sum(v.numel() * v.element_size() for v in ko.values())
+        check("sync_am_block", float(sum(diff.values())), 0.0,
+              lambda spec=spec, ma3=ma3: scar.sync_am_block_rc(spec, ma3),
+              lambda spec=spec, ma3=ma3: scar.sync_am_block_rc_plain(spec,
+                                                                     ma3),
+              bound(spec.numel() * 4 + out_bytes,
+                    s_n * C.BLKSZ * 4 * C.PARTITION_WIDTH_AM * 60),
+              None, list(spec.shape), case="ma3" if ma3 else None,
+              differing=diff)
+
+    # K15 on the first dispatch's own codes (through the kernels) and a
+    # random handed-on delay line, MA1 and MA3; then K7 at K=9 on its
+    # P1, P3 and PIDS segments, and K8 on the P1 bits
+    g = torch.Generator(device="cpu").manual_seed(SEED + 15)
+    k9 = {}
+    for ma3, x in ((False, am_x), (True, ma3_x)):
+        codes, pids_c, _ = scar.am_frontend_scan_rc(
+            x, scar.am_chain_rc_init_carry(n_stations=s_n, device=dev),
+            am_blocks, ma3)
+        lines = torch.randint(0, 2, (s_n, 4, DA.DD), generator=g,
+                              dtype=torch.uint8).to(dev)
+        gargs = (codes, pids_c, lines, ma3)
+        got = DA.am_gather(*gargs)
+        want = DA.am_gather_plain(*gargs)
+        err = float(sum(int((a != b).sum()) for a, b in zip(got, want)))
+        # the function reads and rewrites only the mode's delayed lines
+        # (ml, mu; also eml, emu in MA3), and of line_src only theirs
+        maps = DA.gather_maps(ma3)
+        n_dly = maps["n_delayed"]
+        map_bytes = sum(v.nbytes for k, v in maps.items()
+                        if isinstance(v, np.ndarray) and k != "line_src")
+        map_bytes += maps["line_src"][:n_dly].nbytes
+        check("am_gather", err, 0.0,
+              lambda gargs=gargs: DA.am_gather(*gargs),
+              lambda gargs=gargs: DA.am_gather_plain(*gargs),
+              bound(codes.numel() + pids_c.numel() + 2 * s_n * n_dly * DA.DD
+                    + map_bytes + sum(t.numel() * t.element_size()
+                                      for t in got[:3]), 0),
+              None, [s_n, am_blocks, 4, 800], plain_reps=3, plain_inner=2,
+              case="ma3" if ma3 else None)
+        k9["p3_ma3" if ma3 else "p3_ma1"] = got[1]
+        if not ma3:
+            k9["p1"], k9["pids"] = got[0], got[2]
+
+    for key, gens in (("p1", C.CONV_E1_GEN), ("p3_ma1", C.CONV_E2_E3_GEN),
+                      ("p3_ma3", C.CONV_E1_GEN), ("pids", C.CONV_E2_E3_GEN)):
+        ext = k9[key]
+        kb, km = CV.acs_traceback(ext, gens, 9)
+        pb, pmg = CV.acs_traceback_plain(ext, gens, 9)
+        err = max((kb.int() - pb.int()).abs().max().item(),
+                  (km - pmg).abs().max().item())
+        b_seg, n_st = ext.shape[0], ext.shape[1]
+        check("viterbi_k9", err, 0.0,
+              lambda ext=ext, gens=gens: CV.acs_traceback(ext, gens, 9),
+              lambda ext=ext, gens=gens: CV.acs_traceback_plain(ext, gens,
+                                                                9),
+              bound(b_seg * n_st * (12 + 1) + b_seg * 4,
+                    b_seg * n_st * 256 * 8),
+              None, [b_seg, n_st, 3], plain_reps=1, plain_inner=1,
+              case=None if key == "p1" else key)
+        if key == "p1":
+            am_p1_bits = kb
+
+    got, _ = DF.fec_epilogue(am_p1_bits, "am_p1", packed=True)
+    want, _ = DF.fec_epilogue_plain(am_p1_bits, "am_p1", packed=True)
+    tb = DF.channel_tables("am_p1")
+    n_fr = got.shape[0]
+    check("fec_epilogue", float((got != want).sum().item()), 0.0,
+          lambda: DF.fec_epilogue(am_p1_bits, "am_p1", packed=True),
+          lambda: DF.fec_epilogue_plain(am_p1_bits, "am_p1", packed=True),
+          bound(n_fr * tb["t"] + tb["keep"].size * 4 + tb["keystream"].size
+                + got.numel(), n_fr * tb["t"] * 2),
+          None, [n_fr, tb["t"]], plain_reps=3, plain_inner=2, case="am_p1")
 
     # --- coldstart: lock the capture, then decode it from the locks ---
     cap_blocks = LEAD + n_blocks
@@ -1005,6 +1228,161 @@ def main() -> int:
     for name in KERNELS:
         by_path = report[name]["launches_by_path"]
         by_path["mp3"] = sum(n.get(name, 0) for n in run["launches"])
+        report[name]["launches"] = sum(by_path.values())
+
+    # --- am: three AM dispatches of 2 frames on the AM fleet, the carry
+    # (delay lines included) handed from one to the next and each
+    # station's queue advanced by the chain samples it consumed ---
+    def am_run(plain=False):
+        carry = scar.am_chain_rc_init_carry(n_stations=s_n, device=dev)
+        pos = np.zeros(s_n, np.int64)
+        run = {"outs": [], "wires": [], "carries": [carry], "launches": [],
+               "consumed": []}
+        for _ in range(AM_DISPATCHES):
+            w = torch.stack([am_queue[i, p:p + n_am]
+                             for i, p in enumerate(pos.tolist())])
+            torch.cuda.synchronize()
+            K.reset_counts()
+            out, new = serve.chain_step_am(w, carry, AM_FRAMES, packed=True,
+                                           plain=plain)
+            torch.cuda.synchronize()
+            run["launches"].append({n: c for n, c in K.COUNTS.items() if c})
+            consumed = new.offset.cpu().numpy()
+            pos = pos + consumed
+            carry = new._replace(offset=torch.zeros_like(new.offset))
+            for k, v in (("outs", out), ("wires", w), ("carries", carry),
+                         ("consumed", consumed)):
+                run[k].append(v)
+        return run
+
+    plain_calls, restore = count_plain_calls()
+    try:
+        run = am_run()
+    finally:
+        restore()
+    sub = C.P1_FRAME_LEN_AM
+    p1_ok = p3_ok = pids_ok = 0
+    warm_p1_ok = 0
+    for d, out in enumerate(run["outs"]):
+        p1 = unpack_bits(out["p1"]).reshape(s_n, AM_FRAMES, 8, sub)
+        p3 = unpack_bits(out["p3"])
+        for f in range(AM_FRAMES):
+            g_f = AM_FRAMES * d + f
+            hits = (p1[:, f] == am["p1"][:, g_f]).all(axis=-1)
+            if g_f >= 3:
+                p1_ok += int(hits.sum())
+                p3_ok += int((p3[:, f] == am["p3"][:, g_f]).all(axis=-1)
+                             .sum())
+            else:
+                warm_p1_ok += int(hits.sum())
+        pids_ok += int((unpack_bits(out["pids"]) == am["pids"][
+            :, am_blocks * d:am_blocks * (d + 1)]).all(axis=-1).sum())
+    am_launches_ok = all(n == AM_LAUNCHES for n in run["launches"])
+
+    # the plain path must agree exactly: its K12 and K13 sum and divide as
+    # the kernels do and call the same float32 functions, so a difference
+    # would be a last-bit difference of sin, cos or atan2 between builds
+    # carried across a decision threshold
+    prun = am_run(plain=True)
+    keys = ("p1", "p3", "pids", "p1_margin", "p3_margin")
+    n_entries = sum(out[k].numel() for out in run["outs"] for k in keys)
+    n_diff = sum(int((a[k] != b[k]).sum()) for a, b in zip(
+        run["outs"], prun["outs"]) for k in keys)
+    kc, pc = run["carries"][-1], prun["carries"][-1]
+    line_diff = sum(int((a != b).sum()) for a, b in zip(kc.dec, pc.dec))
+    state_same = line_diff == 0 and torch.equal(kc.samperr_fb,
+                                                pc.samperr_fb)
+    code_diff = None
+    if n_diff or not state_same:
+        # trace: the first dispatch's codes through both block loops
+        kcodes = scar.am_frontend_scan_rc(
+            serve.ingest(run["wires"][0], "am"), run["carries"][0],
+            am_blocks)[0]
+        pcodes = scar.am_frontend_scan_rc(
+            serve.ingest(run["wires"][0], "am"), run["carries"][0],
+            am_blocks, plain=True)[0]
+        where = (kcodes != pcodes).nonzero().tolist()
+        code_diff = {"count": len(where), "first": where[:20]}
+    plain_ok = (n_diff <= 1e-5 * n_entries and line_diff <= 1e-5 * (
+        len(kc.dec) * kc.dec.ml.numel()))
+
+    # dispatch 1 (from dispatch 0's carry) timed, split and profiled
+    def dispatch_am():
+        return serve.chain_step_am(run["wires"][1], run["carries"][1],
+                                   AM_FRAMES, packed=True)
+
+    am_times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dispatch_am()
+        torch.cuda.synchronize()
+        am_times.append((time.perf_counter() - t0) * 1e3)
+    am_wall = statistics.median(am_times[1:])
+    am_air = float(run["consumed"][1].sum()) / C.SAMPLE_RATE_CS16_AM
+    cy1 = run["carries"][1]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    x = serve.ingest(run["wires"][1], "am")
+    ev[1].record()
+    codes, pids_c, _ = scar.am_frontend_scan_rc(x, cy1, am_blocks)
+    ev[2].record()
+    exts = DA.am_gather(codes, pids_c, torch.stack(list(cy1.dec), dim=1))
+    ev[3].record()
+    DA.am_fec(*exts[:3], packed=True)
+    ev[4].record()
+    ev[4].synchronize()
+    am_stages = dict(zip(("ingest_ms", "block_loop_ms", "gather_ms",
+                          "fec_ms"),
+                         (ev[i].elapsed_time(ev[i + 1]) for i in range(4))))
+    am_device = profile_device(torch, dispatch_am)
+    rows, width = s_n * C.BLKSZ, 2 * C.FFT_AM
+    dft = bound(2 * rows * width * 4 + width * width * 4,
+                2 * rows * width * width)
+    am_loop = {"launches": {"am_fold": run["launches"][1].get("am_fold", 0),
+                            "dft_gemm": 2 * am_blocks,
+                            "sync_am_block":
+                                run["launches"][1].get("sync_am_block", 0)},
+               "bound_ms": am_blocks * (
+                   report["am_fold"]["bound_ms"]
+                   + report["am_fold"]["cases"]["pass2"]["bound_ms"]
+                   + 2 * dft[0] + report["sync_am_block"]["bound_ms"]),
+               "dft_bound_ms": dft[0], "dft_bound_by": dft[1],
+               "ms": am_stages["block_loop_ms"]}
+
+    n_later = AM_DISPATCHES * AM_FRAMES - 3
+    am_ok = (p1_ok == s_n * n_later * 8 and p3_ok == s_n * n_later
+             and pids_ok == s_n * am_blocks * AM_DISPATCHES
+             and am_launches_ok and not plain_calls and plain_ok
+             and am_air / (am_wall / 1e3) >= 1)
+    emit({"phase": "am", "stations": s_n, "mode": "MA1",
+          "dispatches": AM_DISPATCHES, "frames_per_dispatch": AM_FRAMES,
+          "p1_subframes_ok_frames_3_5": p1_ok,
+          "p1_subframes_frames_3_5": s_n * n_later * 8,
+          "p3_frames_ok_frames_3_5": p3_ok,
+          "p3_frames_frames_3_5": s_n * n_later,
+          "p1_subframes_ok_warm_up": warm_p1_ok,
+          "pids_words_ok": pids_ok,
+          "pids_words": s_n * am_blocks * AM_DISPATCHES,
+          "p1_margin_min": [float(o["p1_margin"].min()) for o in
+                            run["outs"]],
+          "p3_margin_min": [float(o["p3_margin"].min()) for o in
+                            run["outs"]],
+          "launches_per_dispatch": run["launches"],
+          "plain_calls_on_kernel_path": plain_calls,
+          "plain_entries_differing": n_diff, "plain_entries": n_entries,
+          "plain_line_entries_differing": line_diff,
+          "plain_same_state": state_same, "code_diff": code_diff,
+          "wall_ms": am_wall, "wall_ms_runs": am_times, "air_s": am_air,
+          "realtime_factor": am_air / (am_wall / 1e3),
+          "stages": am_stages, "device_time": am_device,
+          "block_loop": am_loop, "pass": am_ok})
+    if not am_ok:
+        raise AssertionError("the AM path did not decode bit-exact through "
+                             "every kernel")
+    for name in KERNELS:
+        by_path = report[name]["launches_by_path"]
+        by_path["am"] = sum(n.get(name, 0) for n in run["launches"])
         report[name]["launches"] = sum(by_path.values())
 
     print(smi, flush=True)

@@ -75,6 +75,19 @@ SIGNATURES = {
     # derot, needle_vals, needle_known, count, n_stations, n_cfo, n_refs,
     # stream
     "needle_count": (P, P, P, P, I, I, I, P),
+    # ext, bits, margin, n_seg, n_steps, g0, g1, g2, stream
+    "viterbi_k9": (P, P, P, I, I, I, I, I, P),
+    # samples, n_samples, offset, phase, samperr_fb, prev_angle, cfo,
+    # shape, pilot, folded, phase_out, prev_angle_out, keep, n_stations,
+    # stream
+    "am_fold": (P, L, P, P, P, P, P, P, P, P, P, P, P, I, P),
+    # spectra, codes, pids, ref_bits, samperr, n_stations, ma3, stream
+    "sync_am_block": (P, P, P, P, P, I, I, P),
+    # codes, pids, lines, p1_src, p1_dly, p3_src, p3_dly, pids_src,
+    # line_src, p1_out, p3_out, pids_out, lines_out, n_stations, n_frames,
+    # p1_len, p3_len, pids_len, n_delayed, stream
+    "am_gather": (P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                  P),
 }
 
 COUNTS = {name: 0 for name in SIGNATURES}

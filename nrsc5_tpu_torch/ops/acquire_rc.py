@@ -2,9 +2,9 @@
 acquire demodulation.
 
 PyTorch counterpart of ``nrsc5_tpu/ops/acquire_rc.py``'s
-``coarse_timing_rc`` and ``demod_rc``, and of ``WINDOW_FM`` and
-``_shape_kernel`` (``nrsc5_tpu/ops/acquire.py:34, 50-53``; pinned equal by
-tests/test_torch_tables.py).
+``coarse_timing_rc`` and ``demod_rc``, and of ``WINDOW_FM``, ``WINDOW_AM``
+and ``_shape_kernel`` (``nrsc5_tpu/ops/acquire.py:34, 50-53, 285``; pinned
+equal by tests/test_torch_tables.py).
 
 :func:`coarse_timing_rc` is kernel K9 (``csrc/coarse_timing.cu``): the
 cold start's cyclic-prefix correlation over all 2160 timings of the first
@@ -31,6 +31,7 @@ from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops import rcplx as rc
 
 WINDOW_FM = C.FFTCP_FM * (C.ACQUIRE_SYMBOLS + 1)  # 71280
+WINDOW_AM = C.FFTCP_AM * (C.ACQUIRE_SYMBOLS + 1)  # 8910
 NSAMP = C.ACQUIRE_SYMBOLS * C.FFTCP_FM  # 69120 samples demodulated per block
 # 2*pi/FFT_FM as the float32 constant the reference's weak typing makes
 TWO_PI_OVER_FFT = 2 * math.pi / C.FFT_FM

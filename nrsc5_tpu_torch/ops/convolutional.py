@@ -1,25 +1,29 @@
-"""Convolutional FEC: numpy encoder + the K=7 Viterbi decoder.
+"""Convolutional FEC: numpy encoder + the K=7 and K=9 Viterbi decoders.
 
 PyTorch counterpart of ``nrsc5_tpu/ops/convolutional.py``: the numpy tables
 and encoder (``_parity_table``, ``trellis_tables``, ``conv_encode``,
 ``puncture``, ``_chunk_plan``; pinned equal by
-tests/test_torch_tables.py) and the decoder side at K=7 (FM P1 and PIDS;
-reference: src/conv_dec.c:402-427, src/decode.c:234-277).
+tests/test_torch_tables.py) and the decoder side at K=7 (FM P1, PIDS and
+PX; reference: src/conv_dec.c:402-427, src/decode.c:234-277) and K=9 (AM
+P1, P3 and PIDS; src/decode.c:183-231).
 
 Encoder convention: the shift register holds the most recent K input bits
 with the newest at the MSB, output j is ``parity(r & G[j])``; tail-biting
 pre-loads the register with the frame's last K-1 bits.
 
-:func:`acs_traceback` is kernel K7 (``csrc/viterbi_k7.cu``): ACS forward
-recursion and traceback over free-start segments.  :func:`acs_traceback_plain`
-is its plain PyTorch version.  :func:`viterbi_decode` (tail-biting wrap
+:func:`acs_traceback` is kernel K7: ACS forward recursion and traceback
+over free-start segments, ``csrc/viterbi_k7.cu`` at K=7 and
+``csrc/viterbi_k9.cu`` at K=9.  :func:`acs_traceback_plain` is its plain
+PyTorch version at either K.  :func:`viterbi_decode` (tail-biting wrap
 extension) and :func:`viterbi_decode_chunked` (overlapping segments, the
-keep-middle gather) decode any LLRs around it, as the reference's
-functions of those names do; the chain's channels instead reach K7
-through the static index maps of :mod:`nrsc5_tpu_torch.ops.decode_fm`
-(kernels K6, K11 and K8), which compose the same wrap and segment plan.
-The chunk plan is the reference's CPU default: chunk 1152 with overlap 96,
-one trellis step per ACS step (radix 1), which sets which bits come out.
+keep-middle gather, FM's chunk plan) decode any K=7 LLRs around it, as
+the reference's functions of those names do; the chains' channels reach K7
+through the static index maps of :mod:`nrsc5_tpu_torch.ops.decode_fm` and
+:mod:`nrsc5_tpu_torch.ops.decode_am` (kernels K6, K11 and K15, then K8),
+which compose the same wrap and segment plan.  The chunk plans are the
+reference's CPU defaults, one trellis step per ACS step (radix 1), which
+set which bits come out: chunk 1152 with overlap 96 at K=7 (FM), chunk
+1024 with overlap 160 at K=9 (AM).
 """
 
 from __future__ import annotations
@@ -32,11 +36,14 @@ import torch
 from nrsc5_tpu_torch import kernels as K
 
 TAIL_BITING_EXTRA = 32  # wrap steps on each side (reference: src/conv_dec.c:43)
-CHUNK = 1152
+CHUNK = 1152  # FM's chunk plan (K=7)
 OVERLAP = 96
-# dynamic shared memory of K7 caps its segment length (per warp: 8 bytes a
-# step plus 640 bytes, four warps per block, 227 KB a block)
-MAX_STEPS = 7000
+CHUNK_AM = 1024  # AM's chunk plan (K=9; reference decode_am.py:160, 165)
+OVERLAP_AM = 160
+# dynamic shared memory of K7 caps its segment length: at K=7 8 bytes a
+# step plus 640 bytes a warp, four warps a block; at K=9 32 bytes a step
+# plus 1408 bytes a warp, two warps a block; 227 KB a block
+MAX_STEPS = {7: 7000, 9: 3400}
 
 
 # ---------------------------------------------------------------------------
@@ -149,72 +156,80 @@ def _plan_tensors(t: int, device: str):
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=8)
-def _sign_rows(gens: tuple[int, int, int], device: str):
-    """Branch sign matrices [3, 64] for predecessor 0 and 1 (K=7)."""
-    _, _, out = trellis_tables(7, gens)
+def _sign_rows(k: int, gens: tuple[int, int, int], device: str):
+    """Branch sign matrices [3, 2^(k-1)] for predecessor 0 and 1."""
+    _, _, out = trellis_tables(k, gens)
     return (torch.from_numpy(np.ascontiguousarray(out[:, 0, :].T)).to(device),
             torch.from_numpy(np.ascontiguousarray(out[:, 1, :].T)).to(device))
 
 
-def acs_traceback_plain(ext: torch.Tensor, gens: tuple[int, int, int]):
-    """Plain version of K7 (the reference's ``_acs_traceback`` at k=7,
-    radix 1).  ext [B, L, 3] float32 -> (bits [B, L] uint8, margin [B]
-    float32).  Uniform start metrics, traceback from the first argmax."""
+def acs_traceback_plain(ext: torch.Tensor, gens: tuple[int, int, int],
+                        k: int = 7):
+    """Plain version of K7 (the reference's ``_acs_traceback``, radix 1),
+    at constraint length ``k`` (7 or 9).  ext [B, L, 3] float32 ->
+    (bits [B, L] uint8, margin [B] float32).  Uniform start metrics,
+    traceback from the first argmax."""
     b, length, _ = ext.shape
     dev = ext.device
-    sgn0, sgn1 = _sign_rows(gens, str(dev))
-    pm = torch.zeros(b, 64, dtype=torch.float32, device=dev)
-    shifts = torch.arange(64, dtype=torch.int64, device=dev)
-    words = torch.empty(length, b, dtype=torch.int64, device=dev)
+    ns = 1 << (k - 1)
+    nw = ns // 32
+    sgn0, sgn1 = _sign_rows(k, gens, str(dev))
+    pm = torch.zeros(b, ns, dtype=torch.float32, device=dev)
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    words = torch.empty(length, b, nw, dtype=torch.int64, device=dev)
     for t in range(length):
         llr = ext[:, t]
         bm0 = llr[:, 0:1] * sgn0[0] + llr[:, 1:2] * sgn0[1] \
             + llr[:, 2:3] * sgn0[2]
         bm1 = llr[:, 0:1] * sgn1[0] + llr[:, 1:2] * sgn1[1] \
             + llr[:, 2:3] * sgn1[2]
-        pairs = pm.reshape(b, 32, 2)
+        pairs = pm.reshape(b, ns // 2, 2)
         c0 = pairs[:, :, 0].repeat(1, 2) + bm0
         c1 = pairs[:, :, 1].repeat(1, 2) + bm1
         dec = c1 > c0
         pm = torch.where(dec, c1, c0)
-        # decisions of states 0..63 as the bits of one word (state 63 is
-        # the sign bit; the traceback's arithmetic shift and mask read it)
-        words[t] = (dec.to(torch.int64) << shifts).sum(-1)
+        # decisions of states 32w..32w+31 as the bits of word w
+        words[t] = (dec.to(torch.int64).reshape(b, nw, 32) << shifts).sum(-1)
     top2 = torch.topk(pm, 2, dim=-1).values
     margin = top2[:, 0] - top2[:, 1]
     state = torch.argmax(pm, dim=-1)
     bits = torch.empty(length, b, dtype=torch.uint8, device=dev)
     for t in range(length - 1, -1, -1):
-        p = (words[t] >> state) & 1
-        bits[t] = (state >> 5).to(torch.uint8)
-        state = ((state << 1) & 63) | p
+        word = words[t].gather(1, (state >> 5)[:, None])[:, 0]
+        p = (word >> (state & 31)) & 1
+        bits[t] = (state >> (k - 2)).to(torch.uint8)
+        state = ((state << 1) & (ns - 1)) | p
     return bits.T.contiguous(), margin
 
 
-def acs_traceback(ext: torch.Tensor, gens: tuple[int, int, int]):
+def acs_traceback(ext: torch.Tensor, gens: tuple[int, int, int],
+                  k: int = 7):
     """K7: the arguments and results of :func:`acs_traceback_plain`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one warp per segment).  Bits and margins equal the plain
-    version's exactly for integer-valued LLRs, the chain's case."""
+    kernel of constraint length ``k`` (one warp per segment:
+    ``viterbi_k7`` or ``viterbi_k9``).  Bits and margins equal the plain
+    version's exactly for integer-valued LLRs, the chains' case."""
     if ext.device.type == "cpu":
-        return acs_traceback_plain(ext, gens)
+        return acs_traceback_plain(ext, gens, k)
+    if k not in MAX_STEPS:
+        raise ValueError(f"K7 takes constraint length 7 or 9, not {k}")
     if ext.ndim != 3 or ext.shape[-1] != 3:
         raise ValueError(f"ext: expected [B, L, 3], got {tuple(ext.shape)}")
     b, length, _ = ext.shape
-    if not 0 < length <= MAX_STEPS or b == 0:
+    if not 0 < length <= MAX_STEPS[k] or b == 0:
         raise ValueError(f"ext: {b} segments of {length} steps (K7 takes "
-                         f"1..{MAX_STEPS} steps)")
+                         f"1..{MAX_STEPS[k]} steps at K={k})")
     K.check(ext, "ext", torch.float32)
     bits = torch.empty(b, length, dtype=torch.uint8, device=ext.device)
     margin = torch.empty(b, dtype=torch.float32, device=ext.device)
-    K.launch("viterbi_k7", ext.data_ptr(), bits.data_ptr(), margin.data_ptr(),
-             b, length, *gens, device=ext.device)
+    K.launch(f"viterbi_k{k}", ext.data_ptr(), bits.data_ptr(),
+             margin.data_ptr(), b, length, *gens, device=ext.device)
     return bits, margin
 
 
-def _acs(ext, gens, plain: bool):
-    return (acs_traceback_plain if plain else acs_traceback)(ext, gens)
+def _acs(ext, gens, plain: bool, k: int = 7):
+    return (acs_traceback_plain if plain else acs_traceback)(ext, gens, k)
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,10 @@ from nrsc5_tpu_torch.ops.scramble import scrambler_keystream
 
 WRAP = TAIL_BITING_EXTRA
 PM_FRAME = C.P1_FM_BLOCKS * C.PM_BLOCK_SIZE  # soft bits of one P1 frame
+# channel name -> builder of the K8 tables (``t``, ``steps``, ``n_seg``,
+# ``keep``, ``keystream``) of a channel another module decodes through K8;
+# :mod:`nrsc5_tpu_torch.ops.decode_am` registers the AM channels
+CHANNELS: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -60,10 +64,11 @@ def _depunctured_index(t: int, pattern: tuple[int, ...]) -> np.ndarray:
     return np.where(pat[col], (c // period) * kept + rank[col], -1)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=16)
 def channel_tables(name: str) -> dict:
     """The static tables of channel ``name`` ("p1", "pids", "px2304",
-    "px4608"), numpy:
+    "px4608", or one of :data:`CHANNELS`, which hold K8's keys only),
+    numpy:
 
     * ``t``: frame bits; ``steps``, ``n_seg``: K7's segments per frame and
       steps per segment;
@@ -75,6 +80,8 @@ def channel_tables(name: str) -> dict:
     * ``k7_map`` int32 [n_seg*steps*3]: K7 input element -> source soft
       bit or -1 (K6's and K11's index map);
     * ``keystream`` uint8 [t]."""
+    if name in CHANNELS:
+        return CHANNELS[name]()
     if name == "p1":
         t, table = C.P1_FRAME_LEN_FM, IL.p1_fm_table()
         pattern = C.PUNCTURE_P1_PIDS_FM

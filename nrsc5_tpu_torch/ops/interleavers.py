@@ -1,6 +1,7 @@
-"""NRSC-5 FM channel interleavers I, II and IV as static gather tables.
+"""NRSC-5 channel interleavers as static gather tables: FM I, II and IV,
+and the AM MA1/MA3 bit maps and PIDS tables.
 
-A numpy copy of the FM part of ``nrsc5_tpu/ops/interleavers.py``
+A numpy copy of ``nrsc5_tpu/ops/interleavers.py``
 (the port imports nothing of the JAX package; tests/test_torch_tables.py
 pins each table equal).  Every formula depends only on the stream position,
 so each (de)interleaver is a constant int32 index table computed once.
@@ -144,3 +145,64 @@ def p3_iv_inverse(frame_len: int) -> np.ndarray:
     inv = np.empty(n, dtype=np.int32)
     inv[idx] = np.arange(n, dtype=np.int32)
     return inv
+
+
+# ---------------------------------------------------------------------------
+# AM interleavers (1012s section 10.4; reference: src/decode.c:67-231).
+# bit_map gathers bit-plane p of the QAM symbol matrix.
+# ---------------------------------------------------------------------------
+
+def _bit_map_indices(b, k, p):
+    """Vectorized bit_map (reference: src/decode.c:67-72): returns
+    (symbol_index, bit_plane) into a [8*32 x 25] uint8 matrix."""
+    col = (9 * k) % 25
+    row = (11 * col + 16 * (k // 25) + 11 * (k // 50)) % 32
+    return C.PARTITION_WIDTH_AM * (b * C.BLKSZ + row) + col, p
+
+
+@functools.lru_cache(maxsize=2)
+def am_ma1_tables(ma3: bool):
+    """All AM frame interleaver gather tables for one service mode.
+
+    Returns a dict of (matrix_selector, symbol_idx, bit_plane) per stream:
+    streams 'bl','ml','bu','mu' gather from the pl/pu matrices; 'el'/'eu'
+    (MA1) or 'ebl','eml','ebu','emu' (MA3) gather from the t/s matrices.
+    matrix layout: [8 blocks * 32 symbols * 25 carriers] uint8 QAM symbols.
+    """
+    n18 = np.arange(18000, dtype=np.int64)
+    out = {}
+    out["bl"] = ("pl",) + _bit_map_indices(n18 // 2250, (n18 + n18 // 750 + 1) % 750, n18 % 3)
+    out["ml"] = ("pl",) + _bit_map_indices((3 * n18 + 3) % 8, (n18 + n18 // 3000 + 3) % 750, 3 + (n18 % 3))
+    out["bu"] = ("pu",) + _bit_map_indices(n18 // 2250, (n18 + n18 // 750) % 750, n18 % 3)
+    out["mu"] = ("pu",) + _bit_map_indices((3 * n18) % 8, (n18 + n18 // 3000 + 2) % 750, 3 + (n18 % 3))
+    if not ma3:
+        n12 = np.arange(12000, dtype=np.int64)
+        n24 = np.arange(24000, dtype=np.int64)
+        out["el"] = ("t",) + _bit_map_indices((3 * n12 + n12 // 3000) % 8, (n12 + n12 // 6000) % 750, n12 % 2)
+        out["eu"] = ("s",) + _bit_map_indices((3 * n24 + n24 // 3000 + 2 * (n24 // 12000)) % 8, (n24 + n24 // 6000) % 750, n24 % 4)
+    else:
+        out["ebl"] = ("t",) + _bit_map_indices((3 * n18 + 3) % 8, (n18 + n18 // 3000 + 3) % 750, n18 % 3)
+        out["eml"] = ("t",) + _bit_map_indices((3 * n18 + 3) % 8, (n18 + n18 // 3000 + 3) % 750, 3 + (n18 % 3))
+        out["ebu"] = ("s",) + _bit_map_indices((3 * n18) % 8, (n18 + n18 // 3000 + 2) % 750, n18 % 3)
+        out["emu"] = ("s",) + _bit_map_indices((3 * n18) % 8, (n18 + n18 // 3000 + 2) % 750, 3 + (n18 % 3))
+    return out
+
+
+@functools.lru_cache(maxsize=2)
+def am_pids_tables():
+    """AM PIDS deinterleave (reference: src/decode.c:474-500).
+
+    Returns (il_row, il_plane, iu_row, iu_plane, delay_il, delay_iu): the
+    120-bit lower/upper gathers from the [32 x 2] QAM16 PIDS symbol pair and
+    the figure 10-5 delay scatter into the 240-entry viterbi stream.
+    """
+    n = np.arange(120, dtype=np.int64)
+    p = n % 4
+    k = (n + n // 60 + 11) % 30
+    il_row = (11 * (k + k // 15) + 3) % 32
+    k = (n + n // 60) % 30
+    iu_row = (11 * (k + k // 15) + 3) % 32
+    return (il_row.astype(np.int32), p.astype(np.int32),
+            iu_row.astype(np.int32), p.astype(np.int32),
+            np.asarray(C.PIDS_IL_DELAY, np.int32),
+            np.asarray(C.PIDS_IU_DELAY, np.int32))

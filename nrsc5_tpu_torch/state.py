@@ -1,11 +1,13 @@
 """Carried chain state to and from numpy.
 
 The receiver has no weights: its parameters are its tables and the carried
-state of the chain.  These two functions hand that state across packages
-and processes as plain numpy arrays keyed by the field names of
+state of the chain.  These functions hand that state across packages and
+processes as plain numpy arrays keyed by the field names of
 ``ChainCarryRC`` (the same names and order as the reference package's
-carry, the PX channels' interleaver-IV state included), so a stream decoded
-so far by one receiver continues bit-exactly in the other.
+carry, the PX channels' interleaver-IV state included) or, for AM, of
+``AMChainCarryRC`` with its ``dec`` delay lines flattened to their own
+names (``ml``, ``mu``, ``eml``, ``emu``), so a stream decoded so far by one
+receiver continues bit-exactly in the other.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import torch
 
 from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
+from nrsc5_tpu_torch.ops.decode_am import DD, AMDecodeState
 from nrsc5_tpu_torch.pipeline.scan_chain import iv_state_len, px_frame_lens
+from nrsc5_tpu_torch.pipeline.scan_chain_am_rc import AMChainCarryRC
 from nrsc5_tpu_torch.pipeline.scan_chain_rc import ChainCarryRC
 
 _DTYPES = {
@@ -69,3 +73,45 @@ def carry_to_numpy(carry: ChainCarryRC) -> dict:
     """The port's carry -> {field: numpy array} (station axis kept)."""
     return {name: getattr(carry, name).cpu().numpy()
             for name in ChainCarryRC._fields}
+
+
+_AM_DTYPES = {
+    "offset": torch.int32, "phase": torch.float32,
+    "prev_angle": torch.float32, "samperr_fb": torch.int32,
+    "cfo": torch.int32, "ml": torch.uint8, "mu": torch.uint8,
+    "eml": torch.uint8, "emu": torch.uint8,
+}
+
+
+def am_carry_from_numpy(d: dict, *, device="cuda") -> AMChainCarryRC:
+    """{field: array} -> the port's AM carry on ``device``.  ``d`` holds
+    exactly the top fields of ``AMChainCarryRC`` but ``dec``, and the four
+    delay lines (``ml``, ``mu``, ``eml``, ``emu``, 54000 entries each).
+    Arrays without a leading station axis (one station's carry) get
+    one."""
+    if set(d) != set(_AM_DTYPES):
+        raise ValueError(f"AM carry fields {sorted(d)} != "
+                         f"{sorted(_AM_DTYPES)}")
+    for name in AMDecodeState._fields:
+        if np.shape(d[name])[-1] != DD:
+            raise ValueError(f"{name} holds {np.shape(d[name])[-1]} "
+                             f"entries, not a {DD}-bit delay line")
+    single = np.ndim(d["offset"]) == 0
+    dev = K.resolve_device(device)
+    leaves = {}
+    for name, dtype in _AM_DTYPES.items():
+        a = np.asarray(d[name])
+        leaves[name] = torch.tensor(a[None] if single else a, dtype=dtype,
+                                    device=dev)
+    dec = AMDecodeState(*(leaves.pop(n) for n in AMDecodeState._fields))
+    return AMChainCarryRC(**leaves, dec=dec)
+
+
+def am_carry_to_numpy(carry: AMChainCarryRC) -> dict:
+    """The port's AM carry -> {field: numpy array} (station axis kept), the
+    delay lines under their own names."""
+    out = {name: getattr(carry, name).cpu().numpy()
+           for name in AMChainCarryRC._fields if name != "dec"}
+    out.update({name: line.cpu().numpy()
+                for name, line in carry.dec._asdict().items()})
+    return out

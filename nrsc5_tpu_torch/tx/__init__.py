@@ -1,2 +1,2 @@
 """Truth-harness transmitter: numpy copies of the reference package's FM
-encoder, modulator and channel helpers."""
+and AM encoders, modulators and channel helpers."""

@@ -9,10 +9,17 @@ need.)
 
 Tolerances:
 
-- K1 (halfband), K6 (FEC gather), K7 (Viterbi), K8 (FEC epilogue), K9
-  (coarse timing), the needle count of K10 and K11 (PX deinterleave)
-  exact: no FMA contraction and the same operation order, integer path
-  metrics, integer counts, and gathers of int8 values;
+- K1 (halfband), K6 (FEC gather), K7 (Viterbi, K=7 and K=9), K8 (FEC
+  epilogue), K9 (coarse timing), the needle count of K10, K11 (PX
+  deinterleave) and K15 (AM gather) exact: no FMA contraction and the same
+  operation order, integer path metrics, integer counts, and gathers of
+  int8 values or bits;
+- K12 (AM fold) within 1e-5 of the largest value (at least 1), its keep
+  exact; K13 (AM sync block) exact on every code, PIDS code, reference
+  bit and samperr: its plain version sums in K13's order, divides as K13
+  does and calls the same float32 functions, so an equalized value could
+  move across a decision threshold only by a last-bit difference of sin,
+  cos or atan2 between the kernel's build and PyTorch's;
 - K2 (demod fold), K3 (Costas) and the float outputs of K4 (sync block)
   within 1e-5 of the largest value (at least 1): float32 sin, cos and
   atan2 may differ in the last bit between the kernel's build and
@@ -39,15 +46,19 @@ from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops import acquire_rc as AQ
 from nrsc5_tpu_torch.ops import convolutional as CV
 from nrsc5_tpu_torch.ops import costas as CO
+from nrsc5_tpu_torch.ops import decode_am as DA
 from nrsc5_tpu_torch.ops import decode_fm as DF
 from nrsc5_tpu_torch.ops import detect_cfo as DC
 from nrsc5_tpu_torch.ops import frontend as FE
 from nrsc5_tpu_torch.ops import rcplx as rc
+from nrsc5_tpu_torch.pipeline import scan_chain_am_rc as scar
 from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
 from nrsc5_tpu_torch.pipeline.scan_chain import px_frame_lens
 from nrsc5_tpu_torch.tx import channel as ch
+from nrsc5_tpu_torch.tx import encoder_am as EAM
 from nrsc5_tpu_torch.tx.encoder import build_pm_matrix
 from nrsc5_tpu_torch.tx.modulator import modulate_fm
+from nrsc5_tpu_torch.tx.modulator_am import modulate_am
 
 BIN_HZ = C.SAMPLE_RATE_CS16_FM / C.FFT_FM
 
@@ -355,3 +366,152 @@ def test_px_deinterleave(card, fl, s, pairs):
     want = DF.px_deinterleave_plain(llr, internal, phase)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# AM: K12, K13, K15 and K7 at K=9
+# ---------------------------------------------------------------------------
+
+def _am_capture(rng, ma3, n_frames, cfo_hz, snr_db=35.0):
+    """``n_frames`` frames of one AM station at ``snr_db``, frame-aligned
+    (first symbol FFTCP_AM // 2 in), as rc chain input [am_buffer_len, 2]."""
+    p3_len = C.P3_FRAME_LEN_MA3 if ma3 else C.P3_FRAME_LEN_MA1
+    mats = EAM.interleave_frames(
+        [EAM.encode_p1_am(rng.integers(0, 2, (8, C.P1_FRAME_LEN_AM))
+                          .astype(np.uint8)) for _ in range(n_frames)],
+        [EAM.encode_p3_am(rng.integers(0, 2, p3_len).astype(np.uint8), ma3)
+         for _ in range(n_frames)], ma3)
+    pids = np.stack([EAM.encode_pids_am(rng.integers(0, 2, 80).astype(
+        np.uint8)) for _ in range(8 * n_frames)])
+    ref = np.stack([EAM.am_ref_bits(b % 8, 2 if ma3 else 1)
+                    for b in range(8 * n_frames)])
+    sig = ch.impair(modulate_am(mats, pids, ref, ma3), cfo_hz=cfo_hz,
+                    snr_db=snr_db, sample_rate=C.SAMPLE_RATE_CS16_AM,
+                    rng=rng)
+    buf = np.zeros((scar.am_buffer_len(n_frames), 2), np.float32)
+    start = C.FFTCP_AM // 2
+    buf[start:start + len(sig)] = np.stack([sig.real, sig.imag], -1)
+    return buf
+
+
+def _am_stations(card, ma3=False):
+    """Three stations' one-frame AM chain input at 35 dB (CFOs 0, +7 and
+    -9 Hz) and a fresh carry for them."""
+    rng = np.random.default_rng(20 + ma3)
+    x = torch.from_numpy(np.stack([_am_capture(rng, ma3, 1, f)
+                                   for f in (0.0, 7.0, -9.0)])).to(card)
+    return x, scar.am_chain_rc_init_carry(n_stations=3, device=card)
+
+
+@pytest.mark.parametrize("case", ["fresh", "moved"])
+def test_am_fold(card, case):
+    """K12, both passes, on three stations: from a fresh carry, and with the
+    state moved (offsets, phasors, samperr feedback -2..+3, CFOs -1..1,
+    small angles) so every term of the ramp and the slice is exercised."""
+    x, cy = _am_stations(card)
+    args = [x, cy.offset, cy.phase, cy.samperr_fb, cy.prev_angle, cy.cfo]
+    if case == "moved":
+        ang = torch.tensor([0.3, 2.0, -1.2], device=card)
+        args[1:] = [torch.tensor([0, 300, 8000], dtype=torch.int32,
+                                 device=card),
+                    torch.stack([torch.cos(ang), torch.sin(ang)], -1),
+                    torch.tensor([3, -2, 0], dtype=torch.int32, device=card),
+                    torch.tensor([0.004, -0.01, 0.02], device=card),
+                    torch.tensor([1, 0, -1], dtype=torch.int32, device=card)]
+    before = K.COUNTS["am_fold"]
+    got1 = scar.am_fold(*args)
+    want1 = scar.am_fold_plain(*args)
+    _close(got1, want1, 1e-5)
+    spectra1 = rc.dft(want1, shift=True)
+    got2 = scar.am_fold(*args, spectra1)
+    want2 = scar.am_fold_plain(*args, spectra1)
+    assert K.COUNTS["am_fold"] == before + 2
+    for a, b in zip(got2, want2):
+        if b.dtype == torch.int32:
+            assert torch.equal(a, b)
+        else:
+            _close(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("ma3", [False, True])
+def test_sync_am_block(card, ma3):
+    """K13 on the spectra of three stations' first block at 35 dB, the
+    fold and DFT through the plain versions."""
+    x, carry = _am_stations(card, ma3)
+    spectra = scar.acquire_am_fine_rc(x, carry.offset, carry.phase,
+                                      carry.samperr_fb, carry.prev_angle,
+                                      carry.cfo, plain=True)[0].contiguous()
+    before = K.COUNTS["sync_am_block"]
+    got = scar.sync_am_block_rc(spectra, ma3)
+    assert K.COUNTS["sync_am_block"] == before + 1
+    want = scar.sync_am_block_rc_plain(spectra, ma3)
+    for k in ("codes", "pids", "ref_bits", "samperr"):
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), (
+            k, int((got[k] != want[k]).sum()))
+
+
+@pytest.mark.parametrize("ma3", [False, True])
+@pytest.mark.parametrize("n_frames", [2, 4])
+def test_am_gather(card, ma3, n_frames):
+    """K15 on random codes and a random handed-on delay line: 2 frames
+    (every delayed bit from the line) and 4 (frame 3's from frame 0)."""
+    g = torch.Generator().manual_seed(22 + 2 * n_frames + ma3)
+    s, nb = 3, 8 * n_frames
+    codes = torch.randint(0, 64, (s, nb, 4, 800), generator=g,
+                          dtype=torch.uint8).to(card)
+    pids = torch.randint(0, 16, (s, nb, 32, 2), generator=g,
+                         dtype=torch.uint8).to(card)
+    lines = torch.randint(0, 2, (s, 4, DA.DD), generator=g,
+                          dtype=torch.uint8).to(card)
+    before = K.COUNTS["am_gather"]
+    got = DA.am_gather(codes, pids, lines, ma3)
+    assert K.COUNTS["am_gather"] == before + 1
+    for a, b in zip(got, DA.am_gather_plain(codes, pids, lines, ma3)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("length,gens", [
+    (144, C.CONV_E2_E3_GEN), (1258, C.CONV_E1_GEN),
+    (1320, C.CONV_E2_E3_GEN)])
+@pytest.mark.parametrize("llr", ["am", "soft"])
+def test_viterbi_k9(card, length, gens, llr):
+    """K7 at K=9 at the AM chain's segment lengths (PIDS, P1, P3): the
+    chain's LLRs (+-1 with punctured zeros and some flips) and integer
+    soft LLRs with noise."""
+    rng = np.random.default_rng(23 + length)
+    b = 70
+    bits = rng.integers(0, 2, (b, length)).astype(np.uint8)
+    coded = CV.conv_encode(bits, 9, gens).reshape(b, length, 3) * 2.0 - 1.0
+    if llr == "am":
+        coded[rng.random(coded.shape) < 0.05] *= -1
+        coded[rng.random(coded.shape) < 0.2] = 0.0
+        ext = coded
+    else:
+        ext = np.clip(np.round(coded * 40 + rng.normal(0, 40, coded.shape)),
+                      -127, 127)
+    ext = torch.from_numpy(ext.astype(np.float32)).to(card)
+    before = K.COUNTS["viterbi_k9"], K.COUNTS["viterbi_k7"]
+    kb, km = CV.acs_traceback(ext, gens, 9)
+    assert (K.COUNTS["viterbi_k9"], K.COUNTS["viterbi_k7"]) == (
+        before[0] + 1, before[1])
+    pb, pm = CV.acs_traceback_plain(ext, gens, 9)
+    assert torch.equal(kb, pb)
+    assert torch.equal(km, pm)
+
+
+@pytest.mark.parametrize("name", ["am_p1", "am_p3_ma1", "am_p3_ma3",
+                                  "am_pids"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_fec_epilogue_am(card, name, packed):
+    """K8 on random K=9 Viterbi bits of the AM channels: 32 P1 frames of 8
+    subframes (the keystream restarting at each), 32 P3 frames, 256 PIDS
+    words; no re-encode count."""
+    tb = DF.channel_tables(name)
+    b = 256 if name == "am_pids" else 32
+    g = torch.Generator().manual_seed(24)
+    bits = torch.randint(0, 2, (b * tb["n_seg"], tb["steps"]), generator=g,
+                         dtype=torch.uint8).to(card)
+    got, errors = DF.fec_epilogue(bits, name, packed=packed)
+    want, _ = DF.fec_epilogue_plain(bits, name, packed=packed)
+    assert errors is None and torch.equal(got, want)

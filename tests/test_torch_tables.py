@@ -8,29 +8,39 @@ import pytest
 from nrsc5_tpu import constants as JC
 from nrsc5_tpu.ops import acquire as JAQ
 from nrsc5_tpu.ops import convolutional as JCV
+from nrsc5_tpu.ops import decode_am as JDA
 from nrsc5_tpu.ops import detect_cfo as JDC
 from nrsc5_tpu.ops import frontend as JFE
 from nrsc5_tpu.ops import interleavers as JIL
 from nrsc5_tpu.ops import rcplx as JRC
 from nrsc5_tpu.ops import scramble as JSC
+from nrsc5_tpu.ops import sync_am as JSA
 from nrsc5_tpu.ops import sync_fm as JSF
 from nrsc5_tpu.pipeline import scan_chain as JSCH
+from nrsc5_tpu.pipeline import scan_chain_am as JSAM
 from nrsc5_tpu.tx import channel as JCH
 from nrsc5_tpu.tx import encoder as JEN
+from nrsc5_tpu.tx import encoder_am as JEAM
 from nrsc5_tpu.tx import modulator as JMO
+from nrsc5_tpu.tx import modulator_am as JMAM
 from nrsc5_tpu_torch import constants as TC
 from nrsc5_tpu_torch.ops import acquire_rc as TAQ
 from nrsc5_tpu_torch.ops import convolutional as TCV
+from nrsc5_tpu_torch.ops import decode_am as TDA
 from nrsc5_tpu_torch.ops import detect_cfo as TDC
 from nrsc5_tpu_torch.ops import frontend as TFE
 from nrsc5_tpu_torch.ops import interleavers as TIL
 from nrsc5_tpu_torch.ops import rcplx as TRC
 from nrsc5_tpu_torch.ops import scramble as TSC
+from nrsc5_tpu_torch.ops import sync_am as TSA
 from nrsc5_tpu_torch.ops import sync_fm as TSF
 from nrsc5_tpu_torch.pipeline import scan_chain as TSCH
+from nrsc5_tpu_torch.pipeline import scan_chain_am as TSAM
 from nrsc5_tpu_torch.tx import channel as TCH
 from nrsc5_tpu_torch.tx import encoder as TEN
+from nrsc5_tpu_torch.tx import encoder_am as TEAM
 from nrsc5_tpu_torch.tx import modulator as TMO
+from nrsc5_tpu_torch.tx import modulator_am as TMAM
 
 
 def _equal(a, b):
@@ -101,6 +111,40 @@ TABLES = {
     "iv_state_len": (lambda: [JSCH.iv_state_len(f) for f in (0, 2304, 4608)],
                      lambda: [TSCH.iv_state_len(f) for f in (0, 2304, 4608)]),
 }
+TABLES.update({
+    "window_am": (lambda: JAQ.WINDOW_AM, lambda: TAQ.WINDOW_AM),
+    "am_geometry": (lambda: (JSAM.SLACK_AM,
+                             [JSAM.am_buffer_len(n) for n in (1, 2, 5)]),
+                    lambda: (TSAM.SLACK_AM,
+                             [TSAM.am_buffer_len(n) for n in (1, 2, 5)])),
+    "sync_am_tables": (
+        lambda: (JSA.GRAY4, JSA.GRAY8, JSA.TRAIN1, JSA.TRAIN2, JSA.W,
+                 JSA.CENTER, JSA.AM_EQ_INTERP, JSA.TRAIN_QAM64,
+                 JSA.TRAIN_QAM16, JSA.TRAIN_QPSK),
+        lambda: (TSA.GRAY4, TSA.GRAY8, TSA.TRAIN1, TSA.TRAIN2, TSA.W,
+                 TSA.CENTER, TSA.AM_EQ_INTERP, TSA.TRAIN_QAM64,
+                 TSA.TRAIN_QAM16, TSA.TRAIN_QPSK)),
+    "am_pids_tables": (JIL.am_pids_tables, TIL.am_pids_tables),
+    "trellis_tables_k9": (
+        lambda: (JCV.trellis_tables(9, JC.CONV_E1_GEN),
+                 JCV.trellis_tables(9, JC.CONV_E2_E3_GEN)),
+        lambda: (TCV.trellis_tables(9, TC.CONV_E1_GEN),
+                 TCV.trellis_tables(9, TC.CONV_E2_E3_GEN))),
+    "chunk_plan_am": (
+        lambda: tuple(JCV._chunk_plan(t, 1024, 160)
+                      for t in (3750, 24000, 30000)),
+        lambda: tuple(TCV._chunk_plan(t, TCV.CHUNK_AM, TCV.OVERLAP_AM)
+                      for t in (3750, 24000, 30000))),
+})
+for _ma3 in (False, True):
+    TABLES[f"am_ma1_tables_ma3_{_ma3}"] = (
+        lambda ma3=_ma3: tuple(
+            (k,) + v for k, v in JIL.am_ma1_tables(ma3).items()),
+        lambda ma3=_ma3: tuple(
+            (k,) + v for k, v in TIL.am_ma1_tables(ma3).items()))
+    TABLES[f"am_phase_tables_ma3_{_ma3}"] = (
+        lambda ma3=_ma3: JDA._phase_tables(ma3),
+        lambda ma3=_ma3: TDA._phase_tables(ma3))
 for _fl in (2304, 4608):
     TABLES[f"p3_iv_tables_{_fl}"] = (
         lambda fl=_fl: JIL.p3_iv_tables(fl),
@@ -179,3 +223,44 @@ def test_modulator_px_equal(psmi):
         kw["px2_signs"] = rng.choice([-1, 1], (64, fl2 // 32)).astype(np.int8)
     _equal(JMO.modulate_fm(matrix, np.array([6, 7]), psmi, **kw),
            TMO.modulate_fm(matrix, np.array([6, 7]), psmi, **kw))
+
+
+@pytest.mark.parametrize("ma3", [False, True])
+def test_encoder_am_equal(ma3):
+    """The AM encoder: two frames' P1 and P3 streams, their interleaved
+    QAM matrices (delayed halves of the last frames from the filler), the
+    PIDS codes and the reference bits."""
+    rng = np.random.default_rng(13 + ma3)
+    p3_len = JC.P3_FRAME_LEN_MA3 if ma3 else JC.P3_FRAME_LEN_MA1
+    p1 = rng.integers(0, 2, (2, 8, JC.P1_FRAME_LEN_AM)).astype(np.uint8)
+    p3 = rng.integers(0, 2, (2, p3_len)).astype(np.uint8)
+    streams = {}
+    for name, mod in (("jax", JEAM), ("port", TEAM)):
+        s1 = [mod.encode_p1_am(p1[f]) for f in range(2)]
+        s3 = [mod.encode_p3_am(p3[f], ma3) for f in range(2)]
+        streams[name] = (s1, s3, mod.interleave_frames(s1, s3, ma3))
+    for a, b in zip(streams["jax"][:2], streams["port"][:2]):
+        for x, y in zip(a, b):
+            _equal(x, y)
+    for fj, fp in zip(streams["jax"][2], streams["port"][2]):
+        assert list(fj) == list(fp)
+        for k in fj:
+            _equal(fj[k], fp[k])
+    word = rng.integers(0, 2, 80).astype(np.uint8)
+    _equal(JEAM.encode_pids_am(word), TEAM.encode_pids_am(word))
+    for bc in (0, 5):
+        _equal(JEAM.am_ref_bits(bc, 2 if ma3 else 1, pli=1, rdbi=1),
+               TEAM.am_ref_bits(bc, 2 if ma3 else 1, pli=1, rdbi=1))
+
+
+@pytest.mark.parametrize("ma3", [False, True])
+def test_modulator_am_equal(ma3):
+    """The AM modulator: one frame of the same QAM matrices, PIDS codes and
+    reference bits gives the same complex64 signal."""
+    rng = np.random.default_rng(15 + ma3)
+    mats = [{k: rng.integers(0, 64, 8 * 32 * 25).astype(np.uint8)
+             for k in ("pl", "pu", "s", "t")}]
+    pids = rng.integers(0, 16, (8, 32, 2)).astype(np.uint8)
+    ref = np.stack([JEAM.am_ref_bits(b, 2 if ma3 else 1) for b in range(8)])
+    _equal(JMAM.modulate_am(mats, pids, ref, ma3),
+           TMAM.modulate_am(mats, pids, ref, ma3))
