@@ -8,9 +8,11 @@ Run from the root of the repository on a machine with a CUDA card and
 Phases, each printing one JSON line:
 
 1. device: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
-2. build: the fourteen hand kernels (K1, K2, K3, K4, K6, K7 at K=7 and at
-   K=9, K8, K9, the needle count of K10, K11, K12, K13, K15) built from
-   ``nrsc5_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``, all in parallel;
+2. build: the eighteen hand kernels (K1 and its AM cascade, K2, K3, K4,
+   K6, K7 at K=7 and at K=9, K8, K9, the needle count of K10, K11, K12,
+   K13, K14's tone estimate, coarse timing and CFO step, K15) built from
+   the sixteen sources of ``nrsc5_tpu_torch/csrc`` with ``nvcc`` for
+   ``sm_90a``, one process per source, all in parallel;
 3. signal: 16 stations of MP1, each modulated once with the port's ``tx``
    copy from random bits of a fixed seed: 2 lead blocks (block counts 14
    and 15), then 2 P1 frames.  From that one baseband come two cu8 wires
@@ -24,13 +26,19 @@ Phases, each printing one JSON line:
    stations of MA1: 6 frame-aligned frames of P1, P3 and PIDS each at 35
    dB AWGN with a fractional CFO within ±10 Hz, as one cs16 queue at
    46511.7 S/s, plus 2 frames of MA3 as chain input for the MA3 kernel
-   lines;
+   lines.  And the AM cold-start capture: 8 MA1 and 8 MA3 stations of 12
+   frames each behind a timing offset of 300-4000 samples, with an integer
+   CFO of -2, -1, +1 or +2 bins plus a fractional part within ±40 Hz, two
+   stations of each mode through a 0.5 echo at delay 14, 30 dB AWGN, cs16
+   at 0.1 of full scale.  And 2 frames of MA1 a station as a 1.488 MS/s cu8
+   AM wire (Fourier-upsampled ×32, 217 history pairs ahead);
 4. one line per kernel: the kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it, with times (K4 also at
    psmi 2, 3 and 11, K6 and K8 at P1's and PIDS's shapes, K8 at PX's,
    K11 at MP3's and MP2's; the AM kernels K12 in both passes, K13 and K15
    in MA1 and MA3, K7 at K=9 on P1, P3 of MA1 and MA3 and PIDS, and K8
-   on the AM P1);
+   on the AM P1; K14's three kernels at the AM cold start's first probe
+   block, K1's AM cascade on the cu8 AM wire);
 5. coldstart: ``serve.cold_start`` on the capture must lock 16/16 stations
    with the true |CFO| under one sign convention, first_bc 14 and psmi 1;
    then ``serve.chain_step`` from the locks over 34 blocks must decode
@@ -61,7 +69,20 @@ Phases, each printing one JSON line:
    of each dispatch exactly K12 32, K13 16, K15 1, K7 at K=9 3 and K8 3,
    and no plain version called; the same dispatches through the plain
    versions the same bits, margins and final delay lines.  Wall per
-   dispatch, real-time factor, stage split, device busy time.
+   dispatch, real-time factor, stage split, device busy time;
+9. am_coldstart: ``serve.cold_start(mode="am")`` on the cold-start capture
+   must lock 16/16 stations at their true integer CFO, mode and psmi, each
+   probe block launching exactly K14's tone 1, coarse 1 and CFO step 1,
+   K12 2 and K13 1, with no plain version called.  Then per mode,
+   ``serve.carry_from_locks`` and three ``serve.chain_step_am`` dispatches
+   of 2 frames from the locks, the carry handed on and each queue advanced
+   by what its station consumed: every P1 subframe and P3 frame of frames
+   3-5 counted from the lock and every PIDS word bit-exact.  The plain
+   versions must give the same locks and bits.  The cold start's wall time,
+   probe blocks, launches per probe block and device busy time;
+10. am_cu8: ``serve.ingest`` of the cu8 AM wire launches K1's AM cascade
+   once, and each station's output correlates with its baseband above
+   0.85 (the reference's own bound for this cascade).
 
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``:
 the sum over the paths driven, itemised under ``launches_by_path``) and,
@@ -72,14 +93,17 @@ with no CUDA card it exits 2 before printing anything.
 
 from __future__ import annotations
 
+import cProfile
 import json
 import multiprocessing
 import os
+import pstats
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -96,6 +120,12 @@ AM_DISPATCHES = 3
 AM_SNR_DB = 35.0
 AM_CFO_HZ = 10.0  # fractional CFOs within ±AM_CFO_HZ
 AM_RMS = 0.1  # the cs16 wire's rms, of full scale
+AM_COLD_FRAMES = 12  # frames of each station's cold-start capture
+AM_COLD_SNR_DB = 30.0
+AM_COLD_CFO_HZ = 40.0  # fractional CFOs within ±AM_COLD_CFO_HZ
+AM_COLD_MAX_OFFSET = 4000
+AM_COLD_ECHO = (14, 0.5, 2.0)  # delay (the cyclic prefix), amplitude, phase
+AM_CU8_SCALE = 0.05  # the cu8 AM signal's modulator scale (no clipping)
 # the card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -130,6 +160,14 @@ KERNELS = {
                       "nrsc5_tpu/pipeline/scan_chain_am_rc.py:143"),
     "am_gather": ("nrsc5_tpu_torch/csrc/am_gather.cu",
                   "nrsc5_tpu/ops/decode_am.py:86"),
+    "am_tone": ("nrsc5_tpu_torch/csrc/am_coldstart.cu",
+                "nrsc5_tpu/pipeline/scan_chain_am_rc.py:350"),
+    "am_coarse": ("nrsc5_tpu_torch/csrc/am_coldstart.cu",
+                  "nrsc5_tpu/pipeline/scan_chain_am_rc.py:404"),
+    "am_cfo_step": ("nrsc5_tpu_torch/csrc/am_coldstart.cu",
+                    "nrsc5_tpu/pipeline/scan_chain_am_rc.py:106"),
+    "am_decimate_cu8": ("nrsc5_tpu_torch/csrc/am_decimate_cu8.cu",
+                        "nrsc5_tpu/ops/frontend.py:154"),
 }
 # the kernels each path launches
 STEADY = ("halfband_cu8", "demod_fold", "sync_block", "fec_gather",
@@ -145,6 +183,10 @@ MP3_LAUNCHES = {"halfband_cu8": 1, "demod_fold": 32, "sync_block": 32,
 # K13 once a block, K15 once, K7 at K=9 and K8 for P1, P3 and PIDS
 AM_LAUNCHES = {"am_fold": 32, "sync_am_block": 16, "am_gather": 1,
                "viterbi_k9": 3, "fec_epilogue": 3}
+# launches of one AM cold-start probe block: K14's three kernels once,
+# K12 in both passes, K13 once
+AM_PROBE_LAUNCHES = {"am_tone": 1, "am_coarse": 1, "am_fold": 2,
+                     "am_cfo_step": 1, "sync_am_block": 1}
 
 
 def emit(obj) -> None:
@@ -357,14 +399,11 @@ def am_queue_len() -> int:
     return am_buffer_len(AM_DISPATCHES * AM_FRAMES) + 2 * SLACK_AM
 
 
-def _am_signal(rng, ma3: bool, n_frames: int, n_out: int):
-    """``n_frames`` frames of random P1, P3 and PIDS of one AM station at
-    AM_SNR_DB with a fractional CFO, frame-aligned (the first symbol
-    FFTCP_AM // 2 in, bc 0 first) in a buffer of ``n_out`` samples, scaled
-    to AM_RMS of full scale and quantized to cs16.  Returns the int16
-    [n_out, 2] wire, the bits and the CFO."""
+def _am_frames(rng, ma3: bool, n_frames: int, scale: float = 0.02):
+    """``n_frames`` frames of random P1, P3 and PIDS of one AM station,
+    modulated with the port's ``tx`` copy (bc 0 first).  Returns the
+    complex64 baseband and the bits."""
     from nrsc5_tpu_torch import constants as C
-    from nrsc5_tpu_torch.tx import channel as ch
     from nrsc5_tpu_torch.tx import encoder_am as EAM
     from nrsc5_tpu_torch.tx.modulator_am import modulate_am
 
@@ -379,17 +418,34 @@ def _am_signal(rng, ma3: bool, n_frames: int, n_out: int):
     ref = np.stack([EAM.am_ref_bits(b % 8, 2 if ma3 else 1)
                     for b in range(8 * n_frames)])
     sig = modulate_am(mats, np.stack([EAM.encode_pids_am(w) for w in pids]),
-                      ref, ma3)
+                      ref, ma3, scale=scale)
+    return sig, p1, p3, pids
+
+
+def _cs16(buf: np.ndarray) -> np.ndarray:
+    """complex64 -> an int16 [n, 2] wire at AM_RMS of full scale."""
+    buf = buf * (AM_RMS / np.sqrt(np.mean(np.abs(buf) ** 2)))
+    iq = np.stack([buf.real, buf.imag], -1) * 32768
+    return np.clip(np.round(iq), -32768, 32767).astype(np.int16)
+
+
+def _am_signal(rng, ma3: bool, n_frames: int, n_out: int):
+    """``n_frames`` frames of random P1, P3 and PIDS of one AM station at
+    AM_SNR_DB with a fractional CFO, frame-aligned (the first symbol
+    FFTCP_AM // 2 in, bc 0 first) in a buffer of ``n_out`` samples, scaled
+    to AM_RMS of full scale and quantized to cs16.  Returns the int16
+    [n_out, 2] wire, the bits and the CFO."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch.tx import channel as ch
+
+    sig, p1, p3, pids = _am_frames(rng, ma3, n_frames)
     cfo_hz = float(rng.uniform(-AM_CFO_HZ, AM_CFO_HZ))
     buf = np.zeros(n_out, np.complex64)
     start = C.FFTCP_AM // 2
     buf[start:start + len(sig)] = sig[:n_out - start]
     buf = ch.impair(buf, cfo_hz=cfo_hz, snr_db=AM_SNR_DB,
                     sample_rate=C.SAMPLE_RATE_CS16_AM, rng=rng)
-    buf *= AM_RMS / np.sqrt(np.mean(np.abs(buf) ** 2))
-    iq = np.stack([buf.real, buf.imag], -1) * 32768
-    wire = np.clip(np.round(iq), -32768, 32767).astype(np.int16)
-    return wire, p1, p3, pids, cfo_hz
+    return _cs16(buf), p1, p3, pids, cfo_hz
 
 
 def make_am_station(index: int) -> dict:
@@ -404,6 +460,70 @@ def make_am_station(index: int) -> dict:
     ma3, *_ = _am_signal(rng, True, AM_FRAMES, am_buffer_len(AM_FRAMES))
     return {"queue": queue, "p1": p1, "p3": p3, "pids": pids,
             "cfo_hz": cfo, "ma3_wire": ma3}
+
+
+def am_cold_len() -> int:
+    """cs16 pairs of a station's AM cold-start capture: the chain's buffer
+    for all its frames past the largest timing offset."""
+    from nrsc5_tpu_torch.pipeline.scan_chain_am import am_buffer_len
+    return am_buffer_len(AM_COLD_FRAMES) + AM_COLD_MAX_OFFSET
+
+
+def make_am_cold_station(index: int) -> dict:
+    """AM cold-start station ``index``, from its own seed: MA1 for 0-7,
+    MA3 for 8-15; AM_COLD_FRAMES frames behind a timing offset of
+    300-AM_COLD_MAX_OFFSET samples, an integer CFO of -2, -1, +1 or +2
+    bins (by index) plus a fractional part within ±AM_COLD_CFO_HZ, a 0.5
+    echo at delay 14 for stations 0, 1, 8 and 9, AWGN at AM_COLD_SNR_DB,
+    cs16.  Returns the int16 [am_cold_len(), 2] capture, the bits (p3
+    zero-padded to MA3's frame length) and the impairments."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch.tx import channel as ch
+
+    rng = np.random.default_rng([SEED, 0xC0, index])
+    ma3 = index >= N_STATIONS // 2
+    echo = index % (N_STATIONS // 2) < 2
+    sig, p1, p3, pids = _am_frames(rng, ma3, AM_COLD_FRAMES)
+    if echo:
+        delay, amp, phase = AM_COLD_ECHO
+        sig = ch.multipath(sig, delay, amp, phase=phase)
+    offset = int(rng.integers(300, AM_COLD_MAX_OFFSET))
+    cfo_bins = (-2, -1, 1, 2)[index % 4]
+    cfo_hz = cfo_bins * C.SAMPLE_RATE_CS16_AM / C.FFT_AM \
+        + float(rng.uniform(-AM_COLD_CFO_HZ, AM_COLD_CFO_HZ))
+    buf = np.zeros(am_cold_len(), np.complex64)
+    buf[offset:offset + len(sig)] = sig
+    buf = ch.impair(buf, cfo_hz=cfo_hz, snr_db=AM_COLD_SNR_DB,
+                    sample_rate=C.SAMPLE_RATE_CS16_AM, rng=rng)
+    p3_full = np.zeros((AM_COLD_FRAMES, C.P3_FRAME_LEN_MA3), np.uint8)
+    p3_full[:, :p3.shape[1]] = p3
+    return {"wire": _cs16(buf), "p1": p1, "p3": p3_full,
+            "p3_len": p3.shape[1], "pids": pids, "ma3": ma3, "echo": echo,
+            "offset": offset, "cfo_bins": cfo_bins, "cfo_hz": cfo_hz}
+
+
+def make_am_cu8_station(index: int) -> dict:
+    """AM cu8 station ``index``, from its own seed: 2 frames of MA1 at
+    modulator scale AM_CU8_SCALE in a buffer of am_buffer_len(2) samples,
+    Fourier-upsampled ×32 to 1.488 MS/s, quantized to cu8 and queued
+    behind the 217 history pairs of the ÷32 cascade.  Returns the wire
+    (one 2-frame dispatch, [434 + 32 am_buffer_len(2), 2]) and the
+    baseband as rc float32."""
+    from nrsc5_tpu_torch import serve
+    from nrsc5_tpu_torch.ops import frontend as FE
+    from nrsc5_tpu_torch.pipeline.scan_chain_am import am_buffer_len
+    from nrsc5_tpu_torch.tx import channel as ch
+
+    rng = np.random.default_rng([SEED, 0xC8, index])
+    sig, *_ = _am_frames(rng, False, AM_FRAMES, scale=AM_CU8_SCALE)
+    n = am_buffer_len(AM_FRAMES)
+    # 8 chain samples of lookahead cover the cascade's 217 pairs past n
+    buf = np.zeros(n + 8, np.complex64)
+    buf[:len(sig)] = sig
+    wire = serve.stream_wire(ch.to_cu8(ch.upsample_exact(buf, 32)),
+                             FE.AM_STAGES)
+    return {"wire": wire[:FE.rc_overlap(FE.AM_STAGES) + 32 * n],
+            "baseband": np.stack([buf.real, buf.imag], -1)[:n]}
 
 
 def make_fleet(station=make_station) -> dict:
@@ -424,6 +544,7 @@ def main() -> int:
     from nrsc5_tpu_torch import constants as C
     from nrsc5_tpu_torch import kernels as K
     from nrsc5_tpu_torch import serve
+    from nrsc5_tpu_torch.ops import acquire_am_rc as AA
     from nrsc5_tpu_torch.ops import acquire_rc as AQ
     from nrsc5_tpu_torch.ops import convolutional as CV
     from nrsc5_tpu_torch.ops import costas as CO
@@ -464,7 +585,8 @@ def main() -> int:
                                          "stack frame"))]
             for n, log in built["ptxas"].items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "built": built["built"], "ptxas": regs})
+          "kernels": list(K.SIGNATURES), "built": built["built"],
+          "ptxas": regs})
 
     n_blocks = N_FRAMES * C.P1_FM_BLOCKS
     t0 = time.perf_counter()
@@ -473,9 +595,21 @@ def main() -> int:
     mp3 = make_fleet(make_mp3_station)
     t2 = time.perf_counter()
     am = make_fleet(make_am_station)
+    t3 = time.perf_counter()
+    am_cold = make_fleet(make_am_cold_station)
+    t4 = time.perf_counter()
+    am_cu8 = make_fleet(make_am_cu8_station)
     emit({"phase": "signal", "seconds": round(t1 - t0, 3),
           "mp3_seconds": round(t2 - t1, 3),
-          "am_seconds": round(time.perf_counter() - t2, 3),
+          "am_seconds": round(t3 - t2, 3),
+          "am_cold_seconds": round(t4 - t3, 3),
+          "am_cu8_seconds": round(time.perf_counter() - t4, 3),
+          "am_cold_bytes": int(am_cold["wire"].nbytes),
+          "am_cold_offsets": am_cold["offset"].tolist(),
+          "am_cold_cfo_hz": am_cold["cfo_hz"].tolist(),
+          "am_cold_ma3": am_cold["ma3"].tolist(),
+          "am_cold_echo": am_cold["echo"].tolist(),
+          "am_cu8_bytes": int(am_cu8["wire"].nbytes),
           "mp3_queue_bytes": int(mp3["queue"].nbytes),
           "am_queue_bytes": int(am["queue"].nbytes),
           "am_cfo_hz": am["cfo_hz"].tolist(),
@@ -910,6 +1044,87 @@ def main() -> int:
           bound(n_fr * tb["t"] + tb["keep"].size * 4 + tb["keystream"].size
                 + got.numel(), n_fr * tb["t"] * 2),
           None, [n_fr, tb["t"]], plain_reps=3, plain_inner=2, case="am_p1")
+
+    # --- K14 at the AM cold start's first probe block (every station's
+    # window at 0, fresh state): the power DFT's spectra into the tone
+    # estimate, the coarse timing on that tone, and the CFO step on pass
+    # 1's spectra demodulated at that timing ---
+    cold_wire = torch.from_numpy(am_cold["wire"]).to(dev)
+    cold_x = serve.ingest(cold_wire, "am")
+    z32 = torch.zeros(s_n, dtype=torch.int32, device=dev)
+    zf = torch.zeros(s_n, device=dev)
+    no_latch = torch.full((s_n,), -1, dtype=torch.int32, device=dev)
+    tone_spectra = rc.dft(AA.tone_symbols(cold_x, z32))
+    got = AA.am_tone(tone_spectra, cold_x, z32)
+    want = AA.am_tone_plain(tone_spectra, cold_x, z32)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    win_am = AA.WINDOW_AM
+    # operations, each cos and sin counted as one: per grid term the phase
+    # (2), cos and sin (2), the complex product (6) and its sum (2); the
+    # derotation; three 8910-sample passes of Newton and the amplitude; the
+    # power sum
+    tone_ops = s_n * (AA.N_GRID * win_am * 12 + win_am * 12
+                      + 3 * win_am * 20 + C.BLKSZ * C.FFT_AM * 3)
+    check("am_tone", err, 0.0,
+          lambda: AA.am_tone(tone_spectra, cold_x, z32),
+          lambda: AA.am_tone_plain(tone_spectra, cold_x, z32),
+          bound(tone_spectra.numel() * 4 + s_n * (win_am * 8 + 4 + 4 + 12),
+                tone_ops),
+          None, [s_n, win_am, 2], plain_reps=3, plain_inner=2)
+    f_t, amp_t = got
+    coarse_args = (cold_x, z32, f_t, amp_t, zf, no_latch)
+    got = AA.am_coarse(*coarse_args)
+    want = AA.am_coarse_plain(*coarse_args)
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    nsamp_cp = C.BLKSZ * C.FFTCP_AM
+    check("am_coarse", err, 0.0,
+          lambda: AA.am_coarse(*coarse_args),
+          lambda: AA.am_coarse_plain(*coarse_args),
+          bound(s_n * (win_am * 8 + 4 * 6 + 4 * 3 + 8),
+                s_n * (win_am * 12 + nsamp_cp * 8
+                       + C.FFTCP_AM * C.CP_AM * 4 + C.FFTCP_AM * 3 + 10)),
+          None, [s_n, win_am, 2], plain_reps=3, plain_inner=2)
+    cold_samperr = got[1]
+    spectra1 = rc.dft(scar.am_fold(cold_x, z32, unit, cold_samperr
+                                   - C.FFTCP_AM // 2, got[2], z32),
+                      shift=True)
+    got = AA.am_cfo_step(spectra1)
+    want = AA.am_cfo_step_plain(spectra1)
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    band = C.BLKSZ * AA.CFO_BINS
+    check("am_cfo_step", err, 0.0,
+          lambda: AA.am_cfo_step(spectra1),
+          lambda: AA.am_cfo_step_plain(spectra1),
+          bound(s_n * (band * 8 + AA.CFO_BINS * 4 + 4), s_n * band * 5),
+          None, list(spectra1.shape), plain_reps=3, plain_inner=2)
+
+    # --- K1's AM cascade: one 2-frame dispatch of the cu8 AM fleet, u8
+    # [16, 434 + 32 x 138780, 2] ---
+    cu8_wire = torch.from_numpy(am_cu8["wire"]).to(dev)
+    got = FE.ingest_am_cu8(cu8_wire)
+    err = (got - FE.ingest_am_cu8_plain(cu8_wire)).abs().max().item()
+    n_cu8, n_am_out = cu8_wire.shape[1], got.shape[1]
+    # conv1d's float input (the scaled cu8, not timed) and the five stages
+    x = (FE.cu8_to_rc(cu8_wire, conj=False) * (1.0 / 16.0)).permute(
+        0, 2, 1).reshape(-1, 1, n_cu8).contiguous()
+
+    def conv_cascade():
+        y = x
+        for _ in range(FE.AM_STAGES):
+            y = torch.nn.functional.conv1d(y, taps, stride=2)
+        return y
+
+    # operations: per stage output 9 products and 8 sums for I and Q
+    # (31 N outputs over the five stages), the conversion's 3 a value
+    check("am_decimate_cu8", err, 0.0,
+          lambda: FE.ingest_am_cu8(cu8_wire),
+          lambda: FE.ingest_am_cu8_plain(cu8_wire),
+          bound(s_n * n_cu8 * 2 + s_n * n_am_out * 8,
+                s_n * (31 * n_am_out * 34 + n_cu8 * 2 * 3)),
+          conv_cascade, [s_n, n_cu8, 2], plain_reps=3, plain_inner=2)
+    del x
 
     # --- coldstart: lock the capture, then decode it from the locks ---
     cap_blocks = LEAD + n_blocks
@@ -1383,6 +1598,207 @@ def main() -> int:
     for name in KERNELS:
         by_path = report[name]["launches_by_path"]
         by_path["am"] = sum(n.get(name, 0) for n in run["launches"])
+        report[name]["launches"] = sum(by_path.values())
+
+    # --- am_coldstart: lock the 16-station MA1/MA3 capture from cs16, then
+    # decode each mode's stations from their locks, three dispatches of 2
+    # frames with the carry handed on and each queue advanced by what its
+    # station consumed ---
+    frame_len = C.P1_AM_BLOCKS * C.BLKSZ * C.FFTCP_AM
+    lock_keys = ("offset", "psmi", "ma3", "cfo")
+
+    def am_cold_run(plain=False):
+        torch.cuda.synchronize()
+        K.reset_counts()
+        locks = serve.cold_start(cold_wire, "am", plain=plain)
+        torch.cuda.synchronize()
+        run = {"locks": locks, "launches": dict(K.COUNTS), "groups": {}}
+        if any(lock is None for lock in locks):
+            return run
+        for ma3 in (False, True):
+            idx = [i for i, lock in enumerate(locks) if lock["ma3"] == ma3]
+            carry, _ = serve.carry_from_locks([locks[i] for i in idx])
+            pos = carry.offset.cpu().numpy().astype(np.int64)
+            carry = carry._replace(offset=torch.zeros_like(carry.offset))
+            outs, launches = [], []
+            for _ in range(AM_DISPATCHES):
+                w = torch.stack([cold_wire[i, p:p + n_am]
+                                 for i, p in zip(idx, pos.tolist())])
+                torch.cuda.synchronize()
+                K.reset_counts()
+                out, new = serve.chain_step_am(w, carry, AM_FRAMES, ma3,
+                                               packed=True, plain=plain)
+                torch.cuda.synchronize()
+                launches.append({n: c for n, c in K.COUNTS.items() if c})
+                pos = pos + new.offset.cpu().numpy()
+                carry = new._replace(offset=torch.zeros_like(new.offset))
+                outs.append(out)
+            run["groups"][ma3] = {"idx": idx, "outs": outs,
+                                  "launches": launches}
+        return run
+
+    plain_calls, restore = count_plain_calls()
+    try:
+        crun = am_cold_run()
+    finally:
+        restore()
+    locks = crun["locks"]
+    n_locked = sum(lock is not None for lock in locks)
+    probes = crun["launches"]["sync_am_block"]
+    probe_launches_ok = probes > 0 and {
+        n: c for n, c in crun["launches"].items() if c} == {
+        n: c * probes for n, c in AM_PROBE_LAUNCHES.items()}
+    truth_ok = n_locked == s_n and all(
+        lock["cfo"] == int(am_cold["cfo_bins"][i])
+        and lock["ma3"] == bool(am_cold["ma3"][i])
+        and lock["psmi"] == (C.SERVICE_MODE_MA3 if am_cold["ma3"][i]
+                             else C.SERVICE_MODE_MA1)
+        for i, lock in enumerate(locks))
+    # the frame each lock starts: its first symbol FFTCP_AM // 2 past the
+    # lock offset, counted from the station's first transmitted symbol
+    lock_frame = [None if lock is None else int(round(
+        (lock["offset"] + C.FFTCP_AM // 2 - int(am_cold["offset"][i]))
+        / frame_len)) for i, lock in enumerate(locks)]
+    n_later = AM_DISPATCHES * AM_FRAMES - 3
+    cold_p1_ok = cold_p3_ok = cold_pids_ok = 0
+    group_launches_ok = not plain_calls
+    if truth_ok:
+        for ma3, grp in crun["groups"].items():
+            group_launches_ok &= all(n == AM_LAUNCHES
+                                     for n in grp["launches"])
+            for d, out in enumerate(grp["outs"]):
+                p1 = unpack_bits(out["p1"]).reshape(len(grp["idx"]),
+                                                    AM_FRAMES, 8, sub)
+                p3 = unpack_bits(out["p3"])
+                pids = unpack_bits(out["pids"])
+                for j, i in enumerate(grp["idx"]):
+                    l3 = int(am_cold["p3_len"][i])
+                    for f in range(AM_FRAMES):
+                        g_f = AM_FRAMES * d + f
+                        tx = lock_frame[i] + g_f
+                        if g_f >= 3 and tx < AM_COLD_FRAMES:
+                            cold_p1_ok += int((p1[j, f] == am_cold["p1"][
+                                i, tx]).all(axis=-1).sum())
+                            cold_p3_ok += int((p3[j, f] == am_cold["p3"][
+                                i, tx, :l3]).all())
+                    b0 = (lock_frame[i] + AM_FRAMES * d) * C.P1_AM_BLOCKS
+                    want = am_cold["pids"][i, b0:b0 + am_blocks]
+                    if len(want) == am_blocks:
+                        cold_pids_ok += int((pids[j] == want).all(
+                            axis=-1).sum())
+
+    # the plain path: the same locks, and the same outputs from them
+    prun = am_cold_run(plain=True)
+    plain_locks_same = all(
+        (a is None and b is None) or (a is not None and b is not None and all(
+            a[k] == b[k] for k in lock_keys))
+        for a, b in zip(locks, prun["locks"]))
+    plain_bits_same = plain_locks_same and truth_ok and all(
+        torch.equal(a[k], b[k])
+        for ma3 in (False, True)
+        for a, b in zip(crun["groups"][ma3]["outs"],
+                        prun["groups"][ma3]["outs"])
+        for k in ("p1", "p3", "pids", "p1_margin", "p3_margin"))
+    prev_angle_gap = max(
+        abs(float(a["carry"].prev_angle) - float(b["carry"].prev_angle))
+        for a, b in zip(locks, prun["locks"])) if plain_locks_same \
+        and n_locked == s_n else None
+
+    cold_times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve.cold_start(cold_wire, "am")
+        torch.cuda.synchronize()
+        cold_times.append((time.perf_counter() - t0) * 1e3)
+    cold_device = profile_device(torch, lambda: serve.cold_start(cold_wire,
+                                                                 "am"))
+    # where the host's time goes: Python functions by own time in one
+    # warm cold start (cProfile adds its own cost to every call)
+    prof = cProfile.Profile()
+    prof.enable()
+    serve.cold_start(cold_wire, "am")
+    torch.cuda.synchronize()
+    prof.disable()
+    host_top = [[f"{Path(fn[0]).name}:{fn[1]}:{fn[2]}", calls, own * 1e3]
+                for fn, (calls, _, own, _, _) in sorted(
+                    pstats.Stats(prof).stats.items(),
+                    key=lambda kv: -kv[1][2])[:10]]
+    cold_ok = (truth_ok and probe_launches_ok and group_launches_ok
+               and cold_p1_ok == s_n * n_later * 8
+               and cold_p3_ok == s_n * n_later
+               and cold_pids_ok == s_n * am_blocks * AM_DISPATCHES
+               and plain_locks_same and plain_bits_same)
+    emit({"phase": "am_coldstart", "stations": s_n, "locked": n_locked,
+          "locks": [None if lk is None else {k: lk[k] for k in lock_keys}
+                    for lk in locks],
+          "true_cfo": am_cold["cfo_bins"].tolist(),
+          "true_offsets": am_cold["offset"].tolist(),
+          "lock_frame": lock_frame, "probe_blocks": probes,
+          "launches_cold_start": {n: c for n, c in crun["launches"].items()
+                                  if c},
+          "launches_per_probe_block": {
+              n: c / probes for n, c in crun["launches"].items() if c}
+          if probes else None,
+          "launches_per_dispatch": {
+              str(ma3): grp["launches"] for ma3, grp in
+              crun["groups"].items()},
+          "plain_calls_on_kernel_path": plain_calls,
+          "p1_subframes_ok_frames_3_5": cold_p1_ok,
+          "p1_subframes_frames_3_5": s_n * n_later * 8,
+          "p3_frames_ok_frames_3_5": cold_p3_ok,
+          "p3_frames_frames_3_5": s_n * n_later,
+          "pids_words_ok": cold_pids_ok,
+          "pids_words": s_n * am_blocks * AM_DISPATCHES,
+          "plain_same_locks": plain_locks_same,
+          "plain_same_bits": plain_bits_same,
+          "plain_prev_angle_max_diff": prev_angle_gap,
+          "cold_start_wall_ms": statistics.median(cold_times[1:]),
+          "cold_start_wall_ms_runs": cold_times,
+          "device_time": cold_device, "host_top_own_ms": host_top,
+          "pass": cold_ok})
+    if not cold_ok:
+        raise AssertionError("the AM cold start did not lock and decode "
+                             "every station bit-exact through the kernels")
+    for name in KERNELS:
+        by_path = report[name]["launches_by_path"]
+        by_path["am_coldstart"] = crun["launches"].get(name, 0)
+        by_path["am_from_lock"] = sum(
+            n.get(name, 0) for grp in crun["groups"].values()
+            for n in grp["launches"])
+        report[name]["launches"] = sum(by_path.values())
+
+    # --- am_cu8: the cu8 AM wire through serve.ingest (K1's AM cascade),
+    # each station's output against its baseband ---
+    torch.cuda.synchronize()
+    K.reset_counts()
+    y = serve.ingest(cu8_wire, "am")
+    torch.cuda.synchronize()
+    cu8_launches = {n: c for n, c in K.COUNTS.items() if c}
+    y = y.cpu().numpy().view(np.complex64)[..., 0]
+    base = am_cu8["baseband"].view(np.complex64)[..., 0]
+    n_c = 1 << 16
+    corr = []
+    for i in range(s_n):
+        r = base[i, :n_c]
+        corr.append(max(float(abs(np.vdot(y[i, lag:lag + n_c], r))
+                              / (np.linalg.norm(y[i, lag:lag + n_c])
+                                 * np.linalg.norm(r))) for lag in range(16)))
+    cu8_ok = cu8_launches == {"am_decimate_cu8": 1} and min(corr) > 0.85
+    emit({"phase": "am_cu8", "stations": s_n,
+          "wire_shape": list(cu8_wire.shape), "launches": cu8_launches,
+          "correlation": corr, "min_correlation": min(corr),
+          "ms": report["am_decimate_cu8"]["ms"],
+          "plain_ms": report["am_decimate_cu8"]["plain_ms"],
+          "bound_ms": report["am_decimate_cu8"]["bound_ms"],
+          "library_ms": report["am_decimate_cu8"]["library_ms"],
+          "pass": cu8_ok})
+    if not cu8_ok:
+        raise AssertionError("the cu8 AM ingest did not go through K1's AM "
+                             "cascade or lost the baseband")
+    for name in KERNELS:
+        by_path = report[name]["launches_by_path"]
+        by_path["am_cu8"] = cu8_launches.get(name, 0)
         report[name]["launches"] = sum(by_path.values())
 
     print(smi, flush=True)

@@ -1,7 +1,8 @@
 """Build, load, launch and count the hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point
-(``extern "C" int <name>(...)`` returning ``cudaGetLastError()``).  It is
+Each kernel has a plain C entry point (``extern "C" int <name>(...)``
+returning ``cudaGetLastError()``) in ``csrc/<name>.cu``, or in the source
+:data:`SOURCES` names where one file holds several kernels.  A source is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repo
 root (gitignored), at first use, into a library whose file name carries a
 hash of the source, of every ``csrc/`` header it includes and of the
@@ -88,7 +89,22 @@ SIGNATURES = {
     # p1_len, p3_len, pids_len, n_delayed, stream
     "am_gather": (P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                   P),
+    # spectra, samples, n_samples, offset, grid_u, proj, done, f, amp,
+    # n_stations, stream
+    "am_tone": (P, P, L, P, P, P, P, P, P, I, P),
+    # samples, n_samples, offset, f, amp, prev_angle, coarse_override,
+    # shape_kernel, measured, samperr, prev_angle_out, v_max, n_stations,
+    # stream
+    "am_coarse": (P, L, P, P, P, P, P, P, P, P, P, P, I, P),
+    # spectra, mags, step, n_stations, stream
+    "am_cfo_step": (P, P, P, I, P),
+    # wire, out, taps, scale, n_in_pairs, n_out, n_stations, stream
+    "am_decimate_cu8": (P, P, P, F, L, I, I, P),
 }
+# kernel name -> the csrc/ source (without ".cu") that holds it, where that
+# is not a file of the kernel's own name
+SOURCES = {"am_tone": "am_coldstart", "am_coarse": "am_coldstart",
+           "am_cfo_step": "am_coldstart"}
 
 COUNTS = {name: 0 for name in SIGNATURES}
 _FUNCS: dict = {}
@@ -138,26 +154,32 @@ def _sources(path: Path, seen: dict | None = None) -> dict:
     return seen
 
 
+def source_of(name: str) -> str:
+    """The csrc/ source (without ".cu") that holds kernel ``name``."""
+    return SOURCES.get(name, name)
+
+
 def library_path(name: str) -> Path:
-    """Where kernel ``name``'s library lies: the file name carries a hash of
-    the source, the headers it includes and the flags."""
+    """Where the library of kernel (or source) ``name`` lies: the file name
+    carries a hash of the source, the headers it includes and the flags."""
+    src = source_of(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path, text in sorted(_sources(CSRC / f"{name}.cu").items()):
+    for path, text in sorted(_sources(CSRC / f"{src}.cu").items()):
         h.update(path.name.encode() + b"\0" + text)
-    return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD / f"{src}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict:
-    """Compile every kernel in ``names`` (default: all) whose library is
-    missing: one ``nvcc`` per source, all started together, all waited
-    for.  Returns ``{"seconds": wall, "built": [...], "ptxas": {name:
-    compiler output}}``; raises after every process has ended if any
-    build failed."""
+    """Compile the sources of every kernel in ``names`` (default: all)
+    whose library is missing: one ``nvcc`` per source, all started
+    together, all waited for.  Returns ``{"seconds": wall, "built":
+    [sources], "ptxas": {source: compiler output}}``; raises after every
+    process has ended if any build failed."""
     names = list(SIGNATURES) if names is None else list(names)
     BUILD.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    for name in names:
+    for name in dict.fromkeys(source_of(n) for n in names):
         out = library_path(name)
         if out.exists():
             continue

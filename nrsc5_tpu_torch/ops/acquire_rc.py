@@ -2,9 +2,9 @@
 acquire demodulation.
 
 PyTorch counterpart of ``nrsc5_tpu/ops/acquire_rc.py``'s
-``coarse_timing_rc`` and ``demod_rc``, and of ``WINDOW_FM``, ``WINDOW_AM``
-and ``_shape_kernel`` (``nrsc5_tpu/ops/acquire.py:34, 50-53, 285``; pinned
-equal by tests/test_torch_tables.py).
+``coarse_timing_rc`` and ``demod_rc``, and of ``WINDOW_FM``, ``WINDOW_AM``,
+``_shape_kernel`` and ``_cp_window_idx`` (``nrsc5_tpu/ops/acquire.py:34,
+50-60, 285``; pinned equal by tests/test_torch_tables.py).
 
 :func:`coarse_timing_rc` is kernel K9 (``csrc/coarse_timing.cu``): the
 cold start's cyclic-prefix correlation over all 2160 timings of the first
@@ -46,6 +46,14 @@ def _shape(device: str) -> torch.Tensor:
 def _shape_kernel(fft: int, cp: int) -> np.ndarray:
     w = C.ofdm_shape(fft, cp)
     return (w[:cp] * w[fft:]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def _cp_window_idx(fftcp: int, cp: int) -> np.ndarray:
+    """[fftcp, cp] int32: row i holds the CP window's circular positions
+    (i + j) mod fftcp."""
+    return ((np.arange(fftcp)[:, None] + np.arange(cp)[None, :]) % fftcp
+            ).astype(np.int32)
 
 
 @functools.lru_cache(maxsize=4)

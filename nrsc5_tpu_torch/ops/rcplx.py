@@ -35,6 +35,10 @@ def mul_conj(a, b):
     return torch.stack([ar * br + ai * bi, ai * br - ar * bi], dim=-1)
 
 
+def conj(a):
+    return torch.stack([a[..., 0], -a[..., 1]], dim=-1)
+
+
 def exp_i(theta):
     """e^{i theta} for real theta -> [..., 2]."""
     return torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
@@ -46,6 +50,17 @@ def abs2(a):
 
 def angle(a):
     return torch.atan2(a[..., 1], a[..., 0])
+
+
+def ordered_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over ``dim`` from the first element to the last, one add at a
+    time: the order the kernels sum their short sums in, so that a plain
+    version rounds as its kernel does."""
+    x = x.movedim(dim, 0)
+    acc = x[0]
+    for v in x[1:]:
+        acc = acc + v
+    return acc
 
 
 def fdiv(x: torch.Tensor, d: float) -> torch.Tensor:

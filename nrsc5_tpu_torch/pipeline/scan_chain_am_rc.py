@@ -20,10 +20,16 @@ loop whose body runs for all stations at once:
     then K7 at K=9 and K8 for P1, P3 and PIDS, flat over stations × frames
     (:mod:`nrsc5_tpu_torch.ops.decode_am`).
 
+And the AM cold start (lines 350-540 of the reference): a probe block
+(:func:`am_coldstart_block_rc`) runs K14's tone estimate and coarse timing
+(:mod:`nrsc5_tpu_torch.ops.acquire_am_rc`), K12 pass 1, K14's integer-CFO
+step, K12 pass 2 and K13 for every station at once, and
+:func:`cold_start_am_rc` runs the reference's host lock logic per station
+between the probe blocks, all stations in lockstep.
+
 The chain functions take ``plain=True`` to run the kernels' plain
 PyTorch versions instead (on any device); on a CPU tensor the kernel
-wrappers take the plain versions anyway.  The AM cold start is not ported
-yet.
+wrappers take the plain versions anyway.
 """
 
 from __future__ import annotations
@@ -32,10 +38,12 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
+from nrsc5_tpu_torch.ops import acquire_am_rc as AA
 from nrsc5_tpu_torch.ops import decode_am as DA
 from nrsc5_tpu_torch.ops import rcplx as rc
 from nrsc5_tpu_torch.ops import sync_am as SA
@@ -84,17 +92,6 @@ def am_chain_rc_init_carry(offset: int = 0, cfo: int = 0, *,
 @functools.lru_cache(maxsize=4)
 def _shape(device: str) -> torch.Tensor:
     return torch.from_numpy(C.ofdm_shape(C.FFT_AM, C.CP_AM)).to(device)
-
-
-def _ordered_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Sum over ``dim`` from the first element to the last, one add at a
-    time: the order K12 and K13 sum in, so that the plain versions round
-    as the kernels do."""
-    x = x.movedim(dim, 0)
-    acc = x[0]
-    for v in x[1:]:
-        acc = acc + v
-    return acc
 
 
 def _check_fold(samples, offset, phase, samperr_fb, prev_angle, cfo):
@@ -169,9 +166,9 @@ def am_fold_plain(samples, offset, phase, samperr_fb, prev_angle, cfo,
     y = torch.stack(ys, dim=1)  # [S, 32]
     x = fftcp * (torch.arange(nsym, dtype=torch.float32,
                               device=samples.device) - (nsym - 1) / 2)
-    slope = _ordered_sum(x * y) / _ordered_sum(x * x)
+    slope = rc.ordered_sum(x * y) / rc.ordered_sum(x * x)
     angle2 = angle - slope * fft
-    y_mean = rc.fdiv(_ordered_sum(y), nsym)
+    y_mean = rc.fdiv(rc.ordered_sum(y), nsym)
     phase0b = rc.mul(phase0, rc.exp_i(
         -y_mean + rc.fdiv(slope * nsym * fftcp, 2) - 0.06))
 
@@ -347,12 +344,12 @@ def sync_am_block_rc_plain(spectra, ma3: bool = False):
         lo, hi = cols[:, a_lo, ar], cols[:, a_lo + 16, ar]
         dphi = SA._wrap_pi(rc.angle(lo) - rc.angle(hi))  # [S, W]
         w = torch.sqrt(rc.abs2(lo) * rc.abs2(hi)) + 1e-12
-        wsum = _ordered_sum(w)
-        cbar = _ordered_sum(w * colf) / wsum
-        dbar = _ordered_sum(w * dphi) / wsum
+        wsum = rc.ordered_sum(w)
+        cbar = rc.ordered_sum(w * colf) / wsum
+        dbar = rc.ordered_sum(w * dphi) / wsum
         xc = colf - cbar[:, None]
-        b = _ordered_sum(w * xc * (dphi - dbar[:, None])) \
-            / (_ordered_sum(w * (xc * xc)) + 1e-12)
+        b = rc.ordered_sum(w * xc * (dphi - dbar[:, None])) \
+            / (rc.ordered_sum(w * (xc * xc)) + 1e-12)
         fit = dbar[:, None] + b[:, None] * xc  # [S, W]
         rot = rc.exp_i(u[None] * fit[:, None, :])  # [S, 32, W, 2]
         eq = rc.mul(cols, rc.mul(mult[:, None], rot))
@@ -360,7 +357,7 @@ def sync_am_block_rc_plain(spectra, ma3: bool = False):
 
     # sample clock error from the phase slope across the primary columns
     # (reference: src/sync.c:717-723)
-    dp, du = (_ordered_sum(SA._wrap_half_pi(rc.angle(m[:, 1:])
+    dp, du = (rc.ordered_sum(SA._wrap_half_pi(rc.angle(m[:, 1:])
                                             - rc.angle(m[:, :-1])))
               for m in mults[:2])
     samperr = rc.fdiv(rc.fdiv(dp + du, 2 * (W - 1)) * C.FFT_AM, TWO_PI)
@@ -461,3 +458,194 @@ def am_chain_scan_rc(samples, carry: AMChainCarryRC, n_frames: int,
     return ({k: v[0] for k, v in out.items()},
             AMChainCarryRC(*(x[0] for x in new[:-1]),
                            DA.AMDecodeState(*(x[0] for x in new.dec))))
+
+
+# ---------------------------------------------------------------------------
+# cold start (the reference's NONE -> COARSE -> FINE machine of the AM
+# receiver; reference: src/acquire.c:129-235 and the find_block_am
+# bc-history lock of src/sync.c:635-666)
+# ---------------------------------------------------------------------------
+
+# the probe block's small integers, packed after the 32 reference bits in
+# the one tensor the host reads back a block
+PROBE_INTS = ("samperr", "keep", "cfo_step", "measured")
+
+
+def unpack_probe(ints: np.ndarray) -> dict:
+    """The host's view of :func:`am_coldstart_block_rc`'s ``ints`` [S, 36]:
+    ``ref_bits`` uint8 [S, 32] and one int array [S] per PROBE_INTS name."""
+    out = {"ref_bits": ints[:, :C.BLKSZ].astype(np.uint8)}
+    for k, name in enumerate(PROBE_INTS):
+        out[name] = ints[:, C.BLKSZ + k]
+    return out
+
+
+def am_coldstart_block_rc(samples, offset, phase, prev_angle, cfo,
+                          coarse_override, plain: bool = False) -> dict:
+    """One COARSE probe block for a station batch (the reference's
+    ``am_coldstart_block_rc``): the power DFT, K14's tone estimate and
+    coarse timing with the latch override and the prev_angle smoothing, K12
+    pass 1 and its DFT, K14's integer-CFO step, K12 pass 2 and its DFT, K13
+    with MA1 combining (the reference bits, all the lock logic reads, are
+    the same in both modes).
+
+    samples [S, N, 2] float32 rc; per station offset int32 (the window
+    start), phase [2], prev_angle float32, cfo int32 bins, coarse_override
+    int32 (the consensus latch, -1 for none).  Returns ``ints`` int32 [S,
+    36] (the reference bits, then samperr, keep, the CFO step and the
+    measured timing: :func:`unpack_probe`), ``phase`` [S, 2] and
+    ``prev_angle`` [S] for the next block, and ``mag_sums`` [S, 107] (the
+    reference's ``mag_sums`` on the bins the CFO step searches)."""
+    tone = AA.am_tone_plain if plain else AA.am_tone
+    coarse = AA.am_coarse_plain if plain else AA.am_coarse
+    cfo_step = AA.am_cfo_step_plain if plain else AA.am_cfo_step
+    fold = am_fold_plain if plain else am_fold
+    sync = sync_am_block_rc_plain if plain else sync_am_block_rc
+
+    f, amp = tone(rc.dft(AA.tone_symbols(samples, offset)), samples, offset)
+    measured, samperr, prev_angle, _ = coarse(samples, offset, f, amp,
+                                              prev_angle, coarse_override)
+    # the cold start demodulates at samperr itself; K12 adds FFTCP_AM // 2
+    args = (samples, offset, phase, samperr - C.FFTCP_AM // 2, prev_angle,
+            cfo)
+    spectra1 = rc.dft(fold(*args), shift=True)
+    step, mags = cfo_step(spectra1)
+    folded, phase, prev_angle, keep = fold(*args, spectra1)
+    ref_bits = sync(rc.dft(folded, shift=True), False)["ref_bits"]
+    ints = torch.cat([ref_bits.to(torch.int32),
+                      torch.stack([samperr, keep, step, measured], dim=1)],
+                     dim=1)
+    return {"ints": ints, "phase": phase, "prev_angle": prev_angle,
+            "mag_sums": mags}
+
+
+class _LockState:
+    """One station's host state of the reference's lock loop
+    (scan_chain_am_rc.py:471-478)."""
+
+    def __init__(self):
+        self.pos, self.cfo, self.keep_extra, self.cfo_wait = 0, 0, 0, 0
+        self.history = 0
+        self.psmi = C.SERVICE_MODE_MA1
+        self.coarse_hist: list[int] = []
+        self.latch, self.latch_age = -1, 0
+        self.done = False
+
+    def step(self, probe: dict, i: int):
+        """This station's host steps after a probe block: the consensus
+        latch, the integer CFO, the needle realignment and the bc history.
+        Returns the lock's (start, psmi) once the history reads 5, 6, 7, 0,
+        "none" if the lock falls inside the warm-up guard, else None (and
+        the window moves on)."""
+        fftcp = C.FFTCP_AM
+        self.coarse_hist.append(int(probe["measured"][i]) % fftcp)
+        self.coarse_hist = self.coarse_hist[-6:]
+        if self.latch < 0:
+            cons = SA.timing_consensus(self.coarse_hist, fftcp)
+            if cons is not None:
+                self.latch, self.latch_age = cons, 0
+        else:
+            self.latch_age += 1
+            if self.latch_age > 16:
+                self.latch, self.latch_age = -1, 0
+                self.coarse_hist.clear()
+        self.cfo += int(probe["cfo_step"][i])
+
+        ref = probe["ref_bits"][i]
+        if self.cfo_wait == 0:
+            off_sym = SA.find_ref_am(ref)
+            if off_sym > 0:
+                self.keep_extra = ((C.BLKSZ - off_sym) % C.BLKSZ) * fftcp
+                self.cfo_wait = 8
+        else:
+            self.cfo_wait -= 1
+
+        found = SA.find_block_am(ref)
+        if found is None:
+            self.history = 0
+        else:
+            bc, control = found
+            if control:
+                self.psmi = int(control["psmi"]) or C.SERVICE_MODE_MA1
+            self.history = ((self.history << 4) | bc) & 0xFFFFFFFF
+        if (self.history & 0xFFFF) == 0x5670:
+            # this block is bc 0: the frame starts at its first symbol, and
+            # the chain expects that symbol FFTCP_AM // 2 into its buffer
+            start = self.pos + int(probe["samperr"][i]) - fftcp // 2
+            return "none" if start < 0 else (start, self.psmi)
+        self.pos += WINDOW_AM - (int(probe["keep"][i]) + self.keep_extra)
+        self.keep_extra = 0
+        return None
+
+
+def cold_start_am_rc(samples_rc, max_blocks: int = 24, *, device="cuda",
+                     plain: bool = False):
+    """Cold start of every station of an rc capture with unknown timing,
+    fractional and integer CFO (MA1 or MA3), on ``device``.
+
+    samples_rc: float32 [S, N, 2] (array or tensor), or [N, 2] for one
+    station, at 46511.7 S/s.  One probe block (:func:`am_coldstart_block_rc`)
+    a step for the whole fleet, one host read-back of its integers, then
+    the reference's host steps per station: the timing-consensus latch,
+    the integer CFO from the strongest bin near the carrier, the needle
+    realignment, and the lock when the block-count history reads 5, 6, 7,
+    0 (so the locking block is a frame boundary).  A station stops when it
+    locks, when its next window would pass the end of the capture, or after
+    ``max_blocks`` blocks; a stopped station rides along at a clamped
+    offset and its results are ignored.  Returns one lock per station,
+    each ``{"offset", "psmi", "ma3", "cfo", "carry"}`` as the reference's
+    ``cold_start_am_rc`` gives it (``offset`` in chain samples from the
+    start of the station's stream; ``carry`` without the station axis, for
+    :func:`am_chain_scan_rc` on ``samples[offset:]``), or None where the
+    station did not lock: a list for [S, N, 2], a lock or None for [N,
+    2]."""
+    dev = K.resolve_device(device)
+    samples = torch.as_tensor(samples_rc, dtype=torch.float32, device=dev)
+    single = samples.ndim == 2
+    if single:
+        samples = samples[None]
+    s, n = samples.shape[0], samples.shape[1]
+    states = [_LockState() for _ in range(s)]
+    locks = [None] * s
+    angles = {}  # station -> prev_angle of every station at its lock
+    phase = torch.tensor([[1.0, 0.0]], device=dev).repeat(s, 1)
+    prev_angle = torch.zeros(s, dtype=torch.float32, device=dev)
+    for _ in range(max_blocks):
+        for st in states:
+            if not st.done and st.pos + WINDOW_AM > n:
+                st.done = True
+        if all(st.done for st in states):
+            break
+        host = np.array([[min(st.pos, n - WINDOW_AM) for st in states],
+                         [st.cfo for st in states],
+                         [st.latch for st in states]], np.int32)
+        offset, cfo, latch = torch.from_numpy(host).to(dev)
+        out = am_coldstart_block_rc(samples, offset, phase, prev_angle, cfo,
+                                    latch, plain=plain)
+        phase, prev_angle = out["phase"], out["prev_angle"]
+        probe = unpack_probe(out["ints"].cpu().numpy())
+        for i, st in enumerate(states):
+            if st.done:
+                continue
+            got = st.step(probe, i)
+            if got is None:
+                continue
+            st.done = True
+            if got == "none":
+                continue
+            start, psmi = got
+            locks[i] = {"offset": start, "psmi": psmi,
+                        "ma3": psmi == C.SERVICE_MODE_MA3, "cfo": st.cfo}
+            angles[i] = prev_angle
+    if angles:
+        # fresh carries with each station's CFO, the phase reset to [1, 0],
+        # and the prev_angle its lock block left
+        fresh = am_chain_rc_init_carry(n_stations=s, device=dev)
+        cfo = torch.tensor([st.cfo for st in states], dtype=torch.int32,
+                           device=dev)
+        for i, pa in angles.items():
+            locks[i]["carry"] = AMChainCarryRC(
+                offset=fresh.offset[i], phase=fresh.phase[i],
+                prev_angle=pa[i], samperr_fb=fresh.samperr_fb[i],
+                cfo=cfo[i], dec=DA.AMDecodeState(*(x[i] for x in fresh.dec)))
+    return locks[0] if single else locks

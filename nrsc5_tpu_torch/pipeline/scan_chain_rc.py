@@ -175,17 +175,6 @@ def _sync_tables(ppb: int, device: str) -> dict:
     return out
 
 
-def _ordered_sum(x, dim: int):
-    """Sum over ``dim`` from the first element to the last, one add at a
-    time: the order K4 sums its short sums in, so that the plain version
-    rounds as the kernel does."""
-    x = x.movedim(dim, 0)
-    acc = x[0]
-    for v in x[1:]:
-        acc = acc + v
-    return acc
-
-
 def _warp_sum(x):
     """Sum over the last axis in the order one warp of K4 does: lane l adds
     elements l, l + 32, ... in turn, then the 32 lane sums meet in a
@@ -193,7 +182,7 @@ def _warp_sum(x):
     n = x.shape[-1]
     lanes = -(-n // 32) * 32
     x = torch.nn.functional.pad(x, (0, lanes - n))
-    acc = _ordered_sum(x.reshape(x.shape[:-1] + (lanes // 32, 32)), -2)
+    acc = rc.ordered_sum(x.reshape(x.shape[:-1] + (lanes // 32, 32)), -2)
     for o in (16, 8, 4, 2, 1):
         acc = acc[..., :o] + acc[..., o:2 * o]
     return acc[..., 0]
@@ -246,9 +235,9 @@ def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
     ph_out = ph_out.reshape(s, r2)
     fr_out = fr_out.reshape(s, r2)
 
-    # the sums below run in K4's order (_ordered_sum, _warp_sum), so that
+    # the sums below run in K4's order (rc.ordered_sum, _warp_sum), so that
     # the plain version and the kernel round alike
-    score = _ordered_sum(derot[..., 0] * t["sync_signs"][:, None], 1)
+    score = rc.ordered_sum(derot[..., 0] * t["sync_signs"][:, None], 1)
     flip = score < 0
     derot = torch.where(flip[:, None, :, None], -derot, derot)
     phases = torch.where(flip[:, None, :], phases + math.pi, phases)
@@ -265,7 +254,7 @@ def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
         1, dtype=torch.int32)
 
     # equalization
-    smag = _ordered_sum(derot[..., 0].abs(), 1) / C.BLKSZ  # [S, 2R]
+    smag = rc.ordered_sum(derot[..., 0].abs(), 1) / C.BLKSZ  # [S, 2R]
     phi_lo = phases[:, :, t["lo_idx"]]  # [S, 32, 2ppb]
     phi_hi = phases[:, :, t["hi_idx"]]
     smag_lo = smag[:, t["lo_idx"]][:, None, :]
@@ -279,24 +268,24 @@ def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
     data_sc = spectra[:, :, t["data_bins"]]  # [S, 32, 2ppb, 18, 2]
     data_eq = rc.mul(data_sc, eq)
 
-    samperr = _ordered_sum(_phase_diff(phi_lo[:, 0], phi_hi[:, 0]), -1)
+    samperr = rc.ordered_sum(_phase_diff(phi_lo[:, 0], phi_hi[:, 0]), -1)
     # divisions by numbers through rc.fdiv: true divisions, as K4 divides
     samperr = rc.fdiv(rc.fdiv(rc.fdiv(samperr, ppb * 2) * C.FFT_FM, W),
                       TWO_PI)
     x = k_rel
     y = fr_out
-    slope = _ordered_sum(x * y, -1) / _ordered_sum(x * x, -1)
+    slope = rc.ordered_sum(x * y, -1) / rc.ordered_sum(x * x, -1)
     samperr = samperr - rc.fdiv(slope * C.FFT_FM, TWO_PI) \
         * C.ACQUIRE_SYMBOLS
     samperr_i = torch.round(samperr).to(torch.int32)
-    angle = rc.fdiv(_ordered_sum(fr_out, -1), r2)
+    angle = rc.fdiv(rc.ordered_sum(fr_out, -1), r2)
     fr_out = fr_out - angle[:, None]
 
     ideal = torch.sign(data_eq)
     err2 = rc.abs2(ideal - data_eq)  # [S, 32, 2ppb, 18]
     # per symbol and sideband over a warp, then over the symbols in order
-    error_lb = _ordered_sum(_warp_sum(err2[:, :, :ppb].flatten(2)), 1)
-    error_ub = _ordered_sum(_warp_sum(err2[:, :, ppb:].flatten(2)), 1)
+    error_lb = rc.ordered_sum(_warp_sum(err2[:, :, :ppb].flatten(2)), 1)
+    error_ub = rc.ordered_sum(_warp_sum(err2[:, :, ppb:].flatten(2)), 1)
     # a fill, not a host copy, so that the plain version can run inside a
     # CUDA graph
     sig_block = torch.full_like(

@@ -1,7 +1,9 @@
-"""Channel impairments for the truth harness: delay, CFO, AWGN, cu8 quantize.
+"""Channel impairments for the truth harness: delay, CFO, AWGN, echo,
+upsampling, cu8 quantize.
 
-A numpy copy of ``impair``, ``upsample2`` and ``to_cu8`` from
-``nrsc5_tpu/tx/channel.py`` (pinned equal by tests/test_torch_tables.py).
+A numpy copy of ``impair``, ``multipath``, ``upsample2``,
+``upsample_exact`` and ``to_cu8`` from ``nrsc5_tpu/tx/channel.py`` (pinned
+equal by tests/test_torch_tables.py).
 """
 
 from __future__ import annotations
@@ -35,6 +37,31 @@ def impair(
                  .astype(np.float32).view(np.complex64)[:, 0])
         out = out + noise
     return out.astype(np.complex64)
+
+
+def multipath(sig: np.ndarray, delay: int, amp: float,
+              phase: float = 0.7) -> np.ndarray:
+    """Static 2-ray channel: add an echo at ``delay`` samples with relative
+    amplitude ``amp`` and phase ``phase``."""
+    if delay < 0:
+        raise ValueError(f"echo delay must be >= 0, got {delay}")
+    if delay == 0:  # zero-delay echo = a complex gain on the direct ray
+        return (sig * (1.0 + amp * np.exp(1j * phase))).astype(np.complex64)
+    echo = np.zeros_like(sig)
+    echo[delay:] = sig[:-delay] * amp * np.exp(1j * phase)
+    return (sig + echo).astype(np.complex64)
+
+
+def upsample_exact(sig: np.ndarray, factor: int) -> np.ndarray:
+    """Ideal Fourier interpolation by an integer factor, for high-rate
+    captures of narrowband signals (46.5 kS/s AM -> 1.488 MS/s cu8)."""
+    n = len(sig)
+    f = np.fft.fft(sig)
+    out = np.zeros(n * factor, np.complex64)
+    h = n // 2
+    out[:h] = f[:h]
+    out[-(n - h):] = f[h:]
+    return (np.fft.ifft(out) * factor).astype(np.complex64)
 
 
 def upsample2(sig: np.ndarray) -> np.ndarray:

@@ -540,11 +540,14 @@ def test_ingest_am_cs16():
 
 
 def test_ingest_am_refuses_cu8():
-    """A cu8 AM wire is refused with the reason: the ÷32 cascade does not
-    reach sync (tests/test_l1_am.py:92-100)."""
+    """A cu8 AM wire goes through the ÷32 cascade, so one whose length is
+    not 434 + 32N pairs is refused with the layout it needs; so is a wire
+    of another dtype than cu8, cs16 or cf32, and an unknown mode."""
     wire = np.full((1, 100, 2), 127, np.uint8)
-    with pytest.raises(NotImplementedError, match="cs16"):
+    with pytest.raises(ValueError, match="434 \\+ 32N"):
         serve.ingest(wire, "am", device="cpu")
+    with pytest.raises(ValueError, match="int16 \\(cs16\\)"):
+        serve.ingest(wire.astype(np.int32), "am", device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):
         serve.ingest(wire, "dab", device="cpu")
 

@@ -9,11 +9,16 @@ need.)
 
 Tolerances:
 
-- K1 (halfband), K6 (FEC gather), K7 (Viterbi, K=7 and K=9), K8 (FEC
-  epilogue), K9 (coarse timing), the needle count of K10, K11 (PX
-  deinterleave) and K15 (AM gather) exact: no FMA contraction and the same
-  operation order, integer path metrics, integer counts, and gathers of
-  int8 values or bits;
+- K1 (halfband, and its AM cascade), K6 (FEC gather), K7 (Viterbi, K=7
+  and K=9), K8 (FEC epilogue), K9 (coarse timing), the needle count of
+  K10, K11 (PX deinterleave) and K15 (AM gather) exact: no FMA contraction
+  and the same operation order, integer path metrics, integer counts, and
+  gathers of int8 values or bits;
+- K14 (the AM cold start's tone estimate, coarse timing and CFO step)
+  exact, floats too: every sum runs in the plain version's order (the
+  8910-sample sums strided over 256 threads, then a fixed pairwise tree),
+  the phases are the same float32 product chains, and kernel and PyTorch
+  call the same cosf, sinf, atan2f and sqrtf;
 - K12 (AM fold) within 1e-5 of the largest value (at least 1), its keep
   exact; K13 (AM sync block) exact on every code, PIDS code, reference
   bit and samperr: its plain version sums in K13's order, divides as K13
@@ -43,6 +48,7 @@ import torch
 
 from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
+from nrsc5_tpu_torch.ops import acquire_am_rc as AA
 from nrsc5_tpu_torch.ops import acquire_rc as AQ
 from nrsc5_tpu_torch.ops import convolutional as CV
 from nrsc5_tpu_torch.ops import costas as CO
@@ -515,3 +521,109 @@ def test_fec_epilogue_am(card, name, packed):
     got, errors = DF.fec_epilogue(bits, name, packed=packed)
     want, _ = DF.fec_epilogue_plain(bits, name, packed=packed)
     assert errors is None and torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# AM cold start (K14) and K1's AM cascade
+# ---------------------------------------------------------------------------
+
+def _probe_inputs(card):
+    """Three stations' AM chain input at 35 dB (an MA1 carrier at +2 bins +
+    31 Hz, MA3 at -1 bin + 17 Hz, MA1 at 0) and probe windows off the
+    symbol grid, with the power DFT of each window's symbols."""
+    rng = np.random.default_rng(25)
+    bin_hz = C.SAMPLE_RATE_CS16_AM / C.FFT_AM
+    x = torch.from_numpy(np.stack([
+        _am_capture(rng, ma3, 1, f) for ma3, f in
+        ((False, 2 * bin_hz + 31.0), (True, -bin_hz + 17.0),
+         (False, 0.0))])).to(card)
+    offset = torch.tensor([0, 1111, 30000], dtype=torch.int32, device=card)
+    return x, offset, rc.dft(AA.tone_symbols(x, offset))
+
+
+def test_am_tone(card):
+    """K14's tone estimate: f and amp exact (its 8910-sample sums run in
+    the plain version's order, the phases in the same float32 product
+    chains, with the same cosf/sinf)."""
+    x, offset, spectra = _probe_inputs(card)
+    before = K.COUNTS["am_tone"]
+    got = AA.am_tone(spectra, x, offset)
+    assert K.COUNTS["am_tone"] == before + 1
+    want = AA.am_tone_plain(spectra, x, offset)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), (a, b)
+
+
+@pytest.mark.parametrize("case", ["fresh", "latched"])
+def test_am_coarse(card, case):
+    """K14's coarse timing on the plain version's tone: measured, samperr,
+    prev_angle and v exact, from a fresh state and with a latch and
+    nonzero prev_angles."""
+    x, offset, spectra = _probe_inputs(card)
+    f, amp = AA.am_tone_plain(spectra, x, offset)
+    if case == "fresh":
+        pa = torch.zeros(3, device=card)
+        ov = torch.full((3,), -1, dtype=torch.int32, device=card)
+    else:
+        pa = torch.tensor([0.3, -1.2, 0.0], device=card)
+        ov = torch.tensor([7, -1, 275], dtype=torch.int32, device=card)
+    before = K.COUNTS["am_coarse"]
+    got = AA.am_coarse(x, offset, f, amp, pa, ov)
+    assert K.COUNTS["am_coarse"] == before + 1
+    for a, b in zip(got, AA.am_coarse_plain(x, offset, f, amp, pa, ov)):
+        assert a.dtype == b.dtype and torch.equal(a, b), (a, b)
+
+
+def test_am_cfo_step(card):
+    """K14's integer-CFO step on pass 1's spectra: the 107 magnitude sums
+    and the step exact."""
+    x, offset, _ = _probe_inputs(card)
+    z = torch.zeros(3, dtype=torch.int32, device=card)
+    unit = torch.tensor([[1.0, 0.0]], device=card).repeat(3, 1)
+    spectra1 = rc.dft(scar.am_fold_plain(x, offset, unit, z, torch.zeros(
+        3, device=card), z), shift=True)
+    before = K.COUNTS["am_cfo_step"]
+    step, mags = AA.am_cfo_step(spectra1)
+    assert K.COUNTS["am_cfo_step"] == before + 1
+    pstep, pmags = AA.am_cfo_step_plain(spectra1)
+    assert torch.equal(step, pstep) and torch.equal(mags, pmags)
+    assert step.tolist()[:2] == [2, -1]
+
+
+def test_am_coldstart_block(card):
+    """One probe block through the kernels and through the plain versions:
+    every integer, the phase, prev_angle and the magnitude sums equal; the
+    kernels launched once each (K12 twice)."""
+    x, offset, _ = _probe_inputs(card)
+    ang = torch.tensor([0.1, 2.0, -0.7], device=card)
+    args = (x, offset, torch.stack([torch.cos(ang), torch.sin(ang)], -1),
+            torch.tensor([0.0, 0.2, -0.1], device=card),
+            torch.tensor([2, -1, 0], dtype=torch.int32, device=card),
+            torch.tensor([-1, 3, -1], dtype=torch.int32, device=card))
+    K.reset_counts()
+    got = scar.am_coldstart_block_rc(*args)
+    assert {n: c for n, c in K.COUNTS.items() if c} == {
+        "am_tone": 1, "am_coarse": 1, "am_fold": 2, "am_cfo_step": 1,
+        "sync_am_block": 1}
+    want = scar.am_coldstart_block_rc(*args, plain=True)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_am_decimate_cu8(card):
+    """K1's AM cascade on a random cu8 wire of three stations, its output
+    length not a multiple of the kernel's tile: bit-identical to the plain
+    version; a wire of the wrong length or dtype is refused."""
+    g = torch.Generator().manual_seed(26)
+    n = 3 * 128 + 77
+    wire = torch.randint(0, 256, (3, FE.rc_overlap(5) + 32 * n, 2),
+                         generator=g, dtype=torch.uint8).to(card)
+    before = K.COUNTS["am_decimate_cu8"]
+    got = FE.ingest_am_cu8(wire)
+    assert K.COUNTS["am_decimate_cu8"] == before + 1
+    assert got.shape == (3, n, 2)
+    assert torch.equal(got, FE.ingest_am_cu8_plain(wire))
+    with pytest.raises(ValueError):
+        FE.ingest_am_cu8(wire[:, 1:].contiguous())
+    with pytest.raises(ValueError):
+        FE.ingest_am_cu8(wire.float())

@@ -5,6 +5,7 @@ signal from the same seed."""
 import numpy as np
 import pytest
 
+import jax.numpy as jnp
 from nrsc5_tpu import constants as JC
 from nrsc5_tpu.ops import acquire as JAQ
 from nrsc5_tpu.ops import convolutional as JCV
@@ -24,6 +25,7 @@ from nrsc5_tpu.tx import encoder_am as JEAM
 from nrsc5_tpu.tx import modulator as JMO
 from nrsc5_tpu.tx import modulator_am as JMAM
 from nrsc5_tpu_torch import constants as TC
+from nrsc5_tpu_torch.ops import acquire_am_rc as TAA
 from nrsc5_tpu_torch.ops import acquire_rc as TAQ
 from nrsc5_tpu_torch.ops import convolutional as TCV
 from nrsc5_tpu_torch.ops import decode_am as TDA
@@ -125,6 +127,14 @@ TABLES.update({
                  TSA.CENTER, TSA.AM_EQ_INTERP, TSA.TRAIN_QAM64,
                  TSA.TRAIN_QAM16, TSA.TRAIN_QPSK)),
     "am_pids_tables": (JIL.am_pids_tables, TIL.am_pids_tables),
+    "cp_window_idx_am": (lambda: JAQ._cp_window_idx(JC.FFTCP_AM, JC.CP_AM),
+                         lambda: TAQ._cp_window_idx(TC.FFTCP_AM, TC.CP_AM)),
+    "shape_kernel_am": (lambda: JAQ._shape_kernel(JC.FFT_AM, JC.CP_AM),
+                        lambda: TAQ._shape_kernel(TC.FFT_AM, TC.CP_AM)),
+    "tone_grid": (lambda: np.asarray(jnp.linspace(-0.6, 0.6, 85).astype(
+                      jnp.float32)),
+                  lambda: TAA.TONE_GRID),
+    "am_stages": (lambda: JFE.AM_STAGES, lambda: TFE.AM_STAGES),
     "trellis_tables_k9": (
         lambda: (JCV.trellis_tables(9, JC.CONV_E1_GEN),
                  JCV.trellis_tables(9, JC.CONV_E2_E3_GEN)),
@@ -251,6 +261,28 @@ def test_encoder_am_equal(ma3):
     for bc in (0, 5):
         _equal(JEAM.am_ref_bits(bc, 2 if ma3 else 1, pli=1, rdbi=1),
                TEAM.am_ref_bits(bc, 2 if ma3 else 1, pli=1, rdbi=1))
+
+
+@pytest.mark.parametrize("delay", [0, 1, 14])
+def test_multipath_equal(delay):
+    """The two-ray channel at delays 0 (a complex gain), 1 and 14 (the AM
+    cyclic prefix), amplitudes 0.5 and 0.9, on the same signal."""
+    rng = np.random.default_rng(16 + delay)
+    sig = (rng.normal(size=3000) + 1j * rng.normal(size=3000)).astype(
+        np.complex64)
+    for amp, phase in ((0.5, 0.7), (0.9, 1.1)):
+        _equal(JCH.multipath(sig, delay, amp, phase=phase),
+               TCH.multipath(sig, delay, amp, phase=phase))
+    with pytest.raises(ValueError):
+        TCH.multipath(sig, -1, 0.5)
+
+
+@pytest.mark.parametrize("n", [999, 1000])
+def test_upsample_exact_equal(n):
+    """Fourier interpolation by 32 of odd- and even-length signals."""
+    rng = np.random.default_rng(n)
+    sig = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
+    _equal(JCH.upsample_exact(sig, 32), TCH.upsample_exact(sig, 32))
 
 
 @pytest.mark.parametrize("ma3", [False, True])
