@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FM and AM receive chains on one CUDA card.
+"""Drive the PyTorch port's FM and AM receive chains and its batched HDC
+audio decoder on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,11 +9,12 @@ Run from the root of the repository on a machine with a CUDA card and
 Phases, each printing one JSON line:
 
 1. device: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
-2. build: the eighteen hand kernels (K1 and its AM cascade, K2, K3, K4,
-   K6, K7 at K=7 and at K=9, K8, K9, the needle count of K10, K11, K12,
-   K13, K14's tone estimate, coarse timing and CFO step, K15) built from
-   the sixteen sources of ``nrsc5_tpu_torch/csrc`` with ``nvcc`` for
-   ``sm_90a``, one process per source, all in parallel;
+2. build: the twenty-two hand kernels (K1 and its AM cascade, K2, K3,
+   K4, K6, K7 at K=7 and at K=9, K8, K9, the needle count of K10, K11,
+   K12, K13, K14's tone estimate, coarse timing and CFO step, K15, and
+   K16a-d of batched HDC audio) built from the twenty sources of
+   ``nrsc5_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``, one process per
+   source, all in parallel;
 3. signal: 16 stations of MP1, each modulated once with the port's ``tx``
    copy from random bits of a fixed seed: 2 lead blocks (block counts 14
    and 15), then 2 P1 frames.  From that one baseband come two cu8 wires
@@ -31,14 +33,19 @@ Phases, each printing one JSON line:
    CFO of -2, -1, +1 or +2 bins plus a fractional part within ±40 Hz, two
    stations of each mode through a 0.5 echo at delay 14, 30 dB AWGN, cs16
    at 0.1 of full scale.  And 2 frames of MA1 a station as a 1.488 MS/s cu8
-   AM wire (Fourier-upsampled ×32, 217 history pairs ahead);
+   AM wire (Fourier-upsampled ×32, 217 history pairs ahead).  And three
+   8-packet HDC audio streams (stereo SBR two tones and noise, a stereo
+   stream with sharp bursts that carries EIGHT_SHORT windows, a mono
+   stream), encoded with the port's ``tx`` copy, each also decoded by the
+   port's host decoder fed the sequence three times over;
 4. one line per kernel: the kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it, with times (K4 also at
    psmi 2, 3 and 11, K6 and K8 at P1's and PIDS's shapes, K8 at PX's,
    K11 at MP3's and MP2's; the AM kernels K12 in both passes, K13 and K15
    in MA1 and MA3, K7 at K=9 on P1, P3 of MA1 and MA3 and PIDS, and K8
    on the AM P1; K14's three kernels at the AM cold start's first probe
-   block, K1's AM cascade on the cu8 AM wire);
+   block, K1's AM cascade on the cu8 AM wire; K16a-d one after the other
+   on a batch of the audio fleet, 128 lanes x 8 packets);
 5. coldstart: ``serve.cold_start`` on the capture must lock 16/16 stations
    with the true |CFO| under one sign convention, first_bc 14 and psmi 1;
    then ``serve.chain_step`` from the locks over 34 blocks must decode
@@ -82,7 +89,18 @@ Phases, each printing one JSON line:
    probe blocks, launches per probe block and device busy time;
 10. am_cu8: ``serve.ingest`` of the cu8 AM wire launches K1's AM cascade
    once, and each station's output correlates with its baseband above
-   0.85 (the reference's own bound for this cascade).
+   0.85 (the reference's own bound for this cascade);
+11. audio: ``BatchedAudioDecoder`` over 64 stereo programs (128 lanes;
+   program p plays stream p % 3) and three dispatches of the same 8
+   packets, each batch ``prepare``d once on the host, the device state
+   carried.  Gate: every dispatch launches K16a-d once each and no plain
+   version; the same prepared inputs through the plain versions on the
+   card, from a copy of the same device state, give the same int16 PCM
+   and the same carried state tensors after every dispatch; every lane
+   within 55 dB SNR of the host decoder from packet 2 on (bench.py's
+   gate).  The prepare wall, the dispatch wall (device half: inputs up,
+   the stage, PCM down), audio seconds a dispatch second, device busy
+   time.
 
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``:
 the sum over the paths driven, itemised under ``launches_by_path``) and,
@@ -126,6 +144,14 @@ AM_COLD_CFO_HZ = 40.0  # fractional CFOs within ±AM_COLD_CFO_HZ
 AM_COLD_MAX_OFFSET = 4000
 AM_COLD_ECHO = (14, 0.5, 2.0)  # delay (the cyclic prefix), amplitude, phase
 AM_CU8_SCALE = 0.05  # the cu8 AM signal's modulator scale (no clipping)
+# batched HDC audio: the JAX package's audio row (bench.py --mode audio at
+# its default 64 stereo programs, K = 8 packets a dispatch)
+AUDIO_PROGRAMS = 64
+AUDIO_PACKETS = 8
+AUDIO_DISPATCHES = 3
+AUDIO_STREAMS = ("steady", "transient", "mono")
+AUDIO_FS = 44100
+AUDIO_SNR_DB = 55.0
 # the card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -168,7 +194,18 @@ KERNELS = {
                     "nrsc5_tpu/pipeline/scan_chain_am_rc.py:106"),
     "am_decimate_cu8": ("nrsc5_tpu_torch/csrc/am_decimate_cu8.cu",
                         "nrsc5_tpu/ops/frontend.py:154"),
+    "aac_window_qmf_analysis": (
+        "nrsc5_tpu_torch/csrc/aac_window_qmf_analysis.cu",
+        "nrsc5_tpu/audio/batch.py:221"),
+    "sbr_hf_generate": ("nrsc5_tpu_torch/csrc/sbr_hf_generate.cu",
+                        "nrsc5_tpu/audio/batch.py:259"),
+    "sbr_hf_adjust": ("nrsc5_tpu_torch/csrc/sbr_hf_adjust.cu",
+                      "nrsc5_tpu/audio/batch.py:326"),
+    "qmf_synthesis": ("nrsc5_tpu_torch/csrc/qmf_synthesis.cu",
+                      "nrsc5_tpu/audio/batch.py:484"),
 }
+AUDIO_KERNELS = ("aac_window_qmf_analysis", "sbr_hf_generate",
+                 "sbr_hf_adjust", "qmf_synthesis")
 # the kernels each path launches
 STEADY = ("halfband_cu8", "demod_fold", "sync_block", "fec_gather",
           "viterbi_k7", "fec_epilogue")
@@ -469,24 +506,26 @@ def am_cold_len() -> int:
     return am_buffer_len(AM_COLD_FRAMES) + AM_COLD_MAX_OFFSET
 
 
-def make_am_cold_station(index: int) -> dict:
-    """AM cold-start station ``index``, from its own seed: MA1 for 0-7,
-    MA3 for 8-15; AM_COLD_FRAMES frames behind a timing offset of
-    300-AM_COLD_MAX_OFFSET samples, an integer CFO of -2, -1, +1 or +2
-    bins (by index) plus a fractional part within ±AM_COLD_CFO_HZ, a 0.5
-    echo at delay 14 for stations 0, 1, 8 and 9, AWGN at AM_COLD_SNR_DB,
-    cs16.  Returns the int16 [am_cold_len(), 2] capture, the bits (p3
-    zero-padded to MA3's frame length) and the impairments."""
+def make_am_cold_station(index: int, seed: int = SEED,
+                         echo_phase: float = AM_COLD_ECHO[2]) -> dict:
+    """AM cold-start station ``index``, from its own seed (``seed`` and the
+    index): MA1 for 0-7, MA3 for 8-15; AM_COLD_FRAMES frames behind a
+    timing offset of 300-AM_COLD_MAX_OFFSET samples, an integer CFO of -2,
+    -1, +1 or +2 bins (by index) plus a fractional part within
+    ±AM_COLD_CFO_HZ, a 0.5 echo at delay 14 and phase ``echo_phase`` for
+    stations 0, 1, 8 and 9, AWGN at AM_COLD_SNR_DB, cs16.  Returns the int16
+    [am_cold_len(), 2] capture, the bits (p3 zero-padded to MA3's frame
+    length) and the impairments."""
     from nrsc5_tpu_torch import constants as C
     from nrsc5_tpu_torch.tx import channel as ch
 
-    rng = np.random.default_rng([SEED, 0xC0, index])
+    rng = np.random.default_rng([seed, 0xC0, index])
     ma3 = index >= N_STATIONS // 2
     echo = index % (N_STATIONS // 2) < 2
     sig, p1, p3, pids = _am_frames(rng, ma3, AM_COLD_FRAMES)
     if echo:
-        delay, amp, phase = AM_COLD_ECHO
-        sig = ch.multipath(sig, delay, amp, phase=phase)
+        delay, amp, _ = AM_COLD_ECHO
+        sig = ch.multipath(sig, delay, amp, phase=echo_phase)
     offset = int(rng.integers(300, AM_COLD_MAX_OFFSET))
     cfo_bins = (-2, -1, 1, 2)[index % 4]
     cfo_hz = cfo_bins * C.SAMPLE_RATE_CS16_AM / C.FFT_AM \
@@ -526,6 +565,59 @@ def make_am_cu8_station(index: int) -> dict:
             "baseband": np.stack([buf.real, buf.imag], -1)[:n]}
 
 
+def make_audio_stream(kind: str) -> list:
+    """AUDIO_PACKETS HDC packets of one program, from the stream's own seed,
+    encoded with the port's ``tx`` copy: ``steady`` is stereo SBR content as
+    bench.py:675-684 makes it (two tones and noise); ``transient`` a quiet
+    stereo tone and band noise with sharp bursts, as
+    tests/test_audio_batch.py:21-46 makes it, so that EIGHT_SHORT windows
+    and transient SBR grids occur; ``mono`` one channel of a tone and band
+    noise."""
+    from numpy.fft import irfft, rfft
+
+    from nrsc5_tpu_torch.tx.hdc_encoder import HDCEncoder
+
+    rng = np.random.default_rng([SEED, 0xAD, AUDIO_STREAMS.index(kind)])
+    n = AUDIO_PACKETS * 2048
+    t = np.arange(n) / AUDIO_FS
+    channels = 1 if kind == "mono" else 2
+    if kind == "steady":
+        sig = (0.35 * np.sin(2 * np.pi * 240 * t)
+               + 0.15 * np.sin(2 * np.pi * 2000 * t)
+               + 0.05 * rng.standard_normal(n))
+        pcm = np.stack([sig, sig * 0.9], -1)
+    else:
+        s2 = rfft(rng.standard_normal(n))
+        f = np.arange(len(s2)) * AUDIO_FS / n
+        sig = 0.4 * np.sin(2 * np.pi * (411 if kind == "mono" else 337)
+                           * t) \
+            + 0.1 * irfft(np.where((f > 4000) & (f < 13000), s2, 0), n)
+        pcm = np.stack([sig, sig * 0.85], -1)[:, :channels] * 0.7
+        if kind == "transient":
+            pcm *= 0.1
+            tt = np.arange(256)
+            burst = (np.sin(2 * np.pi * 2400 * tt / AUDIO_FS)
+                     + 0.5 * np.sin(2 * np.pi * 3500 * tt / AUDIO_FS + 1.0)) \
+                * np.hanning(256)
+            for hit in range(2, AUDIO_PACKETS, 3):
+                pos = hit * 2048 + 700
+                pcm[pos:pos + 256] += \
+                    (0.7 * burst / np.abs(burst).max())[:, None]
+    enc = HDCEncoder(channels=channels, sbr=True, pns=False)
+    return [enc.encode_frame(pcm[k * 2048:(k + 1) * 2048])
+            for k in range(AUDIO_PACKETS)]
+
+
+def host_audio(packets: list) -> np.ndarray:
+    """The port's host decoder fed the packet sequence AUDIO_DISPATCHES
+    times over, as every dispatch feeds it: int16 [D * K * 2048, 2]."""
+    from nrsc5_tpu_torch.audio.hdc_decoder import HDCDecoder
+    dec = HDCDecoder()
+    return np.concatenate([dec.decode(p).reshape(-1, 2)
+                           for _ in range(AUDIO_DISPATCHES)
+                           for p in packets])
+
+
 def make_fleet(station=make_station) -> dict:
     """Every station, built in parallel by spawned worker processes (numpy
     only; the pool ends with the call)."""
@@ -560,6 +652,9 @@ def main() -> int:
     from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
     from nrsc5_tpu_torch.pipeline.scan_chain import iv_state_len
     from nrsc5_tpu_torch.pipeline.scan_chain_am import am_buffer_len
+    from nrsc5_tpu_torch.audio import stage as AST
+    from nrsc5_tpu_torch.audio.batch import (BatchedAudioDecoder,
+                                             device_inputs)
 
     # full float32 for every float32 matmul and convolution (the DFT and
     # the conv1d yardstick); TF32 would keep ~3 decimal digits
@@ -599,11 +694,21 @@ def main() -> int:
     am_cold = make_fleet(make_am_cold_station)
     t4 = time.perf_counter()
     am_cu8 = make_fleet(make_am_cu8_station)
+    t5 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(len(AUDIO_STREAMS), mp_context=ctx) as pool:
+        audio_streams = list(pool.map(make_audio_stream, AUDIO_STREAMS))
+        t6 = time.perf_counter()
+        audio_host = list(pool.map(host_audio, audio_streams))
     emit({"phase": "signal", "seconds": round(t1 - t0, 3),
+          "audio_encode_seconds": round(t6 - t5, 3),
+          "audio_host_decode_seconds": round(time.perf_counter() - t6, 3),
+          "audio_packet_bytes": [[len(p) for p in st]
+                                 for st in audio_streams],
           "mp3_seconds": round(t2 - t1, 3),
           "am_seconds": round(t3 - t2, 3),
           "am_cold_seconds": round(t4 - t3, 3),
-          "am_cu8_seconds": round(time.perf_counter() - t4, 3),
+          "am_cu8_seconds": round(t5 - t4, 3),
           "am_cold_bytes": int(am_cold["wire"].nbytes),
           "am_cold_offsets": am_cold["offset"].tolist(),
           "am_cold_cfo_hz": am_cold["cfo_hz"].tolist(),
@@ -620,6 +725,20 @@ def main() -> int:
           "offsets": fleet["offset"].tolist(),
           "cfo_bins": fleet["cfo_bins"].tolist(),
           "cfo_hz": fleet["cfo_hz"].tolist()})
+    # the audio fleet: program p plays stream p % 3; every batch is the same
+    # 8-packet sequence (bench.py:690-700), prepared once on the host
+    audio_batch = [audio_streams[p % len(AUDIO_STREAMS)]
+                   for p in range(AUDIO_PROGRAMS)]
+    adec = BatchedAudioDecoder(AUDIO_PROGRAMS)
+    prepare_ms, preps = [], []
+    for _ in range(AUDIO_DISPATCHES):
+        t0 = time.perf_counter()
+        preps.append(adec.prepare(audio_batch))
+        prepare_ms.append((time.perf_counter() - t0) * 1e3)
+    astage = preps[0][0]
+    adec._reconcile_state(*preps[0][2:])
+    audio_state0 = {k: v.clone() for k, v in adec._state.items()}
+
     wire = torch.from_numpy(fleet["steady"]).to(dev)
     capture = torch.from_numpy(fleet["capture"]).to(dev)
     p1_tx, pids_all = fleet["p1"], fleet["pids"]
@@ -1125,6 +1244,102 @@ def main() -> int:
                 s_n * (31 * n_am_out * 34 + n_cu8 * 2 * 3)),
           conv_cascade, [s_n, n_cu8, 2], plain_reps=3, plain_inner=2)
     del x
+
+    # --- K16a-d: one batch of the audio fleet (128 lanes x 8 packets), at
+    # the state the plain path carries after the first batch; each kernel
+    # on the previous kernel's output ---
+    a_state, _ = astage(audio_state0, device_inputs(preps[0][1], dev),
+                        plain=True)
+    a_inp = device_inputs(preps[1][1], dev)
+    a_n, a_k = a_inp["spec_long"].shape[:2]
+    a_s, a_m = a_k * AST.NSLOT, astage.m
+    long_raw = torch.matmul(a_inp["spec_long"].reshape(a_n * a_k, -1),
+                            astage.blt).reshape(a_n, a_k, 2048)
+    short_raw = torch.matmul(a_inp["spec_short"].reshape(a_n * a_k * 8, -1),
+                             astage.bst).reshape(a_n, a_k, 8, 256)
+    args_a = (long_raw, short_raw, a_inp["win_long_idx"],
+              a_inp["win_short_idx"], a_inp["short"], a_state["overlap"],
+              a_state["qa_hist"], astage.lut_long, astage.lut_short,
+              astage.ka)
+    got = AST.window_qmf_analysis(*args_a)
+    want = AST.window_qmf_analysis_plain(*args_a)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    # conv1d's input, the overlap-added core behind the history (not timed)
+    ext = AST.analysis_input(*args_a[:-1])[0][:, None].contiguous()
+    ka_w = astage.ka.t().contiguous()[:, None, :]
+    # bytes: the two products, indices, state in and out, tables, xl;
+    # operations: 320 multiply-adds an output, ~3 a core sample
+    check("aac_window_qmf_analysis", err, 0.0,
+          lambda: AST.window_qmf_analysis(*args_a),
+          lambda: AST.window_qmf_analysis_plain(*args_a),
+          bound(a_n * a_k * (2048 * 4 + 8 * 256 * 4 + 3)
+                + a_n * (1024 + AST.QA_HIST) * 8
+                + (13 * 2048 + 5 * 8 * 256 + 320 * 64) * 4
+                + a_n * a_s * 64 * 4,
+                a_n * a_s * 64 * 320 * 2 + a_n * a_k * 2048 * 3),
+          lambda: torch.nn.functional.conv1d(ext, ka_w, stride=32),
+          [a_n, a_k, 2048], plain_reps=3, plain_inner=2, card=smi)
+    a_xl = got[0]
+    args_b = (a_xl, a_state["tail_r"], a_state["tail_i"], a_inp["bwj"],
+              astage.src_idx, astage.src_ok, astage.kx)
+    got = AST.sbr_hf_generate(*args_b)
+    want = AST.sbr_hf_generate_plain(*args_b)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    # bytes: xl, tails in and out, chirp, maps, x_high; operations: 8
+    # covariance sums of ~3 a (band, slot), ~20 a patch element
+    check("sbr_hf_generate", err, 0.0,
+          lambda: AST.sbr_hf_generate(*args_b),
+          lambda: AST.sbr_hf_generate_plain(*args_b),
+          bound(a_n * a_s * 64 * 4 + a_n * 2 * 32 * 4 * 4
+                + a_n * a_k * a_m * 4 + a_m * 8
+                + a_n * a_k * AST.NSLOT * a_m * 8,
+                a_n * a_k * 32 * AST.NSLOT * 24
+                + a_n * a_k * AST.NSLOT * a_m * 20),
+          None, [a_n, a_k, AST.NSLOT, a_m, 2], plain_reps=3,
+          plain_inner=2, card=smi)
+    a_xh = got[0]
+    args_c = (a_xh, a_xl, a_inp["env_seg"], a_inp["freq_res"],
+              a_inp["e_bands"], a_inp["q_bands"], a_inp["harm_act"],
+              a_inp["delta_e"], a_inp["noise_start"], a_inp["nlow"],
+              a_state.get("g_hist"), a_state.get("q_hist"), astage.maps(),
+              astage.noise_tab, astage.kx, astage.lim_gain, astage.interpol,
+              astage.smooth)
+    got = AST.sbr_hf_adjust(*args_c)
+    want = AST.sbr_hf_adjust_plain(*args_c)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want)
+              if a is not None)
+    n_hi, n_q = a_inp["e_bands"].shape[-1], a_inp["q_bands"].shape[-1]
+    # bytes: x_high, xl, the envelope inputs, maps and noise table, X;
+    # operations: ~160 an (envelope, bin), ~60 a (slot, bin)
+    check("sbr_hf_adjust", err, 0.0,
+          lambda: AST.sbr_hf_adjust(*args_c),
+          lambda: AST.sbr_hf_adjust_plain(*args_c),
+          bound(a_n * a_k * AST.NSLOT * a_m * 8 + a_n * a_s * 64 * 4
+                + a_n * a_k * (AST.NSLOT * (AST.MAXENV + 8) + 10
+                               + AST.MAXENV * (n_hi * 5 + n_q * 4))
+                + a_m * 20 + 512 * 8 + 2 * a_n * a_s * 64 * 4,
+                a_n * a_k * (AST.MAXENV * a_m * 160
+                             + AST.NSLOT * a_m * 60)),
+          None, [2, a_n, a_k, AST.NSLOT, 64], plain_reps=3, plain_inner=2,
+          card=smi)
+    a_x = got[0]
+    a_v = (torch.matmul(a_x[0].reshape(-1, 64), astage.smr)
+           - torch.matmul(a_x[1].reshape(-1, 64), astage.smi)).reshape(
+               a_n, a_s, 128)
+    args_d = (a_v, a_state["syn_hist"], astage.cidx, astage.w10)
+    got = AST.qmf_synthesis(*args_d)
+    want = AST.qmf_synthesis_plain(*args_d)
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    # bytes: V, history in and out, taps, int16 PCM; 20 operations a sample
+    check("qmf_synthesis", err, 0.0,
+          lambda: AST.qmf_synthesis(*args_d),
+          lambda: AST.qmf_synthesis_plain(*args_d),
+          bound(a_n * a_s * 128 * 4 + a_n * AST.SYN_HIST * 128 * 8
+                + 10 * 64 * 8 + a_n * a_s * 64 * 2, a_n * a_s * 64 * 20),
+          None, [a_n, a_s, 128], plain_reps=3, plain_inner=2, card=smi)
+    del long_raw, short_raw, ext, a_xl, a_xh, a_x, a_v, args_a, args_b
+    del args_c, args_d
 
     # --- coldstart: lock the capture, then decode it from the locks ---
     cap_blocks = LEAD + n_blocks
@@ -1799,6 +2014,95 @@ def main() -> int:
     for name in KERNELS:
         by_path = report[name]["launches_by_path"]
         by_path["am_cu8"] = cu8_launches.get(name, 0)
+        report[name]["launches"] = sum(by_path.values())
+
+    # --- audio: 64 stereo programs (128 lanes) x 8 packets, three
+    # dispatches with the state carried; the plain path from a copy of the
+    # same device state on the same prepared inputs ---
+    audio_launches, audio_pcm, audio_same = [], [], True
+    plain_state = {k: v.clone() for k, v in audio_state0.items()}
+    for d in range(AUDIO_DISPATCHES):
+        torch.cuda.synchronize()
+        plain_calls, restore = count_plain_calls()
+        K.reset_counts()
+        try:
+            pcm = adec.dispatch(preps[d])
+        finally:
+            torch.cuda.synchronize()
+            restore()
+        audio_launches.append({"launches": {n: c for n, c in
+                                            K.COUNTS.items() if c},
+                               "plain_calls": plain_calls})
+        plain_state, ppcm = astage(plain_state,
+                                   device_inputs(preps[d][1], dev),
+                                   plain=True)
+        ppcm = ppcm.cpu().numpy().reshape(AUDIO_PROGRAMS, 2, -1).transpose(
+            0, 2, 1)
+        audio_same &= bool(np.array_equal(pcm, ppcm)) and sorted(
+            plain_state) == sorted(adec._state) and all(
+            torch.equal(adec._state[k], plain_state[k]) for k in plain_state)
+        audio_pcm.append(pcm)
+    out = np.concatenate(audio_pcm, axis=1).astype(np.float64)
+    skip = 2 * 2048  # packets 0-1: the filterbank and QMF ramp-in
+    snr = []
+    for p in range(AUDIO_PROGRAMS):
+        ref = audio_host[p % len(AUDIO_STREAMS)].astype(np.float64)[skip:]
+        for c in range(2):
+            e = ((ref[:, c] - out[p, skip:, c]) ** 2).sum()
+            snr.append(float(10 * np.log10((ref[:, c] ** 2).sum()
+                                           / max(e, 1e-30))))
+    a_inputs = [preps[d][1] for d in range(AUDIO_DISPATCHES)]
+    n_short = int(sum(inp["short"].sum() for inp in a_inputs))
+    launches_ok = all(
+        rec["launches"] == {n: 1 for n in AUDIO_KERNELS}
+        and not rec["plain_calls"] for rec in audio_launches)
+
+    def audio_device_half():
+        _, pcm = astage(adec._state, device_inputs(preps[0][1], dev))
+        return pcm.cpu()
+
+    audio_device_half()
+    torch.cuda.synchronize()
+    wall = []
+    for _ in range(9):
+        t0 = time.perf_counter()
+        audio_device_half()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    dispatch_ms = statistics.median(wall[2:])
+    audio_s = AUDIO_PROGRAMS * AUDIO_PACKETS * 2048 / AUDIO_FS
+    audio_device = profile_device(torch, audio_device_half)
+    audio_ok = (audio_same and launches_ok and min(snr) >= AUDIO_SNR_DB
+                and n_short > 0)
+    emit({"phase": "audio", "card": smi, "programs": AUDIO_PROGRAMS,
+          "lanes": 2 * AUDIO_PROGRAMS, "packets": AUDIO_PACKETS,
+          "dispatches": AUDIO_DISPATCHES, "streams": list(AUDIO_STREAMS),
+          "sbr_bins": astage.m, "kx": astage.kx,
+          "caps": [astage.cap_long, astage.cap_short],
+          "short_windows": n_short, "launches_per_dispatch": audio_launches,
+          "plain_same_pcm_and_state": audio_same,
+          "snr_db_min": min(snr), "snr_db_by_stream": {
+              k: min(snr[2 * p + c] for p in range(i, AUDIO_PROGRAMS,
+                                                   len(AUDIO_STREAMS))
+                     for c in range(2))
+              for i, k in enumerate(AUDIO_STREAMS)},
+          "snr_gate_db": AUDIO_SNR_DB,
+          "prepare_wall_ms": statistics.median(prepare_ms),
+          "prepare_wall_ms_runs": prepare_ms,
+          "dispatch_wall_ms": dispatch_ms, "dispatch_wall_ms_runs": wall,
+          "audio_seconds_per_dispatch": audio_s,
+          "audio_seconds_per_dispatch_second": audio_s / dispatch_ms * 1e3,
+          "kernel_ms": {n: report[n]["ms"] for n in AUDIO_KERNELS},
+          "kernel_bound_ms": {n: report[n]["bound_ms"]
+                              for n in AUDIO_KERNELS},
+          "device_time": audio_device, "pass": audio_ok})
+    if not audio_ok:
+        raise AssertionError("the audio fleet did not decode through the "
+                             "four kernels to the host decoder's PCM")
+    for name in KERNELS:
+        by_path = report[name]["launches_by_path"]
+        by_path["audio"] = sum(rec["launches"].get(name, 0)
+                               for rec in audio_launches)
         report[name]["launches"] = sum(by_path.values())
 
     print(smi, flush=True)

@@ -100,6 +100,21 @@ SIGNATURES = {
     "am_cfo_step": (P, P, P, I, P),
     # wire, out, taps, scale, n_in_pairs, n_out, n_stations, stream
     "am_decimate_cu8": (P, P, P, F, L, I, I, P),
+    # long_raw, short_raw, win_long_idx, win_short_idx, short, overlap,
+    # qa_hist, lut_long, lut_short, ka, xl, new_overlap, new_qa_hist,
+    # n_lanes, n_packets, stream
+    "aac_window_qmf_analysis": (P,) * 13 + (I, I, P),
+    # xl, tail_r, tail_i, bwj, src_idx, src_ok, xh, new_tail_r, new_tail_i,
+    # n_lanes, n_packets, m, kx, eps, lpc_div, stream
+    "sbr_hf_generate": (P,) * 9 + (I, I, I, I, F, F, P),
+    # xh, xl, env_seg, freq_res, e_bands, q_bands, harm_act, delta_e,
+    # noise_start, nlow, band_hi, band_lo, band_noise, sin_band, lim_band,
+    # w_hi, w_lo, noise_tab, g_hist, q_hist, new_g_hist, new_q_hist, x,
+    # n_lanes, n_packets, m, kx, n_high, n_low, n_q, n_lim, interpol,
+    # smooth, lim_gain, eps, g_max_cap, max_boost, h_smooth[5], stream
+    "sbr_hf_adjust": (P,) * 23 + (I,) * 10 + (F,) * 9 + (P,),
+    # v, syn_hist, cidx, w, pcm, new_syn_hist, n_lanes, n_slots, stream
+    "qmf_synthesis": (P, P, P, P, P, P, I, I, P),
 }
 # kernel name -> the csrc/ source (without ".cu") that holds it, where that
 # is not a file of the kernel's own name

@@ -11,6 +11,9 @@ import torch
 
 from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch import serve, state
+from nrsc5_tpu_torch.audio import sbr as SBR
+from nrsc5_tpu_torch.audio.batch import BatchedAudioDecoder
+from nrsc5_tpu_torch.audio.stage import DeviceStage
 from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
 
 _IMPORT_ALL = r"""
@@ -58,6 +61,9 @@ _ENTRY_POINTS = {
     "cold_start_rc": lambda: rcc.cold_start_rc(torch.zeros(80_000, 2)),
     "carry_from_numpy": lambda: state.carry_from_numpy(state.carry_to_numpy(
         rcc.chain_rc_init_carry(device="cpu"))),
+    "BatchedAudioDecoder": lambda: BatchedAudioDecoder(1),
+    "DeviceStage": lambda: DeviceStage(SBR.derive_tables(SBR.SbrHeader()),
+                                       1.0, interpol=True),
 }
 
 

@@ -30,6 +30,10 @@ Tolerances:
   atan2 may differ in the last bit between the kernel's build and
   PyTorch's (K4's plain version sums in K4's order and divides by numbers
   as K4 does, so at chip_smoke.py's inputs the two agree exactly);
+- K16a-d (batched HDC audio: window and QMF analysis, HF generator, HF
+  adjuster, QMF synthesis) exact, floats and int16 PCM: the plain versions
+  sum every short axis in the kernels' order and round every product
+  apart from its sum, as the kernels do with -fmad=false;
 - K4's ref_ok, ref_bc, ref_psmi and samperr exact; its int8 soft bits (pm,
   px1, px2) within ±1 on at most 0.1 % of values (a reduction's last bit can move a
   product across a .5 rounding edge).  These hold K4 at states the chain
@@ -40,6 +44,7 @@ Tolerances:
   spread under a one-ulp change of the inputs, and one ulp.
 """
 
+import functools
 import json
 
 import numpy as np
@@ -48,6 +53,9 @@ import torch
 
 from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
+from nrsc5_tpu_torch.audio import sbr as SBR
+from nrsc5_tpu_torch.audio import stage as AST
+from nrsc5_tpu_torch.audio.batch import BatchedAudioDecoder, device_inputs
 from nrsc5_tpu_torch.ops import acquire_am_rc as AA
 from nrsc5_tpu_torch.ops import acquire_rc as AQ
 from nrsc5_tpu_torch.ops import convolutional as CV
@@ -63,6 +71,7 @@ from nrsc5_tpu_torch.pipeline.scan_chain import px_frame_lens
 from nrsc5_tpu_torch.tx import channel as ch
 from nrsc5_tpu_torch.tx import encoder_am as EAM
 from nrsc5_tpu_torch.tx.encoder import build_pm_matrix
+from nrsc5_tpu_torch.tx.hdc_encoder import HDCEncoder
 from nrsc5_tpu_torch.tx.modulator import modulate_fm
 from nrsc5_tpu_torch.tx.modulator_am import modulate_am
 
@@ -627,3 +636,131 @@ def test_am_decimate_cu8(card):
         FE.ingest_am_cu8(wire[:, 1:].contiguous())
     with pytest.raises(ValueError):
         FE.ingest_am_cu8(wire.float())
+
+
+# --- K16: batched HDC audio ------------------------------------------------
+
+_AUDIO_HEADERS = {
+    "default": None,
+    "interpol0": SBR.SbrHeader(start_freq=8, stop_freq=7, amp_res=0,
+                               xover_band=2, interpol_freq=0),
+    "smooth": SBR.SbrHeader(start_freq=8, stop_freq=7, amp_res=0,
+                            xover_band=2, smoothing_mode=0),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _audio_batch(header: str):
+    """Eight stereo SBR packets of a tone over noise with two sharp bursts
+    (so both long and EIGHT_SHORT windows occur) under ``header``, prepared
+    by a one-program decoder on the CPU after one batch of the same packets
+    (so the carried state is not zero): (stage, numpy inputs, numpy
+    state)."""
+    fs, n = 44100, 8
+    rng = np.random.default_rng(16)
+    t = np.arange(n * 2048) / fs
+    x = 0.04 * np.sin(2 * np.pi * 500 * t) + 0.01 * rng.standard_normal(
+        n * 2048)
+    tt = np.arange(256)
+    burst = np.sin(2 * np.pi * 2400 * tt / fs) * np.hanning(256)
+    for k in (2, 5):
+        x[k * 2048 + 700:k * 2048 + 956] += 0.7 * burst / np.abs(burst).max()
+    pcm = np.clip(np.stack([x, 0.9 * x], -1), -1, 1)
+    hdr = _AUDIO_HEADERS[header]
+    enc = HDCEncoder(channels=2, sbr=True, pns=False,
+                     **({} if hdr is None else {"sbr_header": hdr}))
+    pkts = [enc.encode_frame(pcm[k * 2048:(k + 1) * 2048]) for k in range(n)]
+    dec = BatchedAudioDecoder(1, device="cpu")
+    dec.decode([pkts])
+    stage, inp, smooth, key = dec.prepare([pkts])
+    dec._reconcile_state(smooth, key)
+    assert inp["short"].any() and not inp["short"].all()
+    return stage, inp, {k: v.numpy() for k, v in dec._state.items()}
+
+
+def _audio_case(header: str, lanes: int, dev):
+    stage, inp, state = _audio_batch(header)
+    reps = lanes // inp["spec_long"].shape[0]
+
+    def tile(a):
+        return np.ascontiguousarray(np.tile(a, (reps,) + (1,) * (a.ndim - 1)))
+    return (stage.to(dev), device_inputs({k: tile(v) for k, v in inp.items()},
+                                         dev),
+            {k: torch.from_numpy(tile(v)).to(dev) for k, v in state.items()})
+
+
+@pytest.mark.parametrize("lanes", [2, 128])
+@pytest.mark.parametrize("header", sorted(_AUDIO_HEADERS))
+def test_audio_kernels(card, header, lanes):
+    """K16a-d one after the other on one batch of 8 packets (2 lanes, and
+    the 128 lanes of a 64-program fleet), each against its plain version on
+    the same inputs: every output equal.  Then the whole stage through the
+    kernels (each launched once, no plain version) equal to it through the
+    plain versions, PCM and every carried state tensor."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stage, inp, state = _audio_case(header, lanes, card)
+    n, kp = inp["spec_long"].shape[:2]
+    long_raw = torch.matmul(inp["spec_long"].reshape(n * kp, -1),
+                            stage.blt).reshape(n, kp, 2048)
+    short_raw = torch.matmul(inp["spec_short"].reshape(n * kp * 8, -1),
+                             stage.bst).reshape(n, kp, 8, 256)
+    args = (long_raw, short_raw, inp["win_long_idx"], inp["win_short_idx"],
+            inp["short"], state["overlap"], state["qa_hist"],
+            stage.lut_long, stage.lut_short, stage.ka)
+    got = AST.window_qmf_analysis(*args)
+    want = AST.window_qmf_analysis(*args, plain=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    xl = got[0]
+    args = (xl, state["tail_r"], state["tail_i"], inp["bwj"], stage.src_idx,
+            stage.src_ok, stage.kx)
+    got = AST.sbr_hf_generate(*args)
+    want = AST.sbr_hf_generate(*args, plain=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    args = (got[0], xl, inp["env_seg"], inp["freq_res"], inp["e_bands"],
+            inp["q_bands"], inp["harm_act"], inp["delta_e"],
+            inp["noise_start"], inp["nlow"], state.get("g_hist"),
+            state.get("q_hist"), stage.maps(), stage.noise_tab, stage.kx,
+            stage.lim_gain, stage.interpol, stage.smooth)
+    got = AST.sbr_hf_adjust(*args)
+    want = AST.sbr_hf_adjust(*args, plain=True)
+    assert torch.equal(got[0], want[0])
+    assert (got[1] is None) == (not stage.smooth)
+    if stage.smooth:
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    x = got[0]
+    v = (torch.matmul(x[0].reshape(-1, 64), stage.smr)
+         - torch.matmul(x[1].reshape(-1, 64), stage.smi)).reshape(
+             n, kp * 32, 128)
+    args = (v, state["syn_hist"], stage.cidx, stage.w10)
+    got = AST.qmf_synthesis(*args)
+    want = AST.qmf_synthesis(*args, plain=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+    K.reset_counts()
+    new_k, pcm_k = stage(state, inp)
+    assert {k: c for k, c in K.COUNTS.items() if c} == {
+        "aac_window_qmf_analysis": 1, "sbr_hf_generate": 1,
+        "sbr_hf_adjust": 1, "qmf_synthesis": 1}
+    new_p, pcm_p = stage(state, inp, plain=True)
+    assert pcm_k.dtype == torch.int16 and pcm_k.shape == (n, kp * 2048)
+    assert torch.equal(pcm_k, pcm_p)
+    assert sorted(new_k) == sorted(new_p) == sorted(state)
+    for k in new_k:
+        assert torch.equal(new_k[k], new_p[k]), k
+    assert pcm_k.abs().max().item() > 1000
+
+
+def test_audio_kernels_refuse(card):
+    """The K16 wrappers refuse a tensor of the wrong type or shape."""
+    stage, inp, state = _audio_case("default", 2, card)
+    with pytest.raises(ValueError):
+        AST.qmf_synthesis(torch.zeros(2, 8, 128, device=card),
+                          state["syn_hist"], stage.cidx, stage.w10)
+    with pytest.raises(ValueError):
+        AST.sbr_hf_generate(torch.zeros(2, 256, 64, device=card,
+                                        dtype=torch.float64),
+                            state["tail_r"], state["tail_i"], inp["bwj"],
+                            stage.src_idx, stage.src_ok, stage.kx)
