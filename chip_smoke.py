@@ -9,10 +9,11 @@ Run from the root of the repository on a machine with a CUDA card and
 Phases, each printing one JSON line:
 
 1. device: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
-2. build: the twenty-two hand kernels (K1 and its AM cascade, K2, K3,
-   K4, K6, K7 at K=7 and at K=9, K8, K9, the needle count of K10, K11,
-   K12, K13, K14's tone estimate, coarse timing and CFO step, K15, and
-   K16a-d of batched HDC audio) built from the twenty sources of
+2. build: the twenty-four hand kernels (K1 and its AM cascade, K2, K3,
+   K4, K5's FM and AM carry steps, K6, K7 at K=7 and at K=9, K8, K9, the
+   needle count of K10, K11, K12, K13, K14's tone estimate, coarse timing
+   and CFO step, K15, and K16a-d of batched HDC audio) built from the
+   twenty-one sources of
    ``nrsc5_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``, one process per
    source, all in parallel;
 3. signal: 16 stations of MP1, each modulated once with the port's ``tx``
@@ -37,7 +38,14 @@ Phases, each printing one JSON line:
    8-packet HDC audio streams (stereo SBR two tones and noise, a stereo
    stream with sharp bursts that carries EIGHT_SHORT windows, a mono
    stream), encoded with the port's ``tx`` copy, each also decoded by the
-   port's host decoder fed the sequence three times over;
+   port's host decoder fed the sequence three times over.  And the serving
+   fleets: 16 MP1 stations of 1-8 lead blocks and 16 frames of transport
+   content (32 random HDC packets a frame, the station's ID3 title in the
+   AAS PSD, its SIS station ID and short name on PIDS) behind a timing
+   offset and a CFO as the cold-start capture's, 25 dB, as 1.488 MS/s cu8;
+   16 MA1 stations of 24 frames (4 HDC packets a P1 subframe) behind a
+   timing offset of 300-3999 samples, 35 dB, cs16; station 5 of each with
+   0.5 s of zeros inserted (after FM frame 3, AM frame 6);
 4. one line per kernel: the kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it, with times (K4 also at
    psmi 2, 3 and 11, K6 and K8 at P1's and PIDS's shapes, K8 at PX's,
@@ -45,7 +53,8 @@ Phases, each printing one JSON line:
    in MA1 and MA3, K7 at K=9 on P1, P3 of MA1 and MA3 and PIDS, and K8
    on the AM P1; K14's three kernels at the AM cold start's first probe
    block, K1's AM cascade on the cu8 AM wire; K16a-d one after the other
-   on a batch of the audio fleet, 128 lanes x 8 packets);
+   on a batch of the audio fleet, 128 lanes x 8 packets; K5's two carry
+   steps on block 1's state);
 5. coldstart: ``serve.cold_start`` on the capture must lock 16/16 stations
    with the true |CFO| under one sign convention, first_bc 14 and psmi 1;
    then ``serve.chain_step`` from the locks over 34 blocks must decode
@@ -102,6 +111,27 @@ Phases, each printing one JSON line:
    the stage, PCM down), audio seconds a dispatch second, device busy
    time.
 
+Every dispatch of phases 5-9 goes through K5's CUDA graphs (the ingest and
+block loop of each dispatch shape, and the AM cold start's probe block);
+each of those phases also runs the same inputs with the loop launched
+eagerly, gates on the graph's outputs equal to the eager ones, and prints
+the eager wall and device time beside the graph's.  Then:
+
+12. serve_fm and 13. serve_am: ``MultiStationReceiver`` over each serving
+   fleet, ``cold_start=True``, ``frames_per_dispatch=2``, ``depth=2``,
+   every station's raw bytes pushed in turn in odd-sized pieces, then
+   ``flush``.  Gate: 16 SYNC events; every clean HDC packet one the
+   station transmitted and every frame it delivered whole (the stream's
+   end may cut the last); FM: every station's ID3 title and SIS name;
+   station 5 LOST_SYNC then SYNC then whole frames again, no other station
+   a LOST_SYNC; every steady dispatch, alignment dispatch and relock probe
+   launching exactly its path's kernels (graph replays counted), nothing
+   launched outside them, no plain version called; the eager loop the same
+   events.  Station-seconds of air over the wall of push through flush
+   (the first run, which captures any graph it meets first, and a warm
+   run), the wall a dispatch, device busy time and idle share, events per
+   station; the same for the eager loop.
+
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``:
 the sum over the paths driven, itemised under ``launches_by_path``) and,
 last,
@@ -113,6 +143,7 @@ from __future__ import annotations
 
 import cProfile
 import json
+import math
 import multiprocessing
 import os
 import pstats
@@ -152,6 +183,16 @@ AUDIO_DISPATCHES = 3
 AUDIO_STREAMS = ("steady", "transient", "mono")
 AUDIO_FS = 44100
 AUDIO_SNR_DB = 55.0
+# the serving phases: MultiStationReceiver over 16 stations each, one of
+# them with a hole of zeros that breaks its lock
+SERVE_FRAMES = 16  # FM P1 frames a station
+SERVE_LEAD_MAX = 8  # FM lead blocks ahead of frame 0: 1 to this many
+SERVE_AM_FRAMES = 24  # AM frames a station
+SERVE_HOLE_STATION = 5
+SERVE_HOLE_S = 0.5
+SERVE_HOLE_AFTER = 4  # FM: the hole follows frame 3
+SERVE_AM_HOLE_AFTER = 7  # AM: the hole follows frame 6
+SERVE_PUSH = 98765  # odd-sized pushes (wire samples)
 # the card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -203,22 +244,28 @@ KERNELS = {
                       "nrsc5_tpu/audio/batch.py:326"),
     "qmf_synthesis": ("nrsc5_tpu_torch/csrc/qmf_synthesis.cu",
                       "nrsc5_tpu/audio/batch.py:484"),
+    "block_carry": ("nrsc5_tpu_torch/csrc/block_carry.cu",
+                    "nrsc5_tpu/pipeline/scan_chain_rc.py:274"),
+    "block_carry_am": ("nrsc5_tpu_torch/csrc/block_carry.cu",
+                       "nrsc5_tpu/pipeline/scan_chain_am_rc.py:259"),
 }
 AUDIO_KERNELS = ("aac_window_qmf_analysis", "sbr_hf_generate",
                  "sbr_hf_adjust", "qmf_synthesis")
 # the kernels each path launches
 STEADY = ("halfband_cu8", "demod_fold", "sync_block", "fec_gather",
-          "viterbi_k7", "fec_epilogue")
+          "viterbi_k7", "fec_epilogue", "block_carry")
 COLD_START = ("halfband_cu8", "demod_fold", "costas_track", "sync_block",
               "coarse_timing", "needle_count")
-# launches of one MP3 dispatch of 32 blocks: K1 once, K2 and K4 per block,
-# K6 for P1 and PIDS, K7 and K8 for P1, PIDS and PX1, K11 once
+# launches of one MP3 dispatch of 32 blocks: K1 once, K2, K4 and K5 per
+# block (K5 once more ahead of block 0), K6 for P1 and PIDS, K7 and K8 for
+# P1, PIDS and PX1, K11 once
 MP3_LAUNCHES = {"halfband_cu8": 1, "demod_fold": 32, "sync_block": 32,
-                "fec_gather": 2, "viterbi_k7": 3, "fec_epilogue": 3,
-                "px_deinterleave": 1}
+                "block_carry": 33, "fec_gather": 2, "viterbi_k7": 3,
+                "fec_epilogue": 3, "px_deinterleave": 1}
 # launches of one AM dispatch of 2 frames (16 blocks): K12 twice a block,
-# K13 once a block, K15 once, K7 at K=9 and K8 for P1, P3 and PIDS
-AM_LAUNCHES = {"am_fold": 32, "sync_am_block": 16, "am_gather": 1,
+# K13 and K5 once a block, K15 once, K7 at K=9 and K8 for P1, P3 and PIDS
+AM_LAUNCHES = {"am_fold": 32, "sync_am_block": 16, "block_carry_am": 16,
+               "am_gather": 1,
                "viterbi_k9": 3, "fec_epilogue": 3}
 # launches of one AM cold-start probe block: K14's three kernels once,
 # K12 in both passes, K13 once
@@ -235,6 +282,22 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dft_bound(rows: int, n: int) -> tuple[float, str]:
+    """Least time of ``rows`` complex ``n``-point DFTs as a DFT needs them:
+    the float32 rc input read once and the spectra written once, and a
+    radix-2 FFT's 5 n log2 n operations a row."""
+    return bound(2 * rows * n * 2 * 4, rows * 5 * n * math.log2(n))
+
+
+def gemm_bound(rows: int, n: int) -> tuple[float, str]:
+    """Least time of the same DFTs as the port computes them, one dense
+    float32 product [rows, 2n] @ [2n, 2n]: its two operands read and its
+    result written once, 2 (2n)^2 operations a row."""
+    width = 2 * n
+    return bound(2 * rows * width * 4 + width * width * 4,
+                 2 * rows * width * width)
 
 
 def time_ms(torch, fn, reps: int = 7, inner: int = 10,
@@ -565,6 +628,137 @@ def make_am_cu8_station(index: int) -> dict:
             "baseband": np.stack([buf.real, buf.imag], -1)[:n]}
 
 
+def _id3_title(title: str) -> bytes:
+    """An ID3v2.3 tag holding one TIT2 frame: the AAS PSD's content."""
+    body = b"\x00" + title.encode("latin-1")
+    frame = b"TIT2" + len(body).to_bytes(4, "big") + b"\x00\x00" + body
+    n = len(frame)
+    return b"ID3\x03\x00\x00" + bytes([(n >> 21) & 0x7F, (n >> 14) & 0x7F,
+                                        (n >> 7) & 0x7F, n & 0x7F]) + frame
+
+
+def serve_names(index: int) -> tuple[str, str]:
+    """Station ``index``'s ID3 title and SIS short name."""
+    letters = "".join(chr(65 + (index * k + k) % 26) for k in (1, 7, 11))
+    return f"Serve Station {index} Title", f"K{letters}-FM"
+
+
+def make_serve_fm_station(index: int) -> dict:
+    """FM serving station ``index``, from its own seed: SERVE_LEAD_MAX or
+    fewer lead blocks of a dummy frame, then SERVE_FRAMES P1 frames of 32
+    random HDC packets each with the station's ID3 title in the AAS PSD
+    (the port's tx/transport_encoder.py) and, on PIDS, its SIS station ID
+    and short name (tx/sis_encoder.py); behind a timing offset of
+    1000-3999 samples, an integer CFO of ±1..±12 bins plus a fractional part
+    within ±60 Hz, at 25 dB, as the 1.488 MS/s cu8 wire.  Station
+    SERVE_HOLE_STATION has SERVE_HOLE_S of zeros inserted after frame
+    SERVE_HOLE_AFTER (the content resumes where it stopped).  Returns the
+    interleaved uint8 wire, the packets by frame, frame 0's first chain
+    sample and the hole's (first chain sample, length)."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch.tx import channel as ch
+    from nrsc5_tpu_torch.tx import sis_encoder as SE
+    from nrsc5_tpu_torch.tx.encoder import build_pm_matrix
+    from nrsc5_tpu_torch.tx.modulator import modulate_fm
+    from nrsc5_tpu_torch.tx.transport_encoder import (aas_frame,
+                                                      build_p1_fm_frame)
+
+    rng = np.random.default_rng([SEED, 0x5F, index])
+    title, name = serve_names(index)
+    blk, fftcp = C.P1_FM_BLOCKS, C.FFTCP_FM
+    lead = int(rng.integers(1, SERVE_LEAD_MAX + 1))
+    psd = aas_frame(0x5100, 0, _id3_title(title))
+    sis = [SE.station_id("US", 1000 + index), SE.short_name(name)]
+    pids = np.stack([sis[b % 2] for b in range(blk)])
+    packets = [[rng.integers(0, 256, 280).astype(np.uint8).tobytes()
+                for _ in range(32)] for _ in range(SERVE_FRAMES)]
+    dummy = build_pm_matrix(build_p1_fm_frame(
+        [rng.integers(0, 256, 280).astype(np.uint8).tobytes()
+         for _ in range(32)], 0, 7, 0), pids)
+    mats = [dummy[(blk - lead) * C.BLKSZ:]] + [
+        build_pm_matrix(build_p1_fm_frame(packets[f], 0, f % 8,
+                                          (f * 32) % 64, psd=psd), pids)
+        for f in range(SERVE_FRAMES)]
+    bc_seq = np.r_[np.arange(blk - lead, blk),
+                   np.tile(np.arange(blk), SERVE_FRAMES)]
+    clean = modulate_fm(np.concatenate(mats), bc_seq, 1)
+    offset = int(rng.integers(1000, 4000))
+    cfo_bins = int(rng.integers(1, 13)) * (1 if index % 2 else -1)
+    cfo_hz = cfo_bins * C.SAMPLE_RATE_CS16_FM / C.FFT_FM \
+        + float(rng.uniform(-60.0, 60.0))
+    buf = np.zeros(offset + len(clean) + 3 * fftcp, np.complex64)
+    buf[offset + fftcp // 2:offset + fftcp // 2 + len(clean)] = clean
+    frame0 = offset + fftcp // 2 + lead * C.BLKSZ * fftcp
+    hole = (0, 0)
+    if index == SERVE_HOLE_STATION:
+        at = frame0 + SERVE_HOLE_AFTER * blk * C.BLKSZ * fftcp
+        hole = (at, int(SERVE_HOLE_S * C.SAMPLE_RATE_CS16_FM))
+        buf = np.concatenate([buf[:at], np.zeros(hole[1], np.complex64),
+                              buf[at:]])
+    # pad to a multiple of 2^20 samples: upsample2's FFTs of a length with
+    # a large prime factor take minutes
+    buf = np.concatenate([buf, np.zeros(-len(buf) % (1 << 20),
+                                        np.complex64)])
+    noisy = ch.impair(buf, cfo_hz=cfo_hz, snr_db=SNR_DB, rng=rng)
+    return {"wire": ch.to_cu8(ch.upsample2(noisy)), "packets": packets,
+            "lead": lead, "offset": offset, "cfo_bins": cfo_bins,
+            "frame0": frame0, "hole": hole}
+
+
+def make_serve_am_station(index: int) -> dict:
+    """AM serving station ``index``, from its own seed: SERVE_AM_FRAMES MA1
+    frames whose P1 subframes carry 4 random HDC packets each (random P3
+    and PIDS), behind a timing offset of 300-3999 samples with a fractional
+    CFO within ±AM_CFO_HZ, at AM_SNR_DB, cs16 at AM_RMS of full scale and
+    46511.7 S/s.  Station SERVE_HOLE_STATION has SERVE_HOLE_S of zeros
+    inserted after frame SERVE_AM_HOLE_AFTER.  Returns the int16 [n, 2]
+    wire, the packets by frame, frame 0's first sample and the hole's
+    (first sample, length)."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch.tx import channel as ch
+    from nrsc5_tpu_torch.tx import encoder_am as EAM
+    from nrsc5_tpu_torch.tx.modulator_am import modulate_am
+    from nrsc5_tpu_torch.tx.transport_encoder import build_p1_am_frame
+
+    rng = np.random.default_rng([SEED, 0x5A, index])
+    n = SERVE_AM_FRAMES
+    packets, p1 = [], []
+    for f in range(n):
+        frame_packets, subs = [], []
+        for b in range(8):
+            pk = [rng.integers(0, 256, 100).astype(np.uint8).tobytes()
+                  for _ in range(4)]
+            frame_packets.extend(pk)
+            subs.append(build_p1_am_frame(pk, 0, (f * 8 + b) % 8,
+                                          ((f * 8 + b) * 4) % 64))
+        packets.append(frame_packets)
+        p1.append(np.stack(subs))
+    p3 = rng.integers(0, 2, (n, C.P3_FRAME_LEN_MA1), dtype=np.uint8)
+    mats = EAM.interleave_frames([EAM.encode_p1_am(x) for x in p1],
+                                 [EAM.encode_p3_am(x, False) for x in p3],
+                                 False)
+    pids = np.stack([EAM.encode_pids_am(
+        rng.integers(0, 2, C.PIDS_FRAME_LEN, dtype=np.uint8))
+        for _ in range(8 * n)])
+    ref = np.stack([EAM.am_ref_bits(b % 8, 1) for b in range(8 * n)])
+    sig = modulate_am(mats, pids, ref, False)
+    offset = int(rng.integers(300, 4000))
+    buf = np.zeros(offset + len(sig) + 3 * C.FFTCP_AM, np.complex64)
+    buf[offset:offset + len(sig)] = sig
+    hole = (0, 0)
+    if index == SERVE_HOLE_STATION:
+        at = offset + SERVE_AM_HOLE_AFTER * C.P1_AM_BLOCKS * C.BLKSZ \
+            * C.FFTCP_AM
+        hole = (at, int(SERVE_HOLE_S * C.SAMPLE_RATE_CS16_AM))
+        buf = np.concatenate([buf[:at], np.zeros(hole[1], np.complex64),
+                              buf[at:]])
+    buf = ch.impair(buf, cfo_hz=float(rng.uniform(-AM_CFO_HZ, AM_CFO_HZ)),
+                    snr_db=AM_SNR_DB, sample_rate=C.SAMPLE_RATE_CS16_AM,
+                    rng=rng)
+    return {"wire": _cs16(buf), "packets": packets, "offset": offset,
+            "frame0": offset, "hole": hole}
+
+
 def make_audio_stream(kind: str) -> list:
     """AUDIO_PACKETS HDC packets of one program, from the stream's own seed,
     encoded with the port's ``tx`` copy: ``steady`` is stereo SBR content as
@@ -618,6 +812,231 @@ def host_audio(packets: list) -> np.ndarray:
                            for p in packets])
 
 
+def serve_launches(mode: str, blocks: int = 0) -> dict:
+    """The launches of one of the receiver's dispatches: FM's steady
+    dispatch of 32 blocks (K1, then K2, K4 and K5 a block and K5 once
+    ahead, then K6, K7 and K8 for P1 and PIDS) or, with ``blocks``, its
+    PIDS-only alignment dispatch; AM's steady dispatch of 2 frames."""
+    if mode == "am":
+        return AM_LAUNCHES
+    n = blocks or DISPATCH_BLOCKS
+    fec = 1 if blocks else 2
+    return {"halfband_cu8": 1, "demod_fold": n, "sync_block": n,
+            "block_carry": n + 1, "fec_gather": fec, "viterbi_k7": fec,
+            "fec_epilogue": fec}
+
+
+def serve_run(torch, fleet: dict, mode: str, device, graph: bool = True):
+    """Drive ``MultiStationReceiver`` over the fleet's wires as a live
+    fleet would: cold_start=True, frames_per_dispatch=2, depth=2, every
+    station's raw bytes pushed in turn in odd-sized pieces, then flush.
+    ``graph=False`` runs the steady dispatches' block loops eagerly.
+    Returns the events by station, the wall of push through flush, the
+    record (the launch counts of each dispatch, alignment and relock
+    probe; each relock probe's lock point and, after flush, each
+    station's queue head, as chain samples into its stream) and the
+    receiver."""
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch import serve
+    n = len(fleet["wire"])
+    events = {i: [] for i in range(n)}
+    kw = {"input_format": "cu8"} if mode == "fm" \
+        else {"input_format": "cs16", "mode": "am"}
+    rx = serve.MultiStationReceiver(
+        n, lambda st, ev: events[st].append(ev), frames_per_dispatch=2,
+        depth=2, cold_start=True, device=device, **kw)
+    record = {"dispatch": [], "align": [], "relock": []}
+
+    def head(i):
+        # the chain sample at the head of station i's queue
+        return (rx._pushed[i] - rx._sizes[i]) // rx._rate
+
+    def counted(kind, fn):
+        def run(*args):
+            before = dict(K.COUNTS)
+            locking = kind == "relock" and rx._relocking[args[0]]
+            out = fn(*args)
+            locked = locking and not rx._relocking[args[0]]
+            record[kind].append((
+                {k: c - before[k] for k, c in K.COUNTS.items()
+                 if c != before[k]},
+                args[1:] if kind == "align"
+                else (args[0], head(args[0])) if locked else None))
+            return out
+        return run
+    rx._dispatch = counted("dispatch", rx._dispatch)
+    rx._align_station = counted("align", rx._align_station)
+    rx._try_relock = counted("relock", rx._try_relock)
+    step = serve.chain_step if mode == "fm" else serve.chain_step_am
+    if not graph:
+        setattr(serve, step.__name__,
+                lambda *a, **k: step(*a, **{**k, "graph": False}))
+    wires = [w.tobytes() for w in fleet["wire"]]
+    piece = 2 * SERVE_PUSH + 1
+    try:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        K.reset_counts()
+        t0 = time.perf_counter()
+        for lo in range(0, max(map(len, wires)), piece):
+            for i, w in enumerate(wires):
+                if lo < len(w):
+                    rx.push(i, w[lo:lo + piece])
+        rx.flush()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(serve, step.__name__, step)
+    record["heads"] = [head(i) for i in range(n)]
+    return events, wall, dict(K.COUNTS), record, rx
+
+
+def serve_frames(fleet: dict, i: int, mode: str, record: dict):
+    """The frames station ``i``'s stream can release whole, as [first,
+    last] runs, and the frame its end cuts (or None), from the lock points
+    and the final queue head that ``record`` holds: after each lock, from
+    the first frame that starts at or after it (AM: behind the three
+    frames of the diversity warm-up) to the last frame before the next
+    lock's hole, or (the last lock) to the last frame wholly inside the
+    samples the dispatches consumed, at most the stream's last frame.  AM
+    pushes 8 subframes a frame with an output advance after each, so
+    flush's four advances release only part of that last frame: it is the
+    cut frame, and the run ends before it.  A position rounds to the
+    nearest block of the stream's content (the hole taken out)."""
+    from nrsc5_tpu_torch import constants as C
+    fm = mode == "fm"
+    blk = C.P1_FM_BLOCKS if fm else C.P1_AM_BLOCKS
+    block_len = C.BLKSZ * (C.FFTCP_FM if fm else C.FFTCP_AM)
+    n_frames = SERVE_FRAMES if fm else SERVE_AM_FRAMES
+    at, length = (int(v) for v in fleet["hole"][i])
+
+    def block(pos):
+        if length and pos >= at:
+            pos = max(at, pos - length)
+        return round((pos - int(fleet["frame0"][i])) / block_len)
+
+    locks = [lk[1] for _, lk in record["relock"]
+             if lk is not None and lk[0] == i]
+    runs, cut = [], None
+    for k, pos in enumerate(locks):
+        first = -(-block(pos) // blk) + (0 if fm else 3)
+        if k + 1 < len(locks):
+            last = block(at) // blk - 1
+        else:
+            last = min(block(record["heads"][i]) // blk - 1, n_frames - 1)
+            if not fm:
+                cut, last = last, last - 1
+        if last >= first:
+            runs.append([first, last])
+    return runs, cut
+
+
+def serve_gate(events: dict, fleet: dict, mode: str, counts: dict,
+               record: dict) -> dict:
+    """The serving phase's gate, from the events, the transmitted packets
+    and the launch record.  Every station: its first SYNC; every clean HDC
+    packet one it transmitted; every frame of :func:`serve_frames`' runs
+    delivered whole (every packet of it), its cut frame (AM) in part at
+    least, and no frame up to the last run's end delivered in part; FM
+    its ID3 title and SIS name.  The station with the hole:
+    LOST_SYNC, then SYNC, and two runs; no other station a LOST_SYNC.  The
+    launch counts: every steady dispatch exactly :func:`serve_launches`,
+    every alignment its own, every relock probe a cold start's, and
+    nothing launched outside them."""
+    from nrsc5_tpu_torch.api.events import EventType
+    n = len(fleet["wire"])
+    per = {}
+    ok = True
+    for i in range(n):
+        ev = events[i]
+        kinds = [e.type for e in ev]
+        tx = fleet["packets"][i]
+        where = {p: f for f, pk in enumerate(tx) for p in pk}
+        rx = {e.data for e in ev if e.type == EventType.HDC
+              and not e.crc_error}
+        foreign = len(rx - set(where))
+        got = {}
+        for p in rx & set(where):
+            got[where[p]] = got.get(where[p], 0) + 1
+        frames = sorted(got)
+        whole = {f for f in frames if got[f] == len(tx[f])}
+        runs = []
+        for f in frames:
+            if runs and f == runs[-1][1] + 1:
+                runs[-1][1] = f
+            else:
+                runs.append([f, f])
+        want, cut = serve_frames(fleet, i, mode, record)
+        missing = [f for lo, hi in want for f in range(lo, hi + 1)
+                   if f not in whole] + ([cut] if cut is not None
+                                         and cut not in got else [])
+        tail = want[-1][1] if want else -1
+        hole = i == SERVE_HOLE_STATION
+        lost = kinds.count(EventType.LOST_SYNC)
+        syncs = kinds.count(EventType.SYNC)
+        st = {"syncs": syncs, "lost_sync": lost, "packets": len(rx),
+              "foreign_packets": foreign, "frame_runs": runs,
+              "releasable_runs": want, "cut_frame": cut,
+              "frames_missing": missing,
+              "partial_frames": [f for f in frames
+                                 if f not in whole and f <= tail]}
+        good = (syncs >= 1 and foreign == 0 and not missing
+                and not st["partial_frames"])
+        if hole:
+            good &= (lost >= 1 and syncs >= 2
+                     and kinds.index(EventType.LOST_SYNC)
+                     < len(kinds) - 1 - kinds[::-1].index(EventType.SYNC)
+                     and len(want) == 2)
+        else:
+            good &= lost == 0 and len(want) == 1
+        if mode == "fm":
+            title, name = serve_names(i)
+            st["title"] = title in {e.title for e in ev
+                                    if e.type == EventType.ID3}
+            st["name"] = name in {e.name for e in ev
+                                  if e.type == EventType.STATION_NAME}
+            good &= st["title"] and st["name"]
+        st["pass"] = bool(good)
+        ok &= good
+        per[i] = st
+    # launches: each dispatch, alignment and probe as the path has it
+    dispatch_ok = all(d == serve_launches(mode)
+                      for d, _ in record["dispatch"])
+    align_ok = all(d == serve_launches(mode, a[0])
+                   for d, a in record["align"])
+    probe = AM_PROBE_LAUNCHES if mode == "am" else None
+    relock_ok = True
+    for d, _ in record["relock"]:
+        if not d:
+            continue  # no probe: too few samples queued, or a cooldown
+        if mode == "am":
+            k = d.get("sync_am_block", 0)
+            relock_ok &= d == {name: c * k for name, c in probe.items()}
+        else:
+            k4 = d.get("sync_block", 0)
+            relock_ok &= d == {"halfband_cu8": 1, "coarse_timing": 1,
+                               "demod_fold": 1 + k4, "costas_track": 1,
+                               "needle_count": 1,
+                               **({"sync_block": 1} if k4 else {})}
+    total = {}
+    for kind in ("dispatch", "align", "relock"):
+        for d, _ in record[kind]:
+            for name, c in d.items():
+                total[name] = total.get(name, 0) + c
+    launches_ok = dispatch_ok and align_ok and relock_ok \
+        and total == {k: c for k, c in counts.items() if c}
+    return {"stations": per, "first_syncs": sum(
+        st["syncs"] >= 1 for st in per.values()),
+        "dispatches": len(record["dispatch"]),
+        "alignments": [a[0] for _, a in record["align"]],
+        "relock_probes": sum(1 for d, _ in record["relock"] if d),
+        "launches_total": total, "launches_dispatch_ok": dispatch_ok,
+        "launches_align_ok": align_ok, "launches_relock_ok": relock_ok,
+        "launches_ok": launches_ok, "stations_ok": bool(ok),
+        "pass": bool(ok and launches_ok)}
+
+
 def make_fleet(station=make_station) -> dict:
     """Every station, built in parallel by spawned worker processes (numpy
     only; the pool ends with the call)."""
@@ -625,7 +1044,9 @@ def make_fleet(station=make_station) -> dict:
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
         stations = list(pool.map(station, range(N_STATIONS)))
-    return {k: np.stack([st[k] for st in stations]) for k in stations[0]}
+    return {k: [st[k] for st in stations] if k in ("packets", "wire")
+            and station in (make_serve_fm_station, make_serve_am_station)
+            else np.stack([st[k] for st in stations]) for k in stations[0]}
 
 
 def main() -> int:
@@ -648,6 +1069,7 @@ def main() -> int:
     from nrsc5_tpu_torch.ops import decode_fm as DF
     from nrsc5_tpu_torch.ops.bits import unpack_bits
     from nrsc5_tpu_torch.ops import decode_am as DA
+    from nrsc5_tpu_torch.pipeline import block_graph as BG
     from nrsc5_tpu_torch.pipeline import scan_chain_am_rc as scar
     from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
     from nrsc5_tpu_torch.pipeline.scan_chain import iv_state_len
@@ -695,6 +1117,10 @@ def main() -> int:
     t4 = time.perf_counter()
     am_cu8 = make_fleet(make_am_cu8_station)
     t5 = time.perf_counter()
+    serve_fm = make_fleet(make_serve_fm_station)
+    serve_am = make_fleet(make_serve_am_station)
+    t_serve = time.perf_counter() - t5
+    t5 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(len(AUDIO_STREAMS), mp_context=ctx) as pool:
         audio_streams = list(pool.map(make_audio_stream, AUDIO_STREAMS))
@@ -709,6 +1135,10 @@ def main() -> int:
           "am_seconds": round(t3 - t2, 3),
           "am_cold_seconds": round(t4 - t3, 3),
           "am_cu8_seconds": round(t5 - t4, 3),
+          "serve_seconds": round(t_serve, 3),
+          "serve_fm_wire_bytes": sum(w.nbytes for w in serve_fm["wire"]),
+          "serve_am_wire_bytes": sum(w.nbytes for w in serve_am["wire"]),
+          "serve_fm_lead_blocks": serve_fm["lead"].tolist(),
           "am_cold_bytes": int(am_cold["wire"].nbytes),
           "am_cold_offsets": am_cold["offset"].tolist(),
           "am_cold_cfo_hz": am_cold["cfo_hz"].tolist(),
@@ -745,6 +1175,32 @@ def main() -> int:
     pids_tx = pids_all[:, LEAD:]
     s_n, n_in, _ = wire.shape
     report = {}
+
+    def wall_ms(fn, runs: int = 4) -> tuple[float, list]:
+        """Median host-clock wall of warm calls of ``fn`` (the first call
+        is a warm-up), each ended by a synchronize; and every run."""
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[1:]), times
+
+    def front_ms(front, *args) -> dict:
+        """Device time (CUDA events) of a dispatch's ingest and block loop,
+        replayed as its graph and launched eagerly (each warmed first)."""
+        got = {}
+        for name, graph in (("graph_ms", True), ("eager_ms", False)):
+            front(*args, graph=graph)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            front(*args, graph=graph)
+            ev[1].record()
+            ev[1].synchronize()
+            got[name] = ev[0].elapsed_time(ev[1])
+        return got
 
     def check(name, err, tol, kernel, plain, bnd, library, shape,
               plain_reps=7, plain_inner=10, ok=None, case=None, **extra):
@@ -868,6 +1324,33 @@ def main() -> int:
               soft_diff_share={k: v[1] for k, v in soft.items()})
 
     sync_line(samples, 1)
+
+    # --- K5: the FM carry step at block 1 of the chain: block 0's state,
+    # block 1's keep (K2) and samperr and angle (K4) ---
+    _, _, _, cy = rcc.frontend_scan_rc(samples, rcc.chain_rc_init_carry(
+        n_stations=s_n, device=dev), 1)
+    samperr1 = C.FFTCP_FM // 2 + cy.samperr_fb
+    angle1 = cy.prev_angle - cy.angle_fb
+    fo = AQ.demod_fold(samples, cy.offset, cy.phase, samperr1, angle1, cy.cfo)
+    ko, _, _ = rcc.sync_block_rc(rc.dft(fo[0], shift=True), cy.costas_phase,
+                                 cy.costas_freq, 1, C.FFTCP_FM // 2 - samperr1)
+    k5_in = (fo[2], ko["samperr"], ko["angle"])
+    k5_state = {"offset": cy.offset, "prev_angle": cy.prev_angle,
+                "samperr_fb": cy.samperr_fb, "angle_fb": cy.angle_fb,
+                "samperr": samperr1, "angle": angle1,
+                "timing_adj": C.FFTCP_FM // 2 - samperr1}
+    k5_k = {k: v.clone() for k, v in k5_state.items()}
+    k5_p = {k: v.clone() for k, v in k5_state.items()}
+    BG.block_carry(*k5_in, k5_k, False)
+    BG.block_carry_plain(*k5_in, k5_p, False)
+    err = max((k5_k[k].double() - k5_p[k].double()).abs().max().item()
+              for k in k5_state)
+    # a block's step reads 5 words a station (keep, K4's samperr and
+    # angle, offset, angle) and writes 7 (every field of FM_STATE)
+    check("block_carry", err, 0.0,
+          lambda: BG.block_carry(*k5_in, k5_k, False),
+          lambda: BG.block_carry_plain(*k5_in, k5_p, False),
+          bound(s_n * 4 * (5 + 7), s_n * 5), None, [s_n])
     queue = torch.from_numpy(mp3["queue"]).to(dev)
     n_wire = serve.wire_pairs(DISPATCH_BLOCKS)
     mp3_x = FE.ingest_fm_cu8(queue[:, :n_wire].contiguous())
@@ -1082,6 +1565,16 @@ def main() -> int:
                 s_n * (nsamp_am * 17 + C.BLKSZ * C.CP_AM * 6
                        + C.BLKSZ * 40)),
           None, [s_n, C.BLKSZ, C.FFT_AM, 2], case="pass2", am_pass=2)
+
+    # K5's AM carry step on pass 2's keep
+    am_keep, am_offset = got[3], fold_args[1]
+    k5_k, k5_p = am_offset.clone(), am_offset.clone()
+    BG.block_carry_am(am_keep, k5_k)
+    BG.block_carry_am_plain(am_keep, k5_p)
+    check("block_carry_am", float((k5_k - k5_p).abs().max()), 0.0,
+          lambda: BG.block_carry_am(am_keep, k5_k),
+          lambda: BG.block_carry_am_plain(am_keep, k5_p),
+          bound(s_n * 4 * 3, s_n * 2), None, [s_n])
 
     # K13 on block 1's spectra, MA1 and MA3: every output exact
     for ma3, x in ((False, am_x), (True, ma3_x)):
@@ -1370,6 +1863,13 @@ def main() -> int:
                               packed=True)
     torch.cuda.synchronize()
     counts_cd = dict(K.COUNTS)
+    out_eager, _ = serve.chain_step(capture, carry, cap_blocks, psmi,
+                                    first_bc, packed=True, graph=False)
+    cs_graph_same = all(torch.equal(out[k], out_eager[k]) for k in out
+                        if k != "diag")
+    cs_dispatch = {g: wall_ms(lambda g=g: serve.chain_step(
+        capture, carry, cap_blocks, psmi, first_bc, packed=True, graph=g))
+        for g in (True, False)}
     cs_p1_ok = int((unpack_bits(out["p1"]) == p1_tx).all(axis=-1).sum())
     cs_pids_ok = int((unpack_bits(out["pids"]) == pids_all)
                      .all(axis=-1).sum())
@@ -1396,7 +1896,8 @@ def main() -> int:
                       for k in ("p1", "pids"))
     launched = {n for n in KERNELS if counts_cs[n] + counts_cd[n] > 0}
     cs_ok = (cs_p1_ok == s_n * N_FRAMES and cs_pids_ok == s_n * cap_blocks
-             and cs_same and launched == set(COLD_START) | set(STEADY))
+             and cs_same and cs_graph_same
+             and launched == set(COLD_START) | set(STEADY))
     emit({"phase": "coldstart", "stations": s_n, "locked": n_locked,
           "cfo": got_cfo, "true_cfo": true_cfo.tolist(),
           "cfo_convention": "negated" if got_cfo[0] == -true_cfo[0]
@@ -1411,6 +1912,9 @@ def main() -> int:
           "cold_start_wall_ms": statistics.median(cs_times[1:]),
           "cold_start_wall_ms_runs": cs_times,
           "plain_same_locks": locks_same, "plain_same_bits": cs_same,
+          "graph_same_as_eager": cs_graph_same,
+          "dispatch_wall_ms_graph": cs_dispatch[True][0],
+          "dispatch_wall_ms_eager": cs_dispatch[False][0],
           "pass": cs_ok})
     if not cs_ok:
         raise AssertionError("the cold-start path did not decode bit-exact "
@@ -1435,17 +1939,15 @@ def main() -> int:
     for name in KERNELS:
         report[name]["launches_by_path"]["steady"] = counts[name]
 
-    def dispatch():
-        return serve.chain_step(wire, carries, n_blocks, packed=True)
+    def dispatch(graph=True):
+        return serve.chain_step(wire, carries, n_blocks, packed=True,
+                                graph=graph)
 
-    times = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dispatch()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    wall = statistics.median(times[1:])
+    wall, times = wall_ms(dispatch)
+    eager_wall, eager_times = wall_ms(lambda: dispatch(False))
+    out_eager, _ = dispatch(False)
+    graph_same = all(torch.equal(out[k], out_eager[k]) for k in out
+                     if k != "diag")
     consumed = new.offset.cpu().numpy()
     air_s = float(consumed.sum()) / C.SAMPLE_RATE_CS16_FM
 
@@ -1484,21 +1986,31 @@ def main() -> int:
             torch, lambda: rcc.sync_block_rc_plain(*block_sync))}
 
     device_time = profile_device(torch, dispatch)
+    device_time_eager = profile_device(torch, lambda: dispatch(False))
 
-    def block_loop(n, k4_bound, launches, scan_ms):
+    def block_loop(n, k4_bound, launches, scan_ms, fronts):
         """K5, the block loop, over ``n`` blocks: its launches and its
-        bound, the sum of its work's bounds per block: K2, the DFT as the
-        code runs it (a float32 GEMM [S*32, 4096] @ [4096, 4096]) and K4."""
-        rows, width = s_n * C.BLKSZ, 2 * C.FFT_FM
-        dft = bound(2 * rows * width * 4 + width * width * 4,
-                    2 * rows * width * width)
+        bound, the sum of its work's bounds per block: K2, the 2048-point
+        DFT of 512 rows as a DFT needs it (:func:`dft_bound`), K4 and K5;
+        the dense float32 GEMM the code runs for the DFT apart
+        (:func:`gemm_bound`, with its measured time a block); and the
+        ingest and loop as the graph and launched eagerly."""
+        rows = s_n * C.BLKSZ
+        dft, gemm = dft_bound(rows, C.FFT_FM), gemm_bound(rows, C.FFT_FM)
+        terms = [(report["demod_fold"]["bound_ms"],
+                  report["demod_fold"]["bound_by"]), dft,
+                 (k4_bound, report["sync_block"]["bound_by"]),
+                 (report["block_carry"]["bound_ms"],
+                  report["block_carry"]["bound_by"])]
         return {"launches": {"demod_fold": launches["demod_fold"],
                              "dft_gemm": n,
-                             "sync_block": launches["sync_block"]},
-                "bound_ms": n * (report["demod_fold"]["bound_ms"] + dft[0]
-                                 + k4_bound),
-                "bound_by": dft[1], "dft_bound_ms": dft[0],
-                "dft_bound_by": dft[1], "ms": scan_ms}
+                             "sync_block": launches["sync_block"],
+                             "block_carry": launches["block_carry"]},
+                "bound_ms": n * sum(t for t, _ in terms),
+                "bound_by": max(terms)[1], "dft_bound_ms": dft[0],
+                "dft_bound_by": dft[1], "gemm_bound_ms": gemm[0],
+                "gemm_bound_by": gemm[1], "gemm_ms": per_block["dft_ms"],
+                "ms": scan_ms, "ingest_and_loop": fronts}
 
     out_plain, _ = serve.chain_step(wire, carries, n_blocks, packed=True,
                                     plain=True)
@@ -1510,7 +2022,8 @@ def main() -> int:
     plain_wall = (time.perf_counter() - t0) * 1e3
     same = all(torch.equal(out[k], out_plain[k]) for k in ("p1", "pids"))
     slice_ok = (p1_ok == s_n * N_FRAMES and pids_ok == s_n * n_blocks
-                and same and all(counts[n] > 0 for n in STEADY))
+                and same and graph_same
+                and all(counts[n] > 0 for n in STEADY))
     emit({"phase": "slice", "stations": s_n, "blocks": n_blocks,
           "p1_frames_ok": p1_ok, "p1_frames": s_n * N_FRAMES,
           "pids_words_ok": pids_ok, "pids_words": s_n * n_blocks,
@@ -1518,10 +2031,16 @@ def main() -> int:
           "launches": counts, "wall_ms": wall, "wall_ms_runs": times,
           "air_s": air_s, "realtime_factor": air_s / (wall / 1e3),
           "stages": stages, "per_block": per_block,
-          "block_loop": block_loop(n_blocks, report["sync_block"]["bound_ms"],
-                                   counts, stages["frontend_scan_ms"]),
+          "block_loop": block_loop(
+              n_blocks, report["sync_block"]["bound_ms"], counts,
+              stages["frontend_scan_ms"],
+              front_ms(serve.fm_front, wire, carries, n_blocks)),
           "device_time": device_time, "plain_wall_ms": plain_wall,
-          "plain_same_bits": same, "pass": slice_ok})
+          "plain_same_bits": same, "eager_wall_ms": eager_wall,
+          "eager_wall_ms_runs": eager_times,
+          "eager_realtime_factor": air_s / (eager_wall / 1e3),
+          "eager_device_time": device_time_eager,
+          "graph_same_as_eager": graph_same, "pass": slice_ok})
     if not slice_ok:
         raise AssertionError("the slice did not decode bit-exact through "
                              "every kernel")
@@ -1588,18 +2107,18 @@ def main() -> int:
     iv_same = iv_diff == 0 and torch.equal(kc.px1_phase, pc.px1_phase)
 
     # dispatch 1 (from dispatch 0's carry) timed, split and profiled
-    def dispatch_mp3():
+    def dispatch_mp3(graph=True):
         return serve.chain_step(run["wires"][1], run["carries"][1],
-                                DISPATCH_BLOCKS, MP3_PSMI, 0, packed=True)
+                                DISPATCH_BLOCKS, MP3_PSMI, 0, packed=True,
+                                graph=graph)
 
-    mp3_times = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dispatch_mp3()
-        torch.cuda.synchronize()
-        mp3_times.append((time.perf_counter() - t0) * 1e3)
-    mp3_wall = statistics.median(mp3_times[1:])
+    mp3_wall, mp3_times = wall_ms(dispatch_mp3)
+    mp3_eager_wall, mp3_eager_times = wall_ms(lambda: dispatch_mp3(False))
+    out_e, carry_e = dispatch_mp3(False)
+    mp3_graph_same = all(torch.equal(run["outs"][1][k], out_e[k])
+                         for k in out_e if k != "diag") and all(
+        torch.equal(a, b) for a, b in zip(run["carries"][2], carry_e._replace(
+            offset=torch.zeros_like(carry_e.offset))))
     mp3_air = float(run["consumed"][1].sum()) / C.SAMPLE_RATE_CS16_FM
     cy1 = run["carries"][1]
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
@@ -1621,12 +2140,13 @@ def main() -> int:
                            "pids_fec_ms", "px_fec_ms"),
                           (ev[i].elapsed_time(ev[i + 1]) for i in range(5))))
     mp3_device = profile_device(torch, dispatch_mp3)
+    mp3_device_eager = profile_device(torch, lambda: dispatch_mp3(False))
 
     n_disp = MP3_DISPATCHES
     mp3_ok = (p1_ok == s_n * 2 * n_disp
               and pids_ok == s_n * DISPATCH_BLOCKS * n_disp
               and px_ok == s_n * 16 * (n_disp - 1) and launches_ok
-              and not plain_calls and same and iv_same
+              and not plain_calls and same and iv_same and mp3_graph_same
               and mp3_air / (mp3_wall / 1e3) >= 1)
     emit({"phase": "mp3", "stations": s_n, "psmi": MP3_PSMI,
           "dispatches": n_disp, "blocks_per_dispatch": DISPATCH_BLOCKS,
@@ -1650,8 +2170,14 @@ def main() -> int:
           "block_loop": block_loop(
               DISPATCH_BLOCKS,
               report["sync_block"]["cases"]["psmi3"]["bound_ms"],
-              run["launches"][1], mp3_stages["frontend_scan_ms"]),
-          "pass": mp3_ok})
+              run["launches"][1], mp3_stages["frontend_scan_ms"],
+              front_ms(serve.fm_front, run["wires"][1], run["carries"][1],
+                       DISPATCH_BLOCKS, MP3_PSMI)),
+          "eager_wall_ms": mp3_eager_wall,
+          "eager_wall_ms_runs": mp3_eager_times,
+          "eager_realtime_factor": mp3_air / (mp3_eager_wall / 1e3),
+          "eager_device_time": mp3_device_eager,
+          "graph_same_as_eager": mp3_graph_same, "pass": mp3_ok})
     if not mp3_ok:
         raise AssertionError("the MP3 path did not decode bit-exact through "
                              "every kernel")
@@ -1737,18 +2263,19 @@ def main() -> int:
         len(kc.dec) * kc.dec.ml.numel()))
 
     # dispatch 1 (from dispatch 0's carry) timed, split and profiled
-    def dispatch_am():
+    def dispatch_am(graph=True):
         return serve.chain_step_am(run["wires"][1], run["carries"][1],
-                                   AM_FRAMES, packed=True)
+                                   AM_FRAMES, packed=True, graph=graph)
 
-    am_times = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dispatch_am()
-        torch.cuda.synchronize()
-        am_times.append((time.perf_counter() - t0) * 1e3)
-    am_wall = statistics.median(am_times[1:])
+    am_wall, am_times = wall_ms(dispatch_am)
+    am_eager_wall, am_eager_times = wall_ms(lambda: dispatch_am(False))
+    out_e, carry_e = dispatch_am(False)
+    carry_e = carry_e._replace(offset=torch.zeros_like(carry_e.offset))
+    am_graph_same = all(torch.equal(run["outs"][1][k], out_e[k])
+                        for k in out_e) and all(
+        torch.equal(a, b) for a, b in zip(
+            list(run["carries"][2][:-1]) + list(run["carries"][2].dec),
+            list(carry_e[:-1]) + list(carry_e.dec)))
     am_air = float(run["consumed"][1].sum()) / C.SAMPLE_RATE_CS16_AM
     cy1 = run["carries"][1]
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -1766,25 +2293,37 @@ def main() -> int:
                           "fec_ms"),
                          (ev[i].elapsed_time(ev[i + 1]) for i in range(4))))
     am_device = profile_device(torch, dispatch_am)
-    rows, width = s_n * C.BLKSZ, 2 * C.FFT_AM
-    dft = bound(2 * rows * width * 4 + width * width * 4,
-                2 * rows * width * width)
+    am_device_eager = profile_device(torch, lambda: dispatch_am(False))
+    rows = s_n * C.BLKSZ
+    dft, gemm = dft_bound(rows, C.FFT_AM), gemm_bound(rows, C.FFT_AM)
+    am_terms = [(report["am_fold"]["bound_ms"],
+                 report["am_fold"]["bound_by"]),
+                (report["am_fold"]["cases"]["pass2"]["bound_ms"],
+                 report["am_fold"]["cases"]["pass2"]["bound_by"]),
+                (2 * dft[0], dft[1]),
+                (report["sync_am_block"]["bound_ms"],
+                 report["sync_am_block"]["bound_by"]),
+                (report["block_carry_am"]["bound_ms"],
+                 report["block_carry_am"]["bound_by"])]
     am_loop = {"launches": {"am_fold": run["launches"][1].get("am_fold", 0),
                             "dft_gemm": 2 * am_blocks,
                             "sync_am_block":
-                                run["launches"][1].get("sync_am_block", 0)},
-               "bound_ms": am_blocks * (
-                   report["am_fold"]["bound_ms"]
-                   + report["am_fold"]["cases"]["pass2"]["bound_ms"]
-                   + 2 * dft[0] + report["sync_am_block"]["bound_ms"]),
+                                run["launches"][1].get("sync_am_block", 0),
+                            "block_carry_am":
+                                run["launches"][1].get("block_carry_am", 0)},
+               "bound_ms": am_blocks * sum(t for t, _ in am_terms),
+               "bound_by": max(am_terms)[1],
                "dft_bound_ms": dft[0], "dft_bound_by": dft[1],
-               "ms": am_stages["block_loop_ms"]}
+               "gemm_bound_ms": gemm[0], "gemm_bound_by": gemm[1],
+               "ms": am_stages["block_loop_ms"],
+               "ingest_and_loop": front_ms(serve.am_front, run["wires"][1],
+                                           run["carries"][1], am_blocks)}
 
     n_later = AM_DISPATCHES * AM_FRAMES - 3
     am_ok = (p1_ok == s_n * n_later * 8 and p3_ok == s_n * n_later
              and pids_ok == s_n * am_blocks * AM_DISPATCHES
              and am_launches_ok and not plain_calls and plain_ok
-             and am_air / (am_wall / 1e3) >= 1)
+             and am_graph_same and am_air / (am_wall / 1e3) >= 1)
     emit({"phase": "am", "stations": s_n, "mode": "MA1",
           "dispatches": AM_DISPATCHES, "frames_per_dispatch": AM_FRAMES,
           "p1_subframes_ok_frames_3_5": p1_ok,
@@ -1806,7 +2345,11 @@ def main() -> int:
           "wall_ms": am_wall, "wall_ms_runs": am_times, "air_s": am_air,
           "realtime_factor": am_air / (am_wall / 1e3),
           "stages": am_stages, "device_time": am_device,
-          "block_loop": am_loop, "pass": am_ok})
+          "block_loop": am_loop, "eager_wall_ms": am_eager_wall,
+          "eager_wall_ms_runs": am_eager_times,
+          "eager_realtime_factor": am_air / (am_eager_wall / 1e3),
+          "eager_device_time": am_device_eager,
+          "graph_same_as_eager": am_graph_same, "pass": am_ok})
     if not am_ok:
         raise AssertionError("the AM path did not decode bit-exact through "
                              "every kernel")
@@ -1919,15 +2462,20 @@ def main() -> int:
         for a, b in zip(locks, prun["locks"])) if plain_locks_same \
         and n_locked == s_n else None
 
-    cold_times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        serve.cold_start(cold_wire, "am")
-        torch.cuda.synchronize()
-        cold_times.append((time.perf_counter() - t0) * 1e3)
+    _, cold_times = wall_ms(lambda: serve.cold_start(cold_wire, "am"), 5)
+    _, cold_eager_times = wall_ms(
+        lambda: serve.cold_start(cold_wire, "am", graph=False), 5)
+    eager_locks = serve.cold_start(cold_wire, "am", graph=False)
+    cold_graph_same = all(
+        (a is None and b is None) or (a is not None and b is not None and all(
+            a[k] == b[k] for k in lock_keys) and all(
+                torch.equal(u, v) for u, v in zip(a["carry"][:-1],
+                                                  b["carry"][:-1])))
+        for a, b in zip(locks, eager_locks))
     cold_device = profile_device(torch, lambda: serve.cold_start(cold_wire,
                                                                  "am"))
+    cold_device_eager = profile_device(
+        torch, lambda: serve.cold_start(cold_wire, "am", graph=False))
     # where the host's time goes: Python functions by own time in one
     # warm cold start (cProfile adds its own cost to every call)
     prof = cProfile.Profile()
@@ -1943,7 +2491,7 @@ def main() -> int:
                and cold_p1_ok == s_n * n_later * 8
                and cold_p3_ok == s_n * n_later
                and cold_pids_ok == s_n * am_blocks * AM_DISPATCHES
-               and plain_locks_same and plain_bits_same)
+               and plain_locks_same and plain_bits_same and cold_graph_same)
     emit({"phase": "am_coldstart", "stations": s_n, "locked": n_locked,
           "locks": [None if lk is None else {k: lk[k] for k in lock_keys}
                     for lk in locks],
@@ -1970,6 +2518,10 @@ def main() -> int:
           "plain_prev_angle_max_diff": prev_angle_gap,
           "cold_start_wall_ms": statistics.median(cold_times[1:]),
           "cold_start_wall_ms_runs": cold_times,
+          "eager_cold_start_wall_ms": statistics.median(cold_eager_times[1:]),
+          "eager_cold_start_wall_ms_runs": cold_eager_times,
+          "graph_same_locks_as_eager": cold_graph_same,
+          "eager_device_time": cold_device_eager,
           "device_time": cold_device, "host_top_own_ms": host_top,
           "pass": cold_ok})
     if not cold_ok:
@@ -2104,6 +2656,69 @@ def main() -> int:
         by_path["audio"] = sum(rec["launches"].get(name, 0)
                                for rec in audio_launches)
         report[name]["launches"] = sum(by_path.values())
+
+    # --- serve_fm, serve_am: the receiver over 16 stations each, cold
+    # started from the stream, one station losing its lock in a hole ---
+    def event_keys(events):
+        return [(e.type.name, sorted(
+            (k, v.tobytes() if isinstance(v, np.ndarray) else repr(v))
+            for k, v in e.payload.items())) for e in events]
+
+    for mode, fleet_s in (("fm", serve_fm), ("am", serve_am)):
+        plain_calls, restore = count_plain_calls()
+        try:
+            events, wall, counts, record, rx = serve_run(torch, fleet_s,
+                                                         mode, dev)
+        finally:
+            restore()
+        gate = serve_gate(events, fleet_s, mode, counts, record)
+        e_events, e_wall, e_counts, e_record, _ = serve_run(
+            torch, fleet_s, mode, dev, graph=False)
+        e_gate = serve_gate(e_events, fleet_s, mode, e_counts, e_record)
+        same = all(event_keys(events[i]) == event_keys(e_events[i])
+                   for i in events)
+        # the first run captured the graphs it had not met before (the
+        # one-station AM probe's): a second run times the warm graphs
+        w_events, w_wall, *_ = serve_run(torch, fleet_s, mode, dev)
+        same &= all(event_keys(events[i]) == event_keys(w_events[i])
+                    for i in events)
+        busy = profile_device(torch, lambda: serve_run(torch, fleet_s, mode,
+                                                       dev))
+        busy_eager = profile_device(torch, lambda: serve_run(
+            torch, fleet_s, mode, dev, graph=False))
+        rate = 2 * C.SAMPLE_RATE_CS16_FM * 2 if mode == "fm" \
+            else C.SAMPLE_RATE_CS16_AM * 4  # wire bytes a second
+        air = sum(w.nbytes for w in fleet_s["wire"]) / rate
+        kinds = ("SYNC", "LOST_SYNC", "HDC", "ID3", "STATION_NAME", "BER",
+                 "MER")
+        ok = gate["pass"] and not plain_calls and same
+        emit({"phase": f"serve_{mode}", "card": smi,
+              "stations": len(fleet_s["wire"]),
+              "hole_station": SERVE_HOLE_STATION, "hole_s": SERVE_HOLE_S,
+              **gate, "plain_calls_on_kernel_path": plain_calls,
+              "station_seconds": air, "wall_s": wall,
+              "station_seconds_per_second": air / wall,
+              "wall_ms_per_dispatch": wall * 1e3 / gate["dispatches"],
+              "warm_wall_s": w_wall,
+              "warm_station_seconds_per_second": air / w_wall,
+              "warm_wall_ms_per_dispatch":
+                  w_wall * 1e3 / gate["dispatches"],
+              "eager_wall_s": e_wall,
+              "eager_station_seconds_per_second": air / e_wall,
+              "eager_wall_ms_per_dispatch":
+                  e_wall * 1e3 / e_gate["dispatches"],
+              "eager_pass": e_gate["pass"], "graph_same_events_as_eager":
+                  same, "device_time": busy, "eager_device_time": busy_eager,
+              "events_per_station": {
+                  k: [sum(e.type.name == k for e in events[i])
+                      for i in sorted(events)] for k in kinds},
+              "pass": ok})
+        if not ok:
+            raise AssertionError(f"serve_{mode} did not pass its gate")
+        for name in KERNELS:
+            by_path = report[name]["launches_by_path"]
+            by_path[f"serve_{mode}"] = counts.get(name, 0)
+            report[name]["launches"] = sum(by_path.values())
 
     print(smi, flush=True)
     emit({"kernels": [dict(report[n]) for n in KERNELS]})

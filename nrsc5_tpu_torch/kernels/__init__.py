@@ -115,11 +115,17 @@ SIGNATURES = {
     "sbr_hf_adjust": (P,) * 23 + (I,) * 10 + (F,) * 9 + (P,),
     # v, syn_hist, cidx, w, pcm, new_syn_hist, n_lanes, n_slots, stream
     "qmf_synthesis": (P, P, P, P, P, P, I, I, P),
+    # keep, k4_samperr, k4_angle, offset, prev_angle, samperr_fb, angle_fb,
+    # samperr, angle, timing_adj, n_stations, first, window, half_fftcp,
+    # stream
+    "block_carry": (P,) * 10 + (I, I, I, I, P),
+    # keep, offset, n_stations, window, stream
+    "block_carry_am": (P, P, I, I, P),
 }
 # kernel name -> the csrc/ source (without ".cu") that holds it, where that
 # is not a file of the kernel's own name
 SOURCES = {"am_tone": "am_coldstart", "am_coarse": "am_coldstart",
-           "am_cfo_step": "am_coldstart"}
+           "am_cfo_step": "am_coldstart", "block_carry_am": "block_carry"}
 
 COUNTS = {name: 0 for name in SIGNATURES}
 _FUNCS: dict = {}
@@ -242,6 +248,21 @@ def launch(name: str, *args, device: torch.device) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {err})")
     COUNTS[name] += 1
+
+
+def into(out, result):
+    """Copy ``result`` (a tensor, or a tuple or dict of tensors) into the
+    preallocated ``out`` of the same structure and return ``out``: how a
+    wrapper given ``out=`` hands back its plain version's result."""
+    if isinstance(out, torch.Tensor):
+        out.copy_(result)
+    elif isinstance(out, dict):
+        for key, dst in out.items():
+            into(dst, result[key])
+    else:
+        for dst, src in zip(out, result, strict=True):
+            into(dst, src)
+    return out
 
 
 def check(t: torch.Tensor, what: str, dtype: torch.dtype,

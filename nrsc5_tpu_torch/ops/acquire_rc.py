@@ -191,13 +191,15 @@ def demod_fold_plain(samples, offset, phase, samperr, angle, cfo):
     return folded, phase_out, keep
 
 
-def demod_fold(samples, offset, phase, samperr, angle, cfo):
-    """K2: the arguments and results of :func:`demod_fold_plain`.
+def demod_fold(samples, offset, phase, samperr, angle, cfo, out=None):
+    """K2: the arguments and results of :func:`demod_fold_plain`, written
+    into ``out`` = (folded, phase_out, keep) where it is given.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (one thread per folded output sample)."""
     if samples.device.type == "cpu":
-        return demod_fold_plain(samples, offset, phase, samperr, angle, cfo)
+        res = demod_fold_plain(samples, offset, phase, samperr, angle, cfo)
+        return res if out is None else K.into(out, res)
     _check_stations(samples, offset, phase, samperr, angle, cfo)
     s = samples.shape[0]
     K.check(samples, "samples", torch.float32)
@@ -207,10 +209,16 @@ def demod_fold(samples, offset, phase, samperr, angle, cfo):
     K.check(angle, "angle", torch.float32)
     K.check(cfo, "cfo", torch.int32)
     dev = samples.device
-    folded = torch.empty(s, C.ACQUIRE_SYMBOLS, C.FFT_FM, 2,
-                         dtype=torch.float32, device=dev)
-    phase_out = torch.empty(s, 2, dtype=torch.float32, device=dev)
-    keep = torch.empty(s, dtype=torch.int32, device=dev)
+    if out is None:
+        out = (torch.empty(s, C.ACQUIRE_SYMBOLS, C.FFT_FM, 2,
+                           dtype=torch.float32, device=dev),
+               torch.empty(s, 2, dtype=torch.float32, device=dev),
+               torch.empty(s, dtype=torch.int32, device=dev))
+    folded, phase_out, keep = out
+    K.check(folded, "folded", torch.float32, (s, C.ACQUIRE_SYMBOLS,
+                                              C.FFT_FM, 2))
+    K.check(phase_out, "phase_out", torch.float32, (s, 2))
+    K.check(keep, "keep", torch.int32, (s,))
     K.launch("demod_fold", samples.data_ptr(), samples.shape[1],
              offset.data_ptr(), phase.data_ptr(), samperr.data_ptr(),
              angle.data_ptr(), cfo.data_ptr(), _shape(str(dev)).data_ptr(),

@@ -34,3 +34,12 @@ def unpack_bits(packed) -> np.ndarray:
         packed = packed.cpu().numpy()
     return np.unpackbits(np.asarray(packed), axis=-1, bitorder="little")
 
+
+
+def unpack_out(out: dict) -> dict:
+    """Host inverse of ``packed=True`` on a chain output dict of numpy
+    arrays: unpacks the :data:`PACKED_KEYS` entries in place."""
+    for k in PACKED_KEYS:
+        if k in out:
+            out[k] = unpack_bits(out[k])
+    return out

@@ -121,14 +121,28 @@ def dft(x, shift: bool = False):
 
     Inputs are rounded to bfloat16 and accumulated in float32, as in the
     reference (whose products are exact in float32, so only the summation
-    order differs).  The product must run in full float32, so on a CUDA
-    tensor this raises while TF32 float32 matmuls are allowed
-    (``torch.backends.cuda.matmul.allow_tf32``, False by default).
-    """
+    order differs).  :func:`dft_into` on a copy of ``x`` and buffers of
+    its own."""
+    work = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    work.copy_(x)
+    return dft_into(work, torch.empty_like(work),
+                    torch.empty_like(work, dtype=torch.bfloat16), shift)
+
+
+def dft_into(x, out, scratch, shift: bool = False):
+    """:func:`dft` of ``x`` [..., N, 2] (float32, contiguous) into ``out``
+    with no allocation, for a loop that runs inside a CUDA graph: ``x`` is
+    rounded to bfloat16 in place through ``scratch`` (a bfloat16 tensor
+    of x's shape), then multiplied in full float32.  The product must run
+    in full float32, so on a CUDA tensor this raises while TF32 float32
+    matmuls are allowed (``torch.backends.cuda.matmul.allow_tf32``, False
+    by default)."""
     if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("dft needs full float32 matmuls: set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
     n = x.shape[-2]
     m = _dft_matrix(n, shift, str(x.device))
-    flat = x.to(torch.bfloat16).float().reshape(-1, 2 * n)
-    return (flat @ m).reshape(x.shape)
+    scratch.copy_(x)
+    x.copy_(scratch)
+    torch.matmul(x.view(-1, 2 * n), m, out=out.view(-1, 2 * n))
+    return out

@@ -4,8 +4,10 @@ PyTorch counterpart of ``nrsc5_tpu/pipeline/scan_chain_am_rc.py`` (lines
 34-341): the steady AM chain of MA1 and MA3 from rc I/Q at 46511.7 S/s,
 frame-aligned (first symbol FFTCP_AM//2 into the buffer, first block bc
 0).  The reference ``vmap``s a per-station ``lax.scan``; here the station
-axis is written out and leads every tensor, and the block loop is a Python
-loop whose body runs for all stations at once:
+axis is written out and leads every tensor, and the block loop
+(:func:`scan_blocks_am`) runs its body for all stations at once, with no
+host work and no allocation in it, so that on a card a CUDA graph replays
+it (:mod:`nrsc5_tpu_torch.pipeline.block_graph`, K5 carrying the offset):
 
   * K12 (:func:`am_fold`, ``csrc/am_fold.cu``), pass 1: the ramp, the 32 x
     270-sample slice and the shaped 14-sample cyclic-prefix fold with the
@@ -22,10 +24,12 @@ loop whose body runs for all stations at once:
 
 And the AM cold start (lines 350-540 of the reference): a probe block
 (:func:`am_coldstart_block_rc`) runs K14's tone estimate and coarse timing
-(:mod:`nrsc5_tpu_torch.ops.acquire_am_rc`), K12 pass 1, K14's integer-CFO
-step, K12 pass 2 and K13 for every station at once, and
+(:mod:`nrsc5_tpu_torch.ops.acquire_am_rc`), the fine acquire of the block
+loop (:func:`acquire_am_fine_rc`), K14's integer-CFO step on its pass-1
+spectra and K13 for every station at once, and
 :func:`cold_start_am_rc` runs the reference's host lock logic per station
-between the probe blocks, all stations in lockstep.
+between the probe blocks, all stations in lockstep; on a card the probe
+block is the replay of one CUDA graph.
 
 The chain functions take ``plain=True`` to run the kernels' plain
 PyTorch versions instead (on any device); on a CPU tensor the kernel
@@ -48,6 +52,8 @@ from nrsc5_tpu_torch.ops import decode_am as DA
 from nrsc5_tpu_torch.ops import rcplx as rc
 from nrsc5_tpu_torch.ops import sync_am as SA
 from nrsc5_tpu_torch.ops.acquire_rc import WINDOW_AM, dynamic_start
+from nrsc5_tpu_torch.pipeline import block_graph
+from nrsc5_tpu_torch.pipeline.block_graph import block_carry_am, run_into
 from nrsc5_tpu_torch.pipeline.scan_chain_am import am_buffer_len  # noqa: F401
 
 W = C.PARTITION_WIDTH_AM
@@ -181,16 +187,18 @@ def am_fold_plain(samples, offset, phase, samperr_fb, prev_angle, cfo,
 
 
 def am_fold(samples, offset, phase, samperr_fb, prev_angle, cfo,
-            spectra1=None):
+            spectra1=None, out=None):
     """K12: the arguments and results of :func:`am_fold_plain`, pass 1 or
-    pass 2.
+    pass 2, written into ``out`` where it is given (pass 1: folded; pass
+    2: (folded, phase_out, prev_angle_out, keep)).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (one CTA per station and symbol, one thread per output bin;
     in pass 2 one warp of each CTA fits the pilot phase first)."""
     if samples.device.type == "cpu":
-        return am_fold_plain(samples, offset, phase, samperr_fb, prev_angle,
-                             cfo, spectra1)
+        res = am_fold_plain(samples, offset, phase, samperr_fb, prev_angle,
+                            cfo, spectra1)
+        return res if out is None else K.into(out, res)
     _check_fold(samples, offset, phase, samperr_fb, prev_angle, cfo)
     s, dev = samples.shape[0], samples.device
     K.check(samples, "samples", torch.float32)
@@ -199,15 +207,25 @@ def am_fold(samples, offset, phase, samperr_fb, prev_angle, cfo,
     K.check(samperr_fb, "samperr_fb", torch.int32)
     K.check(prev_angle, "prev_angle", torch.float32)
     K.check(cfo, "cfo", torch.int32)
-    folded = torch.empty(s, C.ACQUIRE_SYMBOLS, C.FFT_AM, 2,
-                         dtype=torch.float32, device=dev)
+    fshape = (s, C.ACQUIRE_SYMBOLS, C.FFT_AM, 2)
     outs = (None, None, None)
-    if spectra1 is not None:
-        K.check(spectra1, "spectra1", torch.float32,
-                (s, C.ACQUIRE_SYMBOLS, C.FFT_AM, 2))
-        outs = (torch.empty(s, 2, dtype=torch.float32, device=dev),
-                torch.empty(s, dtype=torch.float32, device=dev),
-                torch.empty(s, dtype=torch.int32, device=dev))
+    if spectra1 is None:
+        folded = torch.empty(fshape, dtype=torch.float32, device=dev) \
+            if out is None else out
+    else:
+        K.check(spectra1, "spectra1", torch.float32, fshape)
+        if out is None:
+            out = (torch.empty(fshape, dtype=torch.float32, device=dev),
+                   torch.empty(s, 2, dtype=torch.float32, device=dev),
+                   torch.empty(s, dtype=torch.float32, device=dev),
+                   torch.empty(s, dtype=torch.int32, device=dev))
+        folded, *outs = out
+        for name, t, dtype, shape in zip(
+                ("phase_out", "prev_angle_out", "keep"), outs,
+                (torch.float32, torch.float32, torch.int32),
+                ((s, 2), (s,), (s,))):
+            K.check(t, name, dtype, shape)
+    K.check(folded, "folded", torch.float32, fshape)
     K.launch("am_fold", samples.data_ptr(), samples.shape[1],
              offset.data_ptr(), phase.data_ptr(), samperr_fb.data_ptr(),
              prev_angle.data_ptr(), cfo.data_ptr(),
@@ -220,15 +238,33 @@ def am_fold(samples, offset, phase, samperr_fb, prev_angle, cfo,
 
 
 def acquire_am_fine_rc(samples, offset, phase, samperr_fb, prev_angle, cfo,
-                       plain: bool = False):
+                       plain: bool = False, out=None, scratch=None):
     """The reference's ``acquire_am_fine_rc`` for a station batch: K12
     pass 1, the DFT, K12 pass 2, the DFT.  Returns (spectra [S, 32, 256,
-    2], phase_out [S, 2], prev_angle_out [S], keep int32 [S])."""
-    fold = am_fold_plain if plain else am_fold
+    2], phase_out [S, 2], prev_angle_out [S], keep int32 [S]), written
+    into ``out`` where it is given.  ``scratch`` is (folded, spectra1,
+    rounded): two float32 [S, 32, 256, 2] buffers and a bfloat16 one of
+    that shape; with ``out`` and ``scratch`` given the step allocates
+    nothing, as the block loop (:func:`scan_blocks_am`) needs."""
+    s, dev = samples.shape[0], samples.device
+    fshape = (s, C.BLKSZ, C.FFT_AM, 2)
+    if out is None:
+        out = (torch.empty(fshape, device=dev),
+               torch.empty(s, 2, device=dev), torch.empty(s, device=dev),
+               torch.empty(s, dtype=torch.int32, device=dev))
+    if scratch is None:
+        scratch = (torch.empty(fshape, device=dev),
+                   torch.empty(fshape, device=dev),
+                   torch.empty(fshape, dtype=torch.bfloat16, device=dev))
+    spectra, phase_out, prev_angle_out, keep = out
+    folded, spectra1, rounded = scratch
     args = (samples, offset, phase, samperr_fb, prev_angle, cfo)
-    spectra1 = rc.dft(fold(*args), shift=True)
-    folded, phase, prev_angle, keep = fold(*args, spectra1)
-    return rc.dft(folded, shift=True), phase, prev_angle, keep
+    run_into(am_fold, am_fold_plain, plain, args, folded)
+    rc.dft_into(folded, spectra1, rounded, shift=True)
+    run_into(am_fold, am_fold_plain, plain, args + (spectra1,),
+             (folded, phase_out, prev_angle_out, keep))
+    rc.dft_into(folded, spectra, rounded, shift=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -366,22 +402,36 @@ def sync_am_block_rc_plain(spectra, ma3: bool = False):
             "samperr": torch.round(samperr).to(torch.int32)}
 
 
-def sync_am_block_rc(spectra, ma3: bool = False):
-    """K13: the arguments and results of :func:`sync_am_block_rc_plain`.
+def sync_am_block_shapes(s: int) -> dict:
+    """{key: (shape, dtype)} of K13's outputs for ``s`` stations."""
+    return {"codes": ((s, 4, C.BLKSZ * W), torch.uint8),
+            "pids": ((s, C.BLKSZ, 2), torch.uint8),
+            "ref_bits": ((s, C.BLKSZ), torch.uint8),
+            "samperr": ((s,), torch.int32)}
+
+
+def sync_am_block_rc(spectra, ma3: bool = False, out=None):
+    """K13: the arguments and results of :func:`sync_am_block_rc_plain`,
+    written into ``out`` (a dict of every key it returns) where it is
+    given.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (one CTA per station, the block's spectra in shared memory)."""
     if spectra.device.type == "cpu":
-        return sync_am_block_rc_plain(spectra, ma3)
+        res = sync_am_block_rc_plain(spectra, ma3)
+        return res if out is None else K.into(out, res)
     _check_spectra(spectra)
     K.check(spectra, "spectra", torch.float32)
     s, dev = spectra.shape[0], spectra.device
-    out = {"codes": torch.empty(s, 4, C.BLKSZ * W, dtype=torch.uint8,
-                                device=dev),
-           "pids": torch.empty(s, C.BLKSZ, 2, dtype=torch.uint8, device=dev),
-           "ref_bits": torch.empty(s, C.BLKSZ, dtype=torch.uint8,
-                                   device=dev),
-           "samperr": torch.empty(s, dtype=torch.int32, device=dev)}
+    shapes = sync_am_block_shapes(s)
+    if out is None:
+        out = {k: torch.empty(shape, dtype=dtype, device=dev)
+               for k, (shape, dtype) in shapes.items()}
+    if set(out) != set(shapes):
+        raise ValueError(f"out: expected keys {sorted(shapes)}, got "
+                         f"{sorted(out)}")
+    for k, (shape, dtype) in shapes.items():
+        K.check(out[k], k, dtype, shape)
     K.launch("sync_am_block", spectra.data_ptr(),
              *(out[k].data_ptr() for k in ("codes", "pids", "ref_bits",
                                            "samperr")),
@@ -393,25 +443,96 @@ def sync_am_block_rc(spectra, ma3: bool = False):
 # fused chain
 # ---------------------------------------------------------------------------
 
+def scan_blocks_am(samples, carry: AMChainCarryRC, n_blocks: int,
+                   ma3: bool = False, plain: bool = False) -> dict:
+    """The per-block acquire + sync loop over ``n_blocks`` blocks (8 a
+    frame), with no host work and no allocation in its body, so that a
+    CUDA graph can replay it (:mod:`nrsc5_tpu_torch.pipeline.block_graph`).
+    samples: [S, N, 2] rc.  Each block runs :func:`acquire_am_fine_rc`
+    (K12 pass 1, the DFT, K12 pass 2, the DFT), K13 (its codes and PIDS
+    straight into slot b of block-major buffers, its samperr into the
+    carried feedback) and the carry step K5.  Reads only the carry's loop
+    fields (offset, phase, prev_angle, samperr_fb, cfo).  Returns {"codes":
+    uint8 [n_blocks, S, 4, 800], "pids": uint8 [n_blocks, S, 32, 2],
+    "carry": {field: [S, ...]} after the last block}; :func:`finish_scan_am`
+    makes the station-major outputs and the carry."""
+    s, dev = samples.shape[0], samples.device
+    sync = sync_am_block_rc_plain if plain else sync_am_block_rc
+    shapes = sync_am_block_shapes(s)
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    codes = empty((n_blocks,) + shapes["codes"][0], torch.uint8)
+    pids = empty((n_blocks,) + shapes["pids"][0], torch.uint8)
+    ref_bits = empty(*shapes["ref_bits"])
+    offset = carry.offset.clone()
+    samperr_fb = carry.samperr_fb.clone()
+    # ping-pong pairs: block b reads [b % 2] and writes [(b + 1) % 2]
+    phase = (carry.phase.clone(), empty((s, 2)))
+    prev_angle = (carry.prev_angle.clone(), empty((s,)))
+    fshape = (s, C.BLKSZ, C.FFT_AM, 2)
+    spectra = empty(fshape)
+    scratch = (empty(fshape), empty(fshape), empty(fshape, torch.bfloat16))
+    keep = empty((s,), torch.int32)
+    for b in range(n_blocks):
+        i, j = b % 2, (b + 1) % 2
+        acquire_am_fine_rc(samples, offset, phase[i], samperr_fb,
+                           prev_angle[i], carry.cfo, plain,
+                           (spectra, phase[j], prev_angle[j], keep), scratch)
+        run_into(sync_am_block_rc, sync, plain, (spectra, ma3),
+                 {"codes": codes[b], "pids": pids[b], "ref_bits": ref_bits,
+                  "samperr": samperr_fb})
+        block_carry_am(keep, offset, plain)
+    last = n_blocks % 2
+    loop = {"offset": offset, "phase": phase[last],
+            "prev_angle": prev_angle[last], "samperr_fb": samperr_fb}
+    return {"codes": codes, "pids": pids, "carry": loop}
+
+
+def finish_scan_am(scanned: dict, carry: AMChainCarryRC):
+    """:func:`scan_blocks_am`' block-major results -> (codes uint8 [S,
+    n_blocks, 4, 800], pids codes uint8 [S, n_blocks, 32, 2], new carry
+    with the delay lines untouched): fresh tensors, so that a graph's next
+    replay does not overwrite them."""
+    return (scanned["codes"].transpose(0, 1).contiguous(),
+            scanned["pids"].transpose(0, 1).contiguous(),
+            carry._replace(**{k: v.clone()
+                              for k, v in scanned["carry"].items()}))
+
+
 def am_frontend_scan_rc(samples, carry: AMChainCarryRC, n_blocks: int,
                         ma3: bool = False, plain: bool = False):
     """The per-block acquire + sync loop over ``n_blocks`` blocks (8 a
-    frame).  samples: [S, N, 2] rc.  Returns (codes uint8 [S, n_blocks,
-    4, 800], pids codes uint8 [S, n_blocks, 32, 2], new carry without the
-    delay lines touched)."""
-    sync = sync_am_block_rc_plain if plain else sync_am_block_rc
-    cy = carry
-    codes, pids = [], []
-    for _ in range(n_blocks):
-        spectra, phase, prev_angle, keep = acquire_am_fine_rc(
-            samples, cy.offset, cy.phase, cy.samperr_fb, cy.prev_angle,
-            cy.cfo, plain=plain)
-        out = sync(spectra, ma3)
-        cy = cy._replace(offset=cy.offset + (WINDOW_AM - keep), phase=phase,
-                         prev_angle=prev_angle, samperr_fb=out["samperr"])
-        codes.append(out["codes"])
-        pids.append(out["pids"])
-    return torch.stack(codes, dim=1), torch.stack(pids, dim=1), cy
+    frame), run eagerly.  samples: [S, N, 2] rc.  Returns (codes uint8 [S,
+    n_blocks, 4, 800], pids codes uint8 [S, n_blocks, 32, 2], new carry
+    without the delay lines touched)."""
+    return finish_scan_am(scan_blocks_am(samples, carry, n_blocks, ma3,
+                                         plain), carry)
+
+
+def am_decode(codes, pids, cy: AMChainCarryRC, carries: AMChainCarryRC,
+              n_frames: int, ma3: bool = False, packed: bool = False,
+              plain: bool = False):
+    """The gathers and FEC after the block loop: the loop's codes, PIDS
+    codes and carry, and the dispatch's incoming carries (for their delay
+    lines) -> (out, new carries) as :func:`am_chain_batch_rc` gives
+    them."""
+    s = codes.shape[0]
+    p1_ext, p3_ext, pids_ext, lines = DA.am_gather(
+        codes, pids, torch.stack(list(carries.dec), dim=1), ma3,
+        plain=plain)
+    p1, m1, p3, m3, pids_bits = DA.am_fec(p1_ext, p3_ext, pids_ext, ma3,
+                                          packed, plain)
+    sub = 8  # P1 subframes a frame
+    out = {"p1": p1.reshape((s, n_frames) + (() if packed else (sub,))
+                            + (-1,)),
+           "p3": p3.reshape(s, n_frames, -1),
+           "pids": pids_bits.reshape(s, n_frames * C.P1_AM_BLOCKS, -1),
+           "p1_margin": m1.reshape(s, n_frames, sub),
+           "p3_margin": m3.reshape(s, n_frames)}
+    new = cy._replace(dec=DA.AMDecodeState(*lines.unbind(1)))
+    return out, new
 
 
 def am_chain_batch_rc(samples, carries: AMChainCarryRC, n_frames: int,
@@ -427,23 +548,9 @@ def am_chain_batch_rc(samples, carries: AMChainCarryRC, n_frames: int,
     [S, 8F, 80] (or [S, 8F, 10]), ``out["p1_margin"]`` float32 [S, F, 8]
     and ``out["p3_margin"]`` [S, F].  P1 and P3 of a stream's first three
     frames are diversity warm-up."""
-    s = samples.shape[0]
     codes, pids, cy = am_frontend_scan_rc(
         samples, carries, n_frames * C.P1_AM_BLOCKS, ma3, plain)
-    p1_ext, p3_ext, pids_ext, lines = DA.am_gather(
-        codes, pids, torch.stack(list(carries.dec), dim=1), ma3,
-        plain=plain)
-    p1, m1, p3, m3, pids_bits = DA.am_fec(p1_ext, p3_ext, pids_ext, ma3,
-                                          packed, plain)
-    sub = 8  # P1 subframes a frame
-    out = {"p1": p1.reshape((s, n_frames) + (() if packed else (sub,))
-                            + (-1,)),
-           "p3": p3.reshape(s, n_frames, -1),
-           "pids": pids_bits.reshape(s, n_frames * C.P1_AM_BLOCKS, -1),
-           "p1_margin": m1.reshape(s, n_frames, sub),
-           "p3_margin": m3.reshape(s, n_frames)}
-    new = cy._replace(dec=DA.AMDecodeState(*lines.unbind(1)))
-    return out, new
+    return am_decode(codes, pids, cy, carries, n_frames, ma3, packed, plain)
 
 
 def am_chain_scan_rc(samples, carry: AMChainCarryRC, n_frames: int,
@@ -484,10 +591,11 @@ def am_coldstart_block_rc(samples, offset, phase, prev_angle, cfo,
                           coarse_override, plain: bool = False) -> dict:
     """One COARSE probe block for a station batch (the reference's
     ``am_coldstart_block_rc``): the power DFT, K14's tone estimate and
-    coarse timing with the latch override and the prev_angle smoothing, K12
-    pass 1 and its DFT, K14's integer-CFO step, K12 pass 2 and its DFT, K13
-    with MA1 combining (the reference bits, all the lock logic reads, are
-    the same in both modes).
+    coarse timing with the latch override and the prev_angle smoothing,
+    :func:`acquire_am_fine_rc` (K12 pass 1, its DFT, K12 pass 2, its DFT),
+    K14's integer-CFO step on pass 1's spectra, K13 with MA1 combining
+    (the reference bits, all the lock logic reads, are the same in both
+    modes).
 
     samples [S, N, 2] float32 rc; per station offset int32 (the window
     start), phase [2], prev_angle float32, cfo int32 bins, coarse_override
@@ -499,19 +607,23 @@ def am_coldstart_block_rc(samples, offset, phase, prev_angle, cfo,
     tone = AA.am_tone_plain if plain else AA.am_tone
     coarse = AA.am_coarse_plain if plain else AA.am_coarse
     cfo_step = AA.am_cfo_step_plain if plain else AA.am_cfo_step
-    fold = am_fold_plain if plain else am_fold
     sync = sync_am_block_rc_plain if plain else sync_am_block_rc
 
     f, amp = tone(rc.dft(AA.tone_symbols(samples, offset)), samples, offset)
     measured, samperr, prev_angle, _ = coarse(samples, offset, f, amp,
                                               prev_angle, coarse_override)
-    # the cold start demodulates at samperr itself; K12 adds FFTCP_AM // 2
-    args = (samples, offset, phase, samperr - C.FFTCP_AM // 2, prev_angle,
-            cfo)
-    spectra1 = rc.dft(fold(*args), shift=True)
-    step, mags = cfo_step(spectra1)
-    folded, phase, prev_angle, keep = fold(*args, spectra1)
-    ref_bits = sync(rc.dft(folded, shift=True), False)["ref_bits"]
+    # the cold start demodulates at samperr itself; K12 adds FFTCP_AM // 2;
+    # the CFO step reads pass 1's spectra (scratch[1])
+    fshape = (samples.shape[0], C.BLKSZ, C.FFT_AM, 2)
+    scratch = (torch.empty(fshape, device=samples.device),
+               torch.empty(fshape, device=samples.device),
+               torch.empty(fshape, dtype=torch.bfloat16,
+                           device=samples.device))
+    spectra, phase, prev_angle, keep = acquire_am_fine_rc(
+        samples, offset, phase, samperr - C.FFTCP_AM // 2, prev_angle, cfo,
+        plain, scratch=scratch)
+    step, mags = cfo_step(scratch[1])
+    ref_bits = sync(spectra, False)["ref_bits"]
     ints = torch.cat([ref_bits.to(torch.int32),
                       torch.stack([samperr, keep, step, measured], dim=1)],
                      dim=1)
@@ -578,8 +690,63 @@ class _LockState:
         return None
 
 
+def _probe_eager(samples, plain: bool):
+    """The probe-block loop's step, run eagerly: control ints [3, S]
+    (offset, CFO, latch) -> (the probe's ints as numpy [S, 36], the
+    prev_angle [S] it leaves)."""
+    s, dev = samples.shape[0], samples.device
+    carried = {"phase": torch.tensor([[1.0, 0.0]], device=dev).repeat(s, 1),
+               "prev_angle": torch.zeros(s, dtype=torch.float32,
+                                         device=dev)}
+
+    def step(ctl: np.ndarray):
+        offset, cfo, latch = torch.from_numpy(ctl).to(dev)
+        out = am_coldstart_block_rc(samples, offset, carried["phase"],
+                                    carried["prev_angle"], cfo, latch,
+                                    plain=plain)
+        carried["phase"], carried["prev_angle"] = (out["phase"],
+                                                   out["prev_angle"])
+        return out["ints"].cpu().numpy(), out["prev_angle"]
+    return step
+
+
+def _probe_body(samples, ctl, phase, prev_angle):
+    """One probe block as the graph captures it: the control ints come
+    from the static ``ctl`` [3, S], and the phase and prev_angle it leaves
+    are written back into the static inputs for the next replay."""
+    out = am_coldstart_block_rc(samples, ctl[0], phase, prev_angle, ctl[1],
+                                ctl[2])
+    phase.copy_(out["phase"])
+    prev_angle.copy_(out["prev_angle"])
+    return out["ints"]
+
+
+def _probe_graph(samples):
+    """The probe-block loop's step as a replay of one CUDA graph for the
+    capture's shape: the host writes the control ints into one pinned
+    buffer, which goes up into the graph's static inputs; the probe's
+    ints come back, the one read-back a block the host's lock logic
+    needs."""
+    s, dev = samples.shape[0], samples.device
+    ctl_host = torch.zeros((3, s), dtype=torch.int32, pin_memory=True)
+    start = {"samples": samples, "ctl": ctl_host,
+             "phase": torch.tensor([[1.0, 0.0]], device=dev).repeat(s, 1),
+             "prev_angle": torch.zeros(s, dtype=torch.float32, device=dev)}
+    loop = block_graph.captured(("am_probe", str(dev), tuple(samples.shape)),
+                                _probe_body, start, dev)
+    inputs = start
+
+    def step(ctl: np.ndarray):
+        nonlocal inputs
+        ctl_host.numpy()[:] = ctl
+        ints = loop(**inputs)
+        inputs = {"ctl": ctl_host}  # the samples and the phase stay put
+        return ints.cpu().numpy(), loop.inputs["prev_angle"]
+    return step
+
+
 def cold_start_am_rc(samples_rc, max_blocks: int = 24, *, device="cuda",
-                     plain: bool = False):
+                     plain: bool = False, graph: bool = True):
     """Cold start of every station of an rc capture with unknown timing,
     fractional and integer CFO (MA1 or MA3), on ``device``.
 
@@ -592,13 +759,15 @@ def cold_start_am_rc(samples_rc, max_blocks: int = 24, *, device="cuda",
     0 (so the locking block is a frame boundary).  A station stops when it
     locks, when its next window would pass the end of the capture, or after
     ``max_blocks`` blocks; a stopped station rides along at a clamped
-    offset and its results are ignored.  Returns one lock per station,
-    each ``{"offset", "psmi", "ma3", "cfo", "carry"}`` as the reference's
-    ``cold_start_am_rc`` gives it (``offset`` in chain samples from the
-    start of the station's stream; ``carry`` without the station axis, for
-    :func:`am_chain_scan_rc` on ``samples[offset:]``), or None where the
-    station did not lock: a list for [S, N, 2], a lock or None for [N,
-    2]."""
+    offset and its results are ignored.  On a card the probe block is the
+    replay of one CUDA graph per capture shape (``graph=False``: launched
+    eagerly; ``plain=True`` runs the plain versions, eagerly).  Returns one
+    lock per station, each ``{"offset", "psmi", "ma3", "cfo", "carry"}`` as
+    the reference's ``cold_start_am_rc`` gives it (``offset`` in chain
+    samples from the start of the station's stream; ``carry`` without the
+    station axis, for :func:`am_chain_scan_rc` on ``samples[offset:]``), or
+    None where the station did not lock: a list for [S, N, 2], a lock or
+    None for [N, 2]."""
     dev = K.resolve_device(device)
     samples = torch.as_tensor(samples_rc, dtype=torch.float32, device=dev)
     single = samples.ndim == 2
@@ -608,22 +777,19 @@ def cold_start_am_rc(samples_rc, max_blocks: int = 24, *, device="cuda",
     states = [_LockState() for _ in range(s)]
     locks = [None] * s
     angles = {}  # station -> prev_angle of every station at its lock
-    phase = torch.tensor([[1.0, 0.0]], device=dev).repeat(s, 1)
-    prev_angle = torch.zeros(s, dtype=torch.float32, device=dev)
+    step = _probe_graph(samples) if dev.type == "cuda" and graph \
+        and not plain else _probe_eager(samples, plain)
     for _ in range(max_blocks):
         for st in states:
             if not st.done and st.pos + WINDOW_AM > n:
                 st.done = True
         if all(st.done for st in states):
             break
-        host = np.array([[min(st.pos, n - WINDOW_AM) for st in states],
-                         [st.cfo for st in states],
-                         [st.latch for st in states]], np.int32)
-        offset, cfo, latch = torch.from_numpy(host).to(dev)
-        out = am_coldstart_block_rc(samples, offset, phase, prev_angle, cfo,
-                                    latch, plain=plain)
-        phase, prev_angle = out["phase"], out["prev_angle"]
-        probe = unpack_probe(out["ints"].cpu().numpy())
+        ctl = np.array([[min(st.pos, n - WINDOW_AM) for st in states],
+                        [st.cfo for st in states],
+                        [st.latch for st in states]], np.int32)
+        ints, prev_angle = step(ctl)
+        probe = unpack_probe(ints)
         for i, st in enumerate(states):
             if st.done:
                 continue
@@ -636,7 +802,7 @@ def cold_start_am_rc(samples_rc, max_blocks: int = 24, *, device="cuda",
             start, psmi = got
             locks[i] = {"offset": start, "psmi": psmi,
                         "ma3": psmi == C.SERVICE_MODE_MA3, "cfo": st.cfo}
-            angles[i] = prev_angle
+            angles[i] = prev_angle[i].clone()
     if angles:
         # fresh carries with each station's CFO, the phase reset to [1, 0],
         # and the prev_angle its lock block left
@@ -646,6 +812,6 @@ def cold_start_am_rc(samples_rc, max_blocks: int = 24, *, device="cuda",
         for i, pa in angles.items():
             locks[i]["carry"] = AMChainCarryRC(
                 offset=fresh.offset[i], phase=fresh.phase[i],
-                prev_angle=pa[i], samperr_fb=fresh.samperr_fb[i],
+                prev_angle=pa, samperr_fb=fresh.samperr_fb[i],
                 cfo=cfo[i], dec=DA.AMDecodeState(*(x[i] for x in fresh.dec)))
     return locks[0] if single else locks

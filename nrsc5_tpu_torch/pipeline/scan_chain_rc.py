@@ -4,8 +4,10 @@ L1 blocks.
 PyTorch counterpart of ``nrsc5_tpu/pipeline/scan_chain_rc.py`` (lines
 37-478 and 510-553), PX channels of MP2/MP3/MP11 included.  The reference
 ``vmap``s a per-station ``lax.scan``; here the station axis is written out
-and leads every tensor, and the block scan is a Python loop whose body
-runs for all stations at once:
+and leads every tensor, and the block scan (:func:`scan_blocks`) is a loop
+whose body runs for all stations at once, with no host work and no
+allocation in it, so that on a card a CUDA graph replays it
+(:mod:`nrsc5_tpu_torch.pipeline.block_graph`, K5):
 
   * K2 (:func:`nrsc5_tpu_torch.ops.acquire_rc.demod_fold`) reads each
     station's window at its own offset and folds it, the DFT is a matmul;
@@ -13,6 +15,9 @@ runs for all stations at once:
     subcarriers, then the flip, needles, equalizer, timing regression and
     int8 soft demap of the PM and PX partitions, one launch per block for
     all stations;
+  * K5 (:func:`nrsc5_tpu_torch.pipeline.block_graph.block_carry`) carries
+    offset, prev_angle and the samperr and angle feedback to the next
+    block, K2 and K4 writing their block's outputs into slot b;
   * after the loop the P1, PIDS and PX FEC run flat-batched over stations
     × frames (or block pairs): K6 or K11 (gather, depuncture, and for PX
     the interleaver-IV state), K7 (Viterbi), K8 (re-encode, descramble,
@@ -41,13 +46,14 @@ from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops import rcplx as rc
 from nrsc5_tpu_torch.ops import sync_fm as SF
-from nrsc5_tpu_torch.ops.acquire_rc import (WINDOW_FM, coarse_timing_rc,
+from nrsc5_tpu_torch.ops.acquire_rc import (coarse_timing_rc,
                                             coarse_timing_rc_plain,
                                             demod_fold, demod_fold_plain)
 from nrsc5_tpu_torch.ops.costas import TWO_PI, costas_track_rc_plain, wrap_pi
 from nrsc5_tpu_torch.ops.decode_fm import (p1_decode, pids_decode,
                                            px_deinterleave, px_fec)
 from nrsc5_tpu_torch.ops.detect_cfo import CFO_RANGE, detect_cfo_scan_rc
+from nrsc5_tpu_torch.pipeline.block_graph import block_carry, run_into
 from nrsc5_tpu_torch.pipeline.scan_chain import iv_state_len, px_frame_lens
 
 W = C.PARTITION_WIDTH_FM
@@ -173,6 +179,25 @@ def _sync_tables(ppb: int, device: str) -> dict:
         for psmi in range(len(C.COMPATIBILITY_MODE))
         if C.partitions_per_band(psmi) == ppb}
     return out
+
+
+def sync_block_shapes(s: int, psmi: int) -> dict:
+    """{key: (shape, dtype)} of K4's per-station outputs for ``s`` stations
+    of service mode ``psmi``."""
+    r2 = 2 * (C.partitions_per_band(psmi) + 1)
+    shapes = {"pm": ((s, C.PM_BLOCK_SIZE), torch.int8),
+              "ref_ok": ((s, r2), torch.bool),
+              "ref_bc": ((s, r2), torch.int32),
+              "ref_psmi": ((s, r2), torch.int32),
+              "samperr": ((s,), torch.int32),
+              "angle": ((s,), torch.float32),
+              "error_lb": ((s,), torch.float32),
+              "error_ub": ((s,), torch.float32)}
+    for key, cols in zip(("px1", "px2"), px_columns(psmi)):
+        if cols:
+            shapes[key] = ((s, C.BLKSZ * len(cols) * 2 * (W - 1)),
+                           torch.int8)
+    return shapes
 
 
 def _warp_sum(x):
@@ -339,15 +364,19 @@ def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
     return out, new_phase, new_freq
 
 
-def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj):
-    """K4: the arguments and results of :func:`sync_block_rc_plain`.
+def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj,
+                  out=None):
+    """K4: the arguments and results of :func:`sync_block_rc_plain`, written
+    into ``out`` = (out dict with every key the plain version returns,
+    new_phase, new_freq) where it is given.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (one CTA per station; it writes whole new Costas rows and the PX
     channels' soft bits)."""
     if spectra.device.type == "cpu":
-        return sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi,
-                                   timing_adj)
+        res = sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi,
+                                  timing_adj)
+        return res if out is None else K.into(out, res)
     check_psmi(psmi)
     _check_sync(spectra, costas_phase, costas_freq, timing_adj)
     K.check(spectra, "spectra", torch.float32)
@@ -357,26 +386,22 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj):
     ppb = C.partitions_per_band(psmi)
     dev = spectra.device
     t = _sync_tables(ppb, str(dev))
-    s, r2 = spectra.shape[0], 2 * (ppb + 1)
+    s = spectra.shape[0]
 
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    out = {"pm": empty((s, C.PM_BLOCK_SIZE), torch.int8),
-           "ref_ok": empty((s, r2), torch.bool),
-           "ref_bc": empty((s, r2), torch.int32),
-           "ref_psmi": empty((s, r2), torch.int32),
-           "samperr": empty((s,), torch.int32),
-           "angle": empty((s,), torch.float32),
-           "error_lb": empty((s,), torch.float32),
-           "error_ub": empty((s,), torch.float32)}
+    shapes = sync_block_shapes(s, psmi)
+    if out is None:
+        out = ({k: torch.empty(shape, dtype=dtype, device=dev)
+                for k, (shape, dtype) in shapes.items()},
+               torch.empty_like(costas_phase), torch.empty_like(costas_freq))
+    out, new_phase, new_freq = out
+    if set(out) != set(shapes):
+        raise ValueError(f"out: expected keys {sorted(shapes)}, got "
+                         f"{sorted(out)}")
+    for k, (shape, dtype) in shapes.items():
+        K.check(out[k], k, dtype, shape)
+    K.check(new_phase, "new_phase", torch.float32, (s, C.FFT_FM))
+    K.check(new_freq, "new_freq", torch.float32, (s, C.FFT_FM))
     px1, px2 = px_columns(psmi)
-    for key, cols in (("px1", px1), ("px2", px2)):
-        if cols:
-            out[key] = empty((s, C.BLKSZ * len(cols) * 2 * (W - 1)),
-                             torch.int8)
-    new_phase = torch.empty_like(costas_phase)
-    new_freq = torch.empty_like(costas_freq)
     K.launch("sync_block", spectra.data_ptr(), costas_phase.data_ptr(),
              costas_freq.data_ptr(), timing_adj.data_ptr(),
              t["sync_signs"].data_ptr(), t["vals_mask"].data_ptr(),
@@ -397,68 +422,98 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj):
 # fused chain
 # ---------------------------------------------------------------------------
 
+def scan_blocks(samples, carry: ChainCarryRC, n_blocks: int, psmi: int = 1,
+                plain: bool = False) -> dict:
+    """The per-block acquire + sync loop, with no host work and no
+    allocation in its body, so that a CUDA graph can replay it
+    (:mod:`nrsc5_tpu_torch.pipeline.block_graph`).  samples: [S, N, 2]
+    conjugated rc.  Each block runs K2 (into a reused buffer), the DFT, K4
+    (its pm, PX soft bits and diagnostics straight into slot b of
+    block-major buffers) and the carry step K5.  Reads only the carry's
+    loop fields (offset, phase, prev_angle, costas_phase, costas_freq,
+    samperr_fb, angle_fb, cfo).  Returns {"pm": int8 [n_blocks, S, 23040],
+    "diag": {"samperr", "error_lb", "error_ub": [n_blocks, S]}, "px":
+    {"px1": int8 [n_blocks, S, 2304 or 4608], ...} for the channels
+    ``psmi`` carries, "carry": {field: [S, ...]} after the last block};
+    :func:`finish_scan` makes the station-major outputs and the carry."""
+    s, dev = samples.shape[0], samples.device
+    fold = demod_fold_plain if plain else demod_fold
+    sync = sync_block_rc_plain if plain else sync_block_rc
+    shapes = sync_block_shapes(s, psmi)
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    pm = empty((n_blocks,) + shapes["pm"][0], torch.int8)
+    diag = {k: empty((n_blocks, s), shapes[k][1])
+            for k in ("samperr", "error_lb", "error_ub")}
+    px = {k: empty((n_blocks,) + shapes[k][0], torch.int8)
+          for k in ("px1", "px2") if k in shapes}
+    ref = {k: empty(*shapes[k]) for k in ("ref_ok", "ref_bc", "ref_psmi")}
+    k4_angle = empty((s,))
+    state = {k: getattr(carry, k).clone()
+             for k in ("offset", "prev_angle", "samperr_fb", "angle_fb")}
+    state.update(samperr=empty((s,), torch.int32), angle=empty((s,)),
+                 timing_adj=empty((s,), torch.int32))
+    # ping-pong pairs: block b reads [b % 2] and writes [(b + 1) % 2]
+    phase = (carry.phase.clone(), empty((s, 2)))
+    cph = (carry.costas_phase.clone(), empty((s, C.FFT_FM)))
+    cfr = (carry.costas_freq.clone(), empty((s, C.FFT_FM)))
+    folded = empty((s, C.BLKSZ, C.FFT_FM, 2))
+    spectra = torch.empty_like(folded)
+    rounded = torch.empty_like(folded, dtype=torch.bfloat16)
+    keep = empty((s,), torch.int32)
+    block_carry(None, None, None, state, True, plain)
+    for b in range(n_blocks):
+        i, j = b % 2, (b + 1) % 2
+        run_into(demod_fold, fold, plain,
+                 (samples, state["offset"], phase[i], state["samperr"],
+                  state["angle"], carry.cfo), (folded, phase[j], keep))
+        rc.dft_into(folded, spectra, rounded, shift=True)
+        out = {"pm": pm[b], "angle": k4_angle, **ref,
+               **{k: v[b] for k, v in diag.items()},
+               **{k: v[b] for k, v in px.items()}}
+        run_into(sync_block_rc, sync, plain,
+                 (spectra, cph[i], cfr[i], psmi, state["timing_adj"]),
+                 (out, cph[j], cfr[j]))
+        block_carry(keep, diag["samperr"][b], k4_angle, state, False, plain)
+    last = n_blocks % 2
+    loop = {"offset": state["offset"], "phase": phase[last],
+            "prev_angle": state["prev_angle"], "costas_phase": cph[last],
+            "costas_freq": cfr[last], "samperr_fb": state["samperr_fb"],
+            "angle_fb": state["angle_fb"]}
+    return {"pm": pm, "diag": diag, "px": px, "carry": loop}
+
+
+def finish_scan(scanned: dict, carry: ChainCarryRC):
+    """:func:`scan_blocks`' block-major results -> (pm int8 [S, n_blocks,
+    23040], diag dict of [S, n_blocks] tensors, px dict {"px1": int8 [S,
+    n_blocks, 2304 or 4608], ...}, new carry): fresh tensors, so that a
+    graph's next replay does not overwrite them."""
+    pm = scanned["pm"].transpose(0, 1).contiguous()
+    diag = {k: v.t().contiguous() for k, v in scanned["diag"].items()}
+    px = {k: v.transpose(0, 1).contiguous()
+          for k, v in scanned["px"].items()}
+    return pm, diag, px, carry._replace(
+        **{k: v.clone() for k, v in scanned["carry"].items()})
+
+
 def frontend_scan_rc(samples, carry: ChainCarryRC, n_blocks: int,
                      psmi: int = 1, plain: bool = False):
-    """The per-block acquire + sync loop.  samples: [S, N, 2] conjugated
-    rc.  Returns (pm int8 [S, n_blocks, 23040], diag dict of
+    """The per-block acquire + sync loop, run eagerly.  samples: [S, N, 2]
+    conjugated rc.  Returns (pm int8 [S, n_blocks, 23040], diag dict of
     [S, n_blocks] tensors, px dict of the PX channels' soft bits
     ``{"px1": int8 [S, n_blocks, 2304 or 4608], "px2": ...}`` for the
     channels ``psmi`` carries, new carry)."""
-    fftcp = C.FFTCP_FM
-    fold = demod_fold_plain if plain else demod_fold
-    sync = sync_block_rc_plain if plain else sync_block_rc
-    cy = carry
-    pms, samperrs, elbs, eubs = [], [], [], []
-    px = {k: [] for k, fl in zip(("px1", "px2"), px_frame_lens(psmi)) if fl}
-    for _ in range(n_blocks):
-        samperr = fftcp // 2 + cy.samperr_fb
-        angle = cy.prev_angle - cy.angle_fb
-        folded, phase, keep = fold(samples, cy.offset, cy.phase, samperr,
-                                   angle, cy.cfo)
-        spectra = rc.dft(folded, shift=True)
-        out, cph, cfr = sync(spectra, cy.costas_phase, cy.costas_freq, psmi,
-                             fftcp // 2 - samperr)
-        cy = cy._replace(
-            offset=cy.offset + (WINDOW_FM - keep), phase=phase,
-            prev_angle=angle, costas_phase=cph, costas_freq=cfr,
-            samperr_fb=out["samperr"], angle_fb=out["angle"])
-        pms.append(out["pm"])
-        samperrs.append(out["samperr"])
-        elbs.append(out["error_lb"])
-        eubs.append(out["error_ub"])
-        for k in px:
-            px[k].append(out[k])
-    diag = {"samperr": torch.stack(samperrs, dim=1),
-            "error_lb": torch.stack(elbs, dim=1),
-            "error_ub": torch.stack(eubs, dim=1)}
-    px = {k: torch.stack(v, dim=1) for k, v in px.items()}
-    return torch.stack(pms, dim=1), diag, px, cy
+    return finish_scan(scan_blocks(samples, carry, n_blocks, psmi, plain),
+                       carry)
 
 
-def fm_chain_batch_rc(samples, carries: ChainCarryRC, n_blocks: int,
-                      psmi: int = 1, first_bc: int = 0,
-                      packed: bool = False, plain: bool = False):
-    """Station batch: samples [S, N, 2] conjugated rc at 744187.5 S/s
-    (N >= buffer_len(n_blocks) for a full walk).  The P1 FEC is
-    flat-batched over stations × frames and the PX FEC over stations ×
-    block pairs, as in the reference.
-
-    Returns (out, new carries) with ``out["pids"]`` uint8 [S, n_blocks, 80],
-    ``out["p1"]`` uint8 [S, F, 146176], ``out["p1_margin"]`` [S, F],
-    ``out["p1_bit_errors"]`` [S, F] (when a whole frame lies in the
-    dispatch), for the modes with PX channels ``out["px1"]`` (and
-    ``"px2"``) uint8 [S, n_blocks // 2, frame_len] with ``"px1_margin"``
-    [S, n_blocks // 2], decoded through the carried interleaver-IV state
-    (``first_bc`` and ``n_blocks`` even: one IV call per block pair), and
-    ``out["diag"]``.  ``packed=True`` packs the decoded bits 8 to a byte
-    (:mod:`nrsc5_tpu_torch.ops.bits`)."""
-    check_psmi(psmi)
-    check_px_state(carries, psmi)
-    if any(px_frame_lens(psmi)) and (first_bc % 2 or n_blocks % 2):
-        raise ValueError(f"PX decode needs pair-aligned blocks: first_bc "
-                         f"{first_bc} and n_blocks {n_blocks} must be even")
-    pm, diag, px, carry = frontend_scan_rc(samples, carries, n_blocks, psmi,
-                                           plain=plain)
+def fm_decode(pm, diag, px, carry: ChainCarryRC, n_blocks: int,
+              psmi: int = 1, first_bc: int = 0, packed: bool = False,
+              plain: bool = False, px_decode: bool = True):
+    """The FEC after the block loop: :func:`frontend_scan_rc`'s results ->
+    (out, new carries) as :func:`fm_chain_batch_rc` gives them."""
     s = pm.shape[0]
     out = {"diag": diag}
     out["pids"] = pids_decode(pm, packed=packed,
@@ -476,7 +531,7 @@ def fm_chain_batch_rc(samples, carries: ChainCarryRC, n_blocks: int,
 
     # PX channels: one interleaver-IV call per block pair, the state
     # carried across dispatches; the K=7 FEC flat over stations × pairs
-    for key, llr in px.items():
+    for key, llr in px.items() if px_decode else ():
         fl = llr.shape[-1]
         ext, internal, phase = px_deinterleave(
             llr, getattr(carry, f"{key}_internal"),
@@ -489,14 +544,52 @@ def fm_chain_batch_rc(samples, carries: ChainCarryRC, n_blocks: int,
     return out, carry
 
 
+def check_chain(carries: ChainCarryRC, n_blocks: int, psmi: int,
+                first_bc: int, px: bool) -> None:
+    """The static arguments of one FM dispatch are ones the chain runs."""
+    check_psmi(psmi)
+    check_px_state(carries, psmi)
+    if px and any(px_frame_lens(psmi)) and (first_bc % 2 or n_blocks % 2):
+        raise ValueError(f"PX decode needs pair-aligned blocks: first_bc "
+                         f"{first_bc} and n_blocks {n_blocks} must be even")
+
+
+def fm_chain_batch_rc(samples, carries: ChainCarryRC, n_blocks: int,
+                      psmi: int = 1, first_bc: int = 0,
+                      packed: bool = False, plain: bool = False,
+                      px: bool = True):
+    """Station batch: samples [S, N, 2] conjugated rc at 744187.5 S/s
+    (N >= buffer_len(n_blocks) for a full walk).  The P1 FEC is
+    flat-batched over stations × frames and the PX FEC over stations ×
+    block pairs, as in the reference.
+
+    Returns (out, new carries) with ``out["pids"]`` uint8 [S, n_blocks, 80],
+    ``out["p1"]`` uint8 [S, F, 146176], ``out["p1_margin"]`` [S, F],
+    ``out["p1_bit_errors"]`` [S, F] (when a whole frame lies in the
+    dispatch), for the modes with PX channels ``out["px1"]`` (and
+    ``"px2"``) uint8 [S, n_blocks // 2, frame_len] with ``"px1_margin"``
+    [S, n_blocks // 2], decoded through the carried interleaver-IV state
+    (``first_bc`` and ``n_blocks`` even: one IV call per block pair), and
+    ``out["diag"]``.  ``packed=True`` packs the decoded bits 8 to a byte
+    (:mod:`nrsc5_tpu_torch.ops.bits`).  ``px=False`` skips the PX
+    channels and leaves their IV state as it was, as the reference does
+    for the partial frame-alignment dispatches, whose block counts may be
+    odd (the IV warm-up dropped downstream absorbs the missed history)."""
+    check_chain(carries, n_blocks, psmi, first_bc, px)
+    pm, diag, px_soft, carry = frontend_scan_rc(samples, carries, n_blocks,
+                                                psmi, plain=plain)
+    return fm_decode(pm, diag, px_soft, carry, n_blocks, psmi, first_bc,
+                     packed, plain, px)
+
+
 def fm_chain_scan_rc(samples, carry: ChainCarryRC, n_blocks: int,
                      psmi: int = 1, first_bc: int = 0, packed: bool = False,
-                     plain: bool = False):
+                     plain: bool = False, px: bool = True):
     """One station: samples [N, 2] and a carry without the station axis.
     Same outputs as :func:`fm_chain_batch_rc` without the station axis."""
     out, new = fm_chain_batch_rc(
         samples[None], ChainCarryRC(*(x[None] for x in carry)), n_blocks,
-        psmi, first_bc, packed, plain)
+        psmi, first_bc, packed, plain, px)
     out = {k: ({d: v[0] for d, v in val.items()} if k == "diag" else val[0])
            for k, val in out.items()}
     return out, ChainCarryRC(*(x[0] for x in new))

@@ -115,3 +115,31 @@ def am_carry_to_numpy(carry: AMChainCarryRC) -> dict:
     out.update({name: line.cpu().numpy()
                 for name, line in carry.dec._asdict().items()})
     return out
+
+
+def carry_leaves(carry) -> list:
+    """A carry (FM or AM, station axis kept) -> its leaves as numpy arrays
+    in the reference's pytree order (``jax.tree.flatten``: the fields in
+    order, an AM carry's delay lines last): the ``carry_{i}`` arrays of a
+    receiver's saved state."""
+    if isinstance(carry, AMChainCarryRC):
+        leaves = list(carry[:-1]) + list(carry.dec)
+    else:
+        leaves = list(carry)
+    return [t.cpu().numpy() for t in leaves]
+
+
+def carry_from_leaves(leaves: list, like):
+    """Inverse of :func:`carry_leaves`: numpy leaves in the reference's
+    pytree order -> a carry of ``like``'s type, dtypes and device."""
+    ref = carry_leaves(like)
+    if len(leaves) != len(ref):
+        raise ValueError(f"{len(leaves)} carry leaves, expected {len(ref)}")
+    dev = (like.offset).device
+    tensors = [torch.as_tensor(np.asarray(a).astype(r.dtype), device=dev)
+               for a, r in zip(leaves, ref)]
+    if isinstance(like, AMChainCarryRC):
+        n = len(AMChainCarryRC._fields) - 1
+        return AMChainCarryRC(*tensors[:n],
+                              dec=AMDecodeState(*tensors[n:]))
+    return ChainCarryRC(*tensors)

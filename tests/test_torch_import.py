@@ -44,6 +44,33 @@ def test_port_imports_no_jax():
     assert bad == "", bad
 
 
+_IMPORT_ONE = r"""
+import importlib, sys
+importlib.import_module(sys.argv[1])
+print(",".join(sorted(m for m in sys.modules
+                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                      or m == "nrsc5_tpu" or m.startswith("nrsc5_tpu."))))
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "nrsc5_tpu_torch.api.events", "nrsc5_tpu_torch.utils.crc",
+    "nrsc5_tpu_torch.native", "nrsc5_tpu_torch.transport.output",
+    "nrsc5_tpu_torch.transport.pids", "nrsc5_tpu_torch.tx.sis_encoder",
+    "nrsc5_tpu_torch.tx.transport_encoder",
+    "nrsc5_tpu_torch.pipeline.block_graph"])
+def test_host_copies_import_no_jax(module):
+    """Each of the receiver's host copies (events, CRCs, the native host
+    ops, the transport, the SIS and transport encoders) and K5's graph
+    runner, imported alone in a fresh interpreter, pulls in no ``jax*``
+    module and no module of ``nrsc5_tpu``."""
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                         cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    assert res.stdout.strip() == "", res.stdout
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -62,6 +89,10 @@ _ENTRY_POINTS = {
     "carry_from_numpy": lambda: state.carry_from_numpy(state.carry_to_numpy(
         rcc.chain_rc_init_carry(device="cpu"))),
     "BatchedAudioDecoder": lambda: BatchedAudioDecoder(1),
+    "MultiStationReceiver": lambda: serve.MultiStationReceiver(
+        1, lambda station, event: None),
+    "MultiStationReceiver_am": lambda: serve.MultiStationReceiver(
+        1, lambda station, event: None, mode="am"),
     "DeviceStage": lambda: DeviceStage(SBR.derive_tables(SBR.SbrHeader()),
                                        1.0, interpol=True),
 }

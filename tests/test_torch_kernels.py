@@ -764,3 +764,286 @@ def test_audio_kernels_refuse(card):
                                         dtype=torch.float64),
                             state["tail_r"], state["tail_i"], inp["bwj"],
                             stage.src_idx, stage.src_ok, stage.kx)
+
+
+# --- K5: the block loops' carry step and their CUDA graphs ---
+
+def test_block_carry(card):
+    """K5's FM carry step against its plain version on random per-station
+    state, the prologue (first) and a block's step: every field exact."""
+    from nrsc5_tpu_torch.pipeline import block_graph as BG
+    g = torch.Generator().manual_seed(5)
+    s = 37
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (s,), generator=g, dtype=torch.int32)
+
+    def floats():
+        return torch.randn(s, generator=g)
+
+    for first in (True, False):
+        state = {"offset": ints(0, 9000), "prev_angle": floats(),
+                 "samperr_fb": ints(-40, 40), "angle_fb": floats(),
+                 "samperr": ints(1000, 1200), "angle": floats(),
+                 "timing_adj": ints(-50, 50)}
+        keep, k4_s, k4_a = ints(2100, 2200), ints(-30, 30), floats()
+        got = {k: v.to(card) for k, v in state.items()}
+        before = K.COUNTS["block_carry"]
+        BG.block_carry(keep.to(card), k4_s.to(card), k4_a.to(card), got,
+                       first)
+        assert K.COUNTS["block_carry"] == before + 1
+        BG.block_carry_plain(keep, k4_s, k4_a, state, first)
+        for k in state:
+            assert torch.equal(got[k].cpu(), state[k]), (first, k)
+
+
+def test_block_carry_am(card):
+    """K5's AM carry step against its plain version: offset exact."""
+    from nrsc5_tpu_torch.pipeline import block_graph as BG
+    g = torch.Generator().manual_seed(6)
+    offset = torch.randint(0, 9000, (19,), generator=g, dtype=torch.int32)
+    keep = torch.randint(250, 300, (19,), generator=g, dtype=torch.int32)
+    got = offset.to(card)
+    before = K.COUNTS["block_carry_am"]
+    BG.block_carry_am(keep.to(card), got)
+    assert K.COUNTS["block_carry_am"] == before + 1
+    BG.block_carry_am_plain(keep, offset)
+    assert torch.equal(got.cpu(), offset)
+
+
+def _fm_stream(rng, psmi, n_frames, cfo_hz):
+    """``n_frames`` frame-aligned frames of one station at 25 dB with the
+    PX partitions carrying random signs, as conjugated rc chain input."""
+    mats = [build_pm_matrix(
+        rng.integers(0, 2, C.P1_FRAME_LEN_FM).astype(np.uint8),
+        rng.integers(0, 2, (16, C.PIDS_FRAME_LEN)).astype(np.uint8))
+        for _ in range(n_frames)]
+    n_blocks = n_frames * C.P1_FM_BLOCKS
+    px = {f"{k}_signs": rng.choice([-1, 1], (n_blocks * C.BLKSZ, fl // 32))
+          .astype(np.int8) for k, fl in zip(("px1", "px2"),
+                                             px_frame_lens(psmi)) if fl}
+    sig = modulate_fm(np.concatenate(mats), np.tile(np.arange(16), n_frames),
+                      psmi, **px)
+    buf = np.zeros(len(sig) + 2 * C.FFTCP_FM, np.complex64)
+    buf[C.FFTCP_FM // 2:C.FFTCP_FM // 2 + len(sig)] = sig
+    buf = ch.impair(buf, cfo_hz=cfo_hz, snr_db=25.0, rng=rng)
+    return np.stack([buf.real, -buf.imag], -1).astype(np.float32)
+
+
+def _chained(step, wires, carry, n):
+    """Three dispatches of ``step`` on the stations' streams, each queue
+    advanced by what its station consumed: the outputs, carries and
+    launch counts of each."""
+    pos = np.zeros(len(wires), np.int64)
+    runs = []
+    for _ in range(3):
+        w = torch.from_numpy(np.stack([x[p:p + n] for x, p in
+                                       zip(wires, pos.tolist())]))
+        K.reset_counts()
+        out, new = step(w, carry)
+        torch.cuda.synchronize()
+        runs.append((out, new, {k: c for k, c in K.COUNTS.items() if c}))
+        pos += new.offset.cpu().numpy()
+        carry = new._replace(offset=torch.zeros_like(new.offset))
+    return runs
+
+
+def _same_runs(a, b):
+    def flat(x, prefix=""):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                yield from flat(v, f"{prefix}{k}.")
+        elif isinstance(x, tuple):
+            for k, v in zip(getattr(x, "_fields", range(len(x))), x):
+                yield from flat(v, f"{prefix}{k}.")
+        else:
+            yield prefix, x
+    for (ao, ac, al), (bo, bc, bl) in zip(a, b):
+        assert al == bl
+        for (ka, va), (kb, vb) in zip(flat((ao, ac)), flat((bo, bc)),
+                                      strict=True):
+            assert ka == kb and torch.equal(va, vb), ka
+
+
+@pytest.mark.parametrize("psmi", [1, 3])
+def test_block_graph_fm(card, psmi):
+    """The FM dispatch's ingest and block loop replayed as a CUDA graph
+    against the same kernels launched eagerly: every output (bits,
+    margins, diagnostics, PX) and every carry field bit-identical over
+    three chained dispatches of 32 blocks, from three stations at CFOs of
+    0, +40 and -75 Hz; the launch counts equal, K5 once a block and once
+    before the first."""
+    from nrsc5_tpu_torch import serve
+    rng = np.random.default_rng(50 + psmi)
+    wires = [_fm_stream(rng, psmi, 7, f) for f in (0.0, 40.0, -75.0)]
+    n = serve.buffer_len(32)
+    carry = rcc.chain_rc_init_carry(psmi=psmi, n_stations=3, device=card)
+    runs = {g: _chained(
+        lambda w, c, g=g: serve.chain_step(w, c, 32, psmi, device=card,
+                                           graph=g), wires, carry, n)
+        for g in (False, True)}
+    _same_runs(runs[False], runs[True])
+    assert runs[True][0][2]["block_carry"] == 33
+    assert runs[True][0][2]["sync_block"] == 32
+
+
+@pytest.mark.parametrize("ma3", [False, True])
+def test_block_graph_am(card, ma3):
+    """The AM dispatch's block loop replayed as a CUDA graph against the
+    eager kernel loop: every output and every carry field (delay lines
+    included) bit-identical over three chained dispatches of 2 frames,
+    from three stations at CFOs of 0, +7 and -9 Hz; the launch counts
+    equal, K5 once a block."""
+    from nrsc5_tpu_torch import serve
+    rng = np.random.default_rng(60 + ma3)
+    wires = [_am_capture(rng, ma3, 7, f) for f in (0.0, 7.0, -9.0)]
+    n = scar.am_buffer_len(2)
+    carry = scar.am_chain_rc_init_carry(n_stations=3, device=card)
+    runs = {g: _chained(
+        lambda w, c, g=g: serve.chain_step_am(w, c, 2, ma3, device=card,
+                                              graph=g), wires, carry, n)
+        for g in (False, True)}
+    _same_runs(runs[False], runs[True])
+    assert runs[True][0][2]["block_carry_am"] == 16
+
+
+def test_probe_graph(card):
+    """The AM cold start with its probe block replayed as a CUDA graph
+    against the probe launched eagerly: the same locks (offset, psmi, ma3,
+    CFO) and carries, and the same launches a probe block."""
+    rng = np.random.default_rng(70)
+    bin_hz = C.SAMPLE_RATE_CS16_AM / C.FFT_AM
+    caps = []
+    for k, (ma3, cfo) in enumerate(((False, 2 * bin_hz + 23.0),
+                                    (True, -bin_hz + 11.0),
+                                    (False, 5.0))):
+        buf = _am_capture(rng, ma3, 6, 0.0)
+        sig = ch.impair(buf.view(np.complex64)[:, 0], sample_offset=300
+                        + 700 * k, cfo_hz=cfo, snr_db=30.0,
+                        sample_rate=C.SAMPLE_RATE_CS16_AM, rng=rng)
+        caps.append(np.stack([sig.real, sig.imag], -1).astype(np.float32))
+    n = min(len(c) for c in caps)
+    x = torch.from_numpy(np.stack([c[:n] for c in caps])).to(card)
+    got = {}
+    for g in (False, True):
+        K.reset_counts()
+        got[g] = (scar.cold_start_am_rc(x, device=card, graph=g),
+                  {k: c for k, c in K.COUNTS.items() if c})
+    (eager, le), (graph, lg) = got[False], got[True]
+    assert le == lg and all(lk is not None for lk in eager)
+    for a, b in zip(eager, graph):
+        assert {k: a[k] for k in ("offset", "psmi", "ma3", "cfo")} == \
+            {k: b[k] for k in ("offset", "psmi", "ma3", "cfo")}
+        for u, v in zip(a["carry"][:-1], b["carry"][:-1]):
+            assert torch.equal(u, v)
+
+
+# --- the receiver on the card against the receiver on the CPU ---
+
+def _id3(title: str) -> bytes:
+    frame = b"TIT2" + (len(title) + 1).to_bytes(4, "big") + b"\x00\x00" \
+        + b"\x00" + title.encode("latin-1")
+    n = len(frame)
+    return b"ID3\x03\x00\x00" + bytes([(n >> 21) & 0x7F, (n >> 14) & 0x7F,
+                                        (n >> 7) & 0x7F, n & 0x7F]) + frame
+
+
+def _serve_fm(rng, title, n_frames):
+    """tests/test_serve.py's ``_station_stream`` built with the port's
+    transmitter: ``n_frames`` frame-aligned MP1 frames (bc 0) of 32 random
+    HDC packets each, the title in the AAS PSD, complex64 baseband."""
+    from nrsc5_tpu_torch.tx.transport_encoder import aas_frame, \
+        build_p1_fm_frame
+    packets = [rng.integers(0, 256, 280).astype(np.uint8).tobytes()
+               for _ in range(n_frames * 32)]
+    psd = aas_frame(0x5100, 0, _id3(title))
+    mats = [build_pm_matrix(
+        build_p1_fm_frame(packets[f * 32:(f + 1) * 32], 0, f % 8,
+                          (f * 32) % 64, psd=psd),
+        np.zeros((16, 80), np.uint8)) for f in range(n_frames)]
+    sig = modulate_fm(np.concatenate(mats),
+                      np.tile(np.arange(16), n_frames), 1)
+    buf = np.zeros(len(sig) + C.FFTCP_FM, np.complex64)
+    buf[C.FFTCP_FM // 2:C.FFTCP_FM // 2 + len(sig)] = sig
+    return buf
+
+
+def _serve_am(rng, n_frames):
+    """tests/test_serve.py's ``_am_stream`` built with the port's
+    transmitter: ``n_frames`` MA1 frames, 4 random HDC packets a P1
+    subframe, complex64 baseband."""
+    from nrsc5_tpu_torch.tx.transport_encoder import build_p1_am_frame
+    p1 = []
+    for f in range(n_frames):
+        p1.append(np.stack([build_p1_am_frame(
+            [rng.integers(0, 256, 100).astype(np.uint8).tobytes()
+             for _ in range(4)], 0, (f * 8 + b) % 8, ((f * 8 + b) * 4) % 64)
+            for b in range(8)]))
+    p3 = rng.integers(0, 2, (n_frames, C.P3_FRAME_LEN_MA1)).astype(np.uint8)
+    mats = EAM.interleave_frames(
+        [EAM.encode_p1_am(p1[f]) for f in range(n_frames)],
+        [EAM.encode_p3_am(p3[f], False) for f in range(n_frames)], False)
+    pids = np.stack([EAM.encode_pids_am(
+        rng.integers(0, 2, 80).astype(np.uint8))
+        for _ in range(n_frames * 8)])
+    ref = np.stack([EAM.am_ref_bits(b % 8, 1) for b in range(n_frames * 8)])
+    sig = modulate_am(mats, pids, ref, False)
+    buf = np.zeros(len(sig) + C.FFTCP_AM, np.complex64)
+    buf[C.FFTCP_AM // 2:C.FFTCP_AM // 2 + len(sig)] = sig
+    return buf
+
+
+@pytest.mark.parametrize("mode", ["fm", "am"])
+def test_receiver_events_card_cpu(card, mode):
+    """The receiver on the card (every kernel, K5's graphs, packed
+    outputs) against the receiver on the CPU (the plain versions, which
+    tests/test_torch_serve.py holds to the JAX receiver), on the streams
+    and pushes of that file's relock twins: a clean station, and one whose
+    gap trips LOST_SYNC and a relock by the cold start; depth 2.  The same
+    events station by station, as tests/serve_events.py compares them
+    (the MER within MER_DB dB).  Prints, per station and event type, how
+    many events differ to the bit and their largest float difference: the
+    cuBLAS GEMM sums the DFT in another order than the CPU's matmul."""
+    from nrsc5_tpu_torch.serve import MultiStationReceiver
+
+    from .serve_events import same_events
+    rng = np.random.default_rng(80)
+    if mode == "fm":
+        good = _serve_fm(rng, "Clean Station", 12)
+        pre, post = _serve_fm(rng, "Before Gap", 3), \
+            _serve_fm(rng, "After Gap", 9)
+        gappy, chunk = np.concatenate([pre[:len(pre) - 33333], post]), 250000
+    else:
+        good, pre, post = _serve_am(rng, 16), _serve_am(rng, 4), \
+            _serve_am(rng, 12)
+        gappy, chunk = np.concatenate([pre[:len(pre) - 7777], post]), 50000
+    runs = []
+    for dev in ("cpu", card):
+        events = {0: [], 1: []}
+        rx = MultiStationReceiver(2, lambda st, ev: events[st].append(ev),
+                                  frames_per_dispatch=1, mode=mode,
+                                  device=dev)
+        for lo in range(0, max(len(good), len(gappy)), chunk):
+            rx.push(0, good[lo:lo + chunk])
+            rx.push(1, gappy[lo:lo + chunk])
+        rx.flush()
+        runs.append(events)
+    # what differs to the bit, printed (``-rP``) before the comparison
+    from .serve_events import ev_key
+    apart = {}
+    for st in runs[0]:
+        for a, b in zip(runs[0][st], runs[1][st]):
+            if ev_key(a)[1:] != ev_key(b)[1:]:
+                d = apart.setdefault(f"{st}.{a.type.name}",
+                                     {"events": 0, "max_diff": 0.0})
+                d["events"] += 1
+                d["max_diff"] = max([d["max_diff"]] + [
+                    abs(a.payload[k] - b.payload[k]) for k in a.payload
+                    if isinstance(a.payload[k], float)
+                    and isinstance(b.payload.get(k), float)])
+    print(json.dumps({"receiver_card_cpu": mode, "events": [
+        len(runs[0][st]) for st in runs[0]], "apart_to_the_bit": apart}))
+    same_events(*runs)
+    kinds = [e.type.name for e in runs[1][1]]
+    assert "LOST_SYNC" in kinds and "SYNC" in kinds
+    assert sum(e.type.name == "HDC" for e in runs[1][0]) >= 128
