@@ -9,11 +9,11 @@ Run from the root of the repository on a machine with a CUDA card and
 Phases, each printing one JSON line:
 
 1. device: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
-2. build: the twenty-four hand kernels (K1 and its AM cascade, K2, K3,
-   K4, K5's FM and AM carry steps, K6, K7 at K=7 and at K=9, K8, K9, the
-   needle count of K10, K11, K12, K13, K14's tone estimate, coarse timing
-   and CFO step, K15, and K16a-d of batched HDC audio) built from the
-   twenty-one sources of
+2. build: the twenty-five hand kernels (K1 and its AM cascade, K2, the FM
+   DFT kernel ``dft_bf16``, K3, K4, K5's FM and AM carry steps, K6, K7 at
+   K=7 and at K=9, K8, K9, the needle count of K10, K11, K12, K13, K14's
+   tone estimate, coarse timing and CFO step, K15, and K16a-d of batched
+   HDC audio) built from the twenty-two sources of
    ``nrsc5_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``, one process per
    source, all in parallel;
 3. signal: 16 stations of MP1, each modulated once with the port's ``tx``
@@ -47,7 +47,11 @@ Phases, each printing one JSON line:
    timing offset of 300-3999 samples, 35 dB, cs16; station 5 of each with
    0.5 s of zeros inserted (after FM frame 3, AM frame 6);
 4. one line per kernel: the kernel against its plain PyTorch version on the
-   card, at the shapes the main path gives it, with times (K4 also at
+   card, at the shapes the main path gives it, with times (K2's bf16 fold
+   within one bf16 ulp of its plain version, the share that differs
+   printed; the DFT kernel on that fold, 512 rows, with
+   cuBLAS's bf16 GEMM of the same operands as its library call and the
+   float32 GEMM it replaced beside it; K4 also at
    psmi 2, 3 and 11, K6 and K8 at P1's and PIDS's shapes, K8 at PX's,
    K11 at MP3's and MP2's; the AM kernels K12 in both passes, K13 and K15
    in MA1 and MA3, K7 at K=9 on P1, P3 of MA1 and MA3 and PIDS, and K8
@@ -66,17 +70,23 @@ Phases, each printing one JSON line:
    against the transmitted bits, wall time per dispatch and real-time
    factor, a stage breakdown, one block's pieces timed alone, the device's
    busy time from the profiler, and the same dispatch through the plain
-   versions, which must decode the same bits;
+   versions, which must decode the same bits; an eager dispatch calls no
+   plain version, and the profiled dispatches hold no GEMM kernel;
 7. mp3: three ``serve.chain_step`` dispatches of 32 blocks on the MP3
    queues, the carry (interleaver-IV state included) handed from one to
    the next and each queue advanced by what its station consumed.  Gate:
    all 96 P1 frames, 1536 PIDS words and the 512 PX1 frames of IV cycles 1
    and 2 bit-exact at their pair positions; the launch counts of the three
-   dispatches exactly those of K1, K2, K4, K6, K7, K8 and K11 on that path,
-   and no plain version called; the same dispatches through the plain
-   versions the same outputs (bits, margins, bit errors) and the same final
-   IV state and phases.  Wall per dispatch,
-   real-time factor (at least 1), stage split, device busy time;
+   dispatches exactly those of K1, K2, the DFT kernel, K4, K5, K6, K7, K8
+   and K11 on that path, and no plain version called; the same dispatches
+   through the plain versions on the DFT kernel's spectra the same
+   outputs, margins, pm, consumed samples and IV state; through the plain
+   versions with the DFT's own, the same decoded bits, consumed samples,
+   IV phase and re-encode error counts, and pm and the IV state within 1
+   (the share that differs printed, beside the share by which the plain
+   path parts from itself when its spectra move by one float32 ulp).
+   Wall per dispatch, real-time factor (at least 1), stage split, device
+   busy time;
 8. am: three ``serve.chain_step_am`` dispatches of 2 frames on the AM
    queues from a fresh carry, the carry (delay lines included) handed on
    and each queue advanced by what its station consumed.  Gate: every P1
@@ -196,6 +206,7 @@ SERVE_PUSH = 98765  # odd-sized pushes (wire samples)
 # the card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12  # dense, the tensor cores
 
 # kernel name -> (source, the JAX function it replaces)
 KERNELS = {
@@ -203,6 +214,8 @@ KERNELS = {
                      "nrsc5_tpu/ops/frontend.py:120"),
     "demod_fold": ("nrsc5_tpu_torch/csrc/demod_fold.cu",
                    "nrsc5_tpu/ops/acquire_rc.py:73"),
+    "dft_bf16": ("nrsc5_tpu_torch/csrc/dft_bf16.cu",
+                 "nrsc5_tpu/ops/acquire_rc.py:104"),
     "costas_track": ("nrsc5_tpu_torch/csrc/costas_track.cu",
                      "nrsc5_tpu/pipeline/scan_chain_rc.py:107"),
     "viterbi_k7": ("nrsc5_tpu_torch/csrc/viterbi_k7.cu",
@@ -252,16 +265,16 @@ KERNELS = {
 AUDIO_KERNELS = ("aac_window_qmf_analysis", "sbr_hf_generate",
                  "sbr_hf_adjust", "qmf_synthesis")
 # the kernels each path launches
-STEADY = ("halfband_cu8", "demod_fold", "sync_block", "fec_gather",
-          "viterbi_k7", "fec_epilogue", "block_carry")
-COLD_START = ("halfband_cu8", "demod_fold", "costas_track", "sync_block",
-              "coarse_timing", "needle_count")
-# launches of one MP3 dispatch of 32 blocks: K1 once, K2, K4 and K5 per
-# block (K5 once more ahead of block 0), K6 for P1 and PIDS, K7 and K8 for
-# P1, PIDS and PX1, K11 once
-MP3_LAUNCHES = {"halfband_cu8": 1, "demod_fold": 32, "sync_block": 32,
-                "block_carry": 33, "fec_gather": 2, "viterbi_k7": 3,
-                "fec_epilogue": 3, "px_deinterleave": 1}
+STEADY = ("halfband_cu8", "demod_fold", "dft_bf16", "sync_block",
+          "fec_gather", "viterbi_k7", "fec_epilogue", "block_carry")
+COLD_START = ("halfband_cu8", "demod_fold", "dft_bf16", "costas_track",
+              "sync_block", "coarse_timing", "needle_count")
+# launches of one MP3 dispatch of 32 blocks: K1 once, K2, the DFT kernel,
+# K4 and K5 per block (K5 once more ahead of block 0), K6 for P1 and PIDS,
+# K7 and K8 for P1, PIDS and PX1, K11 once
+MP3_LAUNCHES = {"halfband_cu8": 1, "demod_fold": 32, "dft_bf16": 32,
+                "sync_block": 32, "block_carry": 33, "fec_gather": 2,
+                "viterbi_k7": 3, "fec_epilogue": 3, "px_deinterleave": 1}
 # launches of one AM dispatch of 2 frames (16 blocks): K12 twice a block,
 # K13 and K5 once a block, K15 once, K7 at K=9 and K8 for P1, P3 and PIDS
 AM_LAUNCHES = {"am_fold": 32, "sync_am_block": 16, "block_carry_am": 16,
@@ -292,12 +305,26 @@ def dft_bound(rows: int, n: int) -> tuple[float, str]:
 
 
 def gemm_bound(rows: int, n: int) -> tuple[float, str]:
-    """Least time of the same DFTs as the port computes them, one dense
-    float32 product [rows, 2n] @ [2n, 2n]: its two operands read and its
-    result written once, 2 (2n)^2 operations a row."""
+    """Least time of the same DFTs as one dense float32 product [rows, 2n]
+    @ [2n, 2n] (the AM DFTs, and the FM DFT before its kernel): its two
+    operands read and its result written once, 2 (2n)^2 operations a row
+    on the float32 cores."""
     width = 2 * n
     return bound(2 * rows * width * 4 + width * width * 4,
                  2 * rows * width * width)
+
+
+def bf16_gemm_bound(rows: int, n: int) -> tuple[float, str]:
+    """Least time of the same DFTs as the FM DFT kernel computes them, one
+    dense product of bf16 operands with float32 accumulation: the bf16
+    input [rows, 2n] and table [2n, 2n] read and the float32 spectra
+    written once, 2 (2n)^2 operations a row at the tensor cores' dense bf16
+    peak."""
+    width = 2 * n
+    t_bytes = (rows * width * 2 + width * width * 2 + rows * width * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * rows * width * width / BF16_TENSOR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def time_ms(torch, fn, reps: int = 7, inner: int = 10,
@@ -354,7 +381,17 @@ def profile_device(torch, fn) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"spans": len(spans), "busy_ms": busy, "wall_ms": wall,
             "idle_share": 1 - busy / wall if spans else None,
-            "top_ms": [[n[:80], t] for n, t in top]}
+            "top_ms": [[n[:80], t] for n, t in top],
+            "gemm_spans": sum("gemm" in e.name.lower() for e in spans)}
+
+
+def bf16_steps(torch, a, b):
+    """How many bf16 values lie between each pair of entries of two bf16
+    tensors (+0 and -0 one value): 1 is one bf16 ulp."""
+    def ordered(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
 
 
 def count_plain_calls() -> tuple[dict, callable]:
@@ -814,16 +851,16 @@ def host_audio(packets: list) -> np.ndarray:
 
 def serve_launches(mode: str, blocks: int = 0) -> dict:
     """The launches of one of the receiver's dispatches: FM's steady
-    dispatch of 32 blocks (K1, then K2, K4 and K5 a block and K5 once
-    ahead, then K6, K7 and K8 for P1 and PIDS) or, with ``blocks``, its
+    dispatch of 32 blocks (K1, then K2, the DFT kernel, K4 and K5 a block
+    and K5 once ahead, then K6, K7 and K8 for P1 and PIDS) or, with ``blocks``, its
     PIDS-only alignment dispatch; AM's steady dispatch of 2 frames."""
     if mode == "am":
         return AM_LAUNCHES
     n = blocks or DISPATCH_BLOCKS
     fec = 1 if blocks else 2
-    return {"halfband_cu8": 1, "demod_fold": n, "sync_block": n,
-            "block_carry": n + 1, "fec_gather": fec, "viterbi_k7": fec,
-            "fec_epilogue": fec}
+    return {"halfband_cu8": 1, "demod_fold": n, "dft_bf16": n,
+            "sync_block": n, "block_carry": n + 1, "fec_gather": fec,
+            "viterbi_k7": fec, "fec_epilogue": fec}
 
 
 def serve_run(torch, fleet: dict, mode: str, device, graph: bool = True):
@@ -1016,8 +1053,8 @@ def serve_gate(events: dict, fleet: dict, mode: str, counts: dict,
         else:
             k4 = d.get("sync_block", 0)
             relock_ok &= d == {"halfband_cu8": 1, "coarse_timing": 1,
-                               "demod_fold": 1 + k4, "costas_track": 1,
-                               "needle_count": 1,
+                               "demod_fold": 1 + k4, "dft_bf16": 1 + k4,
+                               "costas_track": 1, "needle_count": 1,
                                **({"sync_block": 1} if k4 else {})}
     total = {}
     for kind in ("dispatch", "align", "relock"):
@@ -1265,16 +1302,55 @@ def main() -> int:
     cfo = torch.randint(-3, 4, (s_n,), generator=g,
                         dtype=torch.int32).to(dev)
     args = (samples, offset, phase, samperr, angle, cfo)
-    got = AQ.demod_fold(*args)
-    want = AQ.demod_fold_plain(*args)
-    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    folded_bf16 = AQ.demod_fold_bf16(*args)
+    want = AQ.demod_fold_bf16_plain(*args)
+    err = (folded_bf16[0].float() - want[0].float()).abs().max().item()
+    steps = bf16_steps(torch, folded_bf16[0], want[0])
+    phase_err = (folded_bf16[1] - want[1]).abs().max().item()
+    keep_same = torch.equal(folded_bf16[2], want[2])
     n_samp = AQ.NSAMP
-    check("demod_fold", err, 1e-5,
-          lambda: AQ.demod_fold(*args),
-          lambda: AQ.demod_fold_plain(*args),
-          bound(s_n * (n_samp * 8 + C.BLKSZ * C.FFT_FM * 8 + 40),
+    check("demod_fold", err, "one bf16 ulp; phase_out 1e-5, keep exact",
+          lambda: AQ.demod_fold_bf16(*args),
+          lambda: AQ.demod_fold_bf16_plain(*args),
+          bound(s_n * (n_samp * 8 + C.BLKSZ * C.FFT_FM * 4 + 40),
                 s_n * (n_samp * 17 + C.BLKSZ * C.CP_FM * 6)),
-          None, [s_n, C.BLKSZ, C.FFT_FM, 2])
+          None, [s_n, C.BLKSZ, C.FFT_FM, 2],
+          ok=steps.max().item() <= 1 and phase_err <= 1e-5 and keep_same,
+          bf16_ulps_max=steps.max().item(),
+          bf16_differ_share=(steps > 0).float().mean().item(),
+          phase_out_max_abs_err=phase_err)
+
+    # --- the DFT kernel on that bf16 fold (512 rows): its spectra against
+    # the plain version (the float32 matmul on the same bf16 operands),
+    # within 1e-5 of each row's largest magnitude; the library call is
+    # cuBLAS's bf16 GEMM of the same operands (bf16 out), beside the float32
+    # GEMM the loop ran before this kernel ---
+    dft_in = folded_bf16[0]
+    rows = dft_in.numel() // (2 * C.FFT_FM)
+    got = rc.dft_bf16(dft_in)
+    want = rc.dft_bf16_plain(dft_in)
+    row_max = want.view(rows, -1).abs().amax(dim=1, keepdim=True)
+    err = ((got - want).view(rows, -1).abs() / row_max).max().item()
+    same_twice = torch.equal(got, rc.dft_bf16(dft_in))
+    a2d = dft_in.view(rows, -1)
+    table = rc.dft_bf16_table(C.FFT_FM, str(dft_in.device))
+    a_f32 = a2d.float()
+    m_f32 = table.float().t().contiguous()
+    dft_as_dft = dft_bound(rows, C.FFT_FM)
+    check("dft_bf16", err, 1e-5,
+          lambda: rc.dft_bf16(dft_in),
+          lambda: rc.dft_bf16_plain(dft_in), bf16_gemm_bound(rows, C.FFT_FM),
+          lambda: torch.matmul(a2d, table.t()),
+          [rows, 2 * C.FFT_FM], ok=err <= 1e-5 and same_twice,
+          tolerance_of="the row's largest magnitude",
+          two_launches_same_bits=same_twice,
+          f32_gemm_ms=time_ms(torch, lambda: torch.matmul(a_f32, m_f32),
+                              graph=True),
+          f32_gemm_bound_ms=gemm_bound(rows, C.FFT_FM)[0],
+          dft_bound_ms=dft_as_dft[0], dft_bound_by=dft_as_dft[1],
+          library_call="torch.matmul of the bf16 operands (cuBLAS, bf16 "
+          "out)", card=smi)
+    del a_f32, m_f32
 
     # --- K4: the sync block at block 1 of a chain: the spectra, Costas
     # state and timing_adj the main path hands it after block 0; MP1 on the
@@ -1284,9 +1360,9 @@ def main() -> int:
         _, _, _, cy = rcc.frontend_scan_rc(x, rcc.chain_rc_init_carry(
             psmi=psmi, n_stations=s_n, device=dev), 1, psmi)
         samperr1 = C.FFTCP_FM // 2 + cy.samperr_fb
-        spectra1 = rc.dft(AQ.demod_fold(x, cy.offset, cy.phase, samperr1,
-                                        cy.prev_angle - cy.angle_fb,
-                                        cy.cfo)[0], shift=True)
+        spectra1 = rc.dft_bf16(AQ.demod_fold_bf16(
+            x, cy.offset, cy.phase, samperr1, cy.prev_angle - cy.angle_fb,
+            cy.cfo)[0])
         sync_args = (spectra1, cy.costas_phase, cy.costas_freq, psmi,
                      C.FFTCP_FM // 2 - samperr1)
         ko, kph, kfr = rcc.sync_block_rc(*sync_args)
@@ -1331,8 +1407,9 @@ def main() -> int:
         n_stations=s_n, device=dev), 1)
     samperr1 = C.FFTCP_FM // 2 + cy.samperr_fb
     angle1 = cy.prev_angle - cy.angle_fb
-    fo = AQ.demod_fold(samples, cy.offset, cy.phase, samperr1, angle1, cy.cfo)
-    ko, _, _ = rcc.sync_block_rc(rc.dft(fo[0], shift=True), cy.costas_phase,
+    fo = AQ.demod_fold_bf16(samples, cy.offset, cy.phase, samperr1, angle1,
+                            cy.cfo)
+    ko, _, _ = rcc.sync_block_rc(rc.dft_bf16(fo[0]), cy.costas_phase,
                                  cy.costas_freq, 1, C.FFTCP_FM // 2 - samperr1)
     k5_in = (fo[2], ko["samperr"], ko["angle"])
     k5_state = {"offset": cy.offset, "prev_angle": cy.prev_angle,
@@ -1373,14 +1450,14 @@ def main() -> int:
                        + C.FFTCP_FM * C.CP_FM * 4)),
           None, [s_n, win, 2], plain_reps=3, plain_inner=2)
 
-    # --- K3 and K10 on the probe's spectra (K9's timing and angle, K2 at
-    # CFO 0, the DFT): K3 over 76 CFOs × 22 refs with each CFO's static
+    # --- K3 and K10 on the probe's spectra (K9's timing and angle, K2's
+    # bf16 fold at CFO 0, the DFT kernel): K3 over 76 CFOs × 22 refs with each CFO's static
     # frequency, the only shape and argument the main path gives K3 (on
     # the steady path it runs inside K4); then the needle count ---
     zero = torch.zeros(s_n, dtype=torch.int32, device=dev)
     unit = torch.tensor([[1.0, 0.0]], device=dev).repeat(s_n, 1)
-    probe = rc.dft(AQ.demod_fold(cap_samples, zero, unit, ks, rc.angle(kv),
-                                 zero)[0], shift=True)
+    probe = rc.dft_bf16(AQ.demod_fold_bf16(cap_samples, zero, unit, ks,
+                                           rc.angle(kv), zero)[0])
     t = DC._scan_tables(str(dev))
     refs = probe[:, :, t["bins"]].transpose(0, 1).reshape(
         C.BLKSZ, -1, 2).contiguous()
@@ -1967,19 +2044,20 @@ def main() -> int:
                        "p1_fec_ms"),
                       (ev[i].elapsed_time(ev[i + 1]) for i in range(4))))
 
-    # one block of the frontend scan, piece by piece: K2, the DFT matmul,
-    # and the sync block (K4, and its plain version), each launched from
-    # Python
+    # one block of the frontend scan, piece by piece: K2's bf16 fold, the
+    # DFT kernel, and the sync block (K4, and its plain version), each
+    # launched from Python
     samperr0 = C.FFTCP_FM // 2 + carries.samperr_fb
     fold_args = (x, carries.offset, carries.phase, samperr0,
                  carries.prev_angle - carries.angle_fb, carries.cfo)
-    folded = AQ.demod_fold(*fold_args)[0]
-    spec = rc.dft(folded, shift=True)
+    folded = AQ.demod_fold_bf16(*fold_args)[0]
+    spec = rc.dft_bf16(folded)
     block_sync = (spec, carries.costas_phase, carries.costas_freq, 1,
                   C.FFTCP_FM // 2 - samperr0)
     per_block = {
-        "demod_fold_ms": time_ms(torch, lambda: AQ.demod_fold(*fold_args)),
-        "dft_ms": time_ms(torch, lambda: rc.dft(folded, shift=True)),
+        "demod_fold_ms": time_ms(torch,
+                                 lambda: AQ.demod_fold_bf16(*fold_args)),
+        "dft_ms": time_ms(torch, lambda: rc.dft_bf16(folded)),
         "sync_block_ms": time_ms(
             torch, lambda: rcc.sync_block_rc(*block_sync)),
         "sync_block_plain_ms": time_ms(
@@ -1988,22 +2066,38 @@ def main() -> int:
     device_time = profile_device(torch, dispatch)
     device_time_eager = profile_device(torch, lambda: dispatch(False))
 
+    # the FM kernel path holds no plain version and no GEMM: one eager
+    # dispatch with every plain version counted (none may be called), and
+    # no GEMM among the device spans of the graph and eager dispatches
+    # profiled above
+    plain_calls, restore_plain = count_plain_calls()
+    try:
+        dispatch(False)
+        torch.cuda.synchronize()
+    finally:
+        restore_plain()
+    no_plain_no_gemm = (not plain_calls
+                        and device_time["gemm_spans"] == 0
+                        and device_time_eager["gemm_spans"] == 0)
+
     def block_loop(n, k4_bound, launches, scan_ms, fronts):
         """K5, the block loop, over ``n`` blocks: its launches and its
         bound, the sum of its work's bounds per block: K2, the 2048-point
         DFT of 512 rows as a DFT needs it (:func:`dft_bound`), K4 and K5;
-        the dense float32 GEMM the code runs for the DFT apart
-        (:func:`gemm_bound`, with its measured time a block); and the
-        ingest and loop as the graph and launched eagerly."""
+        the dense bf16 product the DFT kernel runs for it apart
+        (:func:`bf16_gemm_bound`, with the kernel's measured time a
+        block); and the ingest and loop as the graph and launched
+        eagerly."""
         rows = s_n * C.BLKSZ
-        dft, gemm = dft_bound(rows, C.FFT_FM), gemm_bound(rows, C.FFT_FM)
+        dft, gemm = dft_bound(rows, C.FFT_FM), bf16_gemm_bound(rows,
+                                                               C.FFT_FM)
         terms = [(report["demod_fold"]["bound_ms"],
                   report["demod_fold"]["bound_by"]), dft,
                  (k4_bound, report["sync_block"]["bound_by"]),
                  (report["block_carry"]["bound_ms"],
                   report["block_carry"]["bound_by"])]
         return {"launches": {"demod_fold": launches["demod_fold"],
-                             "dft_gemm": n,
+                             "dft_bf16": launches["dft_bf16"],
                              "sync_block": launches["sync_block"],
                              "block_carry": launches["block_carry"]},
                 "bound_ms": n * sum(t for t, _ in terms),
@@ -2022,7 +2116,7 @@ def main() -> int:
     plain_wall = (time.perf_counter() - t0) * 1e3
     same = all(torch.equal(out[k], out_plain[k]) for k in ("p1", "pids"))
     slice_ok = (p1_ok == s_n * N_FRAMES and pids_ok == s_n * n_blocks
-                and same and graph_same
+                and same and graph_same and no_plain_no_gemm
                 and all(counts[n] > 0 for n in STEADY))
     emit({"phase": "slice", "stations": s_n, "blocks": n_blocks,
           "p1_frames_ok": p1_ok, "p1_frames": s_n * N_FRAMES,
@@ -2036,6 +2130,9 @@ def main() -> int:
               stages["frontend_scan_ms"],
               front_ms(serve.fm_front, wire, carries, n_blocks)),
           "device_time": device_time, "plain_wall_ms": plain_wall,
+          "plain_calls_on_kernel_path": plain_calls,
+          "gemm_spans_graph": device_time["gemm_spans"],
+          "gemm_spans_eager": device_time_eager["gemm_spans"],
           "plain_same_bits": same, "eager_wall_ms": eager_wall,
           "eager_wall_ms_runs": eager_times,
           "eager_realtime_factor": air_s / (eager_wall / 1e3),
@@ -2094,17 +2191,87 @@ def main() -> int:
             px_cycle0 = hits
     launches_ok = all(n == MP3_LAUNCHES for n in run["launches"])
 
-    # the plain path must agree exactly: the DFT rounds its input to bf16,
-    # so one last-bit difference upstream could move an input across a
-    # bf16 rounding edge and spread through the Costas feedback, and the
-    # plain versions round as the kernels do
-    prun = mp3_run(plain=True)
-    same = all(torch.equal(a[k], b[k]) for a, b in zip(
-        run["outs"], prun["outs"]) for k in a if k != "diag")
-    kc, pc = run["carries"][-1], prun["carries"][-1]
-    iv_diff = int((kc.px1_internal.int() - pc.px1_internal.int()).ne(0)
-                  .sum())
-    iv_same = iv_diff == 0 and torch.equal(kc.px1_phase, pc.px1_phase)
+    # the plain path against the kernel path.  The DFT kernel sums its
+    # products in another order than its plain version's float32 matmul,
+    # and a last-bit difference of the spectra can cross a bf16 rounding
+    # edge or a .5 demap edge and travel through the Costas and timing
+    # feedback from block to block.  So the plain versions first run on
+    # the DFT kernel's own spectra, as both paths ran one GEMM before the
+    # DFT was a kernel: every output, pm, the consumed samples and the IV
+    # state must be equal.  Then the fully plain path (the DFT's plain
+    # version too): every decoded P1, PIDS and PX1 bit, the consumed
+    # samples, px1_phase and the P1 re-encode error counts equal, pm and
+    # the IV state within 1; the share of pm and IV entries that differ
+    # is printed, beside the share by which the plain path parts from
+    # itself when its spectra move by one float32 ulp (each value up or
+    # down at random).
+    def within_one(pairs):
+        """(largest difference, share of entries that differ) over
+        ``pairs`` of integer tensors."""
+        d = torch.cat([(a.long() - b.long()).abs().flatten()
+                       for a, b in pairs])
+        return int(d.max()), float((d > 0).float().mean())
+
+    def pms(r, plain):
+        """Each dispatch's pm, from the run's own carry and wire."""
+        return [rcc.frontend_scan_rc(serve.ingest(r["wires"][d]),
+                                     r["carries"][d], DISPATCH_BLOCKS,
+                                     MP3_PSMI, plain=plain)[0]
+                for d in range(MP3_DISPATCHES)]
+
+    exact_dft = rc.dft_bf16_plain
+    ulp_gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def moved_dft(a):
+        out = exact_dft(a)
+        up = torch.rand(out.shape, generator=ulp_gen, device=dev) < 0.5
+        inf = torch.full_like(out, math.inf)
+        return torch.where(up, torch.nextafter(out, inf),
+                           torch.nextafter(out, -inf))
+
+    def plain_run(dft):
+        """The three dispatches through the plain versions with ``dft`` as
+        the DFT's, and each dispatch's pm."""
+        rc.dft_bf16_plain = dft
+        try:
+            r = mp3_run(plain=True)
+            return r, pms(r, True)
+        finally:
+            rc.dft_bf16_plain = exact_dft
+
+    k_pm = pms(run, False)
+    srun, s_pm = plain_run(rc.dft_bf16)
+    kc, sc = run["carries"][-1], srun["carries"][-1]
+    on_kernel_spectra = all(torch.equal(a[k], b[k]) for a, b in zip(
+        run["outs"], srun["outs"]) for k in a if k != "diag") and all(
+        np.array_equal(a, b) for a, b in zip(run["consumed"],
+                                              srun["consumed"])) and all(
+        torch.equal(a, b) for a, b in zip(k_pm, s_pm)) and torch.equal(
+        kc.px1_internal, sc.px1_internal) and torch.equal(kc.px1_phase,
+                                                          sc.px1_phase)
+    carry_fields_apart = [f for f in kc._fields
+                          if not torch.equal(getattr(kc, f), getattr(sc, f))]
+    del srun, s_pm
+    prun, p_pm = plain_run(exact_dft)
+    wrun, w_pm = plain_run(moved_dft)
+    pc, wc = prun["carries"][-1], wrun["carries"][-1]
+    bits_same = all(torch.equal(a[k], b[k]) for a, b in zip(
+        run["outs"], prun["outs"]) for k in ("p1", "pids", "px1")) and all(
+        np.array_equal(a, b) for a, b in zip(run["consumed"],
+                                              prun["consumed"])) \
+        and torch.equal(kc.px1_phase, pc.px1_phase)
+    soft = {"pm": within_one(list(zip(k_pm, p_pm))),
+            "iv_state": within_one([(kc.px1_internal, pc.px1_internal)]),
+            "p1_bit_errors": within_one([
+                (a["p1_bit_errors"], b["p1_bit_errors"])
+                for a, b in zip(run["outs"], prun["outs"])])}
+    spread = {"pm": within_one(list(zip(w_pm, p_pm))),
+              "iv_state": within_one([(wc.px1_internal, pc.px1_internal)])}
+    margins = {k: [float((a[k] - b[k]).abs().max()) for a, b in zip(
+        run["outs"], prun["outs"])] for k in ("p1_margin", "px1_margin")}
+    fully_plain_ok = bits_same and soft["p1_bit_errors"][0] == 0 and all(
+        soft[k][0] <= 1 for k in ("pm", "iv_state"))
+    del k_pm, p_pm, w_pm, prun, wrun
 
     # dispatch 1 (from dispatch 0's carry) timed, split and profiled
     def dispatch_mp3(graph=True):
@@ -2146,7 +2313,8 @@ def main() -> int:
     mp3_ok = (p1_ok == s_n * 2 * n_disp
               and pids_ok == s_n * DISPATCH_BLOCKS * n_disp
               and px_ok == s_n * 16 * (n_disp - 1) and launches_ok
-              and not plain_calls and same and iv_same and mp3_graph_same
+              and not plain_calls and on_kernel_spectra and fully_plain_ok
+              and mp3_graph_same
               and mp3_air / (mp3_wall / 1e3) >= 1)
     emit({"phase": "mp3", "stations": s_n, "psmi": MP3_PSMI,
           "dispatches": n_disp, "blocks_per_dispatch": DISPATCH_BLOCKS,
@@ -2162,8 +2330,12 @@ def main() -> int:
                             for o in run["outs"]],
           "launches_per_dispatch": run["launches"],
           "plain_calls_on_kernel_path": plain_calls,
-          "plain_same_outputs": same, "plain_iv_state_entries_differing":
-          iv_diff, "plain_same_iv_state": iv_same,
+          "plain_on_kernel_spectra_same": on_kernel_spectra,
+          "plain_on_kernel_spectra_carry_fields_apart": carry_fields_apart,
+          "plain_same_bits_consumed_px1_phase": bits_same,
+          "plain_max_diff_and_share": soft,
+          "plain_one_ulp_spread_max_diff_and_share": spread,
+          "plain_margin_max_diff": margins,
           "wall_ms": mp3_wall, "wall_ms_runs": mp3_times, "air_s": mp3_air,
           "realtime_factor": mp3_air / (mp3_wall / 1e3),
           "stages": mp3_stages, "device_time": mp3_device,

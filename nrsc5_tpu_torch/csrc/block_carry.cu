@@ -6,7 +6,7 @@
 // lax.scan step at 280-294) and nrsc5_tpu/pipeline/scan_chain_am_rc.py:
 // _am_frontend_gather_scan (lines 259-292).  XLA compiles each scan into one
 // device while-loop; the port's loop (pipeline/scan_chain_rc.py and
-// scan_chain_am_rc.py) launches K2, the DFT GEMM and K4 (FM) or K12, the
+// scan_chain_am_rc.py) launches K2, the DFT kernel and K4 (FM) or K12, the
 // DFT, K12 and K13 (AM) once a block, each writing its block's outputs
 // straight into slot b of block-major buffers, and this kernel carries the
 // per-station scalars from one block to the next.  The whole loop is

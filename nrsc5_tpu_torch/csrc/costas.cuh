@@ -21,16 +21,34 @@ __device__ __forceinline__ float wrap_pi(float x, float two_pi) {
   return x - two_pi * rintf(x / two_pi);
 }
 
+// the three parts of a step, for a kernel that runs them apart (K4 takes
+// the angles and the derotations of all its steps in parallel and keeps only
+// the phase and frequency recursion on the track's thread): the same
+// operations as costas_step, so the same bits
+__device__ __forceinline__ float costas_angle(float2 v) {
+  const float v2r = v.x * v.x - v.y * v.y;
+  const float v2i = v.x * v.y + v.y * v.x;
+  return atan2f(v2i, v2r);
+}
+
+__device__ __forceinline__ void costas_advance(float a, float& ph, float& fr,
+                                               float cf, float alpha,
+                                               float beta, float two_pi) {
+  const float err = 0.5f * wrap_pi(a - 2.0f * ph, two_pi);
+  fr = fminf(fmaxf(fr + beta * err, -0.5f), 0.5f);
+  ph = wrap_pi(ph + fr + cf + alpha * err, two_pi);
+}
+
+__device__ __forceinline__ float2 costas_derot(float2 v, float ph) {
+  const float c = cosf(-ph), s = sinf(-ph);
+  return make_float2(v.x * c - v.y * s, v.x * s + v.y * c);
+}
+
 __device__ __forceinline__ float2 costas_step(float2 v, float& ph, float& fr,
                                               float cf, float alpha,
                                               float beta, float two_pi) {
-  const float v2r = v.x * v.x - v.y * v.y;
-  const float v2i = v.x * v.y + v.y * v.x;
-  const float err = 0.5f * wrap_pi(atan2f(v2i, v2r) - 2.0f * ph, two_pi);
-  const float c = cosf(-ph), s = sinf(-ph);
-  const float2 derot = make_float2(v.x * c - v.y * s, v.x * s + v.y * c);
-  fr = fminf(fmaxf(fr + beta * err, -0.5f), 0.5f);
-  ph = wrap_pi(ph + fr + cf + alpha * err, two_pi);
+  const float2 derot = costas_derot(v, ph);
+  costas_advance(costas_angle(v), ph, fr, cf, alpha, beta, two_pi);
   return derot;
 }
 

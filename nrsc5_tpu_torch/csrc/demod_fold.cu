@@ -8,15 +8,16 @@
 //
 // samples [S, n_samples, 2] f32, per station offset/samperr/cfo int32,
 // angle f32, phase [2] f32 ->
-//   folded [S, 32, 2048, 2] f32, phase_out [S, 2] f32, keep [S] int32
+//   folded [S, 32, 2048, 2] bf16, phase_out [S, 2] f32, keep [S] int32
 //   n       = sym*2160 + i                       (i < 2160)
 //   ramp[n] = phase0 * e^{i(angle/2048*n - 2pi/2048*((cfo*n) mod 2048))}
 //   x[n]    = samples[start(offset) + start(samperr) + n] * ramp[n]
 //   folded[sym, i] = w[i]*x[sym,i] + w[2048+i]*x[sym,2048+i]   (i < 112)
 //                  = x[sym, i]                                 (otherwise)
+//   each folded value computed in f32 and rounded to bf16
 //
 // Bound on the H100: device-memory bytes.  Per station it reads 553 KB of
-// samples and writes 524 KB; the sincos per sample is ~40 flops, far under
+// samples and writes 262 KB; the sincos per sample is ~40 flops, far under
 // the card's f32 rate.  Design: one thread per folded output sample, float2
 // loads and stores on neighbouring addresses.  The per-station scalars
 // (phase0, phase_out, keep) are recomputed by each thread that needs them
@@ -24,7 +25,12 @@
 // order (the build passes -fmad=false, so no FMA contraction): negative
 // integer CFOs take a floor mod, and the window and slice starts are placed
 // as lax.dynamic_slice places them (negative from the end, then clamped).
+// The output is the DFT kernel's operand (csrc/dft_bf16.cu reads it as
+// [S*32, 4096], re and im interleaved): each f32 value rounded to nearest,
+// ties to even (__floats2bfloat162_rn, as torch's .to(bfloat16) rounds), so
+// no f32 fold is stored or rounded in a second pass.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,7 +79,7 @@ __global__ void demod_fold_kernel(const float2* __restrict__ samples,
                                   const int* __restrict__ cfo,
                                   const float* __restrict__ shape,
                                   float two_pi_over_fft,
-                                  float2* __restrict__ folded,
+                                  __nv_bfloat162* __restrict__ folded,
                                   float2* __restrict__ phase_out,
                                   int* __restrict__ keep) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;  // bin-order index
@@ -109,7 +115,8 @@ __global__ void demod_fold_kernel(const float2* __restrict__ samples,
     const float wa = shape[i], wb = shape[FFT + i];
     y = make_float2(wa * y.x + wb * t.x, wa * y.y + wb * t.y);
   }
-  folded[((long long)s * NSYM + sym) * FFT + i] = y;
+  folded[((long long)s * NSYM + sym) * FFT + i] =
+      __floats2bfloat162_rn(y.x, y.y);
 
   if (i == 0 && sym == 0) {
     const float th = (ang / (float)FFT) * (float)NSAMP
@@ -134,6 +141,6 @@ extern "C" int demod_fold(const void* samples, long long n_samples,
       (const float2*)samples, n_samples, (const int*)offset,
       (const float2*)phase, (const int*)samperr, (const float*)angle,
       (const int*)cfo, (const float*)shape, two_pi_over_fft,
-      (float2*)folded, (float2*)phase_out, (int*)keep);
+      (__nv_bfloat162*)folded, (float2*)phase_out, (int*)keep);
   return (int)cudaGetLastError();
 }

@@ -45,8 +45,10 @@ SIGNATURES = {
     # wire, out, taps, scale, n_in_pairs, n_out, n_stations, stream
     "halfband_cu8": (P, P, P, F, L, I, I, P),
     # samples, n_samples, offset, phase, samperr, angle, cfo, shape,
-    # two_pi_over_fft, folded, phase_out, keep, n_stations, stream
+    # two_pi_over_fft, folded (bf16), phase_out, keep, n_stations, stream
     "demod_fold": (P, L, P, P, P, P, P, P, F, P, P, P, I, P),
+    # a, table, out, rows, width, stream
+    "dft_bf16": (P, P, P, I, I, P),
     # refs, phase0, freq0, cfo_freq, derot, phases, ph_out, fr_out,
     # n_steps, n_tracks, alpha, beta, two_pi, stream
     "costas_track": (P, P, P, P, P, P, P, P, I, I, F, F, F, P),

@@ -8,14 +8,14 @@ PyTorch counterpart of ``nrsc5_tpu/ops/acquire_rc.py``'s
 
 :func:`coarse_timing_rc` is kernel K9 (``csrc/coarse_timing.cu``): the
 cold start's cyclic-prefix correlation over all 2160 timings of the first
-33-symbol window, for all stations at once.  :func:`demod_fold` is kernel
-K2 (``csrc/demod_fold.cu``): per L1 block and station, the derotation ramp
-(fractional angle plus integer CFO mod 2048), the 32 x 2160-sample slice
-at ``samperr``, and the shaped 112-sample cyclic-prefix fold, reading each
-station's window straight from its sample buffer.  Each has its plain
-PyTorch version beside it.  The DFT stays a matmul
-(:func:`nrsc5_tpu_torch.ops.rcplx.dft`), as the reference leaves it to a
-plain matmul outside any kernel.
+33-symbol window, for all stations at once.  :func:`demod_fold_bf16` is
+kernel K2 (``csrc/demod_fold.cu``): per L1 block and station, the
+derotation ramp (fractional angle plus integer CFO mod 2048), the
+32 x 2160-sample slice at ``samperr``, and the shaped 112-sample
+cyclic-prefix fold, reading each station's window straight from its sample
+buffer and writing the fold in bfloat16, the operand of the DFT kernel
+:func:`nrsc5_tpu_torch.ops.rcplx.dft_bf16` that follows it on the FM paths.
+Each has its plain PyTorch version beside it.
 """
 
 from __future__ import annotations
@@ -146,7 +146,8 @@ def _check_stations(samples, offset, phase, samperr, angle, cfo):
 
 
 def demod_fold_plain(samples, offset, phase, samperr, angle, cfo):
-    """Plain version of K2.
+    """K2's fold in float32, before :func:`demod_fold_bf16_plain` rounds
+    it.
 
     samples [S, N, 2] float32 conjugated rc (N >= WINDOW_FM); per station
     offset int32 (window start in the buffer), phase [2], samperr int32
@@ -191,14 +192,27 @@ def demod_fold_plain(samples, offset, phase, samperr, angle, cfo):
     return folded, phase_out, keep
 
 
-def demod_fold(samples, offset, phase, samperr, angle, cfo, out=None):
-    """K2: the arguments and results of :func:`demod_fold_plain`, written
-    into ``out`` = (folded, phase_out, keep) where it is given.
+def demod_fold_bf16_plain(samples, offset, phase, samperr, angle, cfo):
+    """Plain version of K2: :func:`demod_fold_plain` with the folded
+    symbols rounded to bfloat16 (to nearest, ties to even), the operand of
+    the block loop's DFT (:func:`nrsc5_tpu_torch.ops.rcplx.dft_bf16`)."""
+    folded, phase_out, keep = demod_fold_plain(samples, offset, phase,
+                                               samperr, angle, cfo)
+    return folded.to(torch.bfloat16), phase_out, keep
+
+
+def demod_fold_bf16(samples, offset, phase, samperr, angle, cfo, out=None):
+    """K2: the arguments and results of :func:`demod_fold_bf16_plain`,
+    written into ``out`` = (folded bf16, phase_out, keep) where it is
+    given.  The block loop and the FM cold start's probes fold this way,
+    straight into the DFT kernel's operand.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one thread per folded output sample)."""
+    kernel (one thread per folded output sample), which rounds each
+    float32 value as ``.to(torch.bfloat16)`` does."""
     if samples.device.type == "cpu":
-        res = demod_fold_plain(samples, offset, phase, samperr, angle, cfo)
+        res = demod_fold_bf16_plain(samples, offset, phase, samperr, angle,
+                                    cfo)
         return res if out is None else K.into(out, res)
     _check_stations(samples, offset, phase, samperr, angle, cfo)
     s = samples.shape[0]
@@ -211,12 +225,12 @@ def demod_fold(samples, offset, phase, samperr, angle, cfo, out=None):
     dev = samples.device
     if out is None:
         out = (torch.empty(s, C.ACQUIRE_SYMBOLS, C.FFT_FM, 2,
-                           dtype=torch.float32, device=dev),
+                           dtype=torch.bfloat16, device=dev),
                torch.empty(s, 2, dtype=torch.float32, device=dev),
                torch.empty(s, dtype=torch.int32, device=dev))
     folded, phase_out, keep = out
-    K.check(folded, "folded", torch.float32, (s, C.ACQUIRE_SYMBOLS,
-                                              C.FFT_FM, 2))
+    K.check(folded, "folded", torch.bfloat16,
+            (s, C.ACQUIRE_SYMBOLS, C.FFT_FM, 2))
     K.check(phase_out, "phase_out", torch.float32, (s, 2))
     K.check(keep, "keep", torch.int32, (s,))
     K.launch("demod_fold", samples.data_ptr(), samples.shape[1],

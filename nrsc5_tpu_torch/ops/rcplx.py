@@ -10,7 +10,10 @@ The DFT is a dense matmul against cos/sin tables with inputs rounded to
 bfloat16 and float32 accumulation, as the reference evaluates it.  The two
 real products of the reference are folded into one: the interleaved input
 [..., 2N] times a [2N, 2N] table gives the interleaved output, and the
-fftshift is a permutation of the table's columns.
+fftshift is a permutation of the table's columns.  The FM paths' 2048-point
+DFT runs as a bf16 tensor-core kernel (:func:`dft_bf16`,
+``csrc/dft_bf16.cu``) on K2's bf16 fold; :func:`dft` and :func:`dft_into`
+(the float32 matmul on rounded inputs) serve the AM DFTs.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import functools
 
 import numpy as np
 import torch
+
+from nrsc5_tpu_torch import kernels as K
 
 
 def mul(a, b):
@@ -145,4 +150,62 @@ def dft_into(x, out, scratch, shift: bool = False):
     scratch.copy_(x)
     x.copy_(scratch)
     torch.matmul(x.view(-1, 2 * n), m, out=out.view(-1, 2 * n))
+    return out
+
+
+@functools.lru_cache(maxsize=4)
+def dft_bf16_table(n: int, device: str) -> torch.Tensor:
+    """The DFT kernel's table: :func:`_dft_matrix` ``(n, shift=True)``
+    transposed, in bfloat16 (exact: its entries are bf16-rounded already),
+    [2n, 2n] with row c holding output column c's weights over the 2n
+    interleaved inputs, so that the kernel reads both operands K-major."""
+    m = _dft_matrix(n, True, "cpu")
+    return m.t().contiguous().to(torch.bfloat16).to(device)
+
+
+def _check_dft_bf16(a):
+    if a.ndim < 2 or a.shape[-1] != 2 or (2 * a.shape[-2]) % 128:
+        raise ValueError(f"a: expected [..., N, 2] with 2N a multiple of "
+                         f"128, got {tuple(a.shape)}")
+
+
+def dft_bf16_plain(a):
+    """Plain version of :func:`dft_bf16`: the fftshifted forward DFT of
+    bfloat16 rc symbols a [..., N, 2] as a float32 matmul of the widened
+    input with the bf16-rounded table, the arithmetic :func:`dft_into`
+    runs (float32 [..., N, 2]).  On a CUDA tensor it refuses TF32."""
+    _check_dft_bf16(a)
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("dft needs full float32 matmuls: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    n = a.shape[-2]
+    out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    torch.matmul(a.float().view(-1, 2 * n),
+                 _dft_matrix(n, True, str(a.device)),
+                 out=out.view(-1, 2 * n))
+    return out
+
+
+def dft_bf16(a, out=None):
+    """The fftshifted forward DFT of bf16 rc symbols: a [..., N, 2]
+    bfloat16 (K2's bf16 fold) -> float32 [..., N, 2], written into ``out``
+    where it is given.  Each product of a bf16 input and a bf16 table entry
+    is exact in float32, so the kernel and the plain version form the same
+    products and differ only in the order of their float32 sums.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (``csrc/dft_bf16.cu``: wgmma on 128 x 128 output tiles, a fixed
+    K order, any number of rows)."""
+    if a.device.type == "cpu":
+        res = dft_bf16_plain(a)
+        return res if out is None else K.into(out, res)
+    _check_dft_bf16(a)
+    K.check(a, "a", torch.bfloat16)
+    if out is None:
+        out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    K.check(out, "out", torch.float32, a.shape)
+    n = a.shape[-2]
+    table = dft_bf16_table(n, str(a.device))
+    K.launch("dft_bf16", a.data_ptr(), table.data_ptr(), out.data_ptr(),
+             a.numel() // (2 * n), 2 * n, device=a.device)
     return out

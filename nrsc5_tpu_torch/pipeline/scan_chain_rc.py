@@ -9,8 +9,11 @@ whose body runs for all stations at once, with no host work and no
 allocation in it, so that on a card a CUDA graph replays it
 (:mod:`nrsc5_tpu_torch.pipeline.block_graph`, K5):
 
-  * K2 (:func:`nrsc5_tpu_torch.ops.acquire_rc.demod_fold`) reads each
-    station's window at its own offset and folds it, the DFT is a matmul;
+  * K2 (:func:`nrsc5_tpu_torch.ops.acquire_rc.demod_fold_bf16`) reads
+    each station's window at its own offset and folds it into bfloat16,
+    the operand of the DFT kernel
+    (:func:`nrsc5_tpu_torch.ops.rcplx.dft_bf16`, a tensor-core product
+    with the bf16 DFT table and float32 accumulation);
   * :func:`sync_block_rc` is kernel K4: the Costas PLL on the reference
     subcarriers, then the flip, needles, equalizer, timing regression and
     int8 soft demap of the PM and PX partitions, one launch per block for
@@ -25,8 +28,9 @@ allocation in it, so that on a card a CUDA graph replays it
 
 The cold start (:func:`cold_start_rc`) locks a capture with unknown timing
 and CFO in two device dispatches for the whole fleet: the timing/CFO probe
-(K9, K2, the DFT, K3 and the needle count of K10), then the block-count
-probe (K2, the DFT, K4), with the reference's argmax and votes on the host.
+(K9, K2, the DFT kernel, K3 and the needle count of K10), then the
+block-count probe (K2, the DFT kernel, K4), with the reference's argmax
+and votes on the host.
 
 The chain and cold-start functions take ``plain=True`` to run the
 kernels' plain PyTorch versions instead (on any device); on a CPU tensor
@@ -48,7 +52,8 @@ from nrsc5_tpu_torch.ops import rcplx as rc
 from nrsc5_tpu_torch.ops import sync_fm as SF
 from nrsc5_tpu_torch.ops.acquire_rc import (coarse_timing_rc,
                                             coarse_timing_rc_plain,
-                                            demod_fold, demod_fold_plain)
+                                            demod_fold_bf16,
+                                            demod_fold_bf16_plain)
 from nrsc5_tpu_torch.ops.costas import TWO_PI, costas_track_rc_plain, wrap_pi
 from nrsc5_tpu_torch.ops.decode_fm import (p1_decode, pids_decode,
                                            px_deinterleave, px_fec)
@@ -371,8 +376,9 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj,
     new_phase, new_freq) where it is given.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (one CTA per station; it writes whole new Costas rows and the PX
-    channels' soft bits)."""
+    (a cluster of 8 CTAs per station, each equalizing and demapping 4 of
+    the 32 symbols; it writes whole new Costas rows and the PX channels'
+    soft bits)."""
     if spectra.device.type == "cpu":
         res = sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi,
                                   timing_adj)
@@ -427,9 +433,9 @@ def scan_blocks(samples, carry: ChainCarryRC, n_blocks: int, psmi: int = 1,
     """The per-block acquire + sync loop, with no host work and no
     allocation in its body, so that a CUDA graph can replay it
     (:mod:`nrsc5_tpu_torch.pipeline.block_graph`).  samples: [S, N, 2]
-    conjugated rc.  Each block runs K2 (into a reused buffer), the DFT, K4
-    (its pm, PX soft bits and diagnostics straight into slot b of
-    block-major buffers) and the carry step K5.  Reads only the carry's
+    conjugated rc.  Each block runs K2 (its bf16 fold into a reused
+    buffer), the DFT kernel, K4 (its pm, PX soft bits and diagnostics
+    straight into slot b of block-major buffers) and the carry step K5.  Reads only the carry's
     loop fields (offset, phase, prev_angle, costas_phase, costas_freq,
     samperr_fb, angle_fb, cfo).  Returns {"pm": int8 [n_blocks, S, 23040],
     "diag": {"samperr", "error_lb", "error_ub": [n_blocks, S]}, "px":
@@ -437,7 +443,8 @@ def scan_blocks(samples, carry: ChainCarryRC, n_blocks: int, psmi: int = 1,
     ``psmi`` carries, "carry": {field: [S, ...]} after the last block};
     :func:`finish_scan` makes the station-major outputs and the carry."""
     s, dev = samples.shape[0], samples.device
-    fold = demod_fold_plain if plain else demod_fold
+    fold = demod_fold_bf16_plain if plain else demod_fold_bf16
+    dft = rc.dft_bf16_plain if plain else rc.dft_bf16
     sync = sync_block_rc_plain if plain else sync_block_rc
     shapes = sync_block_shapes(s, psmi)
 
@@ -459,17 +466,16 @@ def scan_blocks(samples, carry: ChainCarryRC, n_blocks: int, psmi: int = 1,
     phase = (carry.phase.clone(), empty((s, 2)))
     cph = (carry.costas_phase.clone(), empty((s, C.FFT_FM)))
     cfr = (carry.costas_freq.clone(), empty((s, C.FFT_FM)))
-    folded = empty((s, C.BLKSZ, C.FFT_FM, 2))
-    spectra = torch.empty_like(folded)
-    rounded = torch.empty_like(folded, dtype=torch.bfloat16)
+    folded = empty((s, C.BLKSZ, C.FFT_FM, 2), torch.bfloat16)
+    spectra = empty((s, C.BLKSZ, C.FFT_FM, 2))
     keep = empty((s,), torch.int32)
     block_carry(None, None, None, state, True, plain)
     for b in range(n_blocks):
         i, j = b % 2, (b + 1) % 2
-        run_into(demod_fold, fold, plain,
+        run_into(demod_fold_bf16, fold, plain,
                  (samples, state["offset"], phase[i], state["samperr"],
                   state["angle"], carry.cfo), (folded, phase[j], keep))
-        rc.dft_into(folded, spectra, rounded, shift=True)
+        run_into(rc.dft_bf16, dft, plain, (folded,), spectra)
         out = {"pm": pm[b], "angle": k4_angle, **ref,
                **{k: v[b] for k, v in diag.items()},
                **{k: v[b] for k, v in px.items()}}
@@ -606,8 +612,8 @@ def _unit_phase(s: int, device) -> torch.Tensor:
 def coldstart_probe_rc(samples, plain: bool = False):
     """Probe 1, for every station: coarse CP-correlation timing on the
     first 33-symbol window (K9), demodulate that window with the phasor
-    1, the timing's angle and CFO 0 (K2, the DFT), and run the batched
-    CFO × offset needle search (K3, the needle count).
+    1, the timing's angle and CFO 0 (K2's bf16 fold, the DFT kernel), and
+    run the batched CFO × offset needle search (K3, the needle count).
 
     samples: [S, >= WINDOW_FM, 2] conjugated rc.  Returns (samperr int32
     [S], angle float32 [S], count int32 [S, 76, 32])."""
@@ -616,31 +622,32 @@ def coldstart_probe_rc(samples, plain: bool = False):
     samperr, max_v = timing(samples)
     angle = rc.angle(max_v)
     zero = torch.zeros(s, dtype=torch.int32, device=dev)
-    fold = demod_fold_plain if plain else demod_fold
+    fold = demod_fold_bf16_plain if plain else demod_fold_bf16
+    dft = rc.dft_bf16_plain if plain else rc.dft_bf16
     folded, _, _ = fold(samples, zero, _unit_phase(s, dev), samperr, angle,
                         zero)
-    count = detect_cfo_scan_rc(rc.dft(folded, shift=True), plain=plain)
+    count = detect_cfo_scan_rc(dft(folded), plain=plain)
     return samperr, angle, count
 
 
 def bc_probe_rc(samples, offset, angle, cfo, plain: bool = False):
     """Probe 2, for every station: demodulate one block at ``offset`` (int32
-    [S]) with the phasor 1, samperr FFTCP//2, ``angle`` and ``cfo`` (K2, the
-    DFT), and read the reference subcarriers' control words with a fresh
-    Costas state (K4).
+    [S]) with the phasor 1, samperr FFTCP//2, ``angle`` and ``cfo`` (K2's
+    bf16 fold, the DFT kernel), and read the reference subcarriers'
+    control words with a fresh Costas state (K4).
 
     Returns (ref_ok bool [S, 2R], ref_bc int32 [S, 2R], ref_psmi int32
     [S, 2R])."""
     s, dev = samples.shape[0], samples.device
     samperr = torch.full((s,), C.FFTCP_FM // 2, dtype=torch.int32,
                          device=dev)
-    fold = demod_fold_plain if plain else demod_fold
+    fold = demod_fold_bf16_plain if plain else demod_fold_bf16
+    dft = rc.dft_bf16_plain if plain else rc.dft_bf16
     folded, _, _ = fold(samples, offset, _unit_phase(s, dev), samperr, angle,
                         cfo)
     zeros = torch.zeros(s, C.FFT_FM, dtype=torch.float32, device=dev)
     sync = sync_block_rc_plain if plain else sync_block_rc
-    out, _, _ = sync(rc.dft(folded, shift=True), zeros, zeros, 1,
-                     torch.zeros_like(samperr))
+    out, _, _ = sync(dft(folded), zeros, zeros, 1, torch.zeros_like(samperr))
     return out["ref_ok"], out["ref_bc"], out["ref_psmi"]
 
 

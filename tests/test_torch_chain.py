@@ -160,15 +160,16 @@ def block_window():
 
 def _demod_both(win, phase, samperr, angle, cfo):
     """The reference's ``demod_rc`` on one window, and its port: K2 on a
-    one-station buffer whose window starts at 0, then the DFT matmul."""
+    one-station buffer whose window starts at 0 (its bf16 fold), then the
+    DFT kernel's wrapper."""
     j = JAQ.demod_rc(jnp.asarray(win), jnp.asarray(phase), jnp.int32(samperr),
                      jnp.float32(angle), jnp.int32(cfo))
-    folded, phase_out, keep = TAQ.demod_fold(
+    folded, phase_out, keep = TAQ.demod_fold_bf16(
         _t(win)[None], torch.zeros(1, dtype=torch.int32), _t(phase)[None],
         torch.tensor([samperr], dtype=torch.int32),
         torch.tensor([angle], dtype=torch.float32),
         torch.tensor([cfo], dtype=torch.int32))
-    t = (rc.dft(folded[0], shift=True), phase_out[0], keep[0])
+    t = (rc.dft_bf16(folded[0]), phase_out[0], keep[0])
     return [np.asarray(a) for a in j], [b.numpy() for b in t]
 
 

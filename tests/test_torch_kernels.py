@@ -25,7 +25,15 @@ Tolerances:
   does and calls the same float32 functions, so an equalized value could
   move across a decision threshold only by a last-bit difference of sin,
   cos or atan2 between the kernel's build and PyTorch's;
-- K2 (demod fold), K3 (Costas) and the float outputs of K4 (sync block)
+- K2's bf16 fold within one bf16 ulp of its plain version (the float32
+  fold rounded by ``.to(torch.bfloat16)``), the share that differs
+  printed: float32 sin and cos may differ in the last bit between the
+  kernel's build and PyTorch's, and rounding can carry that one bf16 step;
+- the DFT kernel (``dft_bf16``) within 1e-5 of each row's largest
+  magnitude: it forms the plain version's products (bf16 x bf16, exact in
+  float32) and sums them in another order; two launches, and a launch
+  inside a CUDA graph, give the same bits (a fixed K order, no atomics);
+- K2's phase_out, K3 (Costas) and the float outputs of K4 (sync block)
   within 1e-5 of the largest value (at least 1): float32 sin, cos and
   atan2 may differ in the last bit between the kernel's build and
   PyTorch's (K4's plain version sums in K4's order and divides by numbers
@@ -104,8 +112,21 @@ def test_halfband_cu8(card):
         FE.ingest_fm_cu8(wire.float())
 
 
+def _bf16_steps(a, b):
+    """How many bf16 values lie between each pair of entries of two bf16
+    tensors (+0 and -0 one value): 1 is one bf16 ulp."""
+    def ordered(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
 @pytest.mark.parametrize("cfo", [-7, 0, 5])
 def test_demod_fold(card, cfo):
+    """K2's bf16 fold against its plain version (the float32 fold rounded
+    by ``.to(torch.bfloat16)``): within one bf16 ulp everywhere, the share
+    of entries that differ printed (shown with ``-rP``); phase_out within
+    1e-5, keep exact."""
     g = torch.Generator().manual_seed(2)
     s = 3
     samples = torch.randn(s, AQ.WINDOW_FM + 5000, 2, generator=g).to(card)
@@ -116,11 +137,95 @@ def test_demod_fold(card, cfo):
     angle = torch.tensor([0.01, -0.3, 0.2], device=card)
     cfos = torch.full((s,), cfo, dtype=torch.int32, device=card)
     args = (samples, offset, phase, samperr, angle, cfos)
-    for got, want in zip(AQ.demod_fold(*args), AQ.demod_fold_plain(*args)):
-        if want.dtype == torch.int32:
-            assert torch.equal(got, want)
-        else:
-            _close(got, want, 1e-5)
+    before = K.COUNTS["demod_fold"]
+    folded, ph, keep = AQ.demod_fold_bf16(*args)
+    assert K.COUNTS["demod_fold"] == before + 1
+    p_folded, p_ph, p_keep = AQ.demod_fold_bf16_plain(*args)
+    assert folded.dtype == torch.bfloat16 and folded.shape == p_folded.shape
+    steps = _bf16_steps(folded, p_folded)
+    print(json.dumps({"demod_fold_cfo": cfo, "bf16_differ_share":
+                      (steps > 0).float().mean().item()}))
+    assert steps.max().item() <= 1
+    _close(ph, p_ph, 1e-5)
+    assert torch.equal(keep, p_keep)
+
+
+def _dft_operand(card, rows, seed):
+    """``rows`` rows of bf16 rc symbols, [rows / 32, 32, 2048, 2], from a
+    numpy seed: Gaussian, at the fold's scale."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, 0.05, (rows // C.BLKSZ, C.BLKSZ, C.FFT_FM, 2))
+    return torch.from_numpy(x.astype(np.float32)).to(card).to(torch.bfloat16)
+
+
+def _rows_close(got, want, tol=1e-5):
+    """Every entry within ``tol`` of its row's largest magnitude (a row:
+    one symbol's 4096 interleaved outputs)."""
+    g, w = got.view(-1, 2 * C.FFT_FM), want.view(-1, 2 * C.FFT_FM)
+    scale = w.abs().amax(dim=1, keepdim=True)
+    assert ((g - w).abs() <= tol * scale).all()
+
+
+@pytest.mark.parametrize("rows", [512, 32])
+def test_dft_bf16(card, rows):
+    """The DFT kernel against its plain version (the float32 matmul on
+    the same bf16 operands) at the dispatch's 512 rows and at one
+    station's 32 (a ragged tile); two launches give the same bits."""
+    a = _dft_operand(card, rows, 80 + rows)
+    before = K.COUNTS["dft_bf16"]
+    got = rc.dft_bf16(a)
+    assert K.COUNTS["dft_bf16"] == before + 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _rows_close(got, rc.dft_bf16_plain(a))
+    assert torch.equal(got, rc.dft_bf16(a))
+    out = torch.full_like(got, float("nan"))
+    assert rc.dft_bf16(a, out=out) is out and torch.equal(out, got)
+
+
+def test_dft_bf16_fold(card):
+    """The DFT kernel on what the chain gives it: K2's bf16 fold of three
+    stations' blocks, against the plain version within the stated
+    tolerance."""
+    rng = np.random.default_rng(81)
+    caps = [_capture(rng, 1, 0, f) for f in (0.0, 20.0, -35.0)]
+    x = torch.from_numpy(np.stack(caps)).to(card)
+    s = x.shape[0]
+    folded = AQ.demod_fold_bf16(
+        x, torch.zeros(s, dtype=torch.int32, device=card),
+        torch.tensor([[1.0, 0.0]], device=card).repeat(s, 1),
+        torch.full((s,), C.FFTCP_FM // 2, dtype=torch.int32, device=card),
+        torch.zeros(s, device=card),
+        torch.zeros(s, dtype=torch.int32, device=card))[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _rows_close(rc.dft_bf16(folded), rc.dft_bf16_plain(folded))
+
+
+def test_dft_bf16_graph(card):
+    """The DFT kernel captured in a CUDA graph gives the eager bits."""
+    a = _dft_operand(card, 512, 82)
+    eager = rc.dft_bf16(a)
+    out = torch.empty_like(eager)
+    rc.dft_bf16(a, out=out)  # warm-up: the table is built outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rc.dft_bf16(a, out=out)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def test_dft_bf16_refuses(card):
+    """The wrapper takes bf16 [..., N, 2] with 2N a multiple of 128."""
+    a = _dft_operand(card, 32, 83)
+    with pytest.raises(ValueError):
+        rc.dft_bf16(a.float())
+    with pytest.raises(ValueError):
+        rc.dft_bf16(a[..., :100, :].contiguous())
+    with pytest.raises(ValueError):
+        rc.dft_bf16(a, out=torch.empty(a.shape, device=card,
+                                       dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("with_cfo", [False, True])
@@ -871,8 +976,8 @@ def test_block_graph_fm(card, psmi):
     against the same kernels launched eagerly: every output (bits,
     margins, diagnostics, PX) and every carry field bit-identical over
     three chained dispatches of 32 blocks, from three stations at CFOs of
-    0, +40 and -75 Hz; the launch counts equal, K5 once a block and once
-    before the first."""
+    0, +40 and -75 Hz; the launch counts equal, K2, the DFT kernel and K4
+    once a block, K5 once a block and once before the first."""
     from nrsc5_tpu_torch import serve
     rng = np.random.default_rng(50 + psmi)
     wires = [_fm_stream(rng, psmi, 7, f) for f in (0.0, 40.0, -75.0)]
@@ -884,7 +989,8 @@ def test_block_graph_fm(card, psmi):
         for g in (False, True)}
     _same_runs(runs[False], runs[True])
     assert runs[True][0][2]["block_carry"] == 33
-    assert runs[True][0][2]["sync_block"] == 32
+    for name in ("demod_fold", "dft_bf16", "sync_block"):
+        assert runs[True][0][2][name] == 32
 
 
 @pytest.mark.parametrize("ma3", [False, True])
