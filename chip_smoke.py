@@ -15,7 +15,8 @@ Phases, each printing one JSON line:
    tone estimate, coarse timing and CFO step, K15, and K16a-d of batched
    HDC audio) built from the twenty-two sources of
    ``nrsc5_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``, one process per
-   source, all in parallel;
+   source, all in parallel, with ptxas's registers, shared memory and
+   stack frames of every kernel;
 3. signal: 16 stations of MP1, each modulated once with the port's ``tx``
    copy from random bits of a fixed seed: 2 lead blocks (block counts 14
    and 15), then 2 P1 frames.  From that one baseband come two cu8 wires
@@ -58,7 +59,10 @@ Phases, each printing one JSON line:
    on the AM P1; K14's three kernels at the AM cold start's first probe
    block, K1's AM cascade on the cu8 AM wire; K16a-d one after the other
    on a batch of the audio fleet, 128 lanes x 8 packets; K5's two carry
-   steps on block 1's state);
+   steps on block 1's state).  K7's lines (K=7: P1, PIDS, PX1; K=9: P1,
+   P3 of MA1 and MA3, PIDS) hold bits and margins exact and add the
+   kernel on the first segment alone, the chain one segment cannot go
+   below, with its cycles a step at the SM clock nvidia-smi reads;
 5. coldstart: ``serve.cold_start`` on the capture must lock 16/16 stations
    with the true |CFO| under one sign convention, first_bc 14 and psmi 1;
    then ``serve.chain_step`` from the locks over 34 blocks must decode
@@ -417,6 +421,15 @@ def count_plain_calls() -> tuple[dict, callable]:
         for mod, name, fn in undo:
             setattr(mod, name, fn)
     return counts, restore
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock ``nvidia-smi`` reads now, in MHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    return float(out.strip().splitlines()[0])
 
 
 def capture_len() -> int:
@@ -1507,23 +1520,32 @@ def main() -> int:
             pext = got
 
     # --- K7: Viterbi on those P1 segments and PIDS frames (and, below,
-    # the MP3 PX frames) ---
-    err = 0.0  # over bits (0/1) and margins, both shapes; must be exact
-    for ext in (segs, pext):
-        kb, km = CV.acs_traceback(ext, C.CONV_K7_GEN)
-        pb, pmg = CV.acs_traceback_plain(ext, C.CONV_K7_GEN)
-        err = max(err, (kb.int() - pb.int()).abs().max().item(),
+    # the MP3 PX frames); bits and margins exact.  Beside each line: the
+    # kernel on the first segment alone, the chain one segment cannot go
+    # below, and its cycles a step at the SM clock nvidia-smi reads ---
+    def viterbi_line(name, ext, gens, k, case, plain_reps, plain_inner):
+        kb, km = CV.acs_traceback(ext, gens, k)
+        pb, pmg = CV.acs_traceback_plain(ext, gens, k)
+        err = max((kb.int() - pb.int()).abs().max().item(),
                   (km - pmg).abs().max().item())
-    b_seg, n_st = segs.shape[0], segs.shape[1]
-    check("viterbi_k7", err, 0.0,
-          lambda: CV.acs_traceback(segs, C.CONV_K7_GEN),
-          lambda: CV.acs_traceback_plain(segs, C.CONV_K7_GEN),
-          bound(b_seg * n_st * (12 + 1) + b_seg * 4,
-                b_seg * n_st * (64 * 3 + 16)),
-          None, [b_seg, n_st, 3], plain_reps=3, plain_inner=1)
-    report["viterbi_k7"]["pids_ms"] = time_ms(
-        torch, lambda: CV.acs_traceback(pext, C.CONV_K7_GEN), graph=True)
-    report["viterbi_k7"]["pids_shape"] = list(pext.shape)
+        b_seg, n_st = ext.shape[0], ext.shape[1]
+        one = ext[:1].contiguous()
+        lone_ms = time_ms(torch, lambda: CV.acs_traceback(one, gens, k),
+                          graph=True)
+        mhz = sm_clock_mhz()
+        check(name, err, 0.0,
+              lambda: CV.acs_traceback(ext, gens, k),
+              lambda: CV.acs_traceback_plain(ext, gens, k),
+              bound(b_seg * n_st * (12 + 1) + b_seg * 4,
+                    b_seg * n_st * ((1 << (k - 1)) * 3 + 16)),
+              None, [b_seg, n_st, 3], plain_reps=plain_reps,
+              plain_inner=plain_inner, case=case,
+              chain_floor_ms=lone_ms, clocks_sm_mhz=mhz,
+              chain_cycles_a_step=lone_ms * 1e-3 * mhz * 1e6 / n_st)
+        return kb
+
+    viterbi_line("viterbi_k7", segs, C.CONV_K7_GEN, 7, None, 3, 1)
+    viterbi_line("viterbi_k7", pext, C.CONV_K7_GEN, 7, "pids", 3, 2)
 
     # --- K11: the MP3 deinterleave, 16 stations x 16 pairs: the first
     # MP3 dispatch's own PX1 soft bits, from a random IV state and phases;
@@ -1559,16 +1581,7 @@ def main() -> int:
             px_ext = got[0]
 
     # --- K7 on the MP3 PX frames: 256 frames of 4672 steps ---
-    kb, km = CV.acs_traceback(px_ext, C.CONV_K7_GEN)
-    pb, pmg = CV.acs_traceback_plain(px_ext, C.CONV_K7_GEN)
-    err = max((kb.int() - pb.int()).abs().max().item(),
-              (km - pmg).abs().max().item())
-    check("viterbi_k7", err, 0.0,
-          lambda: CV.acs_traceback(px_ext, C.CONV_K7_GEN),
-          lambda: CV.acs_traceback_plain(px_ext, C.CONV_K7_GEN),
-          bound(px_ext.numel() // 3 * (12 + 1) + px_ext.shape[0] * 4,
-                px_ext.numel() // 3 * (64 * 3 + 16)),
-          None, list(px_ext.shape), plain_reps=1, plain_inner=1, case="px")
+    viterbi_line("viterbi_k7", px_ext, C.CONV_K7_GEN, 7, "px", 1, 1)
 
     # --- K8: kept bits, re-encode bit errors, descramble, pack, on K7's
     # bits of the P1 segments (with their soft bits), PIDS and PX frames,
@@ -1706,20 +1719,8 @@ def main() -> int:
 
     for key, gens in (("p1", C.CONV_E1_GEN), ("p3_ma1", C.CONV_E2_E3_GEN),
                       ("p3_ma3", C.CONV_E1_GEN), ("pids", C.CONV_E2_E3_GEN)):
-        ext = k9[key]
-        kb, km = CV.acs_traceback(ext, gens, 9)
-        pb, pmg = CV.acs_traceback_plain(ext, gens, 9)
-        err = max((kb.int() - pb.int()).abs().max().item(),
-                  (km - pmg).abs().max().item())
-        b_seg, n_st = ext.shape[0], ext.shape[1]
-        check("viterbi_k9", err, 0.0,
-              lambda ext=ext, gens=gens: CV.acs_traceback(ext, gens, 9),
-              lambda ext=ext, gens=gens: CV.acs_traceback_plain(ext, gens,
-                                                                9),
-              bound(b_seg * n_st * (12 + 1) + b_seg * 4,
-                    b_seg * n_st * 256 * 8),
-              None, [b_seg, n_st, 3], plain_reps=1, plain_inner=1,
-              case=None if key == "p1" else key)
+        kb = viterbi_line("viterbi_k9", k9[key], gens, 9,
+                          None if key == "p1" else key, 1, 1)
         if key == "p1":
             am_p1_bits = kb
 

@@ -52,8 +52,9 @@ SIGNATURES = {
     # refs, phase0, freq0, cfo_freq, derot, phases, ph_out, fr_out,
     # n_steps, n_tracks, alpha, beta, two_pi, stream
     "costas_track": (P, P, P, P, P, P, P, P, I, I, F, F, F, P),
-    # ext, bits, margin, n_seg, n_steps, g0, g1, g2, stream
-    "viterbi_k7": (P, P, P, I, I, I, I, I, P),
+    # ext, bits, margin, scratch, scratch_bytes, n_seg, n_steps, g0, g1,
+    # g2, stream
+    "viterbi_k7": (P, P, P, P, L, I, I, I, I, I, P),
     # spectra, costas_phase, costas_freq, timing_adj, sync_signs,
     # needle_vals, needle_known, pm, ref_ok, ref_bc, ref_psmi, samperr,
     # angle, error_lb, error_ub, new_phase, new_freq, px1, px2, px_cols,
@@ -78,8 +79,9 @@ SIGNATURES = {
     # derot, needle_vals, needle_known, count, n_stations, n_cfo, n_refs,
     # stream
     "needle_count": (P, P, P, P, I, I, I, P),
-    # ext, bits, margin, n_seg, n_steps, g0, g1, g2, stream
-    "viterbi_k9": (P, P, P, I, I, I, I, I, P),
+    # ext, bits, margin, scratch, scratch_bytes, n_seg, n_steps, g0, g1,
+    # g2, stream
+    "viterbi_k9": (P, P, P, P, L, I, I, I, I, I, P),
     # samples, n_samples, offset, phase, samperr_fb, prev_angle, cfo,
     # shape, pilot, folded, phase_out, prev_angle_out, keep, n_stations,
     # stream
@@ -225,17 +227,28 @@ def build(names=None) -> dict:
             "ptxas": logs}
 
 
-def _func(name: str):
-    fn = _FUNCS.get(name)
+def _func(name: str, symbol: str | None = None, argtypes=None,
+          restype=ctypes.c_int):
+    """Entry point ``symbol`` (default: the kernel's own) of the library
+    that holds kernel ``name``, built at first use."""
+    symbol = symbol or name
+    fn = _FUNCS.get(symbol)
     if fn is None:
         path = library_path(name)
         if not path.exists():
             build([name])
-        fn = getattr(ctypes.CDLL(str(path)), name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        _FUNCS[name] = fn
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes = SIGNATURES[name] if argtypes is None else argtypes
+        fn.restype = restype
+        _FUNCS[symbol] = fn
     return fn
+
+
+def query(name: str, symbol: str, *args: int) -> int:
+    """Call ``symbol``, a host function in the library of kernel ``name``
+    (``extern "C" long long symbol(int, ...)``) that answers what a launch
+    needs before the wrapper allocates for it.  Counts nothing."""
+    return _func(name, symbol, (I,) * len(args), L)(*args)
 
 
 def launch(name: str, *args, device: torch.device) -> None:

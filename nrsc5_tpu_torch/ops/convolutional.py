@@ -40,10 +40,9 @@ CHUNK = 1152  # FM's chunk plan (K=7)
 OVERLAP = 96
 CHUNK_AM = 1024  # AM's chunk plan (K=9; reference decode_am.py:160, 165)
 OVERLAP_AM = 160
-# dynamic shared memory of K7 caps its segment length: at K=7 8 bytes a
-# step plus 640 bytes a warp, four warps a block; at K=9 32 bytes a step
-# plus 1408 bytes a warp, two warps a block; 227 KB a block
-MAX_STEPS = {7: 7000, 9: 3400}
+# K7's segment length: path metrics stay below 2^24 (381 a step at most),
+# exact in the plain version's float32 and in the kernel's int32
+MAX_STEPS = 32768
 
 
 # ---------------------------------------------------------------------------
@@ -207,24 +206,36 @@ def acs_traceback(ext: torch.Tensor, gens: tuple[int, int, int],
     """K7: the arguments and results of :func:`acs_traceback_plain`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel of constraint length ``k`` (one warp per segment:
-    ``viterbi_k7`` or ``viterbi_k9``).  Bits and margins equal the plain
-    version's exactly for integer-valued LLRs, the chains' case."""
+    kernel of constraint length ``k`` (``viterbi_k7``: two segments a
+    warp; ``viterbi_k9``: one), which writes its survivor decisions to a
+    scratch tensor allocated here at the size the kernel's library gives
+    (``viterbi_k<k>_scratch_bytes``).  The kernel takes integer LLRs in
+    [-127, 127] (what K6, K11 and K15 produce) and keeps integer path
+    metrics; its bits and margins then equal the plain version's exactly.
+    It raises on a constraint length, generator set or shape the kernel
+    does not take."""
     if ext.device.type == "cpu":
         return acs_traceback_plain(ext, gens, k)
-    if k not in MAX_STEPS:
+    if k not in (7, 9):
         raise ValueError(f"K7 takes constraint length 7 or 9, not {k}")
     if ext.ndim != 3 or ext.shape[-1] != 3:
         raise ValueError(f"ext: expected [B, L, 3], got {tuple(ext.shape)}")
     b, length, _ = ext.shape
-    if not 0 < length <= MAX_STEPS[k] or b == 0:
+    if not 0 < length <= MAX_STEPS or b == 0:
         raise ValueError(f"ext: {b} segments of {length} steps (K7 takes "
-                         f"1..{MAX_STEPS[k]} steps at K={k})")
+                         f"1..{MAX_STEPS} steps)")
     K.check(ext, "ext", torch.float32)
+    name = f"viterbi_k{k}"
+    nbytes = K.query(name, f"{name}_scratch_bytes", b, length, *gens)
+    if nbytes < 0:
+        raise ValueError(f"K7 at K={k} does not hold the generators "
+                         f"{tuple(gens)}")
     bits = torch.empty(b, length, dtype=torch.uint8, device=ext.device)
     margin = torch.empty(b, dtype=torch.float32, device=ext.device)
-    K.launch(f"viterbi_k{k}", ext.data_ptr(), bits.data_ptr(),
-             margin.data_ptr(), b, length, *gens, device=ext.device)
+    scratch = torch.empty(nbytes // 4, dtype=torch.int32, device=ext.device)
+    K.launch(name, ext.data_ptr(), bits.data_ptr(), margin.data_ptr(),
+             scratch.data_ptr(), nbytes, b, length, *gens,
+             device=ext.device)
     return bits, margin
 
 
@@ -242,7 +253,9 @@ def viterbi_decode(llr: torch.Tensor, gens: tuple[int, int, int],
     Returns (bits [..., T] uint8, margin [...] float32).  The trellis is
     extended by 32 wrap steps on each side and their decisions dropped
     (reference: src/conv_dec.c:407-412).  ``plain`` runs K7's plain
-    version."""
+    version.  On a CUDA tensor the LLRs must be integers in [-127, 127]
+    (K7's input contract, :func:`acs_traceback`): the kernel rounds any
+    other value, so only integer LLRs give the plain version's bits."""
     llr = llr.float()
     t = llr.shape[-2]
     batch = llr.shape[:-2]
@@ -262,8 +275,9 @@ def viterbi_decode_chunked(llr: torch.Tensor, gens: tuple[int, int, int],
     segment's middle bits are kept.  A frame no longer than one segment
     takes :func:`viterbi_decode`.
 
-    llr: [..., T, 3].  Returns (bits [..., T] uint8, margin [...] float32
-    — the minimum per-segment metric margin)."""
+    llr: [..., T, 3], integers in [-127, 127] on a CUDA tensor, as for
+    :func:`viterbi_decode`.  Returns (bits [..., T] uint8, margin [...]
+    float32 — the minimum per-segment metric margin)."""
     llr = llr.float()
     t = llr.shape[-2]
     if CHUNK + 2 * OVERLAP >= t:

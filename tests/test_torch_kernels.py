@@ -245,20 +245,120 @@ def test_costas_track(card, with_cfo):
         _close(a, b, 1e-5)
 
 
-@pytest.mark.parametrize("length,sigma", [(144, 0.5), (1343, 0.5),
-                                          (1343, 1.2)])
-def test_viterbi_k7(card, length, sigma):
-    rng = np.random.default_rng(4)
-    b = 70
-    bits = rng.integers(0, 2, (b, length)).astype(np.uint8)
-    coded = CV.conv_encode(bits, 7, C.CONV_K7_GEN).reshape(b, length, 3)
-    soft = (coded * 2.0 - 1.0) * 40 + rng.normal(0, sigma * 40, coded.shape)
-    ext = torch.from_numpy(np.clip(np.round(soft), -127, 127)
-                           .astype(np.float32)).to(card)
-    kb, km = CV.acs_traceback(ext, C.CONV_K7_GEN)
-    pb, pm = CV.acs_traceback_plain(ext, C.CONV_K7_GEN)
-    assert torch.equal(kb, pb)
-    assert torch.equal(km, pm)
+def _viterbi_ext(kind, k, gens, segs, length, seed):
+    """[segs, length, 3] integer LLRs on the card: coded bits with noise
+    and a third of one column punctured (soft), coded +-1 with 20 % zeros
+    and 5 % flips (am), every state tied (zeros), all +-127 (sat)."""
+    rng = np.random.default_rng(seed)
+    shape = (segs, length, 3)
+    if kind == "zeros":
+        x = np.zeros(shape)
+    elif kind == "sat":
+        x = rng.choice([-127.0, 127.0], shape)
+    else:
+        bits = rng.integers(0, 2, (segs, length)).astype(np.uint8)
+        x = CV.conv_encode(bits, k, gens).reshape(shape) * 2.0 - 1.0
+        if kind == "am":
+            x[rng.random(shape) < 0.05] *= -1
+            x[rng.random(shape) < 0.2] = 0.0
+        else:
+            x = np.clip(np.round(x * 40 + rng.normal(0, 40, shape)), -127,
+                        127)
+            x[:, :, 2][rng.random((segs, length)) < 0.3] = 0.0
+    return torch.from_numpy(x.astype(np.float32)).to("cuda")
+
+
+def _viterbi_check(ext, gens, k):
+    """K7 once (one launch of its own kernel, none of the other's), held
+    to the plain version: bits and margins exact."""
+    other = f"viterbi_k{16 - k}"
+    before = K.COUNTS[f"viterbi_k{k}"], K.COUNTS[other]
+    kb, km = CV.acs_traceback(ext, gens, k)
+    assert (K.COUNTS[f"viterbi_k{k}"], K.COUNTS[other]) == (
+        before[0] + 1, before[1])
+    pb, pm = CV.acs_traceback_plain(ext, gens, k)
+    assert torch.equal(kb, pb), int((kb != pb).sum())
+    assert torch.equal(km, pm), int((km != pm).sum())
+
+
+@pytest.mark.parametrize("segs,length", [
+    (4064, 1343), (512, 144), (256, 4672), (1, 1343), (33, 1343),
+    (4065, 1343), (5, 7), (3, 191)])
+@pytest.mark.parametrize("kind", ["soft", "zeros", "sat"])
+def test_viterbi_k7(card, segs, length, kind):
+    """K7 at K=7 at the chain shapes (P1 segments, PIDS blocks, PX1
+    frames), ragged segment counts (two segments a warp) and short
+    segments, on noisy coded LLRs, all-tie input and saturated input."""
+    ext = _viterbi_ext(kind, 7, C.CONV_K7_GEN, segs, length, segs + length)
+    _viterbi_check(ext, C.CONV_K7_GEN, 7)
+
+
+def test_viterbi_k7_chain_inputs(card):
+    """K7 at K=7 on the chains' own inputs: K6's P1 segments and PIDS
+    blocks and K11's PX1 frames, from random int8 soft bits."""
+    pm = _pm(9, 16, 32).to(card)
+    _viterbi_check(DF.fec_gather(pm.view(16, 2, -1), "p1"), C.CONV_K7_GEN,
+                   7)
+    _viterbi_check(DF.fec_gather(pm, "pids"), C.CONV_K7_GEN, 7)
+    g = torch.Generator().manual_seed(97)
+    fl = C.P3_FRAME_LEN_MP3_MP11
+    _, n, calls = DF.IL.p3_iv_tables(fl)
+    llr = torch.randint(-127, 128, (16, 32, fl), generator=g,
+                        dtype=torch.int8).to(card)
+    internal = torch.randint(-127, 128, (16, n), generator=g,
+                             dtype=torch.int8).to(card)
+    phase = torch.randint(0, calls, (16,), generator=g,
+                          dtype=torch.int32).to(card)
+    ext = DF.px_deinterleave(llr, internal, phase)[0]
+    assert tuple(ext.shape) == (256, 4672, 3)
+    _viterbi_check(ext, C.CONV_K7_GEN, 7)
+
+
+def test_viterbi_refuses(card):
+    """K7's wrapper raises on what its kernels do not take: another
+    constraint length or generator set, another dtype or shape, a strided
+    tensor, no segment, too many steps; and counts no launch."""
+    ext = _viterbi_ext("soft", 7, C.CONV_K7_GEN, 4, 40, 1)
+    counts = dict(K.COUNTS)
+    with pytest.raises(ValueError, match="constraint length"):
+        CV.acs_traceback(ext, C.CONV_K7_GEN, 8)
+    with pytest.raises(ValueError, match="generators"):
+        CV.acs_traceback(ext, C.CONV_E1_GEN, 7)
+    with pytest.raises(ValueError, match="generators"):
+        CV.acs_traceback(ext, (0o133, 0o171, 0o164), 7)
+    with pytest.raises(ValueError, match="generators"):
+        CV.acs_traceback(ext, C.CONV_K7_GEN, 9)
+    with pytest.raises(ValueError):
+        CV.acs_traceback(ext.double(), C.CONV_K7_GEN)
+    with pytest.raises(ValueError):
+        CV.acs_traceback(ext[..., :2].contiguous(), C.CONV_K7_GEN)
+    with pytest.raises(ValueError):
+        CV.acs_traceback(ext[:, ::2], C.CONV_K7_GEN)
+    with pytest.raises(ValueError):
+        CV.acs_traceback(ext[:0], C.CONV_K7_GEN)
+    with pytest.raises(ValueError):
+        CV.acs_traceback(ext.new_zeros(1, CV.MAX_STEPS + 1, 3),
+                         C.CONV_K7_GEN)
+    assert K.COUNTS == counts
+
+
+@pytest.mark.parametrize("n_seg,n_steps", [(3, 10), (4064, 1343),
+                                            (255, 4672), (1, 1)])
+def test_viterbi_scratch_bytes(card, n_seg, n_steps):
+    """The scratch size K7's libraries give the wrapper: a uint32 ballot
+    word a state group a step, two segments a warp at K=7 (4 words a
+    step) and one at K=9 (8 words); -1 for a generator set a kernel does
+    not hold or an empty shape."""
+    want = {7: -(-n_seg // 2) * n_steps * 4 * 4, 9: n_seg * n_steps * 8 * 4}
+    for k, sets, other in ((7, (C.CONV_K7_GEN,), C.CONV_E1_GEN),
+                           (9, (C.CONV_E1_GEN, C.CONV_E2_E3_GEN),
+                            C.CONV_K7_GEN)):
+        name = f"viterbi_k{k}"
+        query = functools.partial(K.query, name, f"{name}_scratch_bytes")
+        for gens in sets:
+            assert query(n_seg, n_steps, *gens) == want[k]
+            assert query(0, n_steps, *gens) == -1
+        assert query(n_seg, n_steps, *other) == -1
 
 
 def _capture(rng, psmi, sample_offset, cfo_hz, n_blocks=2):
@@ -591,33 +691,38 @@ def test_am_gather(card, ma3, n_frames):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("length,gens", [
-    (144, C.CONV_E2_E3_GEN), (1258, C.CONV_E1_GEN),
-    (1320, C.CONV_E2_E3_GEN)])
-@pytest.mark.parametrize("llr", ["am", "soft"])
-def test_viterbi_k9(card, length, gens, llr):
-    """K7 at K=9 at the AM chain's segment lengths (PIDS, P1, P3): the
-    chain's LLRs (+-1 with punctured zeros and some flips) and integer
-    soft LLRs with noise."""
-    rng = np.random.default_rng(23 + length)
-    b = 70
-    bits = rng.integers(0, 2, (b, length)).astype(np.uint8)
-    coded = CV.conv_encode(bits, 9, gens).reshape(b, length, 3) * 2.0 - 1.0
-    if llr == "am":
-        coded[rng.random(coded.shape) < 0.05] *= -1
-        coded[rng.random(coded.shape) < 0.2] = 0.0
-        ext = coded
-    else:
-        ext = np.clip(np.round(coded * 40 + rng.normal(0, 40, coded.shape)),
-                      -127, 127)
-    ext = torch.from_numpy(ext.astype(np.float32)).to(card)
-    before = K.COUNTS["viterbi_k9"], K.COUNTS["viterbi_k7"]
-    kb, km = CV.acs_traceback(ext, gens, 9)
-    assert (K.COUNTS["viterbi_k9"], K.COUNTS["viterbi_k7"]) == (
-        before[0] + 1, before[1])
-    pb, pm = CV.acs_traceback_plain(ext, gens, 9)
-    assert torch.equal(kb, pb)
-    assert torch.equal(km, pm)
+@pytest.mark.parametrize("segs,length,gens", [
+    (1024, 1258, C.CONV_E1_GEN), (768, 1320, C.CONV_E2_E3_GEN),
+    (960, 1320, C.CONV_E1_GEN), (256, 144, C.CONV_E2_E3_GEN),
+    (1, 1258, C.CONV_E1_GEN), (33, 1320, C.CONV_E2_E3_GEN),
+    (4065, 144, C.CONV_E1_GEN), (5, 9, C.CONV_E1_GEN),
+    (3, 191, C.CONV_E2_E3_GEN)])
+@pytest.mark.parametrize("llr", ["am", "soft", "zeros", "sat"])
+def test_viterbi_k9(card, segs, length, gens, llr):
+    """K7 at K=9 at the AM chain's shapes (P1, P3 of MA1 and MA3, PIDS),
+    ragged segment counts and short segments: the chain's LLRs (+-1 with
+    punctured zeros and some flips), integer soft LLRs with noise,
+    all-tie input and saturated input."""
+    ext = _viterbi_ext(llr, 9, gens, segs, length, 23 + segs + length)
+    _viterbi_check(ext, gens, 9)
+
+
+@pytest.mark.parametrize("ma3", [False, True])
+def test_viterbi_k9_chain_inputs(card, ma3):
+    """K7 at K=9 on K15's own P1, P3 and PIDS segments of random codes and
+    delay lines (2 frames of 16 stations)."""
+    g = torch.Generator().manual_seed(41 + ma3)
+    s, nb = 16, 16
+    codes = torch.randint(0, 64, (s, nb, 4, 800), generator=g,
+                          dtype=torch.uint8).to(card)
+    pids = torch.randint(0, 16, (s, nb, 32, 2), generator=g,
+                         dtype=torch.uint8).to(card)
+    lines = torch.randint(0, 2, (s, 4, DA.DD), generator=g,
+                          dtype=torch.uint8).to(card)
+    p1, p3, pids_ext, _ = DA.am_gather(codes, pids, lines, ma3)
+    _viterbi_check(p1, C.CONV_E1_GEN, 9)
+    _viterbi_check(p3, C.CONV_E1_GEN if ma3 else C.CONV_E2_E3_GEN, 9)
+    _viterbi_check(pids_ext, C.CONV_E2_E3_GEN, 9)
 
 
 @pytest.mark.parametrize("name", ["am_p1", "am_p3_ma1", "am_p3_ma3",
