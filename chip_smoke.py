@@ -156,6 +156,7 @@ with no CUDA card it exits 2 before printing anything.
 from __future__ import annotations
 
 import cProfile
+import hashlib
 import json
 import math
 import multiprocessing
@@ -387,6 +388,16 @@ def profile_device(torch, fn) -> dict:
             "idle_share": 1 - busy / wall if spans else None,
             "top_ms": [[n[:80], t] for n, t in top],
             "gemm_spans": sum("gemm" in e.name.lower() for e in spans)}
+
+
+def tensors_sha256(tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order (each made contiguous and
+    copied to the host): a fingerprint that two trees' kernels can be held
+    to bit for bit in one run."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().view(np.uint8).tobytes())
+    return h.hexdigest()
 
 
 def bf16_steps(torch, a, b):
@@ -1331,7 +1342,9 @@ def main() -> int:
           ok=steps.max().item() <= 1 and phase_err <= 1e-5 and keep_same,
           bf16_ulps_max=steps.max().item(),
           bf16_differ_share=(steps > 0).float().mean().item(),
-          phase_out_max_abs_err=phase_err)
+          phase_out_max_abs_err=phase_err,
+          folded_sha256=tensors_sha256(
+              [folded_bf16[0].view(torch.int16), *folded_bf16[1:]]))
 
     # --- the DFT kernel on that bf16 fold (512 rows): its spectra against
     # the plain version (the float32 matmul on the same bf16 operands),
@@ -1959,6 +1972,7 @@ def main() -> int:
         serve.cold_start(capture)
         torch.cuda.synchronize()
         cs_times.append((time.perf_counter() - t0) * 1e3)
+    cs_device = profile_device(torch, lambda: serve.cold_start(capture))
     plain_locks = serve.cold_start(capture, plain=True)
     keys = ("offset", "first_bc", "psmi", "cfo")
     locks_same = all(pl is not None and all(pl[k] == lk[k] for k in keys)
@@ -1989,6 +2003,7 @@ def main() -> int:
           "launches_cold_start": counts_cs, "launches_dispatch": counts_cd,
           "cold_start_wall_ms": statistics.median(cs_times[1:]),
           "cold_start_wall_ms_runs": cs_times,
+          "cold_start_device_time": cs_device,
           "plain_same_locks": locks_same, "plain_same_bits": cs_same,
           "graph_same_as_eager": cs_graph_same,
           "dispatch_wall_ms_graph": cs_dispatch[True][0],

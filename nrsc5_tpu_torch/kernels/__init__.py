@@ -65,10 +65,11 @@ SIGNATURES = {
     # pm, k7_map, out, n_groups, frames_per_group, group_stride,
     # frame_stride, map_len, stream
     "fec_gather": (P, P, P, I, I, L, L, I, P),
-    # bits, keep, bits_per_frame, pm, code_map, frames_per_group,
-    # group_stride, frame_stride, keystream, out, errors, n_frames,
-    # frame_len, packed, g0, g1, g2, stream
-    "fec_epilogue": (P, P, I, P, P, I, L, L, P, P, P, I, I, I, I, I, I, P),
+    # bits, run_t, run_src, n_runs, src0, bits_per_frame, pm, inv, pm_len,
+    # frames_per_group, group_stride, frame_stride, keystream words, out,
+    # errors, n_frames, frame_len, packed, g0, g1, g2, stream
+    "fec_epilogue": (P, P, P, I, I, I, P, P, I, I, L, L, P, P, P, I, I, I,
+                     I, I, I, P),
     # llr, internal, phase, read_idx, hazard, k7_map, ext, new_internal,
     # new_phase, n_stations, pairs, frame_len, state_len, calls, map_len,
     # stream

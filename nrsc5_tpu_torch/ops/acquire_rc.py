@@ -208,8 +208,9 @@ def demod_fold_bf16(samples, offset, phase, samperr, angle, cfo, out=None):
     straight into the DFT kernel's operand.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one thread per folded output sample), which rounds each
-    float32 value as ``.to(torch.bfloat16)`` does."""
+    kernel (one CTA a symbol of a station, two neighbouring samples a
+    thread step), which computes each value in the plain version's float32
+    order and rounds it as ``.to(torch.bfloat16)`` does."""
     if samples.device.type == "cpu":
         res = demod_fold_bf16_plain(samples, offset, phase, samperr, angle,
                                     cfo)

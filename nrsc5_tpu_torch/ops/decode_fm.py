@@ -194,6 +194,58 @@ def fec_gather(pm: torch.Tensor, name: str) -> torch.Tensor:
 # K8: kept bits, re-encode bit errors, descramble, pack
 # ---------------------------------------------------------------------------
 
+def k8_runs(keep: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``keep`` as runs of consecutive K7 bits: (run_t int32 [n + 1], the
+    first frame bit of each run and then t; run_src int32 [n], the K7 bit
+    of each run's first bit), so that keep[i] = run_src[r] + i - run_t[r]
+    for run_t[r] <= i < run_t[r + 1]."""
+    starts = np.flatnonzero(np.diff(keep) != 1) + 1
+    run_t = np.concatenate([[0], starts, [keep.size]]).astype(np.int32)
+    return run_t, keep[run_t[:-1]].astype(np.int32)
+
+
+def packed_keystream(keystream: np.ndarray) -> np.ndarray:
+    """uint32 [ceil(t / 32)]: bit k of word w = keystream[32 w + k], the
+    last word padded with zeros."""
+    bits = np.zeros(-(-keystream.size // 32) * 32, np.uint8)
+    bits[:keystream.size] = keystream
+    return np.packbits(bits, bitorder="little").view("<u4").astype(np.uint32)
+
+
+def inverse_sites(code_map: np.ndarray, pm_len: int) -> np.ndarray:
+    """int32 [pm_len]: the mother-code site 3t + j whose soft bit is pm
+    entry e (code_map[3t + j] = e), or -1 for an entry no site reads.
+    Raises if a soft bit feeds two sites."""
+    sites = np.flatnonzero(code_map >= 0)
+    src = code_map[sites]
+    if np.unique(src).size != src.size:
+        raise ValueError("code_map: a soft bit feeds more than one site")
+    inv = np.full(pm_len, -1, np.int32)
+    inv[src] = sites
+    return inv
+
+
+@functools.lru_cache(maxsize=16)
+def k8_tables(name: str) -> dict:
+    """The kernel's tables of channel ``name``, numpy: ``run_t`` and
+    ``run_src`` (:func:`k8_runs` of keep), ``ks_words``
+    (:func:`packed_keystream`) and, for P1, ``inv`` (:func:`inverse_sites`
+    over a frame's soft bits)."""
+    tb = channel_tables(name)
+    run_t, run_src = k8_runs(tb["keep"])
+    out = {"run_t": run_t, "run_src": run_src,
+           "ks_words": packed_keystream(tb["keystream"])}
+    if name == "p1":
+        out["inv"] = inverse_sites(tb["code_map"], PM_FRAME)
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _k8_device_tables(name: str, device: str) -> dict:
+    return {k: torch.from_numpy(v.view(np.int32)).to(device)
+            for k, v in k8_tables(name).items()}
+
+
 def fec_epilogue_plain(bits: torch.Tensor, name: str, pm=None,
                        packed: bool = False):
     """Plain version of K8.  bits: K7's bits uint8 [B*n_seg, steps];
@@ -221,7 +273,10 @@ def fec_epilogue(bits: torch.Tensor, name: str, pm=None,
     """K8: the arguments and results of :func:`fec_epilogue_plain`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one CTA per frame, one thread per output byte)."""
+    kernel: without ``pm``, a warp for each 256 output bits; with ``pm``
+    (P1), a thread-block cluster of 8 CTAs a frame, which gather the kept
+    bits into a shared-memory bitmap and count the re-encode errors over
+    the inverse site table (:func:`k8_tables`)."""
     if bits.device.type == "cpu":
         return fec_epilogue_plain(bits, name, pm, packed)
     tb = channel_tables(name)
@@ -232,24 +287,25 @@ def fec_epilogue(bits: torch.Tensor, name: str, pm=None,
                          f"frames of {per} K7 bits")
     b = bits.numel() // per
     dev = bits.device
-    dt = _device_tables(name, str(dev))
+    kt = _k8_device_tables(name, str(dev))
     out = torch.empty(b, t // 8 if packed else t, dtype=torch.uint8,
                       device=dev)
     errors = None
-    pm_args = (None, None, 1, 0, 0)
+    pm_args = (None, None, 0, 1, 0, 0)
     if pm is not None:
         pm = _frames3(pm, PM_FRAME)
         if pm.dtype != torch.int8 or pm.device != dev \
-                or pm.shape[0] * pm.shape[1] != b:
+                or pm.shape[0] * pm.shape[1] != b or "inv" not in kt:
             raise ValueError("pm: expected int8 P1 frames on the bits' "
                              f"device, {b} of them")
         errors = torch.empty(b, dtype=torch.int32, device=dev)
-        pm_args = (pm.data_ptr(), dt["code_map"].data_ptr(), pm.shape[1],
-                   pm.stride(0), pm.stride(1))
-    K.launch("fec_epilogue", bits.data_ptr(), dt["keep"].data_ptr(), per,
-             *pm_args, dt["keystream"].data_ptr(), out.data_ptr(),
-             None if errors is None else errors.data_ptr(), b, t,
-             int(packed), *C.CONV_K7_GEN, device=dev)
+        pm_args = (pm.data_ptr(), kt["inv"].data_ptr(), PM_FRAME,
+                   pm.shape[1], pm.stride(0), pm.stride(1))
+    K.launch("fec_epilogue", bits.data_ptr(), kt["run_t"].data_ptr(),
+             kt["run_src"].data_ptr(), kt["run_src"].numel(),
+             int(tb["keep"][0]), per, *pm_args, kt["ks_words"].data_ptr(),
+             out.data_ptr(), None if errors is None else errors.data_ptr(),
+             b, t, int(packed), *C.CONV_K7_GEN, device=dev)
     return out, errors
 
 

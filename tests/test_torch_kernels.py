@@ -150,6 +150,40 @@ def test_demod_fold(card, cfo):
     assert torch.equal(keep, p_keep)
 
 
+@pytest.mark.parametrize("s", [1, 3, 16])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_demod_fold_stations(card, s, sign):
+    """K2's fold at 1, 3 and 16 stations, CFOs of one sign, offsets
+    negative (counted from the buffer's end) and positive, odd and even (so
+    both the 16-byte and the 8-byte loads run), samperr moved off its
+    trivial value: within one bf16 ulp of the plain version, phase_out
+    within 1e-5, keep exact, one launch."""
+    rng = np.random.default_rng(100 + 10 * s + sign)
+    n = AQ.WINDOW_FM + 7001
+    samples = torch.from_numpy(rng.normal(0, 1, (s, n, 2)).astype(
+        np.float32)).to(card)
+    offset = torch.from_numpy(rng.integers(-7000, 7000, s).astype(
+        np.int32)).to(card)
+    offset[0] = -(AQ.WINDOW_FM + 3)
+    ang = rng.uniform(0, 2 * np.pi, s)
+    phase = torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)], -1)
+                             .astype(np.float32)).to(card)
+    samperr = torch.from_numpy(rng.integers(1000, 1160, s).astype(
+        np.int32)).to(card)
+    angle = torch.from_numpy(rng.uniform(-0.3, 0.3, s).astype(
+        np.float32)).to(card)
+    cfo = torch.from_numpy((sign * rng.integers(1, 13, s)).astype(
+        np.int32)).to(card)
+    args = (samples, offset, phase, samperr, angle, cfo)
+    before = K.COUNTS["demod_fold"]
+    folded, ph, keep = AQ.demod_fold_bf16(*args)
+    assert K.COUNTS["demod_fold"] == before + 1
+    p_folded, p_ph, p_keep = AQ.demod_fold_bf16_plain(*args)
+    assert _bf16_steps(folded, p_folded).max().item() <= 1
+    _close(ph, p_ph, 1e-5)
+    assert torch.equal(keep, p_keep)
+
+
 def _dft_operand(card, rows, seed):
     """``rows`` rows of bf16 rc symbols, [rows / 32, 32, 2048, 2], from a
     numpy seed: Gaussian, at the fold's scale."""
@@ -565,6 +599,37 @@ def test_fec_epilogue(card, name, packed):
         assert errors is None and want_errors is None
     else:
         assert torch.equal(errors, want_errors)
+
+
+@pytest.mark.parametrize("stations,frames", [(1, 1), (7, 1), (16, 2),
+                                             (11, 3)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_fec_epilogue_p1_ragged(card, stations, frames, packed):
+    """K8 on P1 at 1, 7, 32 and 33 frames, pm passed as the chain's strided
+    [G, F, 368640] view of a [G, 2 + 16 F, 23040] pm past 2 lead blocks:
+    outputs and re-encode counts exact, one launch; with every hard
+    decision flipped, 365,440 less each count."""
+    b = stations * frames
+    tb = DF.channel_tables("p1")
+    g = torch.Generator().manual_seed(b)
+    bits = torch.randint(0, 2, (b * tb["n_seg"], tb["steps"]), generator=g,
+                         dtype=torch.uint8).to(card)
+    pm_blocks = _pm(13 + b, stations, 2 + C.P1_FM_BLOCKS * frames).to(card)
+    pm = pm_blocks[:, 2:].view(stations, frames, -1)
+    assert not pm.is_contiguous() or stations == 1
+    before = K.COUNTS["fec_epilogue"]
+    got, errors = DF.fec_epilogue(bits, "p1", pm, packed)
+    assert K.COUNTS["fec_epilogue"] == before + 1
+    want, want_errors = DF.fec_epilogue_plain(bits, "p1", pm, packed)
+    assert torch.equal(got, want)
+    assert torch.equal(errors, want_errors)
+    # every hard decision flipped: each site's error flips, so the count
+    # becomes 365,440 less the count (a strided view again)
+    neg = torch.where(pm_blocks == 0, 1, -pm_blocks).to(torch.int8)
+    _, flipped = DF.fec_epilogue(bits, "p1",
+                                 neg[:, 2:].view(stations, frames, -1),
+                                 packed)
+    assert torch.equal(flipped, C.P1_FRAME_LEN_ENCODED_FM - want_errors)
 
 
 @pytest.mark.parametrize("fl,s,pairs", [(4608, 16, 16), (4608, 3, 18),
