@@ -54,7 +54,10 @@ Phases, each printing one JSON line:
    cuBLAS's bf16 GEMM of the same operands as its library call and the
    float32 GEMM it replaced beside it; K4 also at
    psmi 2, 3 and 11, K6 and K8 at P1's and PIDS's shapes, K8 at PX's,
-   K11 at MP3's and MP2's; the AM kernels K12 in both passes, K13 and K15
+   K11 at MP3's and MP2's (K6 int8 out, exact, with one index_select over
+   each frame's zero-padded pm as its library call; K7 on K6's int8 also
+   on the same values in float32, the same bits and margins); the AM
+   kernels K12 in both passes, K13 and K15
    in MA1 and MA3, K7 at K=9 on P1, P3 of MA1 and MA3 and PIDS, and K8
    on the AM P1; K14's three kernels at the AM cold start's first probe
    block, K1's AM cascade on the cu8 AM wire; K16a-d one after the other
@@ -62,13 +65,20 @@ Phases, each printing one JSON line:
    steps on block 1's state).  K7's lines (K=7: P1, PIDS, PX1; K=9: P1,
    P3 of MA1 and MA3, PIDS) hold bits and margins exact and add the
    kernel on the first segment alone, the chain one segment cannot go
-   below, with its cycles a step at the SM clock nvidia-smi reads;
+   below, with its cycles a step at the SM clock nvidia-smi reads.  K6
+   and K9 also gate on the kernels a call counted (two for K9 and for K6
+   on P1), and after the last kernel line one ``kernel_split`` line each
+   times every kernel of those calls with the profiler, beside its bound;
 5. coldstart: ``serve.cold_start`` on the capture must lock 16/16 stations
    with the true |CFO| under one sign convention, first_bc 14 and psmi 1;
    then ``serve.chain_step`` from the locks over 34 blocks must decode
    every P1 frame and PIDS word bit-exact, and the same path through the
    plain versions the same locks and bits.  Launch counts of the cold start
-   and of that dispatch, and the cold start's wall time;
+   and of that dispatch, and the cold start's wall time: six runs, each
+   followed by the same cold start replayed step by step (the ingest,
+   probe 1 to its read-back, the host argmax, probe 2 and its read-back,
+   the votes and carries), each part timed after a synchronize, the
+   replay's locks gated equal to the cold start's;
 6. slice: ``serve.chain_step`` on the steady wire — launch counts taken
    from that one dispatch, every P1 frame and PIDS word held bit-exact
    against the transmitted bits, wall time per dispatch and real-time
@@ -147,7 +157,10 @@ the eager wall and device time beside the graph's.  Then:
    station; the same for the eager loop.
 
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``:
-the sum over the paths driven, itemised under ``launches_by_path``) and,
+the kernels launched, summed over the paths driven and itemised under
+``launches_by_path``; a call that runs two kernels in turn, K6 on P1 and
+K9, counts two, and its line gives each kernel's time as the profiler
+records it) and,
 last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 with no CUDA card it exits 2 before printing anything.
@@ -275,10 +288,10 @@ STEADY = ("halfband_cu8", "demod_fold", "dft_bf16", "sync_block",
 COLD_START = ("halfband_cu8", "demod_fold", "dft_bf16", "costas_track",
               "sync_block", "coarse_timing", "needle_count")
 # launches of one MP3 dispatch of 32 blocks: K1 once, K2, the DFT kernel,
-# K4 and K5 per block (K5 once more ahead of block 0), K6 for P1 and PIDS,
-# K7 and K8 for P1, PIDS and PX1, K11 once
+# K4 and K5 per block (K5 once more ahead of block 0), K6 for P1 (two
+# kernels) and PIDS, K7 and K8 for P1, PIDS and PX1, K11 once
 MP3_LAUNCHES = {"halfband_cu8": 1, "demod_fold": 32, "dft_bf16": 32,
-                "sync_block": 32, "block_carry": 33, "fec_gather": 2,
+                "sync_block": 32, "block_carry": 33, "fec_gather": 3,
                 "viterbi_k7": 3, "fec_epilogue": 3, "px_deinterleave": 1}
 # launches of one AM dispatch of 2 frames (16 blocks): K12 twice a block,
 # K13 and K5 once a block, K15 once, K7 at K=9 and K8 for P1, P3 and PIDS
@@ -390,6 +403,45 @@ def profile_device(torch, fn) -> dict:
             "gemm_spans": sum("gemm" in e.name.lower() for e in spans)}
 
 
+def kernel_spans(torch, fn, calls: int = 10, sessions: int = 3) -> dict:
+    """The kernels one call of ``fn`` runs on the card, as the profiler
+    records them over ``calls`` calls after a warm one: how many a call,
+    and each one's mean device ms a call, by its short name.  A profiler
+    session that comes back without a whole number of spans a call (the
+    first in a process has been seen to return none) is run again, up to
+    ``sessions`` in all; ``sessions`` in the result says how many ran.
+    What it reads is reported, not gated on: the launch counts are the
+    gate."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans and len(spans) % calls == 0:
+            break
+    ms = {}
+    for e in spans:
+        name = short_kernel_name(e.name)
+        ms[name] = ms.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    return {"kernels_a_call": len(spans) / calls, "ms": ms,
+            "sessions": session}
+
+
+def short_kernel_name(name: str) -> str:
+    """A kernel's name as the profiler gives it (``void (anonymous
+    namespace)::k<8>(Args)``), without its return type, namespaces,
+    template arguments and parameters (``k``)."""
+    head = name.replace("(anonymous namespace)::", "").split("(")[0]
+    head = head.split("<")[0].split("::")[-1]
+    return (head.split() or [name])[-1]
+
+
 def tensors_sha256(tensors) -> str:
     """SHA-256 of the tensors' bytes, in order (each made contiguous and
     copied to the host): a fingerprint that two trees' kernels can be held
@@ -407,6 +459,78 @@ def bf16_steps(torch, a, b):
         i = t.view(torch.int16).int()
         return torch.where(i < 0, -(i & 0x7FFF), i)
     return (ordered(a) - ordered(b)).abs()
+
+
+def cold_start_parts(torch, wire) -> tuple[dict, list]:
+    """One FM cold start of the cu8 ``wire``, replayed step by step as
+    ``scan_chain_rc.cold_start_rc`` takes them, through the package's own
+    functions: the ingest (K1); probe 1 (``coldstart_probe_rc``) to its
+    read-back; the host argmax over each station's needle counts; probe 2
+    (``bc_probe_rc``) and its read-back; the votes and
+    ``chain_rc_init_carry``.  Each part is the ``time.perf_counter`` time
+    from the end of the one before, after a synchronize.  Returns (parts
+    in ms, the locks as ``{"offset", "first_bc", "psmi", "cfo"}`` or
+    None)."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch import serve
+    from nrsc5_tpu_torch.ops.detect_cfo import CFO_RANGE
+    from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
+    parts = {}
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+
+    def lap(key):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[key] = (now - t[0]) * 1e3
+        t[0] = now
+
+    samples = serve.ingest(wire, "fm")
+    dev = samples.device
+    s = samples.shape[0]
+    lap("ingest")
+    samperr, angle, count = rcc.coldstart_probe_rc(samples)
+    samperr_h = samperr.cpu().numpy()
+    count_h = count.cpu().numpy()
+    lap("probe1")
+    starts = np.zeros(s, np.int32)
+    cfos = np.zeros(s, np.int32)
+    found = np.zeros(s, bool)
+    for i in range(s):
+        ci, off = np.unravel_index(np.argmax(count_h[i]), count_h[i].shape)
+        if count_h[i, ci, off] < 3:
+            continue
+        found[i] = True
+        cfos[i] = int(ci) - CFO_RANGE
+        start = int(samperr_h[i]) - C.FFTCP_FM // 2 + int(off) * C.FFTCP_FM
+        while start < 0:
+            start += C.BLKSZ * C.FFTCP_FM
+        starts[i] = start
+    cfo = torch.from_numpy(cfos).to(dev)
+    lap("host_argmax")
+    ok, bcs, psmis = (x.cpu().numpy() for x in rcc.bc_probe_rc(
+        samples, torch.from_numpy(starts).to(dev), angle, cfo))
+    lap("probe2")
+    locks, carries = [None] * s, {}
+    for i in np.flatnonzero(found):
+        good = ok[i]
+        if good.sum() < 4:
+            continue
+        first_bc = int(np.bincount(bcs[i][good]).argmax())
+        psmi = int(np.bincount(psmis[i][good]).argmax())
+        if not 0 <= psmi < len(C.COMPATIBILITY_MODE):
+            psmi = 1
+        if psmi not in carries:
+            carries[psmi] = rcc.chain_rc_init_carry(
+                psmi=psmi, n_stations=s, device=dev)._replace(
+                    prev_angle=angle, cfo=cfo)
+        locks[i] = {"offset": int(starts[i]), "first_bc": first_bc,
+                    "psmi": psmi, "cfo": int(cfos[i]),
+                    "carry": rcc.ChainCarryRC(*(x[i] for x in
+                                                carries[psmi]))}
+    lap("votes_carry")
+    parts["sum"] = sum(parts.values())
+    return parts, locks
 
 
 def count_plain_calls() -> tuple[dict, callable]:
@@ -876,14 +1000,16 @@ def host_audio(packets: list) -> np.ndarray:
 def serve_launches(mode: str, blocks: int = 0) -> dict:
     """The launches of one of the receiver's dispatches: FM's steady
     dispatch of 32 blocks (K1, then K2, the DFT kernel, K4 and K5 a block
-    and K5 once ahead, then K6, K7 and K8 for P1 and PIDS) or, with ``blocks``, its
-    PIDS-only alignment dispatch; AM's steady dispatch of 2 frames."""
+    and K5 once ahead, then K6, K7 and K8 for P1 and PIDS, K6 for P1 as two
+    kernels) or, with ``blocks``, its PIDS-only alignment dispatch; AM's
+    steady dispatch of 2 frames."""
     if mode == "am":
         return AM_LAUNCHES
     n = blocks or DISPATCH_BLOCKS
     fec = 1 if blocks else 2
     return {"halfband_cu8": 1, "demod_fold": n, "dft_bf16": n,
-            "sync_block": n, "block_carry": n + 1, "fec_gather": fec,
+            "sync_block": n, "block_carry": n + 1,
+            "fec_gather": 1 if blocks else 3,
             "viterbi_k7": fec, "fec_epilogue": fec}
 
 
@@ -1076,7 +1202,7 @@ def serve_gate(events: dict, fleet: dict, mode: str, counts: dict,
             relock_ok &= d == {name: c * k for name, c in probe.items()}
         else:
             k4 = d.get("sync_block", 0)
-            relock_ok &= d == {"halfband_cu8": 1, "coarse_timing": 1,
+            relock_ok &= d == {"halfband_cu8": 1, "coarse_timing": 2,
                                "demod_fold": 1 + k4, "dft_bf16": 1 + k4,
                                "costas_track": 1, "needle_count": 1,
                                **({"sync_block": 1} if k4 else {})}
@@ -1468,13 +1594,32 @@ def main() -> int:
     ps, pv = AQ.coarse_timing_rc_plain(cap_samples)
     err = max(float((ks != ps).any()), (kv - pv).abs().max().item())
     win = AQ.WINDOW_FM
+    # its two kernels: their count against the wrapper's, and each one's
+    # bound (the window's samples read, filtered and multiplied into the
+    # sums scratch; the sums read, the shaped window summed and the
+    # argmax), beside which the profiler times each after the last kernel
+    # line (splits)
+    before = K.COUNTS["coarse_timing"]
+    AQ.coarse_timing_rc(cap_samples)
+    counted = K.COUNTS["coarse_timing"] - before
+    sums_bytes = s_n * C.FFTCP_FM * 8
+    pass_bounds = {
+        "coarse_timing_sums_kernel": bound(
+            s_n * win * 8 + sums_bytes,
+            s_n * (win * 32 * 2 * 2 + C.FFTCP_FM * C.BLKSZ * 8))[0],
+        "coarse_timing_window_kernel": bound(
+            sums_bytes + s_n * 12, s_n * C.FFTCP_FM * C.CP_FM * 4)[0]}
     check("coarse_timing", err, 0.0,
           lambda: AQ.coarse_timing_rc(cap_samples),
           lambda: AQ.coarse_timing_rc_plain(cap_samples),
           bound(s_n * (win * 8 + 12),
                 s_n * (win * 32 * 2 * 2 + C.FFTCP_FM * C.BLKSZ * 8
                        + C.FFTCP_FM * C.CP_FM * 4)),
-          None, [s_n, win, 2], plain_reps=3, plain_inner=2)
+          None, [s_n, win, 2], plain_reps=3, plain_inner=2,
+          ok=err == 0.0 and counted == len(pass_bounds),
+          kernels_counted_a_call=counted, kernel_bound_ms=pass_bounds)
+    splits = [("coarse_timing", None,
+               lambda: AQ.coarse_timing_rc(cap_samples))]
 
     # --- K3 and K10 on the probe's spectra (K9's timing and angle, K2's
     # bf16 fold at CFO 0, the DFT kernel): K3 over 76 CFOs × 22 refs with each CFO's static
@@ -1510,23 +1655,59 @@ def main() -> int:
                 kc.numel() * 2 * DC.N_REFS * 8),
           None, list(derot.shape))
 
-    # --- K6: gather + depuncture into K7's input, on the steady chain's
-    # own soft bits: 32 P1 frames read in place, 512 PIDS blocks ---
+    # --- K6: gather + depuncture into K7's input (int8), on the steady
+    # chain's own soft bits: 32 P1 frames read in place, 512 PIDS blocks;
+    # exact.  Its library call: one torch.index_select over each frame's
+    # pm with a zero column appended (made outside the timed region) at
+    # k7_map, the punctured sites pointing at the zero column ---
     carries = rcc.chain_rc_init_carry(n_stations=s_n, device=dev)
     pm, _, _, _ = rcc.frontend_scan_rc(samples, carries, n_blocks)
     frames = pm.view(s_n, N_FRAMES, -1)
-    f32 = 4
     for name, src, case in (("p1", frames, None), ("pids", pm, "pids")):
         got = DF.fec_gather(src, name)
-        err = (got - DF.fec_gather_plain(src, name)).abs().max().item()
+        want = DF.fec_gather_plain(src, name)
+        err = (got.float() - want.float()).abs().max().item()
         tb = DF.channel_tables(name)
         n_fr = src.shape[0] * src.shape[1]
+        width = src.shape[-1]
+        pmz = torch.cat([src.reshape(n_fr, width),
+                         src.new_zeros(n_fr, 1)], dim=1)
+        k7 = torch.from_numpy(np.where(tb["k7_map"] >= 0, tb["k7_map"],
+                                       width)).long().to(dev)
+        lib = torch.index_select(pmz, 1, k7)
         read = n_fr * int((tb["code_map"] >= 0).sum())  # soft bits used
+        tables = sum(v.nbytes for k, v in DF.gather_tables(name).items()
+                     if k in ("aux", "src", "idx"))
+        out_bytes = got.numel() * got.element_size()
+        # the kernels of one call: their count against the wrapper's, and
+        # each one's bound (P1: pm read and each frame's stream written,
+        # then the stream read and the segments written), beside which the
+        # profiler times each after the last kernel line (splits)
+        before = K.COUNTS["fec_gather"]
+        DF.fec_gather(src, name)
+        counted = K.COUNTS["fec_gather"] - before
+        splits.append(("fec_gather", case, lambda src=src, name=name:
+                       DF.fec_gather(src, name)))
+        stream = n_fr * C.P1_FRAME_LEN_ENCODED_FM
+        pass_bounds = {
+            "fec_deinterleave_kernel": bound(n_fr * width + stream, 0)[0],
+            "fec_segments_kernel": bound(stream + out_bytes, 0)[0],
+        } if name == "p1" else {
+            "fec_gather_compact_kernel": bound(read + tables + out_bytes,
+                                               0)[0]}
+        extra = {"dtype": str(got.dtype).replace("torch.", ""),
+                 "exact": torch.equal(got, want),
+                 "library_same": torch.equal(lib.view(-1), got.view(-1)),
+                 "kernels_counted_a_call": counted,
+                 "kernel_bound_ms": pass_bounds}
         check("fec_gather", err, 0.0,
               lambda src=src, name=name: DF.fec_gather(src, name),
               lambda src=src, name=name: DF.fec_gather_plain(src, name),
-              bound(read + tb["k7_map"].size * 4 + got.numel() * f32, 0),
-              None, list(got.shape), case=case)
+              bound(read + tables + out_bytes, 0),
+              lambda pmz=pmz, k7=k7: torch.index_select(pmz, 1, k7),
+              list(got.shape), case=case,
+              ok=extra["exact"] and extra["library_same"]
+              and counted == len(pass_bounds), **extra)
         if name == "p1":
             segs = got
         else:
@@ -1535,7 +1716,10 @@ def main() -> int:
     # --- K7: Viterbi on those P1 segments and PIDS frames (and, below,
     # the MP3 PX frames); bits and margins exact.  Beside each line: the
     # kernel on the first segment alone, the chain one segment cannot go
-    # below, and its cycles a step at the SM clock nvidia-smi reads ---
+    # below, and its cycles a step at the SM clock nvidia-smi reads.  On
+    # K6's int8 segments the line also runs the kernel on the same values
+    # in float32 (its float32 load path): the same bits and margins, and
+    # that path's time ---
     def viterbi_line(name, ext, gens, k, case, plain_reps, plain_inner):
         kb, km = CV.acs_traceback(ext, gens, k)
         pb, pmg = CV.acs_traceback_plain(ext, gens, k)
@@ -1546,15 +1730,25 @@ def main() -> int:
         lone_ms = time_ms(torch, lambda: CV.acs_traceback(one, gens, k),
                           graph=True)
         mhz = sm_clock_mhz()
+        extra = {"dtype": str(ext.dtype).replace("torch.", "")}
+        if ext.dtype == torch.int8:
+            ext32 = ext.float()
+            fb, fm = CV.acs_traceback(ext32, gens, k)
+            extra["same_as_float32"] = torch.equal(kb, fb) \
+                and torch.equal(km, fm)
+            extra["float32_ms"] = time_ms(
+                torch, lambda: CV.acs_traceback(ext32, gens, k), graph=True)
         check(name, err, 0.0,
               lambda: CV.acs_traceback(ext, gens, k),
               lambda: CV.acs_traceback_plain(ext, gens, k),
-              bound(b_seg * n_st * (12 + 1) + b_seg * 4,
+              bound(b_seg * n_st * (3 * ext.element_size() + 1) + b_seg * 4,
                     b_seg * n_st * ((1 << (k - 1)) * 3 + 16)),
               None, [b_seg, n_st, 3], plain_reps=plain_reps,
               plain_inner=plain_inner, case=case,
+              ok=err == 0.0 and extra.get("same_as_float32", True),
               chain_floor_ms=lone_ms, clocks_sm_mhz=mhz,
-              chain_cycles_a_step=lone_ms * 1e-3 * mhz * 1e6 / n_st)
+              chain_cycles_a_step=lone_ms * 1e-3 * mhz * 1e6 / n_st,
+              **extra)
         return kb
 
     viterbi_line("viterbi_k7", segs, C.CONV_K7_GEN, 7, None, 3, 1)
@@ -1587,7 +1781,7 @@ def main() -> int:
               lambda args=args: DF.px_deinterleave(*args),
               lambda args=args: DF.px_deinterleave_plain(*args),
               bound(llr.numel() + 2 * state0.numel() + n_iv * 5 + m * 4
-                    + got[0].numel() * f32 + 8 * s_n, 0),
+                    + got[0].numel() * got[0].element_size() + 8 * s_n, 0),
               None, list(got[0].shape), plain_reps=3, plain_inner=2,
               case=case)
         if case is None:
@@ -1925,6 +2119,22 @@ def main() -> int:
     del long_raw, short_raw, ext, a_xl, a_xh, a_x, a_v, args_a, args_b
     del args_c, args_d
 
+    # --- splits: each kernel of the calls that run two (K9; K6 on P1, and
+    # its PIDS line beside them), timed by the profiler.  After every
+    # kernel line, because a profiler session leaves its tracing on and
+    # adds to the times of the small kernels that follow it ---
+    for name, case, fn in splits:
+        spans = kernel_spans(torch, fn)
+        row = report[name] if case is None else report[name]["cases"][case]
+        row.update(kernels_a_call=spans["kernels_a_call"],
+                   kernel_ms=spans["ms"], profiler_sessions=spans["sessions"])
+        emit({"phase": "kernel_split", "name": name, "case": case,
+              "kernels_a_call": spans["kernels_a_call"],
+              "kernels_counted_a_call": row["kernels_counted_a_call"],
+              "kernel_ms": spans["ms"],
+              "kernel_bound_ms": row["kernel_bound_ms"],
+              "profiler_sessions": spans["sessions"]})
+
     # --- coldstart: lock the capture, then decode it from the locks ---
     cap_blocks = LEAD + n_blocks
     torch.cuda.synchronize()
@@ -1965,13 +2175,21 @@ def main() -> int:
     cs_pids_ok = int((unpack_bits(out["pids"]) == pids_all)
                      .all(axis=-1).sum())
 
-    cs_times = []
+    # six walls, each followed by the same cold start replayed step by
+    # step (its parts, and the locks it gives)
+    cs_times, cs_parts, parts_same = [], [], True
     for _ in range(6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         serve.cold_start(capture)
         torch.cuda.synchronize()
         cs_times.append((time.perf_counter() - t0) * 1e3)
+        parts, part_locks = cold_start_parts(torch, capture)
+        cs_parts.append(parts)
+        parts_same &= all(
+            pl is not None and all(pl[k] == lk[k] for k in (
+                "offset", "first_bc", "psmi", "cfo"))
+            for pl, lk in zip(part_locks, locks))
     cs_device = profile_device(torch, lambda: serve.cold_start(capture))
     plain_locks = serve.cold_start(capture, plain=True)
     keys = ("offset", "first_bc", "psmi", "cfo")
@@ -1988,7 +2206,7 @@ def main() -> int:
                       for k in ("p1", "pids"))
     launched = {n for n in KERNELS if counts_cs[n] + counts_cd[n] > 0}
     cs_ok = (cs_p1_ok == s_n * N_FRAMES and cs_pids_ok == s_n * cap_blocks
-             and cs_same and cs_graph_same
+             and cs_same and cs_graph_same and parts_same
              and launched == set(COLD_START) | set(STEADY))
     emit({"phase": "coldstart", "stations": s_n, "locked": n_locked,
           "cfo": got_cfo, "true_cfo": true_cfo.tolist(),
@@ -2003,6 +2221,8 @@ def main() -> int:
           "launches_cold_start": counts_cs, "launches_dispatch": counts_cd,
           "cold_start_wall_ms": statistics.median(cs_times[1:]),
           "cold_start_wall_ms_runs": cs_times,
+          "cold_start_parts_ms_runs": cs_parts,
+          "cold_start_parts_same_locks": parts_same,
           "cold_start_device_time": cs_device,
           "plain_same_locks": locks_same, "plain_same_bits": cs_same,
           "graph_same_as_eager": cs_graph_same,

@@ -4,15 +4,18 @@
 // their generators as compile-time constants.
 //
 // Replaces nrsc5_tpu/ops/convolutional.py:_acs_traceback (lines 154-251) at
-// radix 1.  ext [n_seg, n_steps, 3] f32 LLRs (positive = bit 1) ->
+// radix 1.  ext [n_seg, n_steps, 3] LLRs (positive = bit 1), int8 (K6's
+// output, FM P1 and PIDS) or float32 (K11's and K15's) ->
 //   bits [n_seg, n_steps] uint8, margin [n_seg] f32 = top1 - top2 of the
 //   final path metrics (ties counting).  Uniform (zero) start metrics; a tie
 //   takes predecessor p0; the traceback starts from the FIRST maximal state.
 //
 // Input contract: every LLR an integer in [-127, 127] (K6, K11 and K15
-// produce nothing else).  The kernel converts them to int and keeps integer
-// path metrics (|pm| <= 381 n_steps < 2^24), so bits and margins equal the
-// plain version's float arithmetic exactly.
+// produce nothing else).  The kernel converts them to int as it stages
+// them (a float32 by rounding, an int8 as it is) and keeps integer path
+// metrics (|pm| <= 381 n_steps < 2^24), so bits and margins equal the
+// plain version's float arithmetic exactly, and an int8 input gives the
+// same bits and margins as the same values in float32.
 //
 // Arithmetic.  Every generator has taps at both ends (static_assert), so the
 // four branches of the butterfly (p0 = 2u, p1 = 2u + 1) -> (u, u + ns/2)
@@ -161,9 +164,12 @@ struct Trellis {
   }
 };
 
-template <int M, int RL, unsigned G0, unsigned G1, unsigned G2>
+__device__ __forceinline__ int llr_int(float v) { return __float2int_rn(v); }
+__device__ __forceinline__ int llr_int(int8_t v) { return v; }
+
+template <int M, int RL, unsigned G0, unsigned G1, unsigned G2, class TL>
 __global__ void __launch_bounds__(32)
-    acs_traceback_kernel(const float* __restrict__ ext,
+    acs_traceback_kernel(const TL* __restrict__ ext,
                          uint8_t* __restrict__ bits,
                          float* __restrict__ margin,
                          uint32_t* __restrict__ scratch, int n_seg,
@@ -200,18 +206,18 @@ __global__ void __launch_bounds__(32)
   for (int q = 0; q < R; ++q) pm[q] = 0;
   int jf = 0;  // the level the final metrics are at (0: after an exchange)
   int xpar = 0;
-  const float* src = ext + static_cast<size_t>(seg) * n_steps * 3;
+  const TL* src = ext + static_cast<size_t>(seg) * n_steps * 3;
   int* stage = reinterpret_cast<int*>(sm.f.llr[grp]);
   // each stage's LLRs are loaded into registers a stage ahead
   constexpr int PRE = (STAGE * 3 + TPS - 1) / TPS;
-  float pre[PRE];
+  TL pre[PRE];
   auto load_stage = [&](int t0) {
     const int n3 = min(STAGE, n_steps - t0) * 3;
-    const float* p = src + static_cast<size_t>(t0) * 3;
+    const TL* p = src + static_cast<size_t>(t0) * 3;
 #pragma unroll
     for (int v = 0; v < PRE; ++v) {
       const int k = ti + v * TPS;
-      pre[v] = k < n3 ? __ldg(p + k) : 0.0f;
+      pre[v] = k < n3 ? __ldg(p + k) : TL(0);
     }
   };
   load_stage(0);
@@ -223,7 +229,7 @@ __global__ void __launch_bounds__(32)
       const int k = ti + v * TPS;
       if (k < n * 3) {
         const int step = k / 3;
-        stage[step * 4 + (k - step * 3)] = __float2int_rn(pre[v]);
+        stage[step * 4 + (k - step * 3)] = llr_int(pre[v]);
       }
     }
     __syncwarp();
@@ -486,18 +492,18 @@ long long scratch_bytes(Trellis<M, RL, G0, G1, G2>, int n_seg, int n_steps) {
 }
 
 // launch one warp (SPW segments) a block on a scratch of at least
-// scratch_bytes(...) bytes
-template <int M, int RL, unsigned G0, unsigned G1, unsigned G2>
+// scratch_bytes(...) bytes, on LLRs of type TL (int8_t or float)
+template <class TL, int M, int RL, unsigned G0, unsigned G1, unsigned G2>
 int launch(Trellis<M, RL, G0, G1, G2> t, const void* ext, void* bits,
            void* margin, void* scratch, long long scratch_bytes_given,
            int n_seg, int n_steps, void* stream) {
   using T = Trellis<M, RL, G0, G1, G2>;
   if (scratch_bytes_given < scratch_bytes(t, n_seg, n_steps))
     return static_cast<int>(cudaErrorInvalidValue);
-  acs_traceback_kernel<M, RL, G0, G1, G2>
+  acs_traceback_kernel<M, RL, G0, G1, G2, TL>
       <<<static_cast<unsigned>((n_seg + T::SPW - 1) / T::SPW), 32, 0,
          static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(ext), static_cast<uint8_t*>(bits),
+          static_cast<const TL*>(ext), static_cast<uint8_t*>(bits),
           static_cast<float*>(margin), static_cast<uint32_t*>(scratch), n_seg,
           n_steps);
   return static_cast<int>(cudaGetLastError());

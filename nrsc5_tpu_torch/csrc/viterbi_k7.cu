@@ -15,12 +15,14 @@
 // gives; for any other generator set that query returns -1 and the launch
 // cudaErrorInvalidValue.
 //
-// Input contract: integer LLRs in [-127, 127] (K6's and K11's int8 soft
-// bits); bits and margins then equal the plain version's exactly.
+// Input contract: integer LLRs in [-127, 127]: K6's int8 segments (P1,
+// PIDS), read as int8, or K11's float32 frames (PX); bits and margins then
+// equal the plain version's exactly, and int8 input gives the bits and
+// margins of the same values in float32.
 //
 // Bound on the H100: neither bytes (P1 at 16 stations x 2 frames reads
-// 65.5 MB and writes and reads 43.7 MB of decisions; 0.021 ms at 3.35
-// TB/s) nor operations: each segment is a chain of ~1343 (PX1: 4672)
+// 16.4 MB of int8 LLRs and writes 5.5 MB of bits, 0.0065 ms at 3.35 TB/s,
+// and writes and reads 43.7 MB of decisions) nor operations: each segment is a chain of ~1343 (PX1: 4672)
 // dependent ACS steps and as many traceback steps.  Its chain floor is a
 // lone segment's time: about 125 cycles a step on an H100 SXM at 1980 MHz
 // (chip_smoke.py's chain_cycles_a_step); so PX1 (256 frames, 128 warps,
@@ -45,13 +47,19 @@ extern "C" long long viterbi_k7_scratch_bytes(int n_seg, int n_steps, int g0,
   });
 }
 
+// ext: int8 LLRs if llr_int8 (K6's P1 and PIDS segments), else float32
+// (K11's PX frames)
 extern "C" int viterbi_k7(const void* ext, void* bits, void* margin,
                           void* scratch, long long scratch_bytes, int n_seg,
-                          int n_steps, int g0, int g1, int g2, void* stream) {
+                          int n_steps, int g0, int g1, int g2, int llr_int8,
+                          void* stream) {
   if (n_seg <= 0 || n_steps <= 0) return (int)cudaErrorInvalidValue;
   const long long err = with_trellis(g0, g1, g2, [&](auto t) {
-    return (long long)viterbi::launch(t, ext, bits, margin, scratch,
-                                      scratch_bytes, n_seg, n_steps, stream);
+    return (long long)(llr_int8
+        ? viterbi::launch<int8_t>(t, ext, bits, margin, scratch,
+                                  scratch_bytes, n_seg, n_steps, stream)
+        : viterbi::launch<float>(t, ext, bits, margin, scratch,
+                                 scratch_bytes, n_seg, n_steps, stream));
   });
   return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
 }

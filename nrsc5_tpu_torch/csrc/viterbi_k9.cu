@@ -48,13 +48,18 @@ extern "C" long long viterbi_k9_scratch_bytes(int n_seg, int n_steps, int g0,
   });
 }
 
+// ext: float32 LLRs (K15's); llr_int8 (the int8 load path of viterbi_k7)
+// is refused
 extern "C" int viterbi_k9(const void* ext, void* bits, void* margin,
                           void* scratch, long long scratch_bytes, int n_seg,
-                          int n_steps, int g0, int g1, int g2, void* stream) {
-  if (n_seg <= 0 || n_steps <= 0) return (int)cudaErrorInvalidValue;
+                          int n_steps, int g0, int g1, int g2, int llr_int8,
+                          void* stream) {
+  if (n_seg <= 0 || n_steps <= 0 || llr_int8)
+    return (int)cudaErrorInvalidValue;
   const long long err = with_trellis(g0, g1, g2, [&](auto t) {
-    return (long long)viterbi::launch(t, ext, bits, margin, scratch,
-                                      scratch_bytes, n_seg, n_steps, stream);
+    return (long long)viterbi::launch<float>(t, ext, bits, margin, scratch,
+                                             scratch_bytes, n_seg, n_steps,
+                                             stream);
   });
   return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
 }

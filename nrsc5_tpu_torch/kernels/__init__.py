@@ -12,10 +12,12 @@ with ctypes; pointers and the stream go in as ``c_void_p``.
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine with no ``nvcc`` and no card.
 
-``COUNTS`` holds one launch counter per kernel.  :func:`launch` adds one
-where a kernel is launched and nowhere else, so a run can show that the
-main path went through the kernels (``chip_smoke.py`` resets the counts
-just before it drives the path and reads them just after).
+``COUNTS`` holds one launch counter per kernel.  :func:`launch` adds the
+number of kernels an entry point launched (one, or two where an entry
+point runs its work as two kernels in turn) and nothing anywhere else, so
+a run can show that the main path went through the kernels
+(``chip_smoke.py`` resets the counts just before it drives the path and
+reads them just after).
 """
 
 from __future__ import annotations
@@ -53,8 +55,8 @@ SIGNATURES = {
     # n_steps, n_tracks, alpha, beta, two_pi, stream
     "costas_track": (P, P, P, P, P, P, P, P, I, I, F, F, F, P),
     # ext, bits, margin, scratch, scratch_bytes, n_seg, n_steps, g0, g1,
-    # g2, stream
-    "viterbi_k7": (P, P, P, P, L, I, I, I, I, I, P),
+    # g2, llr_int8 (ext int8, else float32), stream
+    "viterbi_k7": (P, P, P, P, L, I, I, I, I, I, I, P),
     # spectra, costas_phase, costas_freq, timing_adj, sync_signs,
     # needle_vals, needle_known, pm, ref_ok, ref_bc, ref_psmi, samperr,
     # angle, error_lb, error_ub, new_phase, new_freq, px1, px2, px_cols,
@@ -62,9 +64,10 @@ SIGNATURES = {
     # two_pi_over_fft, stream
     "sync_block": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
                    P, I, I, I, I, F, F, F, F, F, P),
-    # pm, k7_map, out, n_groups, frames_per_group, group_stride,
-    # frame_stride, map_len, stream
-    "fec_gather": (P, P, P, I, I, L, L, I, P),
+    # pm, map, aux, out, n_groups, frames_per_group, group_stride,
+    # frame_stride, pm_len, map_len, aux_len, scratch (P1's deinterleaved
+    # streams; none: a warp a frame), stream
+    "fec_gather": (P, P, P, P, I, I, L, L, I, I, I, P, P),
     # bits, run_t, run_src, n_runs, src0, bits_per_frame, pm, inv, pm_len,
     # frames_per_group, group_stride, frame_stride, keystream words, out,
     # errors, n_frames, frame_len, packed, g0, g1, g2, stream
@@ -74,15 +77,15 @@ SIGNATURES = {
     # new_phase, n_stations, pairs, frame_len, state_len, calls, map_len,
     # stream
     "px_deinterleave": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
-    # samples, n_samples, taps, shape_kernel, filter_delay, samperr, max_v,
-    # n_stations, stream
-    "coarse_timing": (P, L, P, P, I, P, P, I, P),
+    # samples, n_samples, taps (host), shape_kernel (host), filter_delay,
+    # sums (scratch), samperr, max_v, n_stations, stream
+    "coarse_timing": (P, L, P, P, I, P, P, P, I, P),
     # derot, needle_vals, needle_known, count, n_stations, n_cfo, n_refs,
     # stream
     "needle_count": (P, P, P, P, I, I, I, P),
     # ext, bits, margin, scratch, scratch_bytes, n_seg, n_steps, g0, g1,
-    # g2, stream
-    "viterbi_k9": (P, P, P, P, L, I, I, I, I, I, P),
+    # g2, llr_int8 (refused: float32 only), stream
+    "viterbi_k9": (P, P, P, P, L, I, I, I, I, I, I, P),
     # samples, n_samples, offset, phase, samperr_fb, prev_angle, cfo,
     # shape, pilot, folded, phase_out, prev_angle_out, keep, n_stations,
     # stream
@@ -252,18 +255,19 @@ def query(name: str, symbol: str, *args: int) -> int:
     return _func(name, symbol, (I,) * len(args), L)(*args)
 
 
-def launch(name: str, *args, device: torch.device) -> None:
+def launch(name: str, *args, device: torch.device, kernels: int = 1) -> None:
     """Launch kernel ``name`` on the current stream of ``device``, with
     ``device`` current (the CUDA runtime launches on, and sets kernel
     attributes for, the current device); raise if the launch was refused,
-    else count it."""
+    else count the ``kernels`` the entry point launched for these
+    arguments."""
     fn = _func(name)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {err})")
-    COUNTS[name] += 1
+    COUNTS[name] += kernels
 
 
 def into(out, result):

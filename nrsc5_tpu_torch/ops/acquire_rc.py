@@ -56,13 +56,12 @@ def _cp_window_idx(fftcp: int, cp: int) -> np.ndarray:
             ).astype(np.int32)
 
 
-@functools.lru_cache(maxsize=4)
-def _k9_tables(device: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """The band filter's taps and the CP window's shape kernel, as K9
-    reads them."""
-    taps = np.asarray(C.ACQ_TAPS_FM, np.float32)
-    return (torch.from_numpy(taps).to(device),
-            torch.from_numpy(_shape_kernel(C.FFT_FM, C.CP_FM)).to(device))
+@functools.lru_cache(maxsize=1)
+def _k9_tables() -> tuple[np.ndarray, np.ndarray]:
+    """The band filter's taps and the CP window's shape kernel, as host
+    float32 arrays: K9 takes them into its launch's parameters."""
+    return (np.ascontiguousarray(C.ACQ_TAPS_FM, np.float32),
+            np.ascontiguousarray(_shape_kernel(C.FFT_FM, C.CP_FM)))
 
 
 def _check_window(samples):
@@ -108,18 +107,23 @@ def coarse_timing_rc(samples):
     """K9: the argument and results of :func:`coarse_timing_rc_plain`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one CTA per station, bit-identical to the plain version)."""
+    kernel: the CP products over a grid of 16 CTAs a station into a
+    scratch of sums, then the window and argmax over a thread-block cluster
+    of 8 CTAs a station (two kernels, two counts), bit-identical to the
+    plain version."""
     if samples.device.type == "cpu":
         return coarse_timing_rc_plain(samples)
     _check_window(samples)
     K.check(samples, "samples", torch.float32)
     s, dev = samples.shape[0], samples.device
-    taps, kern = _k9_tables(str(dev))
+    taps, kern = _k9_tables()
+    sums = torch.empty(s, C.FFTCP_FM, 2, dtype=torch.float32, device=dev)
     samperr = torch.empty(s, dtype=torch.int32, device=dev)
     max_v = torch.empty(s, 2, dtype=torch.float32, device=dev)
     K.launch("coarse_timing", samples.data_ptr(), samples.shape[1],
-             taps.data_ptr(), kern.data_ptr(), C.ACQ_FILTER_DELAY,
-             samperr.data_ptr(), max_v.data_ptr(), s, device=dev)
+             taps.ctypes.data, kern.ctypes.data, C.ACQ_FILTER_DELAY,
+             sums.data_ptr(), samperr.data_ptr(), max_v.data_ptr(), s,
+             device=dev, kernels=2)
     return samperr, max_v
 
 

@@ -165,9 +165,10 @@ def _sign_rows(k: int, gens: tuple[int, int, int], device: str):
 def acs_traceback_plain(ext: torch.Tensor, gens: tuple[int, int, int],
                         k: int = 7):
     """Plain version of K7 (the reference's ``_acs_traceback``, radix 1),
-    at constraint length ``k`` (7 or 9).  ext [B, L, 3] float32 ->
-    (bits [B, L] uint8, margin [B] float32).  Uniform start metrics,
-    traceback from the first argmax."""
+    at constraint length ``k`` (7 or 9).  ext [B, L, 3] float32, or int8
+    (taken as the same values in float32) -> (bits [B, L] uint8, margin [B]
+    float32).  Uniform start metrics, traceback from the first argmax."""
+    ext = ext.float()
     b, length, _ = ext.shape
     dev = ext.device
     ns = 1 << (k - 1)
@@ -212,8 +213,11 @@ def acs_traceback(ext: torch.Tensor, gens: tuple[int, int, int],
     (``viterbi_k<k>_scratch_bytes``).  The kernel takes integer LLRs in
     [-127, 127] (what K6, K11 and K15 produce) and keeps integer path
     metrics; its bits and margins then equal the plain version's exactly.
-    It raises on a constraint length, generator set or shape the kernel
-    does not take."""
+    It takes ext int8 (K6's P1 and PIDS segments, read by the kernel's
+    int8 load path) or float32 (K11's and K15's), with the same bits and
+    margins for the same values; K=9 takes float32 only.  It raises on a
+    constraint length, generator set, dtype or shape the kernel does not
+    take."""
     if ext.device.type == "cpu":
         return acs_traceback_plain(ext, gens, k)
     if k not in (7, 9):
@@ -224,7 +228,8 @@ def acs_traceback(ext: torch.Tensor, gens: tuple[int, int, int],
     if not 0 < length <= MAX_STEPS or b == 0:
         raise ValueError(f"ext: {b} segments of {length} steps (K7 takes "
                          f"1..{MAX_STEPS} steps)")
-    K.check(ext, "ext", torch.float32)
+    int8 = ext.dtype == torch.int8 and k == 7
+    K.check(ext, "ext", torch.int8 if int8 else torch.float32)
     name = f"viterbi_k{k}"
     nbytes = K.query(name, f"{name}_scratch_bytes", b, length, *gens)
     if nbytes < 0:
@@ -234,7 +239,7 @@ def acs_traceback(ext: torch.Tensor, gens: tuple[int, int, int],
     margin = torch.empty(b, dtype=torch.float32, device=ext.device)
     scratch = torch.empty(nbytes // 4, dtype=torch.int32, device=ext.device)
     K.launch(name, ext.data_ptr(), bits.data_ptr(), margin.data_ptr(),
-             scratch.data_ptr(), nbytes, b, length, *gens,
+             scratch.data_ptr(), nbytes, b, length, *gens, int(int8),
              device=ext.device)
     return bits, margin
 

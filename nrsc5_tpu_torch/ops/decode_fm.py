@@ -10,7 +10,8 @@ kernels:
   * K6 (:func:`fec_gather`, ``csrc/fec_gather.cu``) for P1 and PIDS: the
     int8 gather through the interleaver table, the depuncture, and the P1
     chunk-segment plan or the PIDS wrap extension, composed into one
-    static index map per channel, written straight into K7's input;
+    static index map per channel, written straight into K7's input as
+    int8 (K7's int8 load path reads it);
   * K11 (:func:`px_deinterleave`, ``csrc/px_deinterleave.cu``) for PX: the
     interleaver-IV deinterleave through the carried state, for every block
     pair of a dispatch at once, the P3/P4 depuncture and the wrap
@@ -113,6 +114,95 @@ def channel_tables(name: str) -> dict:
             "keystream": scrambler_keystream(t).copy()}
 
 
+# K6's P1 tables (csrc/fec_gather.cu): rows of a block, soft bits a row,
+# punctured positions a group of the P1 interleaver, groups a row at most
+K6_ROWS, K6_ROW_BYTES, K6_GROUP, K6_MAX_K = 32, 720, 320, 36
+K6_SCRATCH_PAD = 512  # bytes past the scratch's frames a tile may read
+
+
+@functools.lru_cache(maxsize=4)
+def gather_tables(name: str) -> dict:
+    """K6's tables of channel ``name``, numpy.
+
+    P1: the interleaver table's structure and the segments' arithmetic,
+    checked here to reproduce ``p1_fm_table`` and ``k7_map`` exactly.
+    Punctured position i = 320 k + q of a frame reads soft bit
+    ``(beta(q) * 32 + row(k)) * 720 + V[q % 20] * 36 + col(k)`` (interleaver
+    I of the 1012s, section 10.3.3), so pass 1 of the kernel (a CTA a row)
+    writes the frame's deinterleaved stream d[i] from the row of every
+    block, and pass 2 writes output m = (segment s, step, j) as 0 or d at
+    ``5 * (c // 6) + rank[c % 6]``, c = 3 ((start[s] + step) mod t) + j:
+
+    * ``row_k`` int32 [32, 36]: the groups k of row r as ``k | col(k) <<
+      16``, then -1;
+    * ``qoff`` int32 [320]: ``beta(q) * 720 + V[q % 20] * 36``, q's soft
+      bit in a row's 16 runs of 720 bytes (block b at 720 b), less col(k);
+    * ``start`` int32 [n_seg]: each segment's first frame bit;
+    * ``rank`` int32 [6]: a pattern position's rank among the kept ones,
+      -1 where punctured;
+    * ``aux``: the four, in that order, as the kernel reads them.
+
+    PIDS (a warp a block): ``src`` int32 [n_src], the sorted soft bits the
+    channel reads (at most 255), and ``idx`` uint8 [map_len], the position
+    of ``k7_map[e]`` in ``src``, 255 at a punctured site."""
+    tb = channel_tables(name)
+    k7 = tb["k7_map"].astype(np.int64)
+    if name != "p1":
+        src = np.unique(k7[k7 >= 0])
+        if src.size > 255:
+            raise ValueError(f"{name} reads {src.size} soft bits a frame; "
+                             "a warp a frame takes at most 255")
+        idx = np.where(k7 >= 0, np.searchsorted(src, k7), 255)
+        return {"src": src.astype(np.int32), "idx": idx.astype(np.uint8)}
+    n = C.P1_FRAME_LEN_ENCODED_FM
+    i = np.arange(n)
+    k, q = i // K6_GROUP, i % K6_GROUP
+    v = np.asarray(C.PM_V, np.int64)
+    beta = (q // 20 + 7 * v[q % 20]) % C.P1_FM_BLOCKS
+    row, col = (11 * k) % K6_ROWS, (11 * k + k // 288) % 36
+    qoff = beta * K6_ROW_BYTES + v[q % 20] * 36  # in the row's slab
+    if not np.array_equal(beta * C.PM_BLOCK_SIZE + row * K6_ROW_BYTES
+                          + v[q % 20] * 36 + col, IL.p1_fm_table()):
+        raise ValueError("the P1 table has not the structure K6 takes")
+    n_k = n // K6_GROUP
+    row_k = np.full((K6_ROWS, K6_MAX_K), -1, np.int64)
+    for r in range(K6_ROWS):
+        ks = np.flatnonzero(row[::K6_GROUP] == r)
+        if ks.size > K6_MAX_K:
+            raise ValueError(f"row {r} holds {ks.size} groups")
+        row_k[r, :ks.size] = ks | col[ks * K6_GROUP] << 16
+    assert n_k * K6_GROUP == n
+    t, steps, pattern = tb["t"], tb["steps"], tb["pattern"]
+    seg_idx = _chunk_plan(t, CHUNK, OVERLAP)[0]
+    start = seg_idx[:, 0].astype(np.int64)
+    rank = np.where(np.asarray(pattern, bool), np.cumsum(pattern) - 1, -1)
+    # the segments' arithmetic against k7_map
+    site = (start[:, None] + np.arange(steps)[None, :]) % t
+    c = (3 * site[..., None] + np.arange(3)).reshape(-1)
+    pos = (c // len(pattern)) * int(sum(pattern)) + rank[c % len(pattern)]
+    via = np.where(rank[c % len(pattern)] >= 0,
+                   IL.p1_fm_table()[np.maximum(pos, 0)], -1)
+    if not np.array_equal(via, k7):
+        raise ValueError("the P1 segments have not the arithmetic K6 takes")
+    out = {"row_k": row_k, "qoff": qoff[:K6_GROUP], "start": start,
+           "rank": rank}
+    out["aux"] = np.concatenate([out[key].reshape(-1) for key in
+                                 ("row_k", "start", "qoff", "rank")]
+                                ).astype(np.int32)
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _gather_device_tables(name: str, device: str) -> dict:
+    """K6's tables on ``device``: P1 ``aux``; PIDS ``map`` (idx) and
+    ``aux`` (src)."""
+    gt = gather_tables(name)
+    if name == "p1":
+        return {"aux": torch.from_numpy(gt["aux"]).to(device)}
+    return {"map": torch.from_numpy(gt["idx"]).to(device),
+            "aux": torch.from_numpy(gt["src"]).to(device)}
+
+
 @functools.lru_cache(maxsize=16)
 def _device_tables(name: str, device: str) -> dict:
     return {k: torch.from_numpy(v).to(device)
@@ -155,11 +245,11 @@ def fec_gather_plain(pm: torch.Tensor, name: str) -> torch.Tensor:
     """Plain version of K6: the int8 gather through the interleaver table,
     the depuncture, then the P1 chunk segments or the PIDS wrap extension.
     pm: [G, F, frame] int8 (one frame of soft bits per row).  Returns K7's
-    input float32 [G*F*n_seg, steps, 3]."""
+    input int8 [G*F*n_seg, steps, 3]: soft bits, 0 at punctured sites."""
     tb = channel_tables(name)
     t = tb["t"]
     table, seg_idx = _plain_indices(name, str(pm.device))
-    llr = pm.reshape(-1, pm.shape[-1])[:, table].float()
+    llr = pm.reshape(-1, pm.shape[-1])[:, table]
     full = depuncture(llr, tb["pattern"], t * 3).reshape(-1, t, 3)
     if name == "p1":
         return full[:, seg_idx].reshape(-1, tb["steps"], 3).contiguous()
@@ -171,22 +261,33 @@ def fec_gather(pm: torch.Tensor, name: str) -> torch.Tensor:
     """K6: the arguments and result of :func:`fec_gather_plain`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel, which writes ``float(pm[k7_map[e]])`` or 0.0 for every element
-    of K7's input (one thread per element)."""
+    kernel, which writes ``pm[k7_map[e]]`` or 0 for every element of K7's
+    input: for P1 in two passes (two kernels, two counts) through a
+    scratch of each frame's deinterleaved soft bits
+    (:func:`gather_tables`), for PIDS a warp a block over the soft bits it
+    reads."""
     if pm.device.type == "cpu":
         return fec_gather_plain(pm, name)
     if pm.device.type != "cuda" or pm.dtype != torch.int8:
         raise ValueError(f"pm: expected a CUDA int8 tensor, got {pm.dtype} "
                          f"on {pm.device}")
-    pm = _frames3(pm, PM_FRAME if name == "p1" else C.PM_BLOCK_SIZE)
+    frame = PM_FRAME if name == "p1" else C.PM_BLOCK_SIZE
+    pm = _frames3(pm, frame)
     g, f, _ = pm.shape
     tb = channel_tables(name)
-    dt = _device_tables(name, str(pm.device))
+    dt = _gather_device_tables(name, str(pm.device))
     out = torch.empty(g * f * tb["n_seg"], tb["steps"], 3,
-                      dtype=torch.float32, device=pm.device)
-    K.launch("fec_gather", pm.data_ptr(), dt["k7_map"].data_ptr(),
-             out.data_ptr(), g, f, pm.stride(0), pm.stride(1),
-             dt["k7_map"].numel(), device=pm.device)
+                      dtype=torch.int8, device=pm.device)
+    # P1: each frame's deinterleaved soft bits, and K6_SCRATCH_PAD more
+    scratch = torch.empty(g * f * C.P1_FRAME_LEN_ENCODED_FM + K6_SCRATCH_PAD,
+                          dtype=torch.int8, device=pm.device) \
+        if name == "p1" else None
+    K.launch("fec_gather", pm.data_ptr(),
+             dt["map"].data_ptr() if "map" in dt else None,
+             dt["aux"].data_ptr(), out.data_ptr(), g, f, pm.stride(0),
+             pm.stride(1), frame, tb["k7_map"].size, dt["aux"].numel(),
+             None if scratch is None else scratch.data_ptr(),
+             device=pm.device, kernels=1 if scratch is None else 2)
     return out
 
 

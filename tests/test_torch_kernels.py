@@ -9,8 +9,10 @@ need.)
 
 Tolerances:
 
-- K1 (halfband, and its AM cascade), K6 (FEC gather), K7 (Viterbi, K=7
-  and K=9), K8 (FEC epilogue), K9 (coarse timing), the needle count of
+- K1 (halfband, and its AM cascade), K6 (FEC gather, int8 out), K7
+  (Viterbi, K=7 and K=9; int8 input gives the bits and margins of the
+  same values in float32), K8 (FEC epilogue), K9 (coarse timing: samperr
+  and max_v's bits), the needle count of
   K10, K11 (PX deinterleave) and K15 (AM gather) exact: no FMA contraction
   and the same operation order, integer path metrics, integer counts, and
   gathers of int8 values or bits;
@@ -365,6 +367,8 @@ def test_viterbi_refuses(card):
     with pytest.raises(ValueError):
         CV.acs_traceback(ext.double(), C.CONV_K7_GEN)
     with pytest.raises(ValueError):
+        CV.acs_traceback(ext.to(torch.int8), C.CONV_E1_GEN, 9)
+    with pytest.raises(ValueError):
         CV.acs_traceback(ext[..., :2].contiguous(), C.CONV_K7_GEN)
     with pytest.raises(ValueError):
         CV.acs_traceback(ext[:, ::2], C.CONV_K7_GEN)
@@ -537,6 +541,32 @@ def test_coarse_timing(card):
     assert torch.equal(kv, pv)
 
 
+@pytest.mark.parametrize("s", [1, 3, 16])
+def test_coarse_timing_stations(card, s):
+    """K9 on 1, 3 and 16 stations (impaired windows, a periodic window
+    whose largest |v|^2 ties across the cluster's slices, an all-zero
+    window, noise; at 3 stations rows of odd length), one call (its two
+    kernels): samperr
+    and max_v bit-identical to the plain version."""
+    rng = np.random.default_rng(60 + s)
+    base = rng.normal(0, 1, (270, 2))
+    # an odd length at 3 stations: stations past the first start 8 bytes
+    # off a 16-byte boundary, where the kernel copies a sample at a time
+    n = AQ.WINDOW_FM + (41 if s == 3 else 40)
+    wins = [np.tile(base, (AQ.WINDOW_FM // 270 + 1, 1))[:n],
+            np.zeros((n, 2)),
+            _capture(rng, 1, 1357, 5 * BIN_HZ + 41.0)[:n]]
+    while len(wins) < s:
+        wins.append(wins[2] + rng.normal(0, 0.01, wins[2].shape))
+    x = torch.from_numpy(np.stack(wins[:s]).astype(np.float32)).to(card)
+    before = K.COUNTS["coarse_timing"]
+    ks, kv = AQ.coarse_timing_rc(x)
+    assert K.COUNTS["coarse_timing"] == before + 2  # products, window
+    ps, pv = AQ.coarse_timing_rc_plain(x)
+    assert torch.equal(ks, ps)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+
+
 def test_needle_count(card):
     """The CFO scan on the probe's spectra of stations with a negative and
     a positive integer CFO: the needle count exact, and its peak at the
@@ -567,7 +597,7 @@ def _pm(seed, s, n_blocks):
 def test_fec_gather(card, name, skip):
     """K6 at the path's shapes: 16 stations × 2 P1 frames (read in place
     from a [16, 34, 23040] pm past 2 lead blocks, as the chain slices it)
-    and 16 × 32 PIDS blocks."""
+    and 16 × 32 PIDS blocks; int8 out."""
     pm = _pm(10, 16, 32 + skip).to(card)
     if name == "p1":
         frames = pm[:, skip:skip + 32].view(16, 2, -1)
@@ -575,8 +605,64 @@ def test_fec_gather(card, name, skip):
         frames = pm
     before = K.COUNTS["fec_gather"]
     got = DF.fec_gather(frames, name)
-    assert K.COUNTS["fec_gather"] == before + 1
+    # P1: the deinterleave, then the segments; PIDS: one kernel
+    assert K.COUNTS["fec_gather"] == before + (2 if name == "p1" else 1)
     assert torch.equal(got, DF.fec_gather_plain(frames, name))
+
+
+@pytest.mark.parametrize("stations,frames", [(1, 1), (7, 1), (16, 2),
+                                             (11, 3)])
+def test_fec_gather_p1_ragged(card, stations, frames):
+    """K6 on P1 at 1, 7, 32 and 33 frames, pm passed as the chain's strided
+    [G, F, 368640] view of a [G, 2 + 16 F, 23040] pm past 2 lead blocks:
+    int8, exact, one call (its two kernels)."""
+    pm = _pm(13 + frames, stations, 2 + 16 * frames).to(card)
+    src = pm[:, 2:].reshape(stations, frames, -1)
+    before = K.COUNTS["fec_gather"]
+    got = DF.fec_gather(src, "p1")
+    assert K.COUNTS["fec_gather"] == before + 2
+    assert got.dtype == torch.int8
+    assert torch.equal(got, DF.fec_gather_plain(src, "p1"))
+
+
+@pytest.mark.parametrize("name", ["p1", "pids"])
+def test_fec_gather_unaligned(card, name):
+    """K6 on pm whose storage starts one byte past a 16-byte boundary (the
+    kernels' byte-load paths): int8, exact, one call."""
+    flat = _pm(21, 1, 32 * 3 + 1).reshape(-1).to(card)
+    pm = flat[1:1 + 3 * 32 * C.PM_BLOCK_SIZE].view(3, 32, C.PM_BLOCK_SIZE)
+    assert pm.data_ptr() % 16 == 1
+    src = pm.view(3, 2, -1) if name == "p1" else pm
+    before = K.COUNTS["fec_gather"]
+    got = DF.fec_gather(src, name)
+    assert K.COUNTS["fec_gather"] == before + (2 if name == "p1" else 1)
+    assert torch.equal(got, DF.fec_gather_plain(src, name))
+
+
+@pytest.mark.parametrize("stations,blocks", [(1, 1), (3, 7), (16, 32)])
+def test_fec_gather_pids_ragged(card, stations, blocks):
+    """K6 on PIDS at 1, 21 and 512 blocks from a strided [S, blocks,
+    23040] view: int8, exact, one launch."""
+    pm = _pm(17 + blocks, stations, blocks + 2).to(card)[:, 1:blocks + 1]
+    before = K.COUNTS["fec_gather"]
+    got = DF.fec_gather(pm, "pids")
+    assert K.COUNTS["fec_gather"] == before + 1
+    assert got.dtype == torch.int8
+    assert torch.equal(got, DF.fec_gather_plain(pm, "pids"))
+
+
+@pytest.mark.parametrize("name", ["p1", "pids"])
+def test_viterbi_k7_int8(card, name):
+    """K7 on K6's int8 output at the P1 and PIDS shapes of a dispatch (32
+    frames, 512 blocks): the bits and margins of the same values in
+    float32, and of the plain version; one launch each."""
+    pm = _pm(19, 16, 32).to(card)
+    ext = DF.fec_gather(pm.view(16, 2, -1) if name == "p1" else pm, name)
+    assert ext.dtype == torch.int8
+    _viterbi_check(ext, C.CONV_K7_GEN, 7)
+    kb, km = CV.acs_traceback(ext, C.CONV_K7_GEN)
+    fb, fm = CV.acs_traceback(ext.float(), C.CONV_K7_GEN)
+    assert torch.equal(kb, fb) and torch.equal(km, fm)
 
 
 @pytest.mark.parametrize("name", ["p1", "pids", "px4608", "px2304"])
