@@ -60,15 +60,19 @@ Phases, each printing one JSON line:
    kernels K12 in both passes, K13 and K15
    in MA1 and MA3, K7 at K=9 on P1, P3 of MA1 and MA3 and PIDS, and K8
    on the AM P1; K14's three kernels at the AM cold start's first probe
-   block, K1's AM cascade on the cu8 AM wire; K16a-d one after the other
+   block (its tone estimate three kernels in turn: k0 and z, the grid
+   projection, the tail over a cluster of 8), K1's AM cascade on the cu8
+   AM wire; K16a-d one after the other
    on a batch of the audio fleet, 128 lanes x 8 packets; K5's two carry
    steps on block 1's state).  K7's lines (K=7: P1, PIDS, PX1; K=9: P1,
    P3 of MA1 and MA3, PIDS) hold bits and margins exact and add the
    kernel on the first segment alone, the chain one segment cannot go
-   below, with its cycles a step at the SM clock nvidia-smi reads.  K6
-   and K9 also gate on the kernels a call counted (two for K9 and for K6
-   on P1), and after the last kernel line one ``kernel_split`` line each
-   times every kernel of those calls with the profiler, beside its bound;
+   below, with its cycles a step at the SM clock nvidia-smi reads.  K6,
+   K9 and K14's tone estimate also gate on the kernels a call counted (two
+   for K9 and for K6 on P1, three for the tone), and after the last kernel
+   line one ``kernel_split`` line each times every kernel of those calls
+   with the profiler, beside its bound.  K13's line carries the stack
+   frames ptxas reports for its source;
 5. coldstart: ``serve.cold_start`` on the capture must lock 16/16 stations
    with the true |CFO| under one sign convention, first_bc 14 and psmi 1;
    then ``serve.chain_step`` from the locks over 34 blocks must decode
@@ -112,8 +116,8 @@ Phases, each printing one JSON line:
    dispatch, real-time factor, stage split, device busy time;
 9. am_coldstart: ``serve.cold_start(mode="am")`` on the cold-start capture
    must lock 16/16 stations at their true integer CFO, mode and psmi, each
-   probe block launching exactly K14's tone 1, coarse 1 and CFO step 1,
-   K12 2 and K13 1, with no plain version called.  Then per mode,
+   probe block launching exactly K14's tone 3 (kernels), coarse 1 and
+   CFO step 1, K12 2 and K13 1, with no plain version called.  Then per mode,
    ``serve.carry_from_locks`` and three ``serve.chain_step_am`` dispatches
    of 2 frames from the locks, the carry handed on and each queue advanced
    by what its station consumed: every P1 subframe and P3 frame of frames
@@ -298,9 +302,10 @@ MP3_LAUNCHES = {"halfband_cu8": 1, "demod_fold": 32, "dft_bf16": 32,
 AM_LAUNCHES = {"am_fold": 32, "sync_am_block": 16, "block_carry_am": 16,
                "am_gather": 1,
                "viterbi_k9": 3, "fec_epilogue": 3}
-# launches of one AM cold-start probe block: K14's three kernels once,
-# K12 in both passes, K13 once
-AM_PROBE_LAUNCHES = {"am_tone": 1, "am_coarse": 1, "am_fold": 2,
+# launches of one AM cold-start probe block: K14's tone estimate (three
+# kernels in turn), coarse timing and CFO step, K12 in both passes, K13
+# once
+AM_PROBE_LAUNCHES = {"am_tone": 3, "am_coarse": 1, "am_fold": 2,
                      "am_cfo_step": 1, "sync_am_block": 1}
 
 
@@ -1288,9 +1293,13 @@ def main() -> int:
                 if any(w in ln for w in ("registers", "Function properties",
                                          "stack frame"))]
             for n, log in built["ptxas"].items()}
+    # each source's stack frames, kernel by kernel (K13's must be 0)
+    stack_frames = {n: [int(ln.split()[0]) for ln in lines
+                        if "stack frame" in ln]
+                    for n, lines in regs.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "kernels": list(K.SIGNATURES), "built": built["built"],
-          "ptxas": regs})
+          "ptxas": regs, "stack_frames": stack_frames})
 
     n_blocks = N_FRAMES * C.P1_FM_BLOCKS
     t0 = time.perf_counter()
@@ -1873,7 +1882,11 @@ def main() -> int:
           lambda: BG.block_carry_am_plain(am_keep, k5_p),
           bound(s_n * 4 * 3, s_n * 2), None, [s_n])
 
-    # K13 on block 1's spectra, MA1 and MA3: every output exact
+    # K13 on block 1's spectra, MA1 and MA3: every output exact, and, where
+    # this run built its source, every kernel of it with a 0-byte stack
+    # frame (its tables once in a stack frame made it fault)
+    k13_frames = stack_frames.get("sync_am_block")
+    k13_frames_ok = k13_frames is None or all(b == 0 for b in k13_frames)
     for ma3, x in ((False, am_x), (True, ma3_x)):
         spec = am_spectra if not ma3 else am_block1(ma3_x, True)[1]
         ko = scar.sync_am_block_rc(spec, ma3)
@@ -1888,7 +1901,10 @@ def main() -> int:
               bound(spec.numel() * 4 + out_bytes,
                     s_n * C.BLKSZ * 4 * C.PARTITION_WIDTH_AM * 60),
               None, list(spec.shape), case="ma3" if ma3 else None,
-              differing=diff)
+              ok=sum(diff.values()) == 0 and k13_frames_ok, differing=diff,
+              stack_frame_bytes=("not read: the library was built before "
+                                 "this run" if k13_frames is None
+                                 else k13_frames))
 
     # K15 on the first dispatch's own codes (through the kernels) and a
     # random handed-on delay line, MA1 and MA3; then K7 at K=9 on its
@@ -1962,12 +1978,37 @@ def main() -> int:
     # power sum
     tone_ops = s_n * (AA.N_GRID * win_am * 12 + win_am * 12
                       + 3 * win_am * 20 + C.BLKSZ * C.FFT_AM * 3)
+    # its three kernels: their count against the wrapper's, and each one's
+    # bound (k0 from the spectra and z written; z and the 6.1 MB twiddle
+    # table read, 85 x 8910 products a station (8 operations each) and the
+    # 256 lane sums of each written; the lane sums and the window read,
+    # the trees and the three sincos passes), beside which the profiler
+    # times each after the last kernel line (splits)
+    before = K.COUNTS["am_tone"]
+    AA.am_tone(tone_spectra, cold_x, z32)
+    counted = K.COUNTS["am_tone"] - before
+    win_bytes, part_bytes = s_n * win_am * 8, s_n * AA.N_GRID * 256 * 8
+    twiddle_bytes = AA.N_GRID * win_am * 8
+    pass_bounds = {
+        "am_tone_z_kernel": bound(
+            tone_spectra.numel() * 4 + 2 * win_bytes,
+            s_n * (C.BLKSZ * C.FFT_AM * 3 + win_am * 6))[0],
+        "am_tone_proj_kernel": bound(
+            win_bytes + twiddle_bytes + part_bytes,
+            s_n * AA.N_GRID * win_am * 8)[0],
+        "am_tone_tail_kernel": bound(
+            part_bytes + win_bytes + s_n * 12,
+            s_n * (AA.N_GRID * 256 * 2 + 3 * win_am * 20))[0]}
     check("am_tone", err, 0.0,
           lambda: AA.am_tone(tone_spectra, cold_x, z32),
           lambda: AA.am_tone_plain(tone_spectra, cold_x, z32),
           bound(tone_spectra.numel() * 4 + s_n * (win_am * 8 + 4 + 4 + 12),
                 tone_ops),
-          None, [s_n, win_am, 2], plain_reps=3, plain_inner=2)
+          None, [s_n, win_am, 2], plain_reps=3, plain_inner=2,
+          ok=err == 0.0 and counted == len(pass_bounds),
+          kernels_counted_a_call=counted, kernel_bound_ms=pass_bounds)
+    splits.append(("am_tone", None,
+                   lambda: AA.am_tone(tone_spectra, cold_x, z32)))
     f_t, amp_t = got
     coarse_args = (cold_x, z32, f_t, amp_t, zf, no_latch)
     got = AA.am_coarse(*coarse_args)
@@ -2880,8 +2921,13 @@ def main() -> int:
                 torch.equal(u, v) for u, v in zip(a["carry"][:-1],
                                                   b["carry"][:-1])))
         for a, b in zip(locks, eager_locks))
-    cold_device = profile_device(torch, lambda: serve.cold_start(cold_wire,
-                                                                 "am"))
+    # the device's busy time beside the wall, which is host-bound and
+    # spread: three profiled cold starts, the busiest reported, since a
+    # profiler session that drops spans can only read short
+    cold_devices = [profile_device(torch, lambda: serve.cold_start(cold_wire,
+                                                                   "am"))
+                    for _ in range(3)]
+    cold_device = max(cold_devices, key=lambda d: d["busy_ms"])
     cold_device_eager = profile_device(
         torch, lambda: serve.cold_start(cold_wire, "am", graph=False))
     # where the host's time goes: Python functions by own time in one
@@ -2926,6 +2972,7 @@ def main() -> int:
           "plain_prev_angle_max_diff": prev_angle_gap,
           "cold_start_wall_ms": statistics.median(cold_times[1:]),
           "cold_start_wall_ms_runs": cold_times,
+          "cold_start_busy_ms_runs": [d["busy_ms"] for d in cold_devices],
           "eager_cold_start_wall_ms": statistics.median(cold_eager_times[1:]),
           "eager_cold_start_wall_ms_runs": cold_eager_times,
           "graph_same_locks_as_eager": cold_graph_same,

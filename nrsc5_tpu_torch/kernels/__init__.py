@@ -90,16 +90,17 @@ SIGNATURES = {
     # shape, pilot, folded, phase_out, prev_angle_out, keep, n_stations,
     # stream
     "am_fold": (P, L, P, P, P, P, P, P, P, P, P, P, P, I, P),
-    # spectra, codes, pids, ref_bits, samperr, n_stations, ma3, stream
-    "sync_am_block": (P, P, P, P, P, I, I, P),
+    # spectra, plan (host int32 [4, 12]), codes, pids, ref_bits, samperr,
+    # n_stations, ma3, stream
+    "sync_am_block": (P, P, P, P, P, P, I, I, P),
     # codes, pids, lines, p1_src, p1_dly, p3_src, p3_dly, pids_src,
     # line_src, p1_out, p3_out, pids_out, lines_out, n_stations, n_frames,
     # p1_len, p3_len, pids_len, n_delayed, stream
     "am_gather": (P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                   P),
-    # spectra, samples, n_samples, offset, grid_u, proj, done, f, amp,
-    # n_stations, stream
-    "am_tone": (P, P, L, P, P, P, P, P, P, I, P),
+    # spectra, samples, n_samples, offset, grid_u, derot, twiddle, z
+    # (scratch), part (scratch), k0 (scratch), f, amp, n_stations, stream
+    "am_tone": (P, P, L, P, P, P, P, P, P, P, P, P, I, P),
     # samples, n_samples, offset, f, amp, prev_angle, coarse_override,
     # shape_kernel, measured, samperr, prev_angle_out, v_max, n_stations,
     # stream

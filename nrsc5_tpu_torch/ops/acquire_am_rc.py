@@ -77,8 +77,18 @@ CFO_BINS = 2 * C.PIDS_OUTER_INDEX_AM + 1  # 107
 @functools.lru_cache(maxsize=4)
 def _tables(device: str) -> dict:
     """The grid, the CP window's shape kernel and its circular positions
-    on ``device``."""
-    return {"u": torch.from_numpy(TONE_GRID).to(device),
+    on ``device``; and :func:`am_tone`'s phasor tables, made on ``device``
+    by :func:`am_tone_plain`'s own expressions, so that they hold its
+    phases bit for bit: ``twiddle`` float32 [85, 8910, 2] (6.1 MB), the
+    grid's e^{i (-2π/256)(u_g n)}, and ``derot`` [256, 2], the integer
+    derotation's e^{i k (-2π/256)} at k = (k0 n) mod 256."""
+    u = torch.from_numpy(TONE_GRID).to(device)
+    n = torch.arange(WINDOW_AM, device=device)
+    k = torch.arange(C.FFT_AM, device=device)
+    return {"u": u,
+            "twiddle": rc.exp_i(NEG_TWO_PI_OVER_FFT * (u[:, None]
+                                                       * n.float()[None, :])),
+            "derot": rc.exp_i(k.float() * NEG_TWO_PI_OVER_FFT),
             "kern": torch.from_numpy(_shape_kernel(C.FFT_AM, C.CP_AM)
                                      ).to(device),
             "widx": torch.from_numpy(_cp_window_idx(C.FFTCP_AM, C.CP_AM)
@@ -205,8 +215,10 @@ def am_tone(spectra, samples, offset):
     :func:`am_tone_plain`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one CTA per station and 5 grid points; the CTA that finishes
-    its station last runs the parabola, Newton and the amplitude)."""
+    kernels, three in turn: k0 and z once a station; the grid projection
+    off the cached twiddle table, each twiddle serving the 8 stations a
+    thread sums; the trees, the parabola, Newton and the amplitude over a
+    cluster of 8 CTAs a station."""
     if samples.device.type == "cpu":
         return am_tone_plain(spectra, samples, offset)
     _check_samples(samples, offset)
@@ -215,14 +227,20 @@ def am_tone(spectra, samples, offset):
     K.check(spectra, "spectra", torch.float32)
     K.check(samples, "samples", torch.float32)
     K.check(offset, "offset", torch.int32)
-    proj = torch.empty(s, N_GRID, 2, dtype=torch.float32, device=dev)
-    done = torch.zeros(s, dtype=torch.int32, device=dev)
-    f = torch.empty(s, dtype=torch.float32, device=dev)
-    amp = torch.empty(s, 2, dtype=torch.float32, device=dev)
+    tb = _tables(str(dev))
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    z = empty(K.query("am_tone", "am_tone_z_len", s), 2)
+    part = empty(s, N_GRID, SUM_WIDTH, 2)
+    k0 = empty(s, dtype=torch.int32)
+    f, amp = empty(s), empty(s, 2)
     K.launch("am_tone", spectra.data_ptr(), samples.data_ptr(),
-             samples.shape[1], offset.data_ptr(),
-             _tables(str(dev))["u"].data_ptr(), proj.data_ptr(),
-             done.data_ptr(), f.data_ptr(), amp.data_ptr(), s, device=dev)
+             samples.shape[1], offset.data_ptr(), tb["u"].data_ptr(),
+             tb["derot"].data_ptr(), tb["twiddle"].data_ptr(),
+             z.data_ptr(), part.data_ptr(), k0.data_ptr(), f.data_ptr(),
+             amp.data_ptr(), s, device=dev, kernels=3)
     return f, amp
 
 

@@ -297,6 +297,41 @@ def partitions(ma3: bool) -> tuple:
     return parts, pids
 
 
+# K13's plan: ints a CTA (csrc/sync_am_block.cu's Plan)
+PLAN_INTS = 12
+# the extras of a station's four CTAs (pl, pu, s, t): the CTA that demaps
+# PIDS column k (either mode), the one that writes the reference bits
+# (MA1, MA3), each beside its partition's bins so that its reads stay two
+# contiguous runs a row; pl forms samperr from its own mults and pu's,
+# which it forms again from pu's training rows
+_PIDS_CTA = (3, 2)
+_REF_CTA = {False: 3, True: 1}
+
+
+@functools.lru_cache(maxsize=2)
+def sync_am_plan(ma3: bool) -> np.ndarray:
+    """K13's plan, int32 [4, PLAN_INTS]: for each CTA of a station (one a
+    partition, pl, pu, s, t) its partition's first bin, bin step, levels
+    and twice its training point (re, im); the PIDS bin it demaps (-1:
+    none) and that column's index; 1 where it writes the reference bits;
+    and, for the CTA that forms samperr, the other primary partition's
+    first bin, step and twice its training point (-1: none).  The kernel
+    reads it by value, so it is the only statement of which CTA reads
+    what."""
+    parts, pids = partitions(ma3)
+    plan = np.full((4, PLAN_INTS), -1, np.int32)
+    for p, (first, step, nominal, levels) in enumerate(parts):
+        plan[p, :5] = (first, step, levels, round(2 * nominal.real),
+                       round(2 * nominal.imag))
+        plan[p, 7] = int(p == _REF_CTA[ma3])
+    for k, (p, b) in enumerate(zip(_PIDS_CTA, pids)):
+        plan[p, 5:7] = b, k
+    first, step, nominal, _ = parts[1]
+    plan[0, 8:] = (first, step, round(2 * nominal.real),
+                   round(2 * nominal.imag))
+    return plan
+
+
 @functools.lru_cache(maxsize=8)
 def _sync_tables(ma3: bool, device: str) -> dict:
     """K13's plain version's index and constant tensors on ``device``,
@@ -416,7 +451,8 @@ def sync_am_block_rc(spectra, ma3: bool = False, out=None):
     given.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one CTA per station, the block's spectra in shared memory)."""
+    kernel (four CTAs a station, one a partition, each loading only the
+    bins :func:`sync_am_plan` gives it)."""
     if spectra.device.type == "cpu":
         res = sync_am_block_rc_plain(spectra, ma3)
         return res if out is None else K.into(out, res)
@@ -433,6 +469,7 @@ def sync_am_block_rc(spectra, ma3: bool = False, out=None):
     for k, (shape, dtype) in shapes.items():
         K.check(out[k], k, dtype, shape)
     K.launch("sync_am_block", spectra.data_ptr(),
+             sync_am_plan(bool(ma3)).ctypes.data,
              *(out[k].data_ptr() for k in ("codes", "pids", "ref_bits",
                                            "samperr")),
              s, int(ma3), device=dev)

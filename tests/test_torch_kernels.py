@@ -18,9 +18,11 @@ Tolerances:
   gathers of int8 values or bits;
 - K14 (the AM cold start's tone estimate, coarse timing and CFO step)
   exact, floats too: every sum runs in the plain version's order (the
-  8910-sample sums strided over 256 threads, then a fixed pairwise tree),
-  the phases are the same float32 product chains, and kernel and PyTorch
-  call the same cosf, sinf, atan2f and sqrtf;
+  8910-sample sums strided over 256 lanes, then a fixed pairwise tree),
+  the phases are the same float32 product chains (the tone's grid and
+  derotation phasors from tables the plain version's own expressions
+  made), and kernel and PyTorch call the same cosf, sinf (the tone's tail
+  through sincosf, which gives their values), atan2f and sqrtf;
 - K12 (AM fold) within 1e-5 of the largest value (at least 1), its keep
   exact; K13 (AM sync block) exact on every code, PIDS code, reference
   bit and samperr: its plain version sums in K13's order, divides as K13
@@ -816,10 +818,49 @@ def test_sync_am_block(card, ma3):
     got = scar.sync_am_block_rc(spectra, ma3)
     assert K.COUNTS["sync_am_block"] == before + 1
     want = scar.sync_am_block_rc_plain(spectra, ma3)
+    _same_sync(got, want)
+
+
+def _same_sync(got, want):
     for k in ("codes", "pids", "ref_bits", "samperr"):
         assert got[k].dtype == want[k].dtype, k
         assert torch.equal(got[k], want[k]), (
             k, int((got[k] != want[k]).sum()))
+
+
+@pytest.mark.parametrize("ma3", [False, True])
+@pytest.mark.parametrize("s", [1, 16, 17])
+def test_sync_am_block_stations(card, s, ma3):
+    """K13 at 1, 16 and 17 stations of random spectra (four CTAs a
+    station, each loading only its plan's bins): every output exact, one
+    launch."""
+    g = torch.Generator().manual_seed(60 + s + ma3)
+    spectra = torch.randn(s, C.BLKSZ, C.FFT_AM, 2, generator=g).to(card)
+    before = K.COUNTS["sync_am_block"]
+    got = scar.sync_am_block_rc(spectra, ma3)
+    assert K.COUNTS["sync_am_block"] == before + 1
+    _same_sync(got, scar.sync_am_block_rc_plain(spectra, ma3))
+
+
+@pytest.mark.parametrize("ma3", [False, True])
+def test_sync_am_block_zero_columns(card, ma3):
+    """K13 where a column of every partition, both PIDS columns and (MA1)
+    their mirrors are all zero: the training sums vanish, the divisions
+    give inf and NaN, and the kernel's codes, PIDS codes and samperr are
+    the plain version's."""
+    g = torch.Generator().manual_seed(70 + ma3)
+    spectra = torch.randn(3, C.BLKSZ, C.FFT_AM, 2, generator=g)
+    parts, pids = scar.partitions(ma3)
+    zero = [first + step * 7 for first, step, _, _ in parts] + list(pids)
+    c = C.CENTER_AM
+    for b in zero:
+        spectra[1, :, b] = 0.0
+        if not ma3 and c < b <= c + C.PIDS_OUTER_INDEX_AM:
+            spectra[1, :, 2 * c - b] = 0.0  # its mirror
+    spectra = spectra.to(card)
+    got = scar.sync_am_block_rc(spectra, ma3)
+    want = scar.sync_am_block_rc_plain(spectra, ma3)
+    _same_sync(got, want)
 
 
 @pytest.mark.parametrize("ma3", [False, True])
@@ -918,10 +959,55 @@ def test_am_tone(card):
     x, offset, spectra = _probe_inputs(card)
     before = K.COUNTS["am_tone"]
     got = AA.am_tone(spectra, x, offset)
-    assert K.COUNTS["am_tone"] == before + 1
+    assert K.COUNTS["am_tone"] == before + 3  # k0 and z, projection, tail
     want = AA.am_tone_plain(spectra, x, offset)
     for a, b in zip(got, want):
         assert torch.equal(a, b), (a, b)
+
+
+def _tone_windows(s, n, seed):
+    """``s`` stations of rc samples [s, n, 2]: a carrier at a random
+    frequency in ±100 bins and a random amplitude, in white noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    f = rng.uniform(-100, 100, s) / C.FFT_AM
+    x = rng.uniform(0.5, 2.0, s)[:, None] * np.exp(
+        2j * np.pi * (f[:, None] * t + rng.uniform(0, 1, s)[:, None])) \
+        + 0.3 * (rng.standard_normal((s, n)) + 1j * rng.standard_normal((s, n)))
+    return np.stack([x.real, x.imag], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("s", [1, 16, 17])
+def test_am_tone_stations(card, s):
+    """K14's tone estimate at 1, 16 and 17 stations (17: a second
+    projection chunk of one station): f and amp exact, three launches."""
+    x = torch.from_numpy(_tone_windows(s, 20000, 80 + s)).to(card)
+    g = torch.Generator().manual_seed(s)
+    offset = torch.randint(0, 20000 - AA.WINDOW_AM, (s,), generator=g,
+                           dtype=torch.int32).to(card)
+    spectra = rc.dft(AA.tone_symbols(x, offset))
+    before = K.COUNTS["am_tone"]
+    got = AA.am_tone(spectra, x, offset)
+    assert K.COUNTS["am_tone"] == before + 3
+    for a, b in zip(got, AA.am_tone_plain(spectra, x, offset)):
+        assert torch.equal(a, b), (a, b)
+
+
+def test_am_tone_edges(card):
+    """K14's tone estimate on a window clamped at the capture's end (an
+    offset past it), an all-zero window (flat: no grid point stands out
+    and Newton's curvature h is 0, so no step is taken) and a window
+    starting at a negative offset (counted from the end): exact."""
+    x = torch.from_numpy(_tone_windows(3, 12000, 90)).to(card)
+    x[1] = 0.0
+    offset = torch.tensor([11000, 500, -9000], dtype=torch.int32,
+                          device=card)
+    spectra = rc.dft(AA.tone_symbols(x, offset))
+    got = AA.am_tone(spectra, x, offset)
+    want = AA.am_tone_plain(spectra, x, offset)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), (a, b)
+    assert float(want[1][1].abs().max()) == 0.0  # the zero window's amp
 
 
 @pytest.mark.parametrize("case", ["fresh", "latched"])
@@ -973,7 +1059,7 @@ def test_am_coldstart_block(card):
     K.reset_counts()
     got = scar.am_coldstart_block_rc(*args)
     assert {n: c for n, c in K.COUNTS.items() if c} == {
-        "am_tone": 1, "am_coarse": 1, "am_fold": 2, "am_cfo_step": 1,
+        "am_tone": 3, "am_coarse": 1, "am_fold": 2, "am_cfo_step": 1,
         "sync_am_block": 1}
     want = scar.am_coldstart_block_rc(*args, plain=True)
     for k in want:
