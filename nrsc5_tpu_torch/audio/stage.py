@@ -261,8 +261,9 @@ def window_qmf_analysis(long_raw, short_raw, win_long_idx, win_short_idx,
                         plain: bool = False):
     """K16a: the arguments and results of
     :func:`window_qmf_analysis_plain`.  A CPU tensor (or ``plain``) takes
-    the plain version; a CUDA tensor launches the kernel, one CTA per
-    (lane, packet)."""
+    the plain version; a CUDA tensor launches the kernel (a persistent
+    grid, 4 (lane, packet) items a CTA at a time, KA in shared memory),
+    which takes 16-byte aligned tensors."""
     if plain or long_raw.device.type == "cpu":
         return window_qmf_analysis_plain(
             long_raw, short_raw, win_long_idx, win_short_idx, short,
@@ -278,6 +279,12 @@ def window_qmf_analysis(long_raw, short_raw, win_long_idx, win_short_idx,
     K.check(lut_long, "lut_long", torch.float32, (13, 2048))
     K.check(lut_short, "lut_short", torch.float32, (5, 8, 256))
     K.check(ka, "ka", torch.float32, (320, 64))
+    for name, t in (("long_raw", long_raw), ("short_raw", short_raw),
+                    ("overlap", overlap), ("qa_hist", qa_hist),
+                    ("lut_long", lut_long), ("lut_short", lut_short),
+                    ("ka", ka)):
+        if t.data_ptr() % 16:  # the kernel loads 16 bytes at a time
+            raise ValueError(f"{name}: expected a 16-byte aligned tensor")
     dev = long_raw.device
     xl = torch.empty(n, kp * NSLOT, 64, device=dev)
     new_overlap = torch.empty(n, 1024, device=dev)

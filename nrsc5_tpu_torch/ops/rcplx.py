@@ -12,8 +12,9 @@ real products of the reference are folded into one: the interleaved input
 [..., 2N] times a [2N, 2N] table gives the interleaved output, and the
 fftshift is a permutation of the table's columns.  The FM paths' 2048-point
 DFT runs as a bf16 tensor-core kernel (:func:`dft_bf16`,
-``csrc/dft_bf16.cu``) on K2's bf16 fold; :func:`dft` and :func:`dft_into`
-(the float32 matmul on rounded inputs) serve the AM DFTs.
+``csrc/dft_bf16.cu``) on K2's bf16 fold; the AM block loop's DFTs are the
+float32 matmul alone (:func:`dft_rounded_into`) on K12's fold, which K12
+writes already rounded; :func:`dft` rounds its input itself.
 """
 
 from __future__ import annotations
@@ -138,19 +139,32 @@ def dft_into(x, out, scratch, shift: bool = False):
     """:func:`dft` of ``x`` [..., N, 2] (float32, contiguous) into ``out``
     with no allocation, for a loop that runs inside a CUDA graph: ``x`` is
     rounded to bfloat16 in place through ``scratch`` (a bfloat16 tensor
-    of x's shape), then multiplied in full float32.  The product must run
-    in full float32, so on a CUDA tensor this raises while TF32 float32
-    matmuls are allowed (``torch.backends.cuda.matmul.allow_tf32``, False
-    by default)."""
+    of x's shape), then :func:`dft_rounded_into`."""
+    scratch.copy_(x)
+    x.copy_(scratch)
+    return dft_rounded_into(x, out, shift)
+
+
+def dft_rounded_into(x, out, shift: bool = False):
+    """:func:`dft_into` of an ``x`` whose entries are bfloat16 values
+    already (the AM fold writes them so, :func:`round_bf16`): the
+    float32 matmul alone, into ``out``.  The product must run in full
+    float32, so on a CUDA tensor this raises while TF32 float32 matmuls
+    are allowed (``torch.backends.cuda.matmul.allow_tf32``, False by
+    default)."""
     if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("dft needs full float32 matmuls: set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
     n = x.shape[-2]
     m = _dft_matrix(n, shift, str(x.device))
-    scratch.copy_(x)
-    x.copy_(scratch)
     torch.matmul(x.view(-1, 2 * n), m, out=out.view(-1, 2 * n))
     return out
+
+
+def round_bf16(x):
+    """``x`` rounded to bfloat16 (to nearest, ties to even) and widened
+    back to float32: the DFT's rounding of its input."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 @functools.lru_cache(maxsize=4)

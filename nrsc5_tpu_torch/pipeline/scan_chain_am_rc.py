@@ -11,9 +11,11 @@ it (:mod:`nrsc5_tpu_torch.pipeline.block_graph`, K5 carrying the offset):
 
   * K12 (:func:`am_fold`, ``csrc/am_fold.cu``), pass 1: the ramp, the 32 x
     270-sample slice and the shaped 14-sample cyclic-prefix fold with the
-    roll; the 256-point DFT (a matmul, :func:`nrsc5_tpu_torch.ops.rcplx.
-    dft`); pass 2: the pilot-phase regression from pass 1's spectra, then
-    the fold again with the corrected phase and frequency; the DFT;
+    roll, written rounded to bfloat16 as the DFT takes it; the 256-point
+    DFT (the float32 matmul alone, :func:`nrsc5_tpu_torch.ops.rcplx.
+    dft_rounded_into`); pass 2: the pilot-phase regression from pass 1's
+    spectra, then the fold again with the corrected phase and frequency;
+    the DFT;
   * K13 (:func:`sync_am_block_rc`, ``csrc/sync_am_block.cu``): the
     sideband combine, the reference bits, the PIDS and partition training
     mults, the sample-clock regression, the interpolated equalizer and the
@@ -135,9 +137,10 @@ def _fold_plain(samples, start, phase0, angle):
 
 
 def am_fold_plain(samples, offset, phase, samperr_fb, prev_angle, cfo,
-                  spectra1=None):
+                  spectra1=None, unrounded: bool = False):
     """Plain version of K12 (the reference's ``acquire_am_fine_rc`` with
-    ``_am_process_rc`` and ``_am_fold_fft_rc``, up to each DFT).
+    ``_am_process_rc`` and ``_am_fold_fft_rc``, up to each DFT, and the
+    DFT's rounding of its input to bfloat16).
 
     samples [S, N, 2] float32 rc (N >= WINDOW_AM); per station offset
     int32 (window start), phase [2] (the sample-clock phasor), samperr_fb
@@ -145,9 +148,12 @@ def am_fold_plain(samples, offset, phase, samperr_fb, prev_angle, cfo,
     None) returns the folded symbols float32 [S, 32, 256, 2] of the first
     demodulation.  Pass 2 takes pass 1's spectra [S, 32, 256, 2], fits
     the pilot phase, and returns (folded [S, 32, 256, 2], phase_out
-    [S, 2], prev_angle_out [S], keep int32 [S]).  Sums run from the first
-    term to the last, and divisions by numbers are true divisions, as the
-    kernel computes them."""
+    [S, 2], prev_angle_out [S], keep int32 [S]).  The folded symbols are
+    rounded to bfloat16 and widened back (:func:`rcplx.round_bf16`), the
+    DFT's operand; ``unrounded`` returns them as float32 computes them,
+    what the kernel's gate holds it to.  Sums run from the first term to
+    the last, and divisions by numbers are true divisions, as the kernel
+    computes them."""
     _check_fold(samples, offset, phase, samperr_fb, prev_angle, cfo)
     fftcp, fft = C.FFTCP_AM, C.FFT_AM
     nsym = C.ACQUIRE_SYMBOLS
@@ -157,8 +163,9 @@ def am_fold_plain(samples, offset, phase, samperr_fb, prev_angle, cfo,
         -(fftcp // 2 - samperr).float() * angle, fft))))
     start = dynamic_start(offset.long(), samples.shape[1], WINDOW_AM) \
         + dynamic_start(samperr.long(), WINDOW_AM, NSAMP)
+    finish = (lambda f: f) if unrounded else rc.round_bf16
     if spectra1 is None:
-        return _fold_plain(samples, start, phase0, angle)
+        return finish(_fold_plain(samples, start, phase0, angle))
 
     # pilot-phase regression (reference: src/acquire.c:170-240)
     pilot = spectra1[:, :, C.CENTER_AM]  # [S, 32, 2]
@@ -178,7 +185,7 @@ def am_fold_plain(samples, offset, phase, samperr_fb, prev_angle, cfo,
     phase0b = rc.mul(phase0, rc.exp_i(
         -y_mean + rc.fdiv(slope * nsym * fftcp, 2) - 0.06))
 
-    folded = _fold_plain(samples, start, phase0b, angle2)
+    folded = finish(_fold_plain(samples, start, phase0b, angle2))
     phase_out = rc.normalize(rc.mul(phase0b, rc.exp_i(
         rc.fdiv(angle2, fft) * NSAMP)))
     keep = (fftcp + (fftcp // 2 - samperr)).to(torch.int32)
@@ -193,8 +200,10 @@ def am_fold(samples, offset, phase, samperr_fb, prev_angle, cfo,
     2: (folded, phase_out, prev_angle_out, keep)).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one CTA per station and symbol, one thread per output bin;
-    in pass 2 one warp of each CTA fits the pilot phase first)."""
+    kernel (one CTA per station and two symbols, one thread per output
+    bin; every thread loads its samples first, then in pass 1 forms the
+    station's phase itself, while in pass 2 warp 0 forms it and the pilot
+    fit for the CTA)."""
     if samples.device.type == "cpu":
         res = am_fold_plain(samples, offset, phase, samperr_fb, prev_angle,
                             cfo, spectra1)
@@ -240,12 +249,13 @@ def am_fold(samples, offset, phase, samperr_fb, prev_angle, cfo,
 def acquire_am_fine_rc(samples, offset, phase, samperr_fb, prev_angle, cfo,
                        plain: bool = False, out=None, scratch=None):
     """The reference's ``acquire_am_fine_rc`` for a station batch: K12
-    pass 1, the DFT, K12 pass 2, the DFT.  Returns (spectra [S, 32, 256,
-    2], phase_out [S, 2], prev_angle_out [S], keep int32 [S]), written
-    into ``out`` where it is given.  ``scratch`` is (folded, spectra1,
-    rounded): two float32 [S, 32, 256, 2] buffers and a bfloat16 one of
-    that shape; with ``out`` and ``scratch`` given the step allocates
-    nothing, as the block loop (:func:`scan_blocks_am`) needs."""
+    pass 1, the DFT, K12 pass 2, the DFT (each DFT the float32 matmul
+    alone on K12's bf16-rounded fold).  Returns (spectra [S, 32, 256, 2],
+    phase_out [S, 2], prev_angle_out [S], keep int32 [S]), written into
+    ``out`` where it is given.  ``scratch`` is (folded, spectra1): two
+    float32 [S, 32, 256, 2] buffers; with ``out`` and ``scratch`` given
+    the step allocates nothing, as the block loop
+    (:func:`scan_blocks_am`) needs."""
     s, dev = samples.shape[0], samples.device
     fshape = (s, C.BLKSZ, C.FFT_AM, 2)
     if out is None:
@@ -254,16 +264,15 @@ def acquire_am_fine_rc(samples, offset, phase, samperr_fb, prev_angle, cfo,
                torch.empty(s, dtype=torch.int32, device=dev))
     if scratch is None:
         scratch = (torch.empty(fshape, device=dev),
-                   torch.empty(fshape, device=dev),
-                   torch.empty(fshape, dtype=torch.bfloat16, device=dev))
+                   torch.empty(fshape, device=dev))
     spectra, phase_out, prev_angle_out, keep = out
-    folded, spectra1, rounded = scratch
+    folded, spectra1 = scratch
     args = (samples, offset, phase, samperr_fb, prev_angle, cfo)
     run_into(am_fold, am_fold_plain, plain, args, folded)
-    rc.dft_into(folded, spectra1, rounded, shift=True)
+    rc.dft_rounded_into(folded, spectra1, shift=True)
     run_into(am_fold, am_fold_plain, plain, args + (spectra1,),
              (folded, phase_out, prev_angle_out, keep))
-    rc.dft_into(folded, spectra, rounded, shift=True)
+    rc.dft_rounded_into(folded, spectra, shift=True)
     return out
 
 
@@ -510,7 +519,7 @@ def scan_blocks_am(samples, carry: AMChainCarryRC, n_blocks: int,
     prev_angle = (carry.prev_angle.clone(), empty((s,)))
     fshape = (s, C.BLKSZ, C.FFT_AM, 2)
     spectra = empty(fshape)
-    scratch = (empty(fshape), empty(fshape), empty(fshape, torch.bfloat16))
+    scratch = (empty(fshape), empty(fshape))
     keep = empty((s,), torch.int32)
     for b in range(n_blocks):
         i, j = b % 2, (b + 1) % 2
@@ -653,9 +662,7 @@ def am_coldstart_block_rc(samples, offset, phase, prev_angle, cfo,
     # the CFO step reads pass 1's spectra (scratch[1])
     fshape = (samples.shape[0], C.BLKSZ, C.FFT_AM, 2)
     scratch = (torch.empty(fshape, device=samples.device),
-               torch.empty(fshape, device=samples.device),
-               torch.empty(fshape, dtype=torch.bfloat16,
-                           device=samples.device))
+               torch.empty(fshape, device=samples.device))
     spectra, phase, prev_angle, keep = acquire_am_fine_rc(
         samples, offset, phase, samperr - C.FFTCP_AM // 2, prev_angle, cfo,
         plain, scratch=scratch)

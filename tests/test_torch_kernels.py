@@ -23,8 +23,12 @@ Tolerances:
   derotation phasors from tables the plain version's own expressions
   made), and kernel and PyTorch call the same cosf, sinf (the tone's tail
   through sincosf, which gives their values), atan2f and sqrtf;
-- K12 (AM fold) within 1e-5 of the largest value (at least 1), its keep
-  exact; K13 (AM sync block) exact on every code, PIDS code, reference
+- K12 (AM fold): it writes its fold rounded to bfloat16, the DFT's
+  operand, so each entry must be a bfloat16 value that is the rounding of
+  some value within 1e-5 of the largest value (at least 1) of the plain
+  version's unrounded fold (the tolerance the float32 fold was held to,
+  carried through the rounding); phase_out and prev_angle_out within that
+  1e-5, keep exact; K13 (AM sync block) exact on every code, PIDS code, reference
   bit and samperr: its plain version sums in K13's order, divides as K13
   does and calls the same float32 functions, so an equalized value could
   move across a decision threshold only by a last-bit difference of sin,
@@ -58,6 +62,7 @@ Tolerances:
 
 import functools
 import json
+import math
 
 import numpy as np
 import pytest
@@ -776,6 +781,43 @@ def _am_stations(card, ma3=False):
     return x, scar.am_chain_rc_init_carry(n_stations=3, device=card)
 
 
+def _bf16_fold_gate(got, unrounded, tol):
+    """K12's fold against its plain version's unrounded fold: each entry a
+    bfloat16 value, the rounding of some value within ``tol`` of the
+    unrounded one (the kernel's float32 fold may differ from the plain
+    version's by float rounding, and rounding can carry that across a
+    bf16 midpoint).  Returns the count of entries that are not the
+    rounding of the unrounded value itself."""
+    lo = rc.round_bf16(unrounded - tol)
+    hi = rc.round_bf16(unrounded + tol)
+    assert torch.equal(got, rc.round_bf16(got))
+    assert bool(((got >= lo) & (got <= hi)).all())
+    return int((got != rc.round_bf16(unrounded)).sum())
+
+
+def _check_am_fold(args):
+    """K12, both passes (pass 2 on pass 1's spectra through the plain
+    version): the fold under the bf16 gate within 1e-5 of the largest value
+    (at least 1), phase_out and prev_angle_out within 1e-5, keep exact;
+    two launches."""
+    before = K.COUNTS["am_fold"]
+    got1 = scar.am_fold(*args)
+    want1 = scar.am_fold_plain(*args, unrounded=True)
+    tol = 1e-5 * max(want1.abs().max().item(), 1.0)
+    _bf16_fold_gate(got1, want1, tol)
+    spectra1 = rc.dft(want1, shift=True)
+    got2 = scar.am_fold(*args, spectra1)
+    want2 = scar.am_fold_plain(*args, spectra1, unrounded=True)
+    assert K.COUNTS["am_fold"] == before + 2
+    _bf16_fold_gate(got2[0], want2[0],
+                    1e-5 * max(want2[0].abs().max().item(), 1.0))
+    for a, b in zip(got2[1:], want2[1:]):
+        if b.dtype == torch.int32:
+            assert torch.equal(a, b)
+        else:
+            _close(a, b, 1e-5)
+
+
 @pytest.mark.parametrize("case", ["fresh", "moved"])
 def test_am_fold(card, case):
     """K12, both passes, on three stations: from a fresh carry, and with the
@@ -791,19 +833,26 @@ def test_am_fold(card, case):
                     torch.tensor([3, -2, 0], dtype=torch.int32, device=card),
                     torch.tensor([0.004, -0.01, 0.02], device=card),
                     torch.tensor([1, 0, -1], dtype=torch.int32, device=card)]
-    before = K.COUNTS["am_fold"]
-    got1 = scar.am_fold(*args)
-    want1 = scar.am_fold_plain(*args)
-    _close(got1, want1, 1e-5)
-    spectra1 = rc.dft(want1, shift=True)
-    got2 = scar.am_fold(*args, spectra1)
-    want2 = scar.am_fold_plain(*args, spectra1)
-    assert K.COUNTS["am_fold"] == before + 2
-    for a, b in zip(got2, want2):
-        if b.dtype == torch.int32:
-            assert torch.equal(a, b)
-        else:
-            _close(a, b, 1e-5)
+    _check_am_fold(args)
+
+
+@pytest.mark.parametrize("s", [1, 3, 17])
+def test_am_fold_stations(card, s):
+    """K12 at 1, 3 and 17 stations of noise with random carries (a CTA per
+    station and two symbols): the bf16 gate, both passes."""
+    g = torch.Generator().manual_seed(120 + s)
+    n = scar.WINDOW_AM + 500
+    x = (0.05 * torch.randn(s, n, 2, generator=g)).to(card)
+    ang = 2 * math.pi * torch.rand(s, generator=g)
+    args = [x, torch.randint(-600, 600, (s,), generator=g,
+                             dtype=torch.int32).to(card),
+            torch.stack([torch.cos(ang), torch.sin(ang)], -1).to(card),
+            torch.randint(-4, 5, (s,), generator=g,
+                          dtype=torch.int32).to(card),
+            (0.02 * torch.randn(s, generator=g)).to(card),
+            torch.randint(-2, 3, (s,), generator=g,
+                          dtype=torch.int32).to(card)]
+    _check_am_fold(args)
 
 
 @pytest.mark.parametrize("ma3", [False, True])
@@ -1134,6 +1183,39 @@ def _audio_case(header: str, lanes: int, dev):
     return (stage.to(dev), device_inputs({k: tile(v) for k, v in inp.items()},
                                          dev),
             {k: torch.from_numpy(tile(v)).to(dev) for k, v in state.items()})
+
+
+@pytest.mark.parametrize("kp,lanes,windows", [
+    (1, 1, "long"), (1, 3, "short"), (1, 129, "mixed"), (8, 1, "short"),
+    (8, 3, "mixed"), (8, 129, "long")])
+def test_window_qmf_analysis_shapes(card, kp, lanes, windows):
+    """K16a at 1 and 8 packets, 1, 3 and 129 lanes (groups of 4 items
+    across lane edges, a partial last group), all-long, all-short and mixed
+    windows, on random inputs: every output equal to the plain version,
+    one launch."""
+    rng = np.random.default_rng(1600 + 10 * kp + lanes)
+
+    def f32(*shape, lo=-1.0):
+        return torch.from_numpy(rng.uniform(lo, 1.0, shape).astype(
+            np.float32)).to(card)
+
+    short = {"long": np.zeros((lanes, kp), bool),
+             "short": np.ones((lanes, kp), bool),
+             "mixed": rng.integers(0, 2, (lanes, kp)).astype(bool)}[windows]
+    args = (f32(lanes, kp, 2048), f32(lanes, kp, 8, 256),
+            torch.from_numpy(rng.integers(0, 13, (lanes, kp)).astype(
+                np.uint8)).to(card),
+            torch.from_numpy(rng.integers(0, 5, (lanes, kp)).astype(
+                np.uint8)).to(card),
+            torch.from_numpy(short).to(card), f32(lanes, 1024),
+            f32(lanes, 288), f32(13, 2048, lo=0.0), f32(5, 8, 256, lo=0.0),
+            f32(320, 64))
+    before = K.COUNTS["aac_window_qmf_analysis"]
+    got = AST.window_qmf_analysis(*args)
+    assert K.COUNTS["aac_window_qmf_analysis"] == before + 1
+    want = AST.window_qmf_analysis(*args, plain=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("lanes", [2, 128])
