@@ -64,18 +64,24 @@ Phases, each printing one JSON line:
    in MA1 and MA3, K7 at K=9 on P1, P3 of MA1 and MA3 and PIDS, and K8
    on the AM P1; K14's three kernels at the AM cold start's first probe
    block (its tone estimate three kernels in turn: k0 and z, the grid
-   projection, the tail over a cluster of 8), K1's AM cascade on the cu8
+   projection, the tail over a cluster of 8; its coarse timing over a
+   cluster of 8 CTAs a station; its CFO step four threads a bin), K1's AM
+   cascade on the cu8
    AM wire; K16a-d one after the other
    on a batch of the audio fleet, 128 lanes x 8 packets; K5's two carry
    steps on block 1's state).  K7's lines (K=7: P1, PIDS, PX1; K=9: P1,
    P3 of MA1 and MA3, PIDS) hold bits and margins exact and add the
    kernel on the first segment alone, the chain one segment cannot go
    below, with its cycles a step at the SM clock nvidia-smi reads.  K6,
-   K9 and K14's tone estimate also gate on the kernels a call counted (two
-   for K9 and for K6 on P1, three for the tone), and after the last kernel
-   line one ``kernel_split`` line each times every kernel of those calls
-   with the profiler, beside its bound.  K13's line carries the stack
-   frames ptxas reports for its source;
+   K9 and K14's three entry points also gate on the kernels a call
+   counted (two for K9 and for K6 on P1, three for the tone, one for the
+   coarse timing and the CFO step), and after the last kernel line one
+   ``kernel_split`` line each times every kernel of those calls with the
+   profiler, beside its bound (the coarse timing's and the CFO step's
+   also with ``probe_block_exposed_ms``, what each adds to one profiled
+   probe block past the end of the kernel ahead of it).  K13's line
+   carries the stack frames ptxas reports for its source, K14's coarse
+   timing and CFO step lines their kernel's (reported, not gated);
 5. coldstart: ``serve.cold_start`` on the capture must lock 16/16 stations
    with the true |CFO| under one sign convention, first_bc 14 and psmi 1;
    then ``serve.chain_step`` from the locks over 34 blocks must decode
@@ -127,7 +133,10 @@ Phases, each printing one JSON line:
    by what its station consumed: every P1 subframe and P3 frame of frames
    3-5 counted from the lock and every PIDS word bit-exact.  The plain
    versions must give the same locks and bits.  The cold start's wall time,
-   probe blocks, launches per probe block and device busy time;
+   probe blocks, launches per probe block beside one probe block's device
+   time (``probe_block_ms``: the stations' first block as the cold start's
+   graph replays it, CUDA events around 10 replays, median of 7) and
+   device busy time;
 10. am_cu8: ``serve.ingest`` of the cu8 AM wire launches K1's AM cascade
    once, and each station's output correlates with its baseband above
    0.85 (the reference's own bound for this cascade);
@@ -389,9 +398,10 @@ def time_ms(torch, fn, reps: int = 7, inner: int = 10,
 
 def profile_device(torch, fn) -> dict:
     """Device busy time of one call of ``fn``: the sum of the kernel, copy
-    and set spans the profiler records on the card (one stream, no
-    overlap), against the call's wall time; beside it the number of spans
-    (and of copy spans) and the kernels' share of the busy time."""
+    and set spans the profiler records on the card (one stream), against
+    the call's wall time; beside it the number of spans (and of copy
+    spans), the kernels' share of the busy time, and the time at least one
+    kernel runs (where kernels launched to start early overlap)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -405,15 +415,28 @@ def profile_device(torch, fn) -> dict:
     busy = sum(e.time_range.elapsed_us() for e in spans) / 1e3
     # the kernels alone: a pageable copy's span also holds the host's
     # staging of it, which varies from run to run
-    kernel_busy = sum(e.time_range.elapsed_us() for e in spans
-                      if not e.name.startswith(("Memcpy", "Memset"))) / 1e3
+    kernels = [e for e in spans if not e.name.startswith(("Memcpy", "Memset"))]
+    kernel_busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    # the time at least one kernel runs: a kernel launched to start while
+    # the one ahead of it ends (programmatic dependent launch) opens its
+    # span early, and the sum counts the overlap twice
+    kernel_union, reach = 0.0, None
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        if reach is None or a > reach:
+            kernel_union += b - a
+            reach = b
+        elif b > reach:
+            kernel_union += b - reach
+            reach = b
     by_name = {}
     for e in spans:
         by_name[e.name] = by_name.get(e.name, 0.0) \
             + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"spans": len(spans), "busy_ms": busy,
-            "kernel_busy_ms": kernel_busy, "wall_ms": wall,
+            "kernel_busy_ms": kernel_busy,
+            "kernel_union_ms": kernel_union / 1e3, "wall_ms": wall,
             "idle_share": 1 - busy / wall if spans else None,
             "top_ms": [[n[:80], t] for n, t in top],
             "gemm_spans": sum("gemm" in e.name.lower() for e in spans),
@@ -457,6 +480,55 @@ def short_kernel_name(name: str) -> str:
     head = name.replace("(anonymous namespace)::", "").split("(")[0]
     head = head.split("<")[0].split("::")[-1]
     return (head.split() or [name])[-1]
+
+
+def frames_by_kernel(lines) -> dict:
+    """``{kernel's mangled name: stack frame bytes}`` from a source's
+    ptxas lines ("Function properties for <name>", then its frame)."""
+    out, name = {}, None
+    for ln in lines:
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for")[1].strip()
+        elif "stack frame" in ln and name is not None:
+            out[name] = int(ln.split()[0])
+            name = None
+    return out
+
+
+def frame_of(kernel_frames: dict, source: str, kernel: str):
+    """The stack frame bytes of ``kernel`` (a part of its mangled name) in
+    ``source``, or why they were not read."""
+    frames = kernel_frames.get(source)
+    if frames is None:
+        return "not read: the library was built before this run"
+    hits = [b for n, b in frames.items() if kernel in n]
+    return hits[0] if len(hits) == 1 else f"not read: {len(hits)} matches"
+
+
+def exposed_spans(torch, fn, names, calls: int = 10) -> dict:
+    """How long each kernel of ``names`` (short names) holds up the work
+    ``fn`` runs on the card: the end of its span less the end of the span
+    ahead of it (0 where it ends first), mean ms a call over ``calls``
+    calls under the profiler, after a warm one.  A kernel launched to start
+    early (programmatic dependent launch) hides what it does before its
+    wait; this reads what it does not hide."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA),
+                   key=lambda e: e.time_range.start)
+    got = {n: [] for n in names}
+    for prev, e in zip(spans, spans[1:]):
+        name = short_kernel_name(e.name)
+        if name in got:
+            got[name].append(max(0, e.time_range.end - prev.time_range.end))
+    return {n: (sum(v) / 1e3 / calls if v else None) for n, v in got.items()}
 
 
 def tensors_sha256(tensors) -> str:
@@ -1329,6 +1401,7 @@ def main() -> int:
     stack_frames = {n: [int(ln.split()[0]) for ln in lines
                         if "stack frame" in ln]
                     for n, lines in regs.items()}
+    kernel_frames = {n: frames_by_kernel(lines) for n, lines in regs.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "kernels": list(K.SIGNATURES), "built": built["built"],
           "ptxas": regs, "stack_frames": stack_frames})
@@ -2068,32 +2141,66 @@ def main() -> int:
                    lambda: AA.am_tone(tone_spectra, cold_x, z32)))
     f_t, amp_t = got
     coarse_args = (cold_x, z32, f_t, amp_t, zf, no_latch)
+    before = K.COUNTS["am_coarse"]
     got = AA.am_coarse(*coarse_args)
+    counted = K.COUNTS["am_coarse"] - before
     want = AA.am_coarse_plain(*coarse_args)
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(got, want))
     nsamp_cp = C.BLKSZ * C.FFTCP_AM
+    coarse_bnd = bound(s_n * (win_am * 8 + 4 * 6 + 4 * 3 + 8),
+                       s_n * (win_am * 12 + nsamp_cp * 8
+                              + C.FFTCP_AM * C.CP_AM * 4 + C.FFTCP_AM * 3
+                              + 10))
+    # exact in all four outputs (a cluster of 8 CTAs a station, each
+    # computing only its lanes' positions); its stack frame reported (the
+    # trigonometric slow path's work array), not gated
     check("am_coarse", err, 0.0,
           lambda: AA.am_coarse(*coarse_args),
-          lambda: AA.am_coarse_plain(*coarse_args),
-          bound(s_n * (win_am * 8 + 4 * 6 + 4 * 3 + 8),
-                s_n * (win_am * 12 + nsamp_cp * 8
-                       + C.FFTCP_AM * C.CP_AM * 4 + C.FFTCP_AM * 3 + 10)),
-          None, [s_n, win_am, 2], plain_reps=3, plain_inner=2)
+          lambda: AA.am_coarse_plain(*coarse_args), coarse_bnd,
+          None, [s_n, win_am, 2], plain_reps=3, plain_inner=2,
+          ok=err == 0.0 and counted == 1,
+          stack_frame_bytes=frame_of(kernel_frames, "am_coldstart",
+                                     "am_coarse_kernel"),
+          kernels_counted_a_call=counted,
+          kernel_bound_ms={"am_coarse_kernel": coarse_bnd[0]})
+    splits.append(("am_coarse", None, lambda: AA.am_coarse(*coarse_args)))
     cold_samperr = got[1]
     spectra1 = rc.dft(scar.am_fold(cold_x, z32, unit, cold_samperr
                                    - C.FFTCP_AM // 2, got[2], z32),
                       shift=True)
+    before = K.COUNTS["am_cfo_step"]
     got = AA.am_cfo_step(spectra1)
+    counted = K.COUNTS["am_cfo_step"] - before
     want = AA.am_cfo_step_plain(spectra1)
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(got, want))
     band = C.BLKSZ * AA.CFO_BINS
+    cfo_bnd = bound(s_n * (band * 8 + AA.CFO_BINS * 4 + 4), s_n * band * 5)
     check("am_cfo_step", err, 0.0,
           lambda: AA.am_cfo_step(spectra1),
-          lambda: AA.am_cfo_step_plain(spectra1),
-          bound(s_n * (band * 8 + AA.CFO_BINS * 4 + 4), s_n * band * 5),
-          None, list(spectra1.shape), plain_reps=3, plain_inner=2)
+          lambda: AA.am_cfo_step_plain(spectra1), cfo_bnd,
+          None, list(spectra1.shape), plain_reps=3, plain_inner=2,
+          ok=err == 0.0 and counted == 1,
+          stack_frame_bytes=frame_of(kernel_frames, "am_coldstart",
+                                     "am_cfo_step_kernel"),
+          kernels_counted_a_call=counted,
+          kernel_bound_ms={"am_cfo_step_kernel": cfo_bnd[0]})
+    splits.append(("am_cfo_step", None, lambda: AA.am_cfo_step(spectra1)))
+    # one probe block of the cold start as its graph replays it (the
+    # stations' first block: windows at 0, no CFO, no latch), device ms
+    # a block; and what am_coarse and am_cfo_step add to it beyond the
+    # kernels ahead of them (they start early and hide their loads)
+    probe_ctl = torch.stack([z32, z32, no_latch])
+    probe_state = (unit.clone(), zf.clone())
+
+    def probe_body():
+        scar._probe_body(cold_x, probe_ctl, *probe_state)
+
+    probe_block_ms = time_ms(torch, probe_body, graph=True)
+    probe_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(probe_graph):
+        probe_body()
 
     # --- K1's AM cascade: one 2-frame dispatch of the cu8 AM fleet, u8
     # [16, 434 + 32 x 138780, 2] ---
@@ -2221,17 +2328,24 @@ def main() -> int:
     # its PIDS line beside them), timed by the profiler.  After every
     # kernel line, because a profiler session leaves its tracing on and
     # adds to the times of the small kernels that follow it ---
+    in_probe_block = exposed_spans(torch, probe_graph.replay,
+                                   ("am_coarse_kernel", "am_cfo_step_kernel"))
     for name, case, fn in splits:
         spans = kernel_spans(torch, fn)
         row = report[name] if case is None else report[name]["cases"][case]
         row.update(kernels_a_call=spans["kernels_a_call"],
                    kernel_ms=spans["ms"], profiler_sessions=spans["sessions"])
-        emit({"phase": "kernel_split", "name": name, "case": case,
-              "kernels_a_call": spans["kernels_a_call"],
-              "kernels_counted_a_call": row["kernels_counted_a_call"],
-              "kernel_ms": spans["ms"],
-              "kernel_bound_ms": row["kernel_bound_ms"],
-              "profiler_sessions": spans["sessions"]})
+        line = {"phase": "kernel_split", "name": name, "case": case,
+                "kernels_a_call": spans["kernels_a_call"],
+                "kernels_counted_a_call": row["kernels_counted_a_call"],
+                "kernel_ms": spans["ms"],
+                "kernel_bound_ms": row["kernel_bound_ms"],
+                "profiler_sessions": spans["sessions"]}
+        if f"{name}_kernel" in in_probe_block:
+            # ms a probe block from the end of the kernel ahead to its own
+            line["probe_block_exposed_ms"] = in_probe_block[f"{name}_kernel"]
+            row["probe_block_exposed_ms"] = line["probe_block_exposed_ms"]
+        emit(line)
 
     # --- coldstart: lock the capture, then decode it from the locks ---
     cap_blocks = LEAD + n_blocks
@@ -3014,6 +3128,7 @@ def main() -> int:
           "launches_per_probe_block": {
               n: c / probes for n, c in crun["launches"].items() if c}
           if probes else None,
+          "probe_block_ms": probe_block_ms,
           "launches_per_dispatch": {
               str(ma3): grp["launches"] for ma3, grp in
               crun["groups"].items()},

@@ -300,8 +300,11 @@ def am_coarse(samples, offset, f, amp, prev_angle, coarse_override):
     :func:`am_coarse_plain`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one CTA per station, the tone-subtracted window in 71 KB of
-    shared memory)."""
+    kernel: a cluster of 8 CTAs a station, each owning a run of the 270
+    timing lanes and loading only the ~1560 window samples its lanes' sums
+    read, the leader CTA taking every lane sum into its shared memory for
+    the window, the argmax and the scalar steps; launched with
+    programmatic dependent launch behind :func:`am_tone`'s last kernel."""
     if samples.device.type == "cpu":
         return am_coarse_plain(samples, offset, f, amp, prev_angle,
                                coarse_override)
@@ -345,7 +348,8 @@ def am_cfo_step(spectra1):
     :func:`am_cfo_step_plain`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one CTA per station, one thread per bin)."""
+    kernel: one CTA per station, one thread per bin with its 32 symbol
+    loads issued at once, launched with programmatic dependent launch."""
     if spectra1.device.type == "cpu":
         return am_cfo_step_plain(spectra1)
     s, dev = spectra1.shape[0], spectra1.device

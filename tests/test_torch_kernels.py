@@ -1095,6 +1095,52 @@ def test_am_cfo_step(card):
     assert step.tolist()[:2] == [2, -1]
 
 
+@pytest.mark.parametrize("s", [1, 3, 17])
+def test_am_coarse_stations(card, s):
+    """K14's coarse timing at 1, 3 and 17 stations of tones in noise (17:
+    a cluster past the card's first 16 stations' worth), each window at an
+    odd offset, one clamped at the end and one counted from the end, the
+    latch -1, in range and past 270, prev_angle zero and nonzero: every
+    output exact, one launch a call."""
+    n = 20000
+    x = torch.from_numpy(_tone_windows(s, n, 140 + s)).to(card)
+    g = torch.Generator().manual_seed(140 + s)
+    offs = 2 * torch.randint(0, (n - AA.WINDOW_AM) // 2, (s,), generator=g) + 1
+    offs[1::3] = n + 7  # clamped at the end
+    offs[2::3] = -(n // 2) - 3  # from the end, odd
+    offset = offs.to(torch.int32).to(card)
+    spectra = rc.dft(AA.tone_symbols(x, offset))
+    f, amp = AA.am_tone_plain(spectra, x, offset)
+    pa = (torch.rand(s, generator=g) * 6 - 3).to(card)
+    pa[::2] = 0.0
+    ov = torch.tensor([-1, 17, 270, 541, -1, 269][:s] * (s // 6 + 1),
+                      dtype=torch.int32)[:s].to(card)
+    before = K.COUNTS["am_coarse"]
+    got = AA.am_coarse(x, offset, f, amp, pa, ov)
+    assert K.COUNTS["am_coarse"] == before + 1
+    for a, b in zip(got, AA.am_coarse_plain(x, offset, f, amp, pa, ov)):
+        assert a.dtype == b.dtype and torch.equal(a, b), (a, b)
+
+
+@pytest.mark.parametrize("s", [1, 3, 17])
+def test_am_cfo_step_stations(card, s):
+    """K14's integer-CFO step at 1, 3 and 17 stations of random spectra,
+    the last station's two strongest bins equal (the first wins): the 107
+    magnitude sums and the steps exact, one launch a call."""
+    g = torch.Generator().manual_seed(150 + s)
+    spectra1 = torch.randn(s, C.BLKSZ, C.FFT_AM, 2, generator=g)
+    lo = AA.CFO_LO
+    spectra1[-1, :, lo + 90] = 4 * spectra1[-1, :, lo + 7]
+    spectra1[-1, :, lo + 7] = spectra1[-1, :, lo + 90]
+    spectra1 = spectra1.to(card)
+    before = K.COUNTS["am_cfo_step"]
+    step, mags = AA.am_cfo_step(spectra1)
+    assert K.COUNTS["am_cfo_step"] == before + 1
+    pstep, pmags = AA.am_cfo_step_plain(spectra1)
+    assert torch.equal(step, pstep) and torch.equal(mags, pmags)
+    assert int(step[-1]) == 7 + lo - C.CENTER_AM
+
+
 def test_am_coldstart_block(card):
     """One probe block through the kernels and through the plain versions:
     every integer, the phase, prev_angle and the magnitude sums equal; the
