@@ -54,14 +54,18 @@ Phases, each printing one JSON line:
    cuBLAS's bf16 GEMM of the same operands as its library call and the
    float32 GEMM it replaced beside it; K4 also at
    psmi 2, 3 and 11, K6 and K8 at P1's and PIDS's shapes, K8 at PX's,
-   K11 at MP3's and MP2's (K6 int8 out, exact, with one index_select over
-   each frame's zero-padded pm as its library call; K7 on K6's int8 also
-   on the same values in float32, the same bits and margins); the AM
-   kernels K12 in both passes (its fold written rounded to bf16, the
-   DFT's operand: each entry the bf16 rounding of a value within 1e-5 of
-   the plain version's unrounded fold, the entries that are not the
-   nearest rounding printed), K13 and K15
-   in MA1 and MA3, K7 at K=9 on P1, P3 of MA1 and MA3 and PIDS, and K8
+   K11 at MP3's and MP2's (K6 and K11 int8 out, exact, with one
+   index_select over each frame's zero-padded pm as K6's library call and
+   one torch.take over each station's [state | soft bits | 0] as K11's;
+   K7 on their int8 also on the same values in float32, the same bits and
+   margins); the AM kernels K12 in both passes (its fold written rounded
+   to bf16, the DFT's operand: each entry the bf16 rounding of a value
+   within 1e-5 of the plain version's unrounded fold, the entries that
+   are not the nearest rounding printed), K13 and K15 in MA1 and MA3 (K15
+   int8 out, exact, the lines the mode does not delay handed back as the
+   same tensors), K7 at K=9 on K15's int8 P1, P3 of MA1 and MA3 and PIDS
+   (also on the same values in float32, the same bits and margins), and
+   K8
    on the AM P1; K14's three kernels at the AM cold start's first probe
    block (its tone estimate three kernels in turn: k0 and z, the grid
    projection, the tail over a cluster of 8; its coarse timing over a
@@ -81,7 +85,8 @@ Phases, each printing one JSON line:
    also with ``probe_block_exposed_ms``, what each adds to one profiled
    probe block past the end of the kernel ahead of it).  K13's line
    carries the stack frames ptxas reports for its source, K14's coarse
-   timing and CFO step lines their kernel's (reported, not gated);
+   timing and CFO step lines and K11's and K15's their kernel's
+   (reported, not gated);
 5. coldstart: ``serve.cold_start`` on the capture must lock 16/16 stations
    with the true |CFO| under one sign convention, first_bc 14 and psmi 1;
    then ``serve.chain_step`` from the locks over 34 blocks must decode
@@ -529,6 +534,43 @@ def exposed_spans(torch, fn, names, calls: int = 10) -> dict:
         if name in got:
             got[name].append(max(0, e.time_range.end - prev.time_range.end))
     return {n: (sum(v) / 1e3 / calls if v else None) for n, v in got.items()}
+
+
+def px_take_operands(torch, llr, internal, phase):
+    """K11's function as one ``torch.take``: (each station's [state | its
+    pairs' soft bits | 0] flattened, the index of every K7 input element
+    in it), from the plain version's tables (``read_idx``, ``hazard``,
+    ``k7_map``), not from K11's: pair p at call phase ph reads its own soft
+    bit at a hazard position, else region q of the state as the newest
+    earlier pair at phase q of this dispatch wrote it, else as the dispatch
+    began."""
+    from nrsc5_tpu_torch.ops import decode_fm as DF
+    from nrsc5_tpu_torch.ops import interleavers as IL
+    s, two_p, fl = llr.shape
+    pairs, call_len = two_p // 2, 2 * fl
+    read_idx, n, calls = IL.p3_iv_tables(fl)
+    dev = llr.device
+    read_idx = torch.from_numpy(read_idx).to(dev).long()
+    hazard = torch.from_numpy(IL.p3_iv_hazard(fl)).to(dev)
+    k7 = torch.from_numpy(DF.channel_tables(f"px{fl}")["k7_map"]).to(
+        dev).long()
+    width = n + pairs * call_len + 1
+    src = torch.cat([internal, llr.reshape(s, -1),
+                     internal.new_zeros(s, 1)], dim=1).reshape(-1)
+    p = torch.arange(pairs, device=dev)[None, :, None]
+    ph = (phase.long()[:, None, None] + p) % calls  # [S, P, 1]
+    c = ph * call_len + k7.clamp(min=0)  # [S, P, map_len]
+    r = read_idx[c]
+    q = r // call_len
+    d = (ph - q) % calls
+    d = torch.where(d == 0, calls, d)
+    pp = p - d
+    local = torch.where(pp >= 0, n + pp * call_len + r - q * call_len, r)
+    local = torch.where(hazard[c], n + p * call_len + r - ph * call_len,
+                        local)
+    local = torch.where(k7 < 0, width - 1, local)
+    idx = torch.arange(s, device=dev)[:, None, None] * width + local
+    return src, idx.reshape(s * pairs, -1)
 
 
 def tensors_sha256(tensors) -> str:
@@ -1890,14 +1932,31 @@ def main() -> int:
         want = DF.px_deinterleave_plain(*args)
         err = max((a.float() - b.float()).abs().max().item()
                   for a, b in zip(got, want))
-        m = DF.channel_tables(f"px{fl}")["k7_map"].size
+        same = all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(got, want))
+        # the library call: one torch.take over each station's
+        # [state | soft bits | 0] through an index built beforehand
+        src, idx = px_take_operands(torch, *args)
+        library_same = torch.equal(torch.take(src, idx).view(got[0].shape),
+                                   got[0])
+        # one table: a phase's row for a group's first pair (the second
+        # pair's rows exist only because a CTA takes two)
+        table_bytes = DF.pack3(DF.px_tables(fl)[0]).nbytes
+        moved = llr.numel() + 2 * state0.numel() + table_bytes + 8 * s_n
         check("px_deinterleave", err, 0.0,
               lambda args=args: DF.px_deinterleave(*args),
               lambda args=args: DF.px_deinterleave_plain(*args),
-              bound(llr.numel() + 2 * state0.numel() + n_iv * 5 + m * 4
-                    + got[0].numel() * got[0].element_size() + 8 * s_n, 0),
-              None, list(got[0].shape), plain_reps=3, plain_inner=2,
-              case=case)
+              bound(moved + got[0].numel(), 0),
+              lambda src=src, idx=idx: torch.take(src, idx),
+              list(got[0].shape), plain_reps=3, plain_inner=2,
+              case=case, ok=err == 0.0 and same and library_same,
+              dtype="int8",
+              float32_out_bound_ms=bound(moved + 4 * got[0].numel(), 0)[0],
+              library_call="torch.take of each station's [state | soft "
+              "bits | 0] through a prebuilt index",
+              library_same=library_same,
+              stack_frame_bytes=frame_of(kernel_frames, "px_deinterleave",
+                                         "px_deinterleave_kernel"))
         if case is None:
             px_ext = got[0]
 
@@ -2045,27 +2104,39 @@ def main() -> int:
         codes, pids_c, _ = scar.am_frontend_scan_rc(
             x, scar.am_chain_rc_init_carry(n_stations=s_n, device=dev),
             am_blocks, ma3)
-        lines = torch.randint(0, 2, (s_n, 4, DA.DD), generator=g,
-                              dtype=torch.uint8).to(dev)
+        lines = DA.AMDecodeState(*(torch.randint(
+            0, 2, (s_n, DA.DD), generator=g, dtype=torch.uint8).to(dev)
+            for _ in DA.DELAYED))
         gargs = (codes, pids_c, lines, ma3)
         got = DA.am_gather(*gargs)
         want = DA.am_gather_plain(*gargs)
-        err = float(sum(int((a != b).sum()) for a, b in zip(got, want)))
+        outs = list(got[:3]) + list(got[3])
+        err = float(sum(int((a != b).sum()) for a, b in
+                        zip(outs, list(want[:3]) + list(want[3]))))
+        same_dtype = all(a.dtype == torch.int8 for a in got[:3])
         # the function reads and rewrites only the mode's delayed lines
-        # (ml, mu; also eml, emu in MA3), and of line_src only theirs
+        # (ml, mu; also eml, emu in MA3) and hands the others back as they
+        # are; it reads the packed map once
         maps = DA.gather_maps(ma3)
         n_dly = maps["n_delayed"]
-        map_bytes = sum(v.nbytes for k, v in maps.items()
-                        if isinstance(v, np.ndarray) and k != "line_src")
-        map_bytes += maps["line_src"][:n_dly].nbytes
+        undelayed_same = all((a is b) == (i >= n_dly) for i, (a, b) in
+                             enumerate(zip(lines, got[3])))
+        moved = codes.numel() + pids_c.numel() + 2 * s_n * n_dly * DA.DD \
+            + DA.packed_map(ma3).nbytes
+        n_out = sum(t.numel() for t in got[:3])
         check("am_gather", err, 0.0,
               lambda gargs=gargs: DA.am_gather(*gargs),
               lambda gargs=gargs: DA.am_gather_plain(*gargs),
-              bound(codes.numel() + pids_c.numel() + 2 * s_n * n_dly * DA.DD
-                    + map_bytes + sum(t.numel() * t.element_size()
-                                      for t in got[:3]), 0),
+              bound(moved + n_out, 0),
               None, [s_n, am_blocks, 4, 800], plain_reps=3, plain_inner=2,
-              case="ma3" if ma3 else None)
+              case="ma3" if ma3 else None,
+              ok=err == 0.0 and same_dtype and undelayed_same, dtype="int8",
+              undelayed_lines_same_tensors=undelayed_same,
+              float32_out_bound_ms=bound(moved + 4 * n_out, 0)[0],
+              library_call="none: no one PyTorch call pulls a bit plane "
+              "through a gather",
+              stack_frame_bytes=frame_of(kernel_frames, "am_gather",
+                                         "am_gather_kernel"))
         k9["p3_ma3" if ma3 else "p3_ma1"] = got[1]
         if not ma3:
             k9["p1"], k9["pids"] = got[0], got[2]
@@ -2904,7 +2975,7 @@ def main() -> int:
     ev[1].record()
     codes, pids_c, _ = scar.am_frontend_scan_rc(x, cy1, am_blocks)
     ev[2].record()
-    exts = DA.am_gather(codes, pids_c, torch.stack(list(cy1.dec), dim=1))
+    exts = DA.am_gather(codes, pids_c, cy1.dec)
     ev[3].record()
     DA.am_fec(*exts[:3], packed=True)
     ev[4].record()

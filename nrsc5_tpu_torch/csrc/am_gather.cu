@@ -10,146 +10,208 @@
 // (1024, overlap 160) inside decode_am.py:148 am_frame_fec, and the gather
 // and scatter of decode_am.py:199 am_pids_decode with viterbi_decode's wrap.
 //
-// The bit maps, the phase tables, the puncture patterns and the segment
-// plan are static, so the host composes them into one map per channel
-// (ops/decode_am.py:gather_maps).  K7 input element m of frame f reads
-// src[m] = (byte offset in a frame's [8 blocks, 4 partitions, 800] codes)
-// * 8 + bit plane, or is 0.0 where src[m] < 0 (punctured).  Where dly[m] >=
-// 0 the stream is a delayed one (line dly / 18000, index dly % 18000): the
-// bit then comes from frame f - 3's codes when f >= 3 in this dispatch, else
-// from the carried line at 18000 f + index.  So one launch serves every
-// frame with no loop over frames, and the only carried state, the lines,
-// is rewritten in the same launch: new line position p holds concat(line,
-// fresh_0, ..., fresh_{F-1})[18000 F + p].  Each element is 2*bit - 1 or
-// 0.0, so K7's path metrics stay exact integers.
+// Every output of a frame reads one bit of a small set of bytes, which a
+// CTA stages in shared memory by bulk copies: the frame's 25600 codes ([8
+// blocks, 4 partitions, 800]), its 8 blocks' 64 PIDS codes, and one
+// 18000-byte slice a delayed line (ml, mu; in MA3 also eml, emu) holding
+// the delayed bits this frame reads: for f < 3 in the dispatch, bytes
+// [18000 f, 18000 (f + 1)) of the carried line; for f >= 3, frame f - 3's
+// bits of that stream, gathered here through the map's line entries.  The
+// bit maps, phase tables, puncture patterns, segment plan and PIDS scatter
+// are static, so the host composes them into one map over a frame's
+// outputs (ops/decode_am.py:gather_maps): P1's segments, P3's segments, the
+// 8 PIDS blocks' wrap-extended trellises, then the fresh bits of the
+// delayed lines.  Entry e is the bit address (byte * 8 + plane) of its bit
+// in the staged bytes, or -1 where punctured (0); the kernel reads it
+// packed in 3 bytes as e + 1 (ops/decode_am.py:packed_map, packed3.cuh).
+// A K7 input is 2 * bit - 1 or 0 as int8, which K7 reads as it is; a line
+// byte is the bit.
+//
+// The new lines (only the delayed ones; the others are not written): new
+// position p holds concat(line, fresh_0, ..., fresh_{F-1})[18000 F + p].
+// The fresh part of frame f (F - f <= 3) comes from its staged codes
+// through the map's line entries; the copied part (F < 3) is a 16-byte
+// vector copy by the CTAs of frame 0.
 //
 // Bound on the H100: device-memory bytes.  At 16 stations x 2 frames (MA1)
-// the function writes 15.5 MB of P1 and 12.2 MB of P3 segments and 0.44 MB
-// of PIDS, reads 0.8 MB of codes and the 1.9 MB maps, and reads and
-// rewrites the 1.7 MB of the ml and mu lines (about 0.0102 ms at 3.35
-// TB/s).  The kernel also copies the eml and emu lines, which only MA3
-// delays, so that the carry keeps one shape (in MA1 1.7 MB more read and
-// 1.7 MB more written).  Design: one thread per output element over the
-// four outputs' concatenated index range, grid-stride, consecutive threads
-// on consecutive outputs (coalesced stores); the code reads are gathers
-// that stay in L2.
+// the function writes 3.9 MB of P1 and 3.0 MB of P3 segments and 0.11 MB
+// of PIDS in int8, reads 0.8 MB of codes and the 0.77 MB packed map, and
+// reads and rewrites the 1.7 MB of the ml and mu lines (about 0.0036 ms at
+// 3.35 TB/s; 0.0100 with float32 outputs).  What costs is L2: every CTA
+// reads its share of the map (4 CTAs a frame: 24.5 MB over the dispatch)
+// and stages its frame (8 MB), and the shared-memory byte gathers (about
+// 2.6 wavefronts a warp's load).  Design (probes/k11_k15_variants.py): a
+// grid of (4 CTAs, S x F frames) of 1024 threads, one CTA an SM; each CTA
+// stages its frame by bulk copies, then takes blocks of 1024 16-output
+// chunks in turn with the frame's other CTAs: a thread loads a chunk's 16
+// map entries in three 16-byte loads (its first while the copies land, the
+// next while it gathers), gathers 16 bits from shared memory and writes 16
+// bytes.  The frame and CTA come from the grid's
+// coordinates: no 64-bit division.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+#include "packed3.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 1024;
+constexpr int TILES = 4;           // CTAs a (station, frame)
+constexpr int VEC = 16;            // outputs a thread step
 constexpr int SEG = 18000;         // bits of a delayed stream a frame
 constexpr int LINE = 3 * SEG;      // 54000-bit diversity delay line
 constexpr int LINES = 4;           // ml, mu, eml, emu
 constexpr int FRAME_CODES = 25600; // 8 blocks x 4 partitions x 800 codes
-constexpr int PIDS_CODES = 64;     // a block's [32, 2] QAM16 codes
+constexpr int PIDS_BYTES = 512;    // 8 blocks x [32, 2] QAM16 codes
+constexpr int LINE_BASE = FRAME_CODES + PIDS_BYTES;  // the line slices
 
-__device__ __forceinline__ int code_bit(const uint8_t* codes, long long sf,
-                                        int src) {
-  return (codes[sf * FRAME_CODES + (src >> 3)] >> (src & 7)) & 1;
+struct Lines {
+  const uint8_t* old[LINES];
+  uint8_t* out[LINES];  // null for a line this mode does not delay
+};
+
+// line d's pointers by selects, so that the parameter struct is never
+// indexed at run time (which would copy it to local memory)
+__device__ __forceinline__ const uint8_t* old_line(const Lines& l, int d) {
+  return d == 0 ? l.old[0] : d == 1 ? l.old[1] : d == 2 ? l.old[2]
+                                                         : l.old[3];
 }
-
-__device__ __forceinline__ float channel_value(
-    const uint8_t* __restrict__ codes, const uint8_t* __restrict__ lines,
-    int src, int dly, long long s, int f, int n_frames) {
-  if (src < 0) return 0.0f;
-  int bit;
-  const long long sf = s * n_frames + f;
-  if (dly < 0) {
-    bit = code_bit(codes, sf, src);
-  } else if (f >= 3) {
-    bit = code_bit(codes, sf - 3, src);
-  } else {
-    bit = lines[(s * LINES + dly / SEG) * LINE + (long long)SEG * f +
-                dly % SEG];
-  }
-  return bit ? 1.0f : -1.0f;
+__device__ __forceinline__ uint8_t* new_line(const Lines& l, int d) {
+  return d == 0 ? l.out[0] : d == 1 ? l.out[1] : d == 2 ? l.out[2]
+                                                         : l.out[3];
 }
 
 __global__ void __launch_bounds__(THREADS) am_gather_kernel(
     const uint8_t* __restrict__ codes, const uint8_t* __restrict__ pids,
-    const uint8_t* __restrict__ lines, const int* __restrict__ p1_src,
-    const int* __restrict__ p1_dly, const int* __restrict__ p3_src,
-    const int* __restrict__ p3_dly, const int* __restrict__ pids_src,
-    const int* __restrict__ line_src, float* __restrict__ p1_out,
-    float* __restrict__ p3_out, float* __restrict__ pids_out,
-    uint8_t* __restrict__ lines_out, int n_frames, int p1_len, int p3_len,
-    int pids_len, int n_delayed, long long n_p1, long long n_p3,
-    long long n_pids, long long total) {
-  for (long long e = blockIdx.x * (long long)THREADS + threadIdx.x; e < total;
-       e += (long long)gridDim.x * THREADS) {
-    if (e < n_p1) {
-      const long long sf = e / p1_len;
-      const int m = (int)(e - sf * p1_len);
-      p1_out[e] = channel_value(codes, lines, p1_src[m], p1_dly[m],
-                                sf / n_frames, (int)(sf % n_frames),
-                                n_frames);
-      continue;
+    const uint8_t* __restrict__ map3, Lines lines,
+    int8_t* __restrict__ p1_out, int8_t* __restrict__ p3_out,
+    int8_t* __restrict__ pids_out, int n_frames, int m1, int m3, int mp,
+    int n_delayed) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  __shared__ uint64_t bar;
+  const int tile = blockIdx.x, sf = blockIdx.y;  // sf = s * F + f
+  const int s = sf / n_frames, f = sf - s * n_frames;
+  const int tid = threadIdx.x;
+  const int line_len = n_delayed * SEG;
+  const bool staged_lines = f < 3;
+  if (tid == 0) bulk::init(&bar);
+  __syncthreads();
+  if (tid == 0) {
+    bulk::expect(&bar, LINE_BASE + (staged_lines ? line_len : 0));
+    bulk::copy(sm, codes + (size_t)sf * FRAME_CODES, FRAME_CODES, &bar);
+    bulk::copy(sm + FRAME_CODES, pids + (size_t)sf * PIDS_BYTES, PIDS_BYTES,
+               &bar);
+    if (staged_lines)
+      for (int d = 0; d < n_delayed; ++d)
+        bulk::copy(sm + LINE_BASE + d * SEG,
+                   old_line(lines, d) + (size_t)s * LINE + SEG * f, SEG,
+                   &bar);
+  }
+  const int lines_at = m1 + m3 + mp;  // the map's line entries
+  if (!staged_lines) {
+    // frame f - 3's bits of each delayed stream, as the carried line
+    // would hold them
+    const uint8_t* prev = codes + (size_t)(sf - 3) * FRAME_CODES;
+    for (int i = tid; i < line_len; i += THREADS) {
+      const int e = packed3::entry(map3, lines_at + i);
+      sm[LINE_BASE + i] = (__ldg(prev + (e >> 3)) >> (e & 7)) & 1;
     }
-    long long r = e - n_p1;
-    if (r < n_p3) {
-      const long long sf = r / p3_len;
-      const int m = (int)(r - sf * p3_len);
-      p3_out[r] = channel_value(codes, lines, p3_src[m], p3_dly[m],
-                                sf / n_frames, (int)(sf % n_frames),
-                                n_frames);
-      continue;
+  }
+  // the copied part of the new lines, by frame 0's CTAs
+  const int keep = LINE - SEG * n_frames;
+  if (f == 0 && keep > 0) {
+    const int per = keep / 16;
+    for (int i = tile * THREADS + tid; i < n_delayed * per;
+         i += TILES * THREADS) {
+      const int d = i / per, v = i - d * per;
+      const size_t at = (size_t)s * LINE + 16 * v;
+      *reinterpret_cast<uint4*>(new_line(lines, d) + at) =
+          __ldg(reinterpret_cast<const uint4*>(old_line(lines, d) + at +
+                                               SEG * n_frames));
     }
-    r -= n_p3;
-    if (r < n_pids) {
-      const long long b = r / pids_len;
-      const int src = pids_src[(int)(r - b * pids_len)];
-      const int bit = (pids[b * PIDS_CODES + (src >> 3)] >> (src & 7)) & 1;
-      pids_out[r] = bit ? 1.0f : -1.0f;
-      continue;
-    }
-    r -= n_pids;  // new lines: [S, 4, 54000]
-    const long long sd = r / LINE;
-    const int p = (int)(r - sd * LINE);
-    const int d = (int)(sd % LINES);
-    const long long s = sd / LINES;
-    const int g = SEG * n_frames + p;  // position in concat(line, fresh...)
-    uint8_t v;
-    if (d >= n_delayed || g < LINE) {
-      v = lines[sd * LINE + (d >= n_delayed ? p : g)];
+  }
+  // the frame's chunks of 16 outputs (the line part only where the
+  // frame's fresh bits stay on the line), in blocks of THREADS chunks
+  // taken by the frame's CTAs in turn
+  const int total = lines_at + (n_frames - f <= 3 ? line_len : 0);
+  const int chunks = total / VEC;
+  // each thread's first map entries load while the copies land
+  int c = tile * THREADS + tid;
+  int e[VEC];
+  if (c < chunks) packed3::load(map3, c, e);
+  bulk::wait(&bar);
+  if (!staged_lines) __syncthreads();
+  for (; c < chunks; c += TILES * THREADS) {
+    int nxt[VEC];
+    if (c + TILES * THREADS < chunks)
+      packed3::load(map3, c + TILES * THREADS, nxt);
+    const int m = c * VEC;
+    uint8_t* dst;
+    uint32_t one = 1u, zero = 0xffu;  // K7 input: +1 / -1 as int8
+    if (m < m1) {
+      dst = reinterpret_cast<uint8_t*>(p1_out) + (size_t)sf * m1 + m;
+    } else if (m < m1 + m3) {
+      dst = reinterpret_cast<uint8_t*>(p3_out) + (size_t)sf * m3 + (m - m1);
+    } else if (m < lines_at) {
+      dst = reinterpret_cast<uint8_t*>(pids_out) + (size_t)sf * mp +
+            (m - m1 - m3);
     } else {
-      const int fr = (g - LINE) / SEG;
-      const int src = line_src[d * SEG + (g - LINE) % SEG];
-      v = (uint8_t)code_bit(codes, s * n_frames + fr, src);
+      const int i = m - lines_at;
+      const int d = i / SEG;
+      dst = new_line(lines, d) + (size_t)s * LINE + LINE -
+            SEG * (n_frames - f) + (i - d * SEG);
+      zero = 0u;  // a line byte is the bit
     }
-    lines_out[r] = v;
+    uint32_t w[VEC / 4];
+#pragma unroll
+    for (int k = 0; k < VEC / 4; ++k) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int a = e[4 * k + j] < 0 ? 0 : e[4 * k + j];
+        const uint32_t bit = (sm[a >> 3] >> (a & 7)) & 1u;
+        x |= (e[4 * k + j] < 0 ? 0u : (bit ? one : zero)) << (8 * j);
+      }
+      w[k] = x;
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) e[j] = nxt[j];
   }
 }
 
 }  // namespace
 
+// map3: the packed map; lines: ml, mu, eml, emu, [S, 54000] uint8 each;
+// only the first n_delayed are read and written (the outputs may be null
+// for the others).  Every pointer 16-byte aligned.
 extern "C" int am_gather(const void* codes, const void* pids,
-                         const void* lines, const void* p1_src,
-                         const void* p1_dly, const void* p3_src,
-                         const void* p3_dly, const void* pids_src,
-                         const void* line_src, void* p1_out, void* p3_out,
-                         void* pids_out, void* lines_out, int n_stations,
-                         int n_frames, int p1_len, int p3_len, int pids_len,
-                         int n_delayed, void* stream) {
-  if (n_stations <= 0 || n_frames <= 0 || p1_len <= 0 || p3_len <= 0 ||
-      pids_len <= 0 || n_delayed < 0 || n_delayed > LINES)
+                         const void* map3, const void* ml, const void* mu,
+                         const void* eml, const void* emu, void* p1_out,
+                         void* p3_out, void* pids_out, void* ml_out,
+                         void* mu_out, void* eml_out, void* emu_out,
+                         int n_stations, int n_frames, int m1, int m3,
+                         int mp, int n_delayed, void* stream) {
+  if (n_stations <= 0 || n_frames <= 0 || m1 <= 0 || m3 <= 0 || mp <= 0 ||
+      m1 % VEC || m3 % VEC || mp % VEC || n_delayed < 1 ||
+      n_delayed > LINES || n_stations * n_frames > 65535)
     return (int)cudaErrorInvalidValue;
-  const long long sf = (long long)n_stations * n_frames;
-  const long long n_p1 = sf * p1_len;
-  const long long n_p3 = sf * p3_len;
-  const long long n_pids = sf * 8 * pids_len;  // 8 blocks a frame
-  const long long total =
-      n_p1 + n_p3 + n_pids + (long long)n_stations * LINES * LINE;
-  long long blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  am_gather_kernel<<<(int)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, (const uint8_t*)pids, (const uint8_t*)lines,
-      (const int*)p1_src, (const int*)p1_dly, (const int*)p3_src,
-      (const int*)p3_dly, (const int*)pids_src, (const int*)line_src,
-      (float*)p1_out, (float*)p3_out, (float*)pids_out, (uint8_t*)lines_out,
-      n_frames, p1_len, p3_len, pids_len, n_delayed, n_p1, n_p3, n_pids,
-      total);
+  Lines lines = {{(const uint8_t*)ml, (const uint8_t*)mu,
+                  (const uint8_t*)eml, (const uint8_t*)emu},
+                 {(uint8_t*)ml_out, (uint8_t*)mu_out, (uint8_t*)eml_out,
+                  (uint8_t*)emu_out}};
+  for (int d = 0; d < n_delayed; ++d)
+    if (!lines.old[d] || !lines.out[d]) return (int)cudaErrorInvalidValue;
+  const int smem = LINE_BASE + n_delayed * SEG;
+  cudaError_t err = cudaFuncSetAttribute(
+      am_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  am_gather_kernel<<<dim3(TILES, n_stations * n_frames), THREADS, smem,
+                     (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, (const uint8_t*)pids, (const uint8_t*)map3,
+      lines, (int8_t*)p1_out, (int8_t*)p3_out, (int8_t*)pids_out, n_frames,
+      m1, m3, mp, n_delayed);
   return (int)cudaGetLastError();
 }

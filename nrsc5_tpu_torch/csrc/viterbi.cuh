@@ -4,8 +4,8 @@
 // their generators as compile-time constants.
 //
 // Replaces nrsc5_tpu/ops/convolutional.py:_acs_traceback (lines 154-251) at
-// radix 1.  ext [n_seg, n_steps, 3] LLRs (positive = bit 1), int8 (K6's
-// output, FM P1 and PIDS) or float32 (K11's and K15's) ->
+// radix 1.  ext [n_seg, n_steps, 3] LLRs (positive = bit 1), int8 (K6's,
+// K11's and K15's outputs) or float32 (the same values) ->
 //   bits [n_seg, n_steps] uint8, margin [n_seg] f32 = top1 - top2 of the
 //   final path metrics (ties counting).  Uniform (zero) start metrics; a tie
 //   takes predecessor p0; the traceback starts from the FIRST maximal state.

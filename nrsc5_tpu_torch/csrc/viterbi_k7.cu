@@ -16,9 +16,9 @@
 // cudaErrorInvalidValue.
 //
 // Input contract: integer LLRs in [-127, 127]: K6's int8 segments (P1,
-// PIDS), read as int8, or K11's float32 frames (PX); bits and margins then
-// equal the plain version's exactly, and int8 input gives the bits and
-// margins of the same values in float32.
+// PIDS) and K11's int8 frames (PX), read as int8, or the same values in
+// float32; bits and margins then equal the plain version's exactly, and
+// int8 input gives the bits and margins of the same values in float32.
 //
 // Bound on the H100: neither bytes (P1 at 16 stations x 2 frames reads
 // 16.4 MB of int8 LLRs and writes 5.5 MB of bits, 0.0065 ms at 3.35 TB/s,
@@ -47,8 +47,8 @@ extern "C" long long viterbi_k7_scratch_bytes(int n_seg, int n_steps, int g0,
   });
 }
 
-// ext: int8 LLRs if llr_int8 (K6's P1 and PIDS segments), else float32
-// (K11's PX frames)
+// ext: int8 LLRs if llr_int8 (K6's P1 and PIDS segments, K11's PX
+// frames), else float32
 extern "C" int viterbi_k7(const void* ext, void* bits, void* margin,
                           void* scratch, long long scratch_bytes, int n_seg,
                           int n_steps, int g0, int g1, int g2, int llr_int8,

@@ -16,12 +16,15 @@
 // viterbi_k9_scratch_bytes gives; for any other generator set that query
 // returns -1 and the launch cudaErrorInvalidValue.
 //
-// Input contract: integer LLRs in [-127, 127] (K15 gives -1, 0 or +1); bits
-// and margins then equal the plain version's exactly.
+// Input contract: integer LLRs in [-127, 127]: K15's int8 segments (-1, 0
+// or +1), read as int8, or the same values in float32; bits and margins
+// then equal the plain version's exactly, and int8 input gives the bits
+// and margins of the same values in float32.
 //
 // Bound on the H100: neither bytes (P1 at 16 stations x 2 frames reads
-// 15.5 MB and writes and reads 41.2 MB of decisions) nor operations (P1's
-// 1.0 G adds and compares, 3 a state a step, 0.015 ms at 67 TFLOP/s):
+// 3.9 MB of int8 LLRs and writes and reads 41.2 MB of decisions) nor
+// operations (P1's 1.0 G adds and compares, 3 a state a step, 0.015 ms at
+// 67 TFLOP/s):
 // each segment is a chain of ~1300 dependent ACS steps and as many
 // traceback steps.  Its chain floor is a lone segment's time: about 180
 // cycles a step on an H100 SXM at 1980 MHz (chip_smoke.py's
@@ -48,18 +51,19 @@ extern "C" long long viterbi_k9_scratch_bytes(int n_seg, int n_steps, int g0,
   });
 }
 
-// ext: float32 LLRs (K15's); llr_int8 (the int8 load path of viterbi_k7)
-// is refused
+// ext: int8 LLRs if llr_int8 (K15's P1, P3 and PIDS segments), else
+// float32
 extern "C" int viterbi_k9(const void* ext, void* bits, void* margin,
                           void* scratch, long long scratch_bytes, int n_seg,
                           int n_steps, int g0, int g1, int g2, int llr_int8,
                           void* stream) {
-  if (n_seg <= 0 || n_steps <= 0 || llr_int8)
-    return (int)cudaErrorInvalidValue;
+  if (n_seg <= 0 || n_steps <= 0) return (int)cudaErrorInvalidValue;
   const long long err = with_trellis(g0, g1, g2, [&](auto t) {
-    return (long long)viterbi::launch<float>(t, ext, bits, margin, scratch,
-                                             scratch_bytes, n_seg, n_steps,
-                                             stream);
+    return (long long)(llr_int8
+        ? viterbi::launch<int8_t>(t, ext, bits, margin, scratch,
+                                  scratch_bytes, n_seg, n_steps, stream)
+        : viterbi::launch<float>(t, ext, bits, margin, scratch,
+                                 scratch_bytes, n_seg, n_steps, stream));
   });
   return err < 0 ? (int)cudaErrorInvalidValue : (int)err;
 }

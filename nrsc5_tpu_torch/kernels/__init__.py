@@ -73,10 +73,10 @@ SIGNATURES = {
     # errors, n_frames, frame_len, packed, g0, g1, g2, stream
     "fec_epilogue": (P, P, P, I, I, I, P, P, I, I, L, L, P, P, P, I, I, I,
                      I, I, I, P),
-    # llr, internal, phase, read_idx, hazard, k7_map, ext, new_internal,
-    # new_phase, n_stations, pairs, frame_len, state_len, calls, map_len,
-    # stream
-    "px_deinterleave": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    # llr, internal, phase, table (packed, [2, calls, 2 steps x 3 bytes]),
+    # ext (int8), new_internal, new_phase, n_stations, pairs, call_len,
+    # calls, map_len (3 steps), stream
+    "px_deinterleave": (P, P, P, P, P, P, P, I, I, I, I, I, P),
     # samples, n_samples, taps (host), shape_kernel (host), filter_delay,
     # sums (scratch), samperr, max_v, n_stations, stream
     "coarse_timing": (P, L, P, P, I, P, P, P, I, P),
@@ -84,7 +84,7 @@ SIGNATURES = {
     # stream
     "needle_count": (P, P, P, P, I, I, I, P),
     # ext, bits, margin, scratch, scratch_bytes, n_seg, n_steps, g0, g1,
-    # g2, llr_int8 (refused: float32 only), stream
+    # g2, llr_int8 (ext int8, else float32), stream
     "viterbi_k9": (P, P, P, P, L, I, I, I, I, I, I, P),
     # samples, n_samples, offset, phase, samperr_fb, prev_angle, cfo,
     # shape, pilot, folded, phase_out, prev_angle_out, keep, n_stations,
@@ -93,11 +93,11 @@ SIGNATURES = {
     # spectra, plan (host int32 [4, 12]), codes, pids, ref_bits, samperr,
     # n_stations, ma3, stream
     "sync_am_block": (P, P, P, P, P, P, I, I, P),
-    # codes, pids, lines, p1_src, p1_dly, p3_src, p3_dly, pids_src,
-    # line_src, p1_out, p3_out, pids_out, lines_out, n_stations, n_frames,
-    # p1_len, p3_len, pids_len, n_delayed, stream
-    "am_gather": (P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                  P),
+    # codes, pids, map (packed, 3 bytes an entry), ml, mu, eml, emu,
+    # p1_out, p3_out, pids_out (int8), ml_out, mu_out, eml_out, emu_out,
+    # n_stations, n_frames, p1_len, p3_len, pids_len (a frame's),
+    # n_delayed, stream
+    "am_gather": (P,) * 14 + (I,) * 6 + (P,),
     # spectra, samples, n_samples, offset, grid_u, derot, twiddle, z
     # (scratch), part (scratch), k0 (scratch), f, amp, n_stations, stream
     "am_tone": (P, P, L, P, P, P, P, P, P, P, P, P, I, P),

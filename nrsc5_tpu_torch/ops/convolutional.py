@@ -213,11 +213,11 @@ def acs_traceback(ext: torch.Tensor, gens: tuple[int, int, int],
     (``viterbi_k<k>_scratch_bytes``).  The kernel takes integer LLRs in
     [-127, 127] (what K6, K11 and K15 produce) and keeps integer path
     metrics; its bits and margins then equal the plain version's exactly.
-    It takes ext int8 (K6's P1 and PIDS segments, read by the kernel's
-    int8 load path) or float32 (K11's and K15's), with the same bits and
-    margins for the same values; K=9 takes float32 only.  It raises on a
-    constraint length, generator set, dtype or shape the kernel does not
-    take."""
+    At either constraint length it takes ext int8 (K6's P1 and PIDS
+    segments, K11's PX frames and K15's AM segments, read by the kernel's
+    int8 load path) or float32, with the same bits and margins for the
+    same values.  It raises on a constraint length, generator set, dtype
+    or shape the kernel does not take."""
     if ext.device.type == "cpu":
         return acs_traceback_plain(ext, gens, k)
     if k not in (7, 9):
@@ -228,7 +228,7 @@ def acs_traceback(ext: torch.Tensor, gens: tuple[int, int, int],
     if not 0 < length <= MAX_STEPS or b == 0:
         raise ValueError(f"ext: {b} segments of {length} steps (K7 takes "
                          f"1..{MAX_STEPS} steps)")
-    int8 = ext.dtype == torch.int8 and k == 7
+    int8 = ext.dtype == torch.int8
     K.check(ext, "ext", torch.int8 if int8 else torch.float32)
     name = f"viterbi_k{k}"
     nbytes = K.query(name, f"{name}_scratch_bytes", b, length, *gens)

@@ -12,10 +12,12 @@ device raises).  On the chain a dispatch decodes in three kernels:
     frame of the dispatch at once, the bit-plane gathers from the QAM
     codes, the 54000-bit diversity delay (the only carried state), the
     12/6-phase reassembly, the depuncture and the AM chunk plan's segment
-    layout, composed on the host into one static map per channel
-    (:func:`gather_maps`), plus the PIDS gather and delay scatter with the
-    wrap extension, and the new delay lines;
-  * K7 at K=9 (:func:`nrsc5_tpu_torch.ops.convolutional.acs_traceback`);
+    layout, plus the PIDS gather and delay scatter with the wrap
+    extension, composed on the host into one static map over a frame's
+    outputs (:func:`gather_maps`), and the new delay lines; K7's inputs
+    come out int8;
+  * K7 at K=9 (:func:`nrsc5_tpu_torch.ops.convolutional.acs_traceback`),
+    reading K15's int8;
   * K8 (:func:`nrsc5_tpu_torch.ops.decode_fm.fec_epilogue`, without the
     re-encode count, on the AM channels this module registers in
     ``decode_fm.CHANNELS``): the kept bits, the descramble (the keystream
@@ -165,23 +167,43 @@ def _channel_map(stream_pos, names, streams, ma3):
     return src.astype(np.int32), dly.astype(np.int32)
 
 
+# K15's staged bytes of a frame (csrc/am_gather.cu): the frame's codes, its
+# 8 blocks' PIDS codes, then an 18000-byte slice a delayed line
+PIDS_BYTES = C.P1_AM_BLOCKS * C.BLKSZ * 2  # 512
+LINE_BASE = FRAME_CODES + PIDS_BYTES  # 26112
+
+
+def _compose_map(src, dly):
+    """A channel's (src, dly) -> K15's composed entries, flat: -1 where
+    punctured, else the bit address (byte * 8 + plane) in a frame's staged
+    bytes: ``src`` for a stream read from the frame's codes, plane 0 of
+    byte ``LINE_BASE + dly`` (line dly // 18000's slice) for a delayed
+    one."""
+    src = np.asarray(src, np.int64).reshape(-1)
+    dly = np.asarray(dly, np.int64).reshape(-1)
+    out = np.where(dly >= 0, (LINE_BASE + dly) * 8, src)
+    return np.where(src < 0, -1, out).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=4)
 def gather_maps(ma3: bool) -> dict:
-    """K15's static maps for one service mode, numpy int32:
+    """K15's static map for one service mode, numpy:
 
-    * ``p1_src``/``p1_dly`` [8 * n1 * L1 * 3]: each K7 input element of a
-      frame's P1 segments (8 subframes x n1 chunk segments x L1 steps x
-      3): ``src`` = (byte offset in the frame's codes) * 8 + bit plane of
-      the stream bit it reads, -1 where punctured; ``dly`` = line * 18000
-      + index when that stream is a delayed one (ml, mu, eml, emu), else
-      -1.  A delayed bit of frame f comes from frame f - 3's codes when f
-      >= 3 in the dispatch, else from the carried line at 18000 f + index;
-    * ``p3_src``/``p3_dly`` [n3 * L3 * 3]: the same for P3;
-    * ``pids_src`` [(80 + 64) * 3]: each element of a block's
-      wrap-extended PIDS trellis -> (row * 2 + column) * 8 + bit plane in
-      the block's [32, 2] QAM16 codes;
-    * ``line_src`` [4, 18000]: a delayed stream's bits in a frame's codes,
-      for writing the new lines;
+    * ``map`` int32 [m1 + m3 + mp + n_delayed * 18000]: the composed map
+      over one frame's outputs, in order: P1's K7 input elements (8
+      subframes x n1 chunk segments x L1 steps x 3 = m1), P3's (n3 x L3 x 3
+      = m3), the 8 PIDS blocks' wrap-extended trellises (8 x 144 x 3 = mp),
+      then the fresh 18000 bits of each delayed line (ml, mu; eml, emu in
+      MA3).  Entry e is the bit address (byte * 8 + plane) of the bit the
+      output takes in the frame's staged bytes, or -1 where punctured:
+      bytes [0, 25600) the frame's codes ([8 blocks, 4 partitions, 800]),
+      [25600, 26112) its blocks' PIDS codes ([8, 32, 2]), then 18000 bytes
+      a delayed line: the carried line's bytes [18000 f, 18000 (f + 1))
+      for frame f < 3 of the dispatch, frame f - 3's bits of that stream
+      for f >= 3 (plane 0 of a 0/1 byte).  A line's fresh entries address
+      the frame's codes;
+    * ``m1``, ``m3``, ``mp``: the lengths of the three K7 inputs in a
+      frame;
     * ``n1``, ``l1``, ``n3``, ``l3``, ``t3``: the segment shapes and P3's
       frame bits; ``n_delayed``: the lines this mode delays (2 or 4)."""
     (p1_sel, p1_idx, p1_names), (p3_sel, p3_idx, p3_names) = \
@@ -199,8 +221,8 @@ def gather_maps(ma3: bool) -> dict:
                    + code[None], -1)  # [8, n1, L1, 3]
     valid = pos >= 0
     p = np.maximum(pos, 0)
-    out["p1_src"], out["p1_dly"] = _channel_map(
-        (p1_sel[p], p1_idx[p], valid), p1_names, streams, ma3)
+    p1_map = _compose_map(*_channel_map((p1_sel[p], p1_idx[p], valid),
+                                       p1_names, streams, ma3))
     out["n1"], out["l1"] = seg1.shape
 
     t3, pattern3, _ = p3_spec(ma3)
@@ -209,8 +231,8 @@ def gather_maps(ma3: bool) -> dict:
     pos = d3[seg3]  # [n3, L3, 3]
     valid = pos >= 0
     p = np.maximum(pos, 0)
-    out["p3_src"], out["p3_dly"] = _channel_map(
-        (p3_sel[p], p3_idx[p], valid), p3_names, streams, ma3)
+    p3_map = _compose_map(*_channel_map((p3_sel[p], p3_idx[p], valid),
+                                       p3_names, streams, ma3))
     out["n3"], out["l3"] = seg3.shape
     out["t3"] = t3
 
@@ -223,35 +245,45 @@ def gather_maps(ma3: bool) -> dict:
     assert (where >= 0).all(), "the PIDS scatter must fill all 240 bits"
     t = C.PIDS_FRAME_LEN
     steps = (np.arange(t + 2 * WRAP) - WRAP) % t
-    out["pids_src"] = where.reshape(t, 3)[steps].reshape(-1).astype(np.int32)
+    pids_src = where.reshape(t, 3)[steps].reshape(-1)
+    pids_map = (FRAME_CODES * 8 + np.arange(C.P1_AM_BLOCKS)[:, None]
+                * (C.BLKSZ * 2 * 8) + pids_src[None]).reshape(-1)
 
     names = [n for n in DELAYED if n in streams]
-    out["line_src"] = np.stack(
-        [streams[n] for n in names]
-        + [np.zeros(SEG, np.int64)] * (len(DELAYED) - len(names))
-    ).astype(np.int32)
+    line_map = np.concatenate([streams[n] for n in names])
+    out["map"] = np.concatenate([p1_map, p3_map, pids_map, line_map]
+                                ).astype(np.int32)
+    out["m1"], out["m3"], out["mp"] = p1_map.size, p3_map.size, \
+        pids_map.size
     out["n_delayed"] = len(names)
     return out
 
 
+@functools.lru_cache(maxsize=4)
+def packed_map(ma3: bool) -> np.ndarray:
+    """K15's map as the kernel reads it: :func:`gather_maps`' ``map``
+    through :func:`nrsc5_tpu_torch.ops.decode_fm.pack3`."""
+    return DF.pack3(gather_maps(ma3)["map"])
+
+
 @functools.lru_cache(maxsize=8)
-def _device_maps(ma3: bool, device: str) -> dict:
-    return {k: torch.from_numpy(v).to(device)
-            for k, v in gather_maps(ma3).items() if isinstance(v, np.ndarray)}
+def _device_map(ma3: bool, device: str) -> torch.Tensor:
+    return torch.from_numpy(packed_map(ma3)).to(device)
 
 
 # ---------------------------------------------------------------------------
 # K15: gathers, diversity delay, reassembly, depuncture, segments
 # ---------------------------------------------------------------------------
 
-def _check_gather(codes, pids, lines):
+def _check_gather(codes, pids, state: AMDecodeState):
     if codes.ndim != 4 or codes.shape[2:] != (len(MATRICES), SYMS) \
             or codes.shape[1] % C.P1_AM_BLOCKS:
         raise ValueError(f"codes: expected [S, 8F, 4, {SYMS}], got "
                          f"{tuple(codes.shape)}")
     s, nb = codes.shape[:2]
     for name, t, shape in (("pids", pids, (s, nb, C.BLKSZ, 2)),
-                           ("lines", lines, (s, len(DELAYED), DD))):
+                           *((n, line, (s, DD)) for n, line
+                             in zip(DELAYED, state))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got "
                              f"{tuple(t.shape)}")
@@ -359,18 +391,19 @@ def _pids_ext_plain(pids: torch.Tensor) -> torch.Tensor:
     return torch.cat([llr[:, t - WRAP:], llr, llr[:, :WRAP]], dim=1)
 
 
-def am_gather_plain(codes, pids, lines, ma3: bool = False):
+def am_gather_plain(codes, pids, state: AMDecodeState, ma3: bool = False):
     """Plain version of K15: the reference's per-frame ``am_frame_gather``
     looped over the dispatch's frames, the AM chunk plan's segments, and
     the PIDS gather with the wrap extension.
 
     codes: uint8 [S, 8F, 4, 800] (each block's pl, pu, s, t codes);
-    pids: uint8 [S, 8F, 32, 2]; lines: uint8 [S, 4, 54000] (ml, mu, eml,
-    emu).  Returns (p1 float32 [S*F*8*n1, L1, 3], p3 [S*F*n3, L3, 3], pids
-    [S*8F, 144, 3] K7 inputs; new lines [S, 4, 54000])."""
-    s, n_frames, nb = _check_gather(codes, pids, lines)
+    pids: uint8 [S, 8F, 32, 2]; state: the delay lines, uint8 [S, 54000]
+    each.  Returns (p1 int8 [S*F*8*n1, L1, 3], p3 [S*F*n3, L3, 3], pids
+    [S*8F, 144, 3] K7 inputs, each -1, 0 or +1; the new state, whose lines
+    this mode does not delay (eml, emu in MA1) are the same tensors)."""
+    s, n_frames, nb = _check_gather(codes, pids, state)
     tb = _plain_tables(ma3, str(codes.device))
-    line = {n: lines[:, i] for i, n in enumerate(DELAYED)}
+    line = state._asdict()
     p1s, p3s = [], []
     for f in range(n_frames):
         blk = codes[:, 8 * f:8 * f + 8]  # [S, 8, 4, 800]
@@ -382,44 +415,52 @@ def am_gather_plain(codes, pids, lines, ma3: bool = False):
     p1 = torch.stack(p1s, dim=1).reshape(-1, tb["seg1"].shape[1], 3)
     p3 = torch.stack(p3s, dim=1).reshape(-1, tb["seg3"].shape[1], 3)
     pext = _pids_ext_plain(pids.reshape(-1, C.BLKSZ, 2))
-    new_lines = torch.stack([line[n] for n in DELAYED], dim=1)
-    return (p1.contiguous(), p3.contiguous(), pext.contiguous(),
-            new_lines)
+    return (p1.to(torch.int8), p3.to(torch.int8), pext.to(torch.int8),
+            AMDecodeState(**line))
 
 
-def am_gather(codes, pids, lines, ma3: bool = False, plain: bool = False):
+def am_gather(codes, pids, state: AMDecodeState, ma3: bool = False,
+              plain: bool = False):
     """K15: the arguments and results of :func:`am_gather_plain`.
 
     A CPU tensor (or ``plain``) takes the plain version; a CUDA tensor
     launches the kernel: one launch for every station and frame of the
-    dispatch, one thread per output element, through the static maps of
-    :func:`gather_maps`."""
+    dispatch, four CTAs a frame each staging the frame's codes and
+    delayed-line slices in shared memory and gathering through the
+    composed map of :func:`gather_maps` (read packed, :func:`packed_map`).
+    It writes new tensors for the delayed lines only; every tensor must be
+    dense and 16-byte aligned."""
     if plain or codes.device.type == "cpu":
-        return am_gather_plain(codes, pids, lines, ma3)
-    s, n_frames, nb = _check_gather(codes, pids, lines)
+        return am_gather_plain(codes, pids, state, ma3)
+    s, n_frames, nb = _check_gather(codes, pids, state)
     K.check(codes, "codes", torch.uint8)
     K.check(pids, "pids", torch.uint8)
-    K.check(lines, "lines", torch.uint8)
+    for name, line in zip(DELAYED, state):
+        K.check(line, name, torch.uint8)
+    for name, t in (("codes", codes), ("pids", pids),
+                    *zip(DELAYED, state)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: K15 needs a 16-byte aligned tensor")
     dev = codes.device
     g = gather_maps(ma3)
-    dm = _device_maps(ma3, str(dev))
+    nd = g["n_delayed"]
 
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int8, device=dev)
 
     p1 = empty(s * n_frames * 8 * g["n1"], g["l1"], 3)
     p3 = empty(s * n_frames * g["n3"], g["l3"], 3)
     pext = empty(s * nb, C.PIDS_FRAME_LEN + 2 * WRAP, 3)
-    new_lines = empty(*lines.shape, dtype=torch.uint8)
+    new = [torch.empty_like(line) if i < nd else line
+           for i, line in enumerate(state)]
     K.launch("am_gather", codes.data_ptr(), pids.data_ptr(),
-             lines.data_ptr(), dm["p1_src"].data_ptr(),
-             dm["p1_dly"].data_ptr(), dm["p3_src"].data_ptr(),
-             dm["p3_dly"].data_ptr(), dm["pids_src"].data_ptr(),
-             dm["line_src"].data_ptr(), p1.data_ptr(), p3.data_ptr(),
-             pext.data_ptr(), new_lines.data_ptr(), s, n_frames,
-             dm["p1_src"].numel(), dm["p3_src"].numel(),
-             dm["pids_src"].numel(), g["n_delayed"], device=dev)
-    return p1, p3, pext, new_lines
+             _device_map(ma3, str(dev)).data_ptr(),
+             *(line.data_ptr() for line in state), p1.data_ptr(),
+             p3.data_ptr(), pext.data_ptr(),
+             *(line.data_ptr() if i < nd else None
+               for i, line in enumerate(new)),
+             s, n_frames, g["m1"], g["m3"], g["mp"], nd, device=dev)
+    return p1, p3, pext, AMDecodeState(*new)
 
 
 # ---------------------------------------------------------------------------

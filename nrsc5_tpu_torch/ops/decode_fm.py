@@ -456,6 +456,67 @@ def _iv_tables(frame_len: int, device: str):
             .to(device), n, calls)
 
 
+@functools.lru_cache(maxsize=4)
+def px_tables(frame_len: int) -> np.ndarray:
+    """K11's table: int32 [2, calls, 2 * steps], steps = frame_len + 2 *
+    WRAP, the trellis steps of a pair's K7 input.  A CTA of the kernel
+    (csrc/px_deinterleave.cu) takes pairs p0 and p0 + 1 of a station and
+    stages runs of L = 2 * frame_len bytes: region q of the state as pair
+    p0 sees it at q * L, then pair p0 + k's own soft bits at (calls + k) *
+    L.  Of a step's three K7 inputs the middle one is punctured (0) at
+    every step, so the table holds the other two: T[k][ph][2 t + j] is the
+    staged byte K7 input 3 t + 2 j of pair p0 + k reads when that pair's
+    call phase is ph:
+
+    * T[0] composes the depuncture, the wrap, read_idx and hazard: the
+      state index r = read_idx[ph * L + i] of the call position i =
+      k7_map[m], or calls * L + r - ph * L where the call reads its own
+      fresh soft bit (hazard);
+    * T[1] is T[0] with pair p0 + 1's own soft bits at (calls + 1) * L,
+      and its region ph - 1 (which pair p0, at that phase, has just
+      written) read from pair p0's soft bits at calls * L."""
+    read_idx, n, calls = IL.p3_iv_tables(frame_len)
+    hazard = IL.p3_iv_hazard(frame_len)
+    call_len = n // calls
+    k7 = channel_tables(f"px{frame_len}")["k7_map"].astype(np.int64)
+    kept = np.arange(k7.size) % 3 != 1
+    if not np.array_equal(k7 >= 0, kept):
+        raise ValueError("K11 expects each step's middle input punctured, "
+                         "and only that one")
+    k7 = k7[kept]
+    ph = np.arange(calls)[:, None]
+    c = ph * call_len + k7[None]
+    r = read_idx[c].astype(np.int64)
+    fresh = hazard[c]
+    if not np.array_equal(r[fresh] // call_len,
+                          np.broadcast_to(ph, r.shape)[fresh]):
+        raise ValueError("a hazard read must lie in its call's own region")
+    t0 = np.where(fresh, calls * call_len + r - ph * call_len, r)
+    # pair p0 + 1: region q = ph - 1 is pair p0's soft bits
+    q = t0 // call_len
+    t1 = np.where(fresh, t0 + call_len,
+                  np.where(q == (ph - 1) % calls,
+                           calls * call_len + t0 - q * call_len, t0))
+    return np.stack([t0, t1]).astype(np.int32)
+
+
+def pack3(entries: np.ndarray) -> np.ndarray:
+    """int32 entries (-1 where punctured) -> the form K11 and K15 read:
+    e + 1 in 3 bytes, little-endian (0 where punctured), one after the
+    other along the last axis."""
+    v = entries.astype(np.int64) + 1
+    if v.min() < 0 or v.max() >= 1 << 24:
+        raise ValueError("an entry does not fit in 3 bytes")
+    out = np.stack([v & 255, (v >> 8) & 255, (v >> 16) & 255], axis=-1)
+    return out.astype(np.uint8).reshape(entries.shape[:-1]
+                                        + (3 * entries.shape[-1],))
+
+
+@functools.lru_cache(maxsize=8)
+def _px_device_table(frame_len: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(pack3(px_tables(frame_len))).to(device)
+
+
 def _check_px(llr, internal, phase):
     if llr.ndim != 3 or llr.shape[1] % 2:
         raise ValueError(f"llr: expected [S, 2P, frame_len], got "
@@ -473,9 +534,9 @@ def px_deinterleave_plain(llr, internal, phase):
     (``px_scan_pairs(decode=False)`` over ``px_iv_call``), batched over
     stations.  llr: int8 [S, 2P, frame_len], each station's PX soft bits of
     2P blocks (block pair p = one IV call); internal int8 [S, N], phase
-    int32 [S] the carried state.  Returns (K7's input float32
+    int32 [S] the carried state.  Returns (K7's input int8
     [S*P, frame_len + 64, 3] of each pair's depunctured, wrap-extended
-    LLRs; new internal; new phase)."""
+    soft bits, 0 where punctured; new internal; new phase)."""
     s, pairs, fl = _check_px(llr, internal, phase)
     read_idx, hazard, n, calls = _iv_tables(fl, str(llr.device))
     call_len = 2 * fl
@@ -491,7 +552,7 @@ def px_deinterleave_plain(llr, internal, phase):
         vals = internal.gather(1, r)
         fresh = llr[:, p].gather(1, (r - offset[:, None]).clamp(
             0, call_len - 1))
-        soft = torch.where(hazard[idx].bool(), fresh, vals).float()
+        soft = torch.where(hazard[idx].bool(), fresh, vals)
         full = depuncture(soft, C.PUNCTURE_P3_P4_FM, fl * 3).reshape(
             s, fl, 3)
         fulls.append(torch.cat([full[:, fl - WRAP:], full, full[:, :WRAP]],
@@ -506,34 +567,40 @@ def px_deinterleave(llr, internal, phase, plain: bool = False):
     """K11: the arguments and results of :func:`px_deinterleave_plain`.
 
     A CPU tensor (or ``plain``) takes the plain version; a CUDA tensor
-    launches the kernel, which does every pair of the dispatch at once: a
-    pair's read of region q of the state sees the newest earlier pair of
-    this dispatch that wrote region q, else the state the dispatch began
-    with, and the new state is each region's newest write."""
+    launches the kernel, which does every pair of the dispatch at once, a
+    CTA two pairs of a station: a pair's read of region q of the state
+    sees the newest earlier pair of this dispatch that wrote region q,
+    else the state the dispatch began with, and the new state is each
+    region's newest write.  The CTA stages those regions and the pairs'
+    own soft bits in shared memory and gathers their K7 input through
+    :func:`px_tables`, writing 0 for each trellis step's punctured middle
+    input.  Every tensor must be dense and 16-byte aligned."""
     if plain or llr.device.type == "cpu":
         return px_deinterleave_plain(llr, internal, phase)
     s, pairs, fl = _check_px(llr, internal, phase)
     K.check(llr, "llr", torch.int8)
     K.check(internal, "internal", torch.int8)
     K.check(phase, "phase", torch.int32)
+    for name, t in (("llr", llr), ("internal", internal)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: K11 needs a 16-byte aligned tensor")
     dev = llr.device
-    read_idx, hazard, n, calls = _iv_tables(fl, str(dev))
-    k7_map = _device_tables(f"px{fl}", str(dev))["k7_map"]
-    ext = torch.empty(s * pairs, fl + 2 * WRAP, 3, dtype=torch.float32,
+    _, n, calls = IL.p3_iv_tables(fl)
+    table = _px_device_table(fl, str(dev))
+    ext = torch.empty(s * pairs, fl + 2 * WRAP, 3, dtype=torch.int8,
                       device=dev)
     new_internal = torch.empty_like(internal)
     new_phase = torch.empty_like(phase)
     K.launch("px_deinterleave", llr.data_ptr(), internal.data_ptr(),
-             phase.data_ptr(), read_idx.data_ptr(), hazard.data_ptr(),
-             k7_map.data_ptr(), ext.data_ptr(), new_internal.data_ptr(),
-             new_phase.data_ptr(), s, pairs, fl, n, calls, k7_map.numel(),
-             device=dev)
+             phase.data_ptr(), table.data_ptr(), ext.data_ptr(),
+             new_internal.data_ptr(), new_phase.data_ptr(), s, pairs,
+             2 * fl, calls, ext.shape[1] * 3, device=dev)
     return ext, new_internal, new_phase
 
 
 def px_fec(ext: torch.Tensor, frame_len: int, packed: bool = False,
            plain: bool = False):
-    """P3/P4 K=7 decode of K11's output: ext [B, frame_len + 64, 3] ->
+    """P3/P4 K=7 decode of K11's output: ext int8 [B, frame_len + 64, 3] ->
     (bits [B, frame_len] uint8, or packed; margin [B] float32), the
     unchunked tail-biting Viterbi (K7) then the descramble and pack
     (K8)."""

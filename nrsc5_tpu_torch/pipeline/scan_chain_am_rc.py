@@ -565,9 +565,8 @@ def am_decode(codes, pids, cy: AMChainCarryRC, carries: AMChainCarryRC,
     lines) -> (out, new carries) as :func:`am_chain_batch_rc` gives
     them."""
     s = codes.shape[0]
-    p1_ext, p3_ext, pids_ext, lines = DA.am_gather(
-        codes, pids, torch.stack(list(carries.dec), dim=1), ma3,
-        plain=plain)
+    p1_ext, p3_ext, pids_ext, dec = DA.am_gather(codes, pids, carries.dec,
+                                                 ma3, plain=plain)
     p1, m1, p3, m3, pids_bits = DA.am_fec(p1_ext, p3_ext, pids_ext, ma3,
                                           packed, plain)
     sub = 8  # P1 subframes a frame
@@ -577,8 +576,7 @@ def am_decode(codes, pids, cy: AMChainCarryRC, carries: AMChainCarryRC,
            "pids": pids_bits.reshape(s, n_frames * C.P1_AM_BLOCKS, -1),
            "p1_margin": m1.reshape(s, n_frames, sub),
            "p3_margin": m3.reshape(s, n_frames)}
-    new = cy._replace(dec=DA.AMDecodeState(*lines.unbind(1)))
-    return out, new
+    return out, cy._replace(dec=dec)
 
 
 def am_chain_batch_rc(samples, carries: AMChainCarryRC, n_frames: int,

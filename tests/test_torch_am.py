@@ -322,43 +322,41 @@ def test_am_frame_gather_matches(mode):
 
 def _emulate_am_gather(codes, pids, lines, ma3):
     """numpy rendering of csrc/am_gather.cu's index algebra, element for
-    element: the composed maps of decode_am.gather_maps, the delayed bits
-    of frame f from frame f - 3 or the carried line, the new lines."""
+    element: each frame's staged bytes (its codes, its PIDS codes, a slice
+    a delayed line: the carried line's for frame f < 3, frame f - 3's bits
+    for f >= 3), the composed map of decode_am.gather_maps read as bit
+    addresses into them, the new lines."""
     g = TDA.gather_maps(ma3)
     s, nb = codes.shape[:2]
     f_n = nb // 8
     frames = codes.reshape(s, f_n, -1)
-
-    def channel(src, dly):
-        src, dly = src.reshape(-1), dly.reshape(-1)
-        ok, sm, fresh = src >= 0, np.maximum(src, 0), dly < 0
-        dl = np.maximum(dly, 0)
-        out = np.zeros((s, f_n, src.size), np.float32)
-        for i in range(s):
-            for f in range(f_n):
-                bit = (frames[i, f, sm >> 3] >> (sm & 7)) & 1
-                if f >= 3:
-                    old = (frames[i, f - 3, sm >> 3] >> (sm & 7)) & 1
-                else:
-                    old = lines[i, dl // 18000, 18000 * f + dl % 18000]
-                bit = np.where(fresh, bit, old)
-                out[i, f] = np.where(ok, bit * 2.0 - 1.0, 0.0)
-        return out
-
-    p1 = channel(g["p1_src"], g["p1_dly"]).reshape(-1, g["l1"], 3)
-    p3 = channel(g["p3_src"], g["p3_dly"]).reshape(-1, g["l3"], 3)
-    src = g["pids_src"]
-    pe = ((pids.reshape(s * nb, 64)[:, src >> 3] >> (src & 7)) & 1) * 2.0 - 1
+    pframes = pids.reshape(s, f_n, -1)
+    m1, m3, mp, nd = g["m1"], g["m3"], g["mp"], g["n_delayed"]
+    emap = g["map"]
+    line_map = emap[m1 + m3 + mp:]
+    e = np.maximum(emap, 0)
+    out = np.zeros((s, f_n, m1 + m3 + mp), np.float32)
     new = lines.copy()
-    pos = 18000 * f_n + np.arange(TDA.DD)
-    old = pos < TDA.DD
-    fr, n = (pos[~old] - TDA.DD) // 18000, (pos[~old] - TDA.DD) % 18000
     for i in range(s):
-        for d in range(g["n_delayed"]):
-            new[i, d, old] = lines[i, d, pos[old]]
-            c = g["line_src"][d][n]
-            new[i, d, ~old] = (frames[i, fr, c >> 3] >> (c & 7)) & 1
-    return p1, p3, pe.reshape(s * nb, -1, 3).astype(np.float32), new
+        for f in range(f_n):
+            if f < 3:
+                sl = lines[i, :nd, 18000 * f:18000 * (f + 1)].reshape(-1)
+            else:
+                sl = (frames[i, f - 3, line_map >> 3] >> (line_map & 7)) & 1
+            staged = np.concatenate([frames[i, f], pframes[i, f], sl])
+            bit = (staged[e >> 3] >> (e & 7)) & 1
+            out[i, f] = np.where(emap < 0, 0.0, bit * 2.0 - 1.0)[:m1 + m3 + mp]
+            if f_n - f <= 3:  # this frame's fresh bits stay on the line
+                at = TDA.DD - 18000 * (f_n - f)
+                new[i, :nd, at:at + 18000] = bit[m1 + m3 + mp:].reshape(
+                    nd, 18000)
+        keep = TDA.DD - 18000 * f_n
+        if keep > 0:
+            new[i, :nd, :keep] = lines[i, :nd, 18000 * f_n:]
+    p1 = out[..., :m1].reshape(-1, g["l1"], 3)
+    p3 = out[..., m1:m1 + m3].reshape(-1, g["l3"], 3)
+    pe = out[..., m1 + m3:].reshape(s * nb, -1, 3)
+    return p1, p3, pe, new
 
 
 @pytest.mark.parametrize("n_frames", [2, 4])

@@ -12,10 +12,10 @@ Tolerances:
 - K1 (halfband, and its AM cascade), K6 (FEC gather, int8 out), K7
   (Viterbi, K=7 and K=9; int8 input gives the bits and margins of the
   same values in float32), K8 (FEC epilogue), K9 (coarse timing: samperr
-  and max_v's bits), the needle count of
-  K10, K11 (PX deinterleave) and K15 (AM gather) exact: no FMA contraction
-  and the same operation order, integer path metrics, integer counts, and
-  gathers of int8 values or bits;
+  and max_v's bits), the needle count of K10, K11 (PX deinterleave, int8
+  out) and K15 (AM gather, int8 out) exact: no FMA contraction and the
+  same operation order, integer path metrics, integer counts, and gathers
+  of int8 values or bits;
 - K14 (the AM cold start's tone estimate, coarse timing and CFO step)
   exact, floats too: every sum runs in the plain version's order (the
   8910-sample sums strided over 256 lanes, then a fixed pairwise tree),
@@ -374,7 +374,7 @@ def test_viterbi_refuses(card):
     with pytest.raises(ValueError):
         CV.acs_traceback(ext.double(), C.CONV_K7_GEN)
     with pytest.raises(ValueError):
-        CV.acs_traceback(ext.to(torch.int8), C.CONV_E1_GEN, 9)
+        CV.acs_traceback(ext.to(torch.int16), C.CONV_E1_GEN, 9)
     with pytest.raises(ValueError):
         CV.acs_traceback(ext[..., :2].contiguous(), C.CONV_K7_GEN)
     with pytest.raises(ValueError):
@@ -726,10 +726,13 @@ def test_fec_epilogue_p1_ragged(card, stations, frames, packed):
 
 
 @pytest.mark.parametrize("fl,s,pairs", [(4608, 16, 16), (4608, 3, 18),
-                                        (2304, 16, 16)])
+                                        (2304, 16, 16), (4608, 1, 16),
+                                        (4608, 17, 16), (2304, 3, 18),
+                                        (2304, 17, 3)])
 def test_px_deinterleave(card, fl, s, pairs):
-    """K11 at MP3's and MP2's path shapes (16 stations × 16 pairs) and past
-    a cycle (18 pairs), from a random state and per-station phases."""
+    """K11 at MP3's and MP2's path shapes (16 stations × 16 pairs), at 1, 3
+    and 17 stations, and past a cycle (18 pairs) and short of one, from a
+    random state and per-station phases: int8 exact, one launch."""
     g = torch.Generator().manual_seed(fl + pairs)
     _, n, calls = DF.IL.p3_iv_tables(fl)
     llr = torch.randint(-127, 128, (s, 2 * pairs, fl), generator=g,
@@ -742,6 +745,7 @@ def test_px_deinterleave(card, fl, s, pairs):
     got = DF.px_deinterleave(llr, internal, phase)
     assert K.COUNTS["px_deinterleave"] == before + 1
     want = DF.px_deinterleave_plain(llr, internal, phase)
+    assert got[0].dtype == torch.int8
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
@@ -912,24 +916,40 @@ def test_sync_am_block_zero_columns(card, ma3):
     _same_sync(got, want)
 
 
-@pytest.mark.parametrize("ma3", [False, True])
-@pytest.mark.parametrize("n_frames", [2, 4])
-def test_am_gather(card, ma3, n_frames):
-    """K15 on random codes and a random handed-on delay line: 2 frames
-    (every delayed bit from the line) and 4 (frame 3's from frame 0)."""
-    g = torch.Generator().manual_seed(22 + 2 * n_frames + ma3)
-    s, nb = 3, 8 * n_frames
+def _am_gather_inputs(card, seed, s, n_frames):
+    """Random codes, PIDS codes and handed-on delay lines on the card."""
+    g = torch.Generator().manual_seed(seed)
+    nb = 8 * n_frames
     codes = torch.randint(0, 64, (s, nb, 4, 800), generator=g,
                           dtype=torch.uint8).to(card)
     pids = torch.randint(0, 16, (s, nb, 32, 2), generator=g,
                          dtype=torch.uint8).to(card)
-    lines = torch.randint(0, 2, (s, 4, DA.DD), generator=g,
-                          dtype=torch.uint8).to(card)
+    lines = DA.AMDecodeState(*(torch.randint(
+        0, 2, (s, DA.DD), generator=g, dtype=torch.uint8).to(card)
+        for _ in DA.DELAYED))
+    return codes, pids, lines
+
+
+@pytest.mark.parametrize("ma3", [False, True])
+@pytest.mark.parametrize("s,n_frames", [(3, 2), (3, 4), (1, 2), (17, 2)])
+def test_am_gather(card, ma3, s, n_frames):
+    """K15 on random codes and a random handed-on delay line, int8 exact,
+    one launch: 2 frames (every delayed bit from the line) at 1, 3 and 17
+    stations, and 4 (frame 3's from frame 0); the lines the mode does not
+    delay come back as the same tensors."""
+    codes, pids, lines = _am_gather_inputs(
+        card, 22 + 2 * n_frames + ma3 + 5 * s, s, n_frames)
     before = K.COUNTS["am_gather"]
     got = DA.am_gather(codes, pids, lines, ma3)
     assert K.COUNTS["am_gather"] == before + 1
-    for a, b in zip(got, DA.am_gather_plain(codes, pids, lines, ma3)):
+    want = DA.am_gather_plain(codes, pids, lines, ma3)
+    for a, b in zip(list(got[:3]) + list(got[3]),
+                    list(want[:3]) + list(want[3])):
         assert a.dtype == b.dtype and torch.equal(a, b)
+    assert all(a.dtype == torch.int8 for a in got[:3])
+    nd = DA.gather_maps(ma3)["n_delayed"]
+    for i, (a, b) in enumerate(zip(lines, got[3])):
+        assert (a is b) == (i >= nd)
 
 
 @pytest.mark.parametrize("segs,length,gens", [
@@ -952,18 +972,29 @@ def test_viterbi_k9(card, segs, length, gens, llr):
 def test_viterbi_k9_chain_inputs(card, ma3):
     """K7 at K=9 on K15's own P1, P3 and PIDS segments of random codes and
     delay lines (2 frames of 16 stations)."""
-    g = torch.Generator().manual_seed(41 + ma3)
-    s, nb = 16, 16
-    codes = torch.randint(0, 64, (s, nb, 4, 800), generator=g,
-                          dtype=torch.uint8).to(card)
-    pids = torch.randint(0, 16, (s, nb, 32, 2), generator=g,
-                         dtype=torch.uint8).to(card)
-    lines = torch.randint(0, 2, (s, 4, DA.DD), generator=g,
-                          dtype=torch.uint8).to(card)
+    codes, pids, lines = _am_gather_inputs(card, 41 + ma3, 16, 2)
     p1, p3, pids_ext, _ = DA.am_gather(codes, pids, lines, ma3)
     _viterbi_check(p1, C.CONV_E1_GEN, 9)
     _viterbi_check(p3, C.CONV_E1_GEN if ma3 else C.CONV_E2_E3_GEN, 9)
     _viterbi_check(pids_ext, C.CONV_E2_E3_GEN, 9)
+
+
+@pytest.mark.parametrize("channel", ["p1", "p3_ma1", "p3_ma3", "pids"])
+def test_viterbi_k9_int8(card, channel):
+    """K7 at K=9 on K15's int8 segments (2 frames of 16 stations) gives the
+    bits and margins of the same values in float32, and of the plain
+    version; one launch each."""
+    ma3 = channel == "p3_ma3"
+    codes, pids, lines = _am_gather_inputs(card, 43 + ma3, 16, 2)
+    p1, p3, pids_ext, _ = DA.am_gather(codes, pids, lines, ma3)
+    ext = {"p1": p1, "p3_ma1": p3, "p3_ma3": p3, "pids": pids_ext}[channel]
+    gens = C.CONV_E1_GEN if channel in ("p1", "p3_ma3") \
+        else C.CONV_E2_E3_GEN
+    assert ext.dtype == torch.int8
+    _viterbi_check(ext, gens, 9)
+    kb, km = CV.acs_traceback(ext, gens, 9)
+    fb, fm = CV.acs_traceback(ext.float(), gens, 9)
+    assert torch.equal(kb, fb) and torch.equal(km, fm)
 
 
 @pytest.mark.parametrize("name", ["am_p1", "am_p3_ma1", "am_p3_ma3",
