@@ -72,7 +72,11 @@ Phases, each printing one JSON line:
    cluster of 8 CTAs a station; its CFO step four threads a bin), K1's AM
    cascade on the cu8
    AM wire; K16a-d one after the other
-   on a batch of the audio fleet, 128 lanes x 8 packets; K5's two carry
+   on a batch of the audio fleet, 128 lanes x 8 packets (K16c also on the
+   interpol_freq=0 and smoothing headers' batches, one program's 8
+   packets tiled to 128 lanes, as cases of its line; K16d beside one
+   grouped conv1d of the fold; both lines with their kernel's registers
+   and stack frame); K5's two carry
    steps on block 1's state).  K7's lines (K=7: P1, PIDS, PX1; K=9: P1,
    P3 of MA1 and MA3, PIDS) hold bits and margins exact and add the
    kernel on the first segment alone, the chain one segment cannot go
@@ -234,6 +238,13 @@ AUDIO_DISPATCHES = 3
 AUDIO_STREAMS = ("steady", "transient", "mono")
 AUDIO_FS = 44100
 AUDIO_SNR_DB = 55.0
+# the two other SBR headers K16c's line runs (the smoothing header walks no
+# packet in turn any more), each one program's 8 packets tiled to 128 lanes
+AUDIO_HEADERS = {
+    "interpol0": dict(start_freq=8, stop_freq=7, amp_res=0, xover_band=2,
+                      interpol_freq=0),
+    "smooth": dict(start_freq=8, stop_freq=7, amp_res=0, xover_band=2,
+                   smoothing_mode=0)}
 # the serving phases: MultiStationReceiver over 16 stations each, one of
 # them with a hole of zeros that breaks its lock
 SERVE_FRAMES = 16  # FM P1 frames a station
@@ -1138,6 +1149,87 @@ def make_audio_stream(kind: str) -> list:
             for k in range(AUDIO_PACKETS)]
 
 
+def make_header_batch(header: str):
+    """One stereo program's AUDIO_PACKETS packets of a tone over noise with
+    two sharp bursts under the SBR header ``AUDIO_HEADERS[header]``,
+    encoded with the port's ``tx`` copy and prepared by a one-program
+    decoder on the CPU after one batch of the same packets, as
+    tests/test_torch_kernels.py's ``_audio_batch`` makes them: (the
+    stage's spectrum caps, numpy inputs, numpy state)."""
+    from nrsc5_tpu_torch.audio import sbr as SBR
+    from nrsc5_tpu_torch.audio.batch import BatchedAudioDecoder
+    from nrsc5_tpu_torch.tx.hdc_encoder import HDCEncoder
+
+    n = AUDIO_PACKETS
+    rng = np.random.default_rng([SEED, 0x16C, sorted(AUDIO_HEADERS).index(
+        header)])
+    t = np.arange(n * 2048) / AUDIO_FS
+    x = 0.04 * np.sin(2 * np.pi * 500 * t) + 0.01 * rng.standard_normal(
+        n * 2048)
+    tt = np.arange(256)
+    burst = np.sin(2 * np.pi * 2400 * tt / AUDIO_FS) * np.hanning(256)
+    for k in (2, 5):
+        x[k * 2048 + 700:k * 2048 + 956] += 0.7 * burst / np.abs(burst).max()
+    pcm = np.clip(np.stack([x, 0.9 * x], -1), -1, 1)
+    enc = HDCEncoder(channels=2, sbr=True, pns=False,
+                     sbr_header=SBR.SbrHeader(**AUDIO_HEADERS[header]))
+    pkts = [enc.encode_frame(pcm[k * 2048:(k + 1) * 2048]) for k in range(n)]
+    dec = BatchedAudioDecoder(1, device="cpu")
+    dec.decode([pkts])
+    stage, inp, smooth, key = dec.prepare([pkts])
+    dec._reconcile_state(smooth, key)
+    return ((stage.cap_long, stage.cap_short), inp,
+            {k: v.numpy() for k, v in dec._state.items()})
+
+
+def tile_lanes(torch, header: str, batch, lanes: int, dev):
+    """``make_header_batch(header)``'s batch as the header's device stage
+    on ``dev``, its inputs and state with the lanes tiled to ``lanes``."""
+    from nrsc5_tpu_torch.audio import sbr as SBR
+    from nrsc5_tpu_torch.audio.batch import device_inputs
+    from nrsc5_tpu_torch.audio.stage import DeviceStage
+    (cap_long, cap_short), inp, state = batch
+    hdr = SBR.SbrHeader(**AUDIO_HEADERS[header])
+    stage = DeviceStage(SBR.derive_tables(hdr), SBR.LIM_GAINS[
+        hdr.limiter_gains], interpol=bool(hdr.interpol_freq),
+        smooth=not hdr.smoothing_mode, cap_long=cap_long,
+        cap_short=cap_short, device=dev)
+    reps = lanes // inp["spec_long"].shape[0]
+
+    def tile(a):
+        return np.ascontiguousarray(np.tile(a, (reps,) + (1,) * (a.ndim - 1)))
+    return (stage,
+            device_inputs({k: tile(v) for k, v in inp.items()}, dev),
+            {k: torch.from_numpy(tile(v)).to(dev) for k, v in state.items()})
+
+
+def k16c_bound(n: int, kp: int, m: int, n_hi: int, n_q: int,
+               smooth: bool) -> tuple[float, str]:
+    """K16c's least time: x_high, xl, the envelope inputs, maps and noise
+    table read, X written (and with smoothing the 4-slot histories in and
+    out) once; operations ~160 an (envelope, bin), ~60 a (slot, bin)."""
+    slots = 32  # a packet's
+    return bound(n * kp * slots * m * 8 + n * kp * slots * 64 * 4
+                 + n * kp * (slots * (5 + 8) + 10 + 5 * (n_hi * 5 + n_q * 4))
+                 + m * 44 + 512 * 8 + 2 * n * kp * slots * 64 * 4
+                 + (4 * n * 4 * 64 * 4 if smooth else 0),
+                 n * kp * (5 * m * 160 + slots * m * 60))
+
+
+def registers_of(lines, kernel: str):
+    """The registers ptxas gave ``kernel`` (a part of its mangled name)
+    in a source's ptxas lines, or why they were not read."""
+    if lines is None:
+        return "not read: the library was built before this run"
+    name, hits = None, []
+    for ln in lines:
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for")[1].strip()
+        elif "registers" in ln and name is not None and kernel in name:
+            hits.append(int(ln.split("Used")[1].split()[0]))
+    return hits[0] if len(hits) == 1 else f"not read: {len(hits)} matches"
+
+
 def host_audio(packets: list) -> np.ndarray:
     """The port's host decoder fed the packet sequence AUDIO_DISPATCHES
     times over, as every dispatch feeds it: int16 [D * K * 2048, 2]."""
@@ -1468,10 +1560,14 @@ def main() -> int:
     with ProcessPoolExecutor(len(AUDIO_STREAMS), mp_context=ctx) as pool:
         audio_streams = list(pool.map(make_audio_stream, AUDIO_STREAMS))
         t6 = time.perf_counter()
+        header_jobs = {h: pool.submit(make_header_batch, h)
+                       for h in AUDIO_HEADERS}
         audio_host = list(pool.map(host_audio, audio_streams))
+        header_batches = {h: j.result() for h, j in header_jobs.items()}
     emit({"phase": "signal", "seconds": round(t1 - t0, 3),
           "audio_encode_seconds": round(t6 - t5, 3),
           "audio_host_decode_seconds": round(time.perf_counter() - t6, 3),
+          "audio_header_batches": sorted(header_batches),
           "audio_packet_bytes": [[len(p) for p in st]
                                  for st in audio_streams],
           "mp3_seconds": round(t2 - t1, 3),
@@ -2363,20 +2459,58 @@ def main() -> int:
     err = max((a - b).abs().max().item() for a, b in zip(got, want)
               if a is not None)
     n_hi, n_q = a_inp["e_bands"].shape[-1], a_inp["q_bands"].shape[-1]
-    # bytes: x_high, xl, the envelope inputs, maps and noise table, X;
-    # operations: ~160 an (envelope, bin), ~60 a (slot, bin)
+    def k16c_build(threads):
+        """The registers and stack frame of K16c's instance of ``threads``
+        threads a CTA (256, or 512 under the smoothing header)."""
+        name = f"sbr_hf_adjust_kernelILi{threads}E"
+        return dict(stack_frame_bytes=frame_of(kernel_frames,
+                                               "sbr_hf_adjust", name),
+                    registers=registers_of(regs.get("sbr_hf_adjust"), name))
     check("sbr_hf_adjust", err, 0.0,
           lambda: AST.sbr_hf_adjust(*args_c),
           lambda: AST.sbr_hf_adjust_plain(*args_c),
-          bound(a_n * a_k * AST.NSLOT * a_m * 8 + a_n * a_s * 64 * 4
-                + a_n * a_k * (AST.NSLOT * (AST.MAXENV + 8) + 10
-                               + AST.MAXENV * (n_hi * 5 + n_q * 4))
-                + a_m * 20 + 512 * 8 + 2 * a_n * a_s * 64 * 4,
-                a_n * a_k * (AST.MAXENV * a_m * 160
-                             + AST.NSLOT * a_m * 60)),
+          k16c_bound(a_n, a_k, a_m, n_hi, n_q, astage.smooth),
           None, [2, a_n, a_k, AST.NSLOT, 64], plain_reps=3, plain_inner=2,
-          card=smi)
+          card=smi, header="default", sbr_bins=a_m,
+          **k16c_build(512 if astage.smooth else 256))
     a_x = got[0]
+    # the interpol_freq = 0 and smoothing headers: one program's packets
+    # tiled to the fleet's lanes, K16a and K16b on the card ahead
+    for header, batch in header_batches.items():
+        h_stage, h_inp, h_state = tile_lanes(torch, header, batch, a_n, dev)
+        h_n, h_k = h_inp["spec_long"].shape[:2]
+        h_xl = AST.window_qmf_analysis(
+            torch.matmul(h_inp["spec_long"].reshape(h_n * h_k, -1),
+                         h_stage.blt).reshape(h_n, h_k, 2048),
+            torch.matmul(h_inp["spec_short"].reshape(h_n * h_k * 8, -1),
+                         h_stage.bst).reshape(h_n, h_k, 8, 256),
+            h_inp["win_long_idx"], h_inp["win_short_idx"], h_inp["short"],
+            h_state["overlap"], h_state["qa_hist"], h_stage.lut_long,
+            h_stage.lut_short, h_stage.ka)[0]
+        h_xh = AST.sbr_hf_generate(h_xl, h_state["tail_r"], h_state["tail_i"],
+                                   h_inp["bwj"], h_stage.src_idx,
+                                   h_stage.src_ok, h_stage.kx)[0]
+        args_h = (h_xh, h_xl, h_inp["env_seg"], h_inp["freq_res"],
+                  h_inp["e_bands"], h_inp["q_bands"], h_inp["harm_act"],
+                  h_inp["delta_e"], h_inp["noise_start"], h_inp["nlow"],
+                  h_state.get("g_hist"), h_state.get("q_hist"),
+                  h_stage.maps(), h_stage.noise_tab, h_stage.kx,
+                  h_stage.lim_gain, h_stage.interpol, h_stage.smooth)
+        got_h = AST.sbr_hf_adjust(*args_h)
+        want_h = AST.sbr_hf_adjust_plain(*args_h)
+        err_h = max((a - b).abs().max().item()
+                    for a, b in zip(got_h, want_h) if a is not None)
+        check("sbr_hf_adjust", err_h, 0.0,
+              lambda args_h=args_h: AST.sbr_hf_adjust(*args_h),
+              lambda args_h=args_h: AST.sbr_hf_adjust_plain(*args_h),
+              k16c_bound(h_n, h_k, h_stage.m, h_inp["e_bands"].shape[-1],
+                         h_inp["q_bands"].shape[-1], h_stage.smooth),
+              None, [2, h_n, h_k, AST.NSLOT, 64], plain_reps=3,
+              plain_inner=2, case=header, card=smi, header=header,
+              sbr_bins=h_stage.m, interpol=h_stage.interpol,
+              smooth=h_stage.smooth,
+              **k16c_build(512 if h_stage.smooth else 256))
+        del h_xl, h_xh, args_h, got_h, want_h
     a_v = (torch.matmul(a_x[0].reshape(-1, 64), astage.smr)
            - torch.matmul(a_x[1].reshape(-1, 64), astage.smi)).reshape(
                a_n, a_s, 128)
@@ -2385,13 +2519,41 @@ def main() -> int:
     want = AST.qmf_synthesis_plain(*args_d)
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(got, want))
+    # the library call: the fold alone as one grouped conv1d over Vx laid
+    # out [N, 128, S + 9], channels 2i and 2i + 1 columns i and 64 + i,
+    # group i's 10 taps reversed and each tap's unused column zero (the
+    # layout and weights made outside the timing)
+    cidx_np, w10_np = AST._synthesis_taps()
+    conv_w = np.zeros((64, 2, 10), np.float32)
+    for d in range(10):
+        for i in range(64):
+            conv_w[i, int(cidx_np[d, i] >= 64), 9 - d] = w10_np[d, i]
+    conv_w = torch.from_numpy(conv_w).to(dev)
+    vx_cols = torch.cat([a_state["syn_hist"], a_v], dim=1)  # [N, S + 9, 128]
+    conv_in = torch.stack([vx_cols[..., :64], vx_cols[..., 64:]],
+                          dim=-1).reshape(a_n, a_s + AST.SYN_HIST, 128)
+    conv_in = conv_in.permute(0, 2, 1).contiguous()
+    conv_out = torch.nn.functional.conv1d(conv_in, conv_w, groups=64)
+    fold = sum(vx_cols[:, AST.SYN_HIST - d:AST.SYN_HIST - d + a_s,
+                       astage.cidx[d].long()] * astage.w10[d]
+               for d in range(10))
+    conv_err = (conv_out.permute(0, 2, 1) - fold).abs().max().item()
     # bytes: V, history in and out, taps, int16 PCM; 20 operations a sample
     check("qmf_synthesis", err, 0.0,
           lambda: AST.qmf_synthesis(*args_d),
           lambda: AST.qmf_synthesis_plain(*args_d),
           bound(a_n * a_s * 128 * 4 + a_n * AST.SYN_HIST * 128 * 8
                 + 10 * 64 * 8 + a_n * a_s * 64 * 2, a_n * a_s * 64 * 20),
-          None, [a_n, a_s, 128], plain_reps=3, plain_inner=2, card=smi)
+          lambda: torch.nn.functional.conv1d(conv_in, conv_w, groups=64),
+          [a_n, a_s, 128], plain_reps=3, plain_inner=2, card=smi,
+          library_call="torch.nn.functional.conv1d(groups=64) of the fold "
+          "alone over [N, 128, S + 9], float32 out",
+          library_max_abs_diff=conv_err,
+          stack_frame_bytes=frame_of(kernel_frames, "qmf_synthesis",
+                                     "qmf_synthesis_kernel"),
+          registers=registers_of(regs.get("qmf_synthesis"),
+                                 "qmf_synthesis_kernel"))
+    del conv_in, conv_out, vx_cols, fold
     del long_raw, short_raw, ext, a_xl, a_xh, a_x, a_v, args_a, args_b
     del args_c, args_d
 

@@ -197,7 +197,23 @@ def band_maps(ft: S.FreqTables) -> dict:
             "sin_band": sin_band, "lim_band": lim,
             "w_hi": width(band_hi, ft.n_high),
             "w_lo": width(band_lo, ft.n_low),
-            "src_idx": src_idx, "src_ok": src_ok}
+            "src_idx": src_idx, "src_ok": src_ok,
+            "hi_span": band_spans(band_hi), "lo_span": band_spans(band_lo),
+            "lim_span": band_spans(lim)}
+
+
+def band_spans(idx: np.ndarray) -> np.ndarray:
+    """int32 [m, 2]: for each bin, the first bin of its band and one past
+    its last (0, 0 where it has none), from its band index map ``idx``
+    (-1 for none).  Every band is a run of bins, so a sum over a band's
+    bins in bin order is a sum over its span (K16c sums so)."""
+    spans = np.zeros((len(idx), 2), np.int32)
+    for b in np.unique(idx[idx >= 0]):
+        bins = np.flatnonzero(idx == b)
+        if bins[-1] - bins[0] + 1 != len(bins):
+            raise ValueError(f"band {b} is not a run of bins")
+        spans[bins] = (bins[0], bins[-1] + 1)
+    return spans
 
 
 def _f32(x: float) -> float:
@@ -550,11 +566,13 @@ def sbr_hf_adjust(xh, xl, env_seg, freq_res, e_bands, q_bands, harm_act,
                   delta_e, noise_start, nlow, g_hist, q_hist, maps,
                   noise_tab, kx: int, lim_gain: float, interpol: bool,
                   smooth: bool, plain: bool = False):
-    """K16c: the arguments and results of :func:`sbr_hf_adjust_plain`.  A
-    CPU tensor (or ``plain``) takes the plain version; a CUDA tensor
-    launches the kernel: one CTA per (lane, packet), or per lane over its
-    packets in order when the header smooths (the 5-tap filter reaches
-    back into the previous packet)."""
+    """K16c: the arguments and results of :func:`sbr_hf_adjust_plain`
+    (``maps`` with :func:`band_maps`' spans).  A CPU tensor (or ``plain``)
+    takes the plain version; a CUDA tensor launches the kernel, one CTA
+    per lane's two packets whatever the header (when it smooths, each CTA
+    also runs the envelope phases of the packet before its first, for the
+    4 raw slots the filter reaches back to), which takes 16-byte aligned
+    xh, xl, env_seg, noise_start and nlow."""
     args = (xh, xl, env_seg, freq_res, e_bands, q_bands, harm_act, delta_e,
             noise_start, nlow, g_hist, q_hist, maps, noise_tab, kx,
             lim_gain, interpol, smooth)
@@ -575,7 +593,13 @@ def sbr_hf_adjust(xh, xl, env_seg, freq_res, e_bands, q_bands, harm_act,
     for name in ("band_hi", "band_lo", "band_noise", "sin_band",
                  "lim_band"):
         K.check(maps[name], name, torch.int32, (m,))
+    for name in ("hi_span", "lo_span", "lim_span"):
+        K.check(maps[name], name, torch.int32, (m, 2))
     K.check(noise_tab, "noise_tab", torch.float32, (512, 2))
+    for name, t in (("xh", xh), ("xl", xl), ("env_seg", env_seg),
+                    ("noise_start", noise_start), ("nlow", nlow)):
+        if t.data_ptr() % 16:  # the kernel stages them by bulk copies
+            raise ValueError(f"{name}: expected a 16-byte aligned tensor")
     dev = xh.device
     if smooth:
         K.check(g_hist, "g_hist", torch.float32, (n, 4, 64))
@@ -594,7 +618,9 @@ def sbr_hf_adjust(xh, xl, env_seg, freq_res, e_bands, q_bands, harm_act,
              noise_start.data_ptr(), nlow.data_ptr(),
              maps["band_hi"].data_ptr(), maps["band_lo"].data_ptr(),
              maps["band_noise"].data_ptr(), maps["sin_band"].data_ptr(),
-             maps["lim_band"].data_ptr(), maps["w_hi"].data_ptr(),
+             maps["lim_band"].data_ptr(), maps["hi_span"].data_ptr(),
+             maps["lo_span"].data_ptr(), maps["lim_span"].data_ptr(),
+             maps["w_hi"].data_ptr(),
              maps["w_lo"].data_ptr(), noise_tab.data_ptr(), *ptrs,
              x.data_ptr(), n, kp, m, kx, n_high, maps["w_lo"].numel(), n_q,
              int(maps["n_lim"]), int(interpol), int(smooth), lim_gain, EPS,
@@ -625,7 +651,9 @@ def qmf_synthesis_plain(v, syn_hist, cidx, w10):
 def qmf_synthesis(v, syn_hist, cidx, w10, plain: bool = False):
     """K16d: the arguments and results of :func:`qmf_synthesis_plain`.  A
     CPU tensor (or ``plain``) takes the plain version; a CUDA tensor
-    launches the kernel, one thread per output sample."""
+    launches the kernel, one CTA per (lane, tile of 64 slots) over the
+    tile's rows of [syn_hist | v] in shared memory, which takes 16-byte
+    aligned v and syn_hist."""
     if plain or v.device.type == "cpu":
         return qmf_synthesis_plain(v, syn_hist, cidx, w10)
     n, s_tot, _ = v.shape
@@ -635,6 +663,9 @@ def qmf_synthesis(v, syn_hist, cidx, w10, plain: bool = False):
     K.check(w10, "w10", torch.float32, (10, 64))
     if s_tot < SYN_HIST:
         raise ValueError("qmf_synthesis needs at least 9 slots")
+    for name, t in (("v", v), ("syn_hist", syn_hist)):
+        if t.data_ptr() % 16:  # the kernel stages them by bulk copies
+            raise ValueError(f"{name}: expected a 16-byte aligned tensor")
     dev = v.device
     pcm = torch.empty(n, s_tot * 64, dtype=torch.int16, device=dev)
     new_hist = torch.empty(n, SYN_HIST, 128, device=dev)

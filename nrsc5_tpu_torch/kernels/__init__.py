@@ -118,10 +118,11 @@ SIGNATURES = {
     "sbr_hf_generate": (P,) * 9 + (I, I, I, I, F, F, P),
     # xh, xl, env_seg, freq_res, e_bands, q_bands, harm_act, delta_e,
     # noise_start, nlow, band_hi, band_lo, band_noise, sin_band, lim_band,
-    # w_hi, w_lo, noise_tab, g_hist, q_hist, new_g_hist, new_q_hist, x,
-    # n_lanes, n_packets, m, kx, n_high, n_low, n_q, n_lim, interpol,
-    # smooth, lim_gain, eps, g_max_cap, max_boost, h_smooth[5], stream
-    "sbr_hf_adjust": (P,) * 23 + (I,) * 10 + (F,) * 9 + (P,),
+    # hi_span, lo_span, lim_span, w_hi, w_lo, noise_tab, g_hist, q_hist,
+    # new_g_hist, new_q_hist, x, n_lanes, n_packets, m, kx, n_high, n_low,
+    # n_q, n_lim, interpol, smooth, lim_gain, eps, g_max_cap, max_boost,
+    # h_smooth[5], stream
+    "sbr_hf_adjust": (P,) * 26 + (I,) * 10 + (F,) * 9 + (P,),
     # v, syn_hist, cidx, w, pcm, new_syn_hist, n_lanes, n_slots, stream
     "qmf_synthesis": (P, P, P, P, P, P, I, I, P),
     # keep, k4_samperr, k4_angle, offset, prev_angle, samperr_fb, angle_fb,

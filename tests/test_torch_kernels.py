@@ -1372,6 +1372,117 @@ def test_audio_kernels_refuse(card):
                             stage.src_idx, stage.src_ok, stage.kx)
 
 
+@functools.lru_cache(maxsize=None)
+def _audio_batch16(header: str):
+    """Sixteen stereo SBR packets of a tone over noise with sharp bursts
+    in packets 2, 5, 8, 11 and 14 under ``header``, prepared by a
+    one-program decoder on the CPU after one batch of the same packets:
+    (stage, numpy inputs, numpy state)."""
+    fs, n = 44100, 16
+    rng = np.random.default_rng(1616)
+    t = np.arange(n * 2048) / fs
+    x = 0.04 * np.sin(2 * np.pi * 500 * t) + 0.01 * rng.standard_normal(
+        n * 2048)
+    tt = np.arange(256)
+    burst = np.sin(2 * np.pi * 2400 * tt / fs) * np.hanning(256)
+    for k in range(2, n, 3):
+        x[k * 2048 + 700:k * 2048 + 956] += 0.7 * burst / np.abs(burst).max()
+    pcm = np.clip(np.stack([x, 0.9 * x], -1), -1, 1)
+    hdr = _AUDIO_HEADERS[header]
+    enc = HDCEncoder(channels=2, sbr=True, pns=False,
+                     **({} if hdr is None else {"sbr_header": hdr}))
+    pkts = [enc.encode_frame(pcm[k * 2048:(k + 1) * 2048]) for k in range(n)]
+    dec = BatchedAudioDecoder(1, device="cpu")
+    dec.decode([pkts])
+    stage, inp, smooth, key = dec.prepare([pkts])
+    dec._reconcile_state(smooth, key)
+    return stage, inp, {k: v.numpy() for k, v in dec._state.items()}
+
+
+def _lanes(a, lanes):
+    """``a`` [2, ...] tiled along its lanes and cut to ``lanes``."""
+    reps = -(-lanes // a.shape[0])
+    return np.ascontiguousarray(
+        np.tile(a, (reps,) + (1,) * (a.ndim - 1))[:lanes])
+
+
+@pytest.mark.parametrize("kp", [1, 3, 8, 9, 16])
+@pytest.mark.parametrize("header", sorted(_AUDIO_HEADERS))
+def test_sbr_hf_adjust_shapes(card, header, kp):
+    """K16c (one CTA a lane's two packets under every header; with
+    smoothing each CTA also runs the envelope phases of the packet before
+    its first) on the first ``kp`` packets of a 16-packet batch (odd counts
+    leave a CTA one packet), at 1, 3 and 129 lanes, on K16a's and K16b's
+    outputs: X and the new histories equal to the plain version's, one
+    launch a call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stage, inp, state = _audio_batch16(header)
+    stage = stage.to(card)
+    for lanes in (1, 3, 129):
+        i = device_inputs({k: _lanes(v[:, :kp], lanes)
+                           for k, v in inp.items()}, card)
+        s = {k: torch.from_numpy(_lanes(v, lanes)).to(card)
+             for k, v in state.items()}
+        xl = AST.window_qmf_analysis(
+            torch.matmul(i["spec_long"].reshape(lanes * kp, -1),
+                         stage.blt).reshape(lanes, kp, 2048),
+            torch.matmul(i["spec_short"].reshape(lanes * kp * 8, -1),
+                         stage.bst).reshape(lanes, kp, 8, 256),
+            i["win_long_idx"], i["win_short_idx"], i["short"],
+            s["overlap"], s["qa_hist"], stage.lut_long, stage.lut_short,
+            stage.ka)[0]
+        xh = AST.sbr_hf_generate(xl, s["tail_r"], s["tail_i"], i["bwj"],
+                                 stage.src_idx, stage.src_ok, stage.kx)[0]
+        args = (xh, xl, i["env_seg"], i["freq_res"], i["e_bands"],
+                i["q_bands"], i["harm_act"], i["delta_e"], i["noise_start"],
+                i["nlow"], s.get("g_hist"), s.get("q_hist"), stage.maps(),
+                stage.noise_tab, stage.kx, stage.lim_gain, stage.interpol,
+                stage.smooth)
+        before = K.COUNTS["sbr_hf_adjust"]
+        got = AST.sbr_hf_adjust(*args)
+        assert K.COUNTS["sbr_hf_adjust"] == before + 1
+        want = AST.sbr_hf_adjust(*args, plain=True)
+        assert torch.equal(got[0], want[0]), lanes
+        assert (got[1] is None) == (not stage.smooth)
+        if stage.smooth:
+            assert torch.equal(got[1], want[1]), lanes
+            assert torch.equal(got[2], want[2]), lanes
+
+
+@pytest.mark.parametrize("taps", ["paired", "swapped"])
+@pytest.mark.parametrize("lanes", [1, 3, 129])
+@pytest.mark.parametrize("slots", [9, 31, 256, 264])
+def test_qmf_synthesis_shapes(card, slots, lanes, taps):
+    """K16d (a CTA a (lane, tile of 64 slots), 9 rows of halo, the first
+    tile's from the history) at 9, 31, 256 and 264 slots (a partial last
+    tile, a tile shorter than the history) and 1, 3 and 129 lanes, on
+    values that round at exact halves and clip at both ends, with the
+    synthesis taps (each row read once for the slots that share it) and
+    with their columns swapped between even and odd taps (the general
+    path): PCM and the new history equal to the plain version's, one
+    launch a call."""
+    rng = np.random.default_rng(1640 + slots + lanes)
+    cidx, w10 = AST._synthesis_taps()
+    if taps == "swapped":
+        cidx = (cidx + 64) % 128
+    w10 = w10.copy()
+    # columns 0-15 pass tap 0 alone: their outputs are V's values, exact
+    # halves of either parity, some past int16 at both ends
+    w10[:, :16] = 0.0
+    w10[0, :16] = 1.0
+    v = rng.normal(0.0, 3e4, (lanes, slots, 128)).astype(np.float32)
+    v[..., :16] = rng.integers(-40000, 40000, (lanes, slots, 16)) + 0.5
+    cidx, w10, v = (torch.from_numpy(a).to(card) for a in (cidx, w10, v))
+    hist = torch.from_numpy(rng.normal(0.0, 3e4, (lanes, AST.SYN_HIST, 128))
+                            .astype(np.float32)).to(card)
+    before = K.COUNTS["qmf_synthesis"]
+    got = AST.qmf_synthesis(v, hist, cidx, w10)
+    assert K.COUNTS["qmf_synthesis"] == before + 1
+    want = AST.qmf_synthesis(v, hist, cidx, w10, plain=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert want[0].min().item() == -32768 and want[0].max().item() == 32767
+
+
 # --- K5: the block loops' carry step and their CUDA graphs ---
 
 def test_block_carry(card):
