@@ -9,11 +9,12 @@ Run from the root of the repository on a machine with a CUDA card and
 Phases, each printing one JSON line:
 
 1. device: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
-2. build: the twenty-five hand kernels (K1 and its AM cascade, K2, the FM
-   DFT kernel ``dft_bf16``, K3, K4, K5's FM and AM carry steps, K6, K7 at
-   K=7 and at K=9, K8, K9, the needle count of K10, K11, K12, K13, K14's
+2. build: the twenty-four hand kernels (K1 and its AM cascade, K2, the FM
+   DFT kernel ``dft_bf16``, K4, K5's FM and AM carry steps, K6, K7 at
+   K=7 and at K=9, K8, K9, K10 (the CFO scan, the Costas PLL of K3 fused
+   into it), K11, K12, K13, K14's
    tone estimate, coarse timing and CFO step, K15, and K16a-d of batched
-   HDC audio) built from the twenty-two sources of
+   HDC audio) built from the twenty-one sources of
    ``nrsc5_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``, one process per
    source, all in parallel, with ptxas's registers, shared memory and
    stack frames of every kernel;
@@ -268,16 +269,14 @@ KERNELS = {
                    "nrsc5_tpu/ops/acquire_rc.py:73"),
     "dft_bf16": ("nrsc5_tpu_torch/csrc/dft_bf16.cu",
                  "nrsc5_tpu/ops/acquire_rc.py:104"),
-    "costas_track": ("nrsc5_tpu_torch/csrc/costas_track.cu",
-                     "nrsc5_tpu/pipeline/scan_chain_rc.py:107"),
     "viterbi_k7": ("nrsc5_tpu_torch/csrc/viterbi_k7.cu",
                    "nrsc5_tpu/ops/convolutional.py:154"),
     "sync_block": ("nrsc5_tpu_torch/csrc/sync_block.cu",
                    "nrsc5_tpu/pipeline/scan_chain_rc.py:128"),
     "coarse_timing": ("nrsc5_tpu_torch/csrc/coarse_timing.cu",
                       "nrsc5_tpu/ops/acquire_rc.py:43"),
-    "needle_count": ("nrsc5_tpu_torch/csrc/needle_count.cu",
-                     "nrsc5_tpu/ops/acquire_rc.py:123"),
+    "cfo_scan": ("nrsc5_tpu_torch/csrc/cfo_scan.cu",
+                 "nrsc5_tpu/ops/acquire_rc.py:123"),
     "fec_gather": ("nrsc5_tpu_torch/csrc/fec_gather.cu",
                    "nrsc5_tpu/ops/decode_fm.py:64"),
     "fec_epilogue": ("nrsc5_tpu_torch/csrc/fec_epilogue.cu",
@@ -319,8 +318,8 @@ AUDIO_KERNELS = ("aac_window_qmf_analysis", "sbr_hf_generate",
 # the kernels each path launches
 STEADY = ("halfband_cu8", "demod_fold", "dft_bf16", "sync_block",
           "fec_gather", "viterbi_k7", "fec_epilogue", "block_carry")
-COLD_START = ("halfband_cu8", "demod_fold", "dft_bf16", "costas_track",
-              "sync_block", "coarse_timing", "needle_count")
+COLD_START = ("halfband_cu8", "demod_fold", "dft_bf16", "cfo_scan",
+              "sync_block", "coarse_timing")
 # launches of one MP3 dispatch of 32 blocks: K1 once, K2, the DFT kernel,
 # K4 and K5 per block (K5 once more ahead of block 0), K6 for P1 (two
 # kernels) and PIDS, K7 and K8 for P1, PIDS and PX1, K11 once
@@ -1447,7 +1446,7 @@ def serve_gate(events: dict, fleet: dict, mode: str, counts: dict,
             k4 = d.get("sync_block", 0)
             relock_ok &= d == {"halfband_cu8": 1, "coarse_timing": 2,
                                "demod_fold": 1 + k4, "dft_bf16": 1 + k4,
-                               "costas_track": 1, "needle_count": 1,
+                               "cfo_scan": 1,
                                **({"sync_block": 1} if k4 else {})}
     total = {}
     for kind in ("dispatch", "align", "relock"):
@@ -1490,7 +1489,6 @@ def main() -> int:
     from nrsc5_tpu_torch.ops import acquire_am_rc as AA
     from nrsc5_tpu_torch.ops import acquire_rc as AQ
     from nrsc5_tpu_torch.ops import convolutional as CV
-    from nrsc5_tpu_torch.ops import costas as CO
     from nrsc5_tpu_torch.ops import detect_cfo as DC
     from nrsc5_tpu_torch.ops import frontend as FE
     from nrsc5_tpu_torch.ops import interleavers as IL
@@ -1538,7 +1536,15 @@ def main() -> int:
     kernel_frames = {n: frames_by_kernel(lines) for n, lines in regs.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "kernels": list(K.SIGNATURES), "built": built["built"],
-          "ptxas": regs, "stack_frames": stack_frames})
+          "n_kernels": len(K.SIGNATURES),
+          "n_sources": len({K.source_of(n) for n in K.SIGNATURES}),
+          "ptxas": regs, "stack_frames": stack_frames,
+          # the kernels of K10 and K16b: registers and stack frame bytes
+          "redesigned": {n: {"registers": registers_of(regs.get(n),
+                                                       f"{n}_kernel"),
+                             "stack_frame_bytes": frame_of(
+                                 kernel_frames, n, f"{n}_kernel")}
+                         for n in ("cfo_scan", "sbr_hf_generate")}})
 
     n_blocks = N_FRAMES * C.P1_FM_BLOCKS
     t0 = time.perf_counter()
@@ -1873,39 +1879,41 @@ def main() -> int:
     splits = [("coarse_timing", None,
                lambda: AQ.coarse_timing_rc(cap_samples))]
 
-    # --- K3 and K10 on the probe's spectra (K9's timing and angle, K2's
-    # bf16 fold at CFO 0, the DFT kernel): K3 over 76 CFOs × 22 refs with each CFO's static
-    # frequency, the only shape and argument the main path gives K3 (on
-    # the steady path it runs inside K4); then the needle count ---
+    # --- K10 on the probe's spectra (K9's timing and angle, K2's bf16
+    # fold at CFO 0, the DFT kernel): the CFO scan, its 76 CFOs × 22 refs'
+    # Costas tracks and their needle count in one kernel, the count exact
+    # against the plain scan (the PLL's plain version, then the needle
+    # count); beside it the scan of one station, the chain's latency floor
+    # at one wave of 19 CTAs ---
     zero = torch.zeros(s_n, dtype=torch.int32, device=dev)
     unit = torch.tensor([[1.0, 0.0]], device=dev).repeat(s_n, 1)
     probe = rc.dft_bf16(AQ.demod_fold_bf16(cap_samples, zero, unit, ks,
                                            rc.angle(kv), zero)[0])
-    t = DC._scan_tables(str(dev))
-    refs = probe[:, :, t["bins"]].transpose(0, 1).reshape(
-        C.BLKSZ, -1, 2).contiguous()
-    cf = t["cfo_freq"].repeat(s_n)
-    zf = torch.zeros_like(cf)
-    n_tr = refs.shape[1]
-    got = CO.costas_track_rc(refs, zf, zf, cf)
-    want = CO.costas_track_rc_plain(refs, zf, zf, cf)
-    err = max((a - b).abs().max().item() for a, b in zip(got, want))
-    check("costas_track", err, 1e-4,
-          lambda: CO.costas_track_rc(refs, zf, zf, cf),
-          lambda: CO.costas_track_rc_plain(refs, zf, zf, cf),
-          bound(n_tr * (C.BLKSZ * 8 * 2 + C.BLKSZ * 4 + 20),
-                n_tr * C.BLKSZ * 36),
-          None, [C.BLKSZ, n_tr, 2])
-    derot = got[0].view(C.BLKSZ, s_n, DC.N_TRACKS, 2)
-    kc = DC.needle_count(derot)
-    pc = DC.needle_count_plain(derot)
+    kc = DC.detect_cfo_scan_rc(probe)
+    pc = DC.detect_cfo_scan_rc_plain(probe)
     err = float((kc - pc).abs().max())
-    check("needle_count", err, 0.0,
-          lambda: DC.needle_count(derot),
-          lambda: DC.needle_count_plain(derot),
-          bound(derot.numel() // 2 * 4 + kc.numel() * 4,
-                kc.numel() * 2 * DC.N_REFS * 8),
-          None, list(derot.shape))
+    one = probe[:1].contiguous()
+    one_same = torch.equal(DC.detect_cfo_scan_rc(one), pc[:1])
+    distinct = int(DC._scan_tables(str(dev))["bins"].unique().numel())
+    # bytes: each distinct bin's 32 values read once, the count written,
+    # the tables; operations: 36 a track step (K3's count: the angle, the
+    # recursion, the derotation), 8 a (ref, offset) of the needle match
+    check("cfo_scan", err, 0.0,
+          lambda: DC.detect_cfo_scan_rc(probe),
+          lambda: DC.detect_cfo_scan_rc_plain(probe),
+          bound(s_n * distinct * C.BLKSZ * 8 + kc.numel() * 4
+                + DC.N_CFO * 4 + 2 * 2 * DC.N_REFS * 4,
+                s_n * DC.N_TRACKS * C.BLKSZ * 36
+                + kc.numel() * 2 * DC.N_REFS * 8),
+          None, [s_n, C.BLKSZ, C.FFT_FM, 2], plain_reps=3, plain_inner=2,
+          ok=err == 0.0 and one_same, card=smi,
+          distinct_bins_a_station=distinct,
+          one_station_ms=time_ms(torch, lambda: DC.detect_cfo_scan_rc(one),
+                                 graph=True),
+          one_station_same=one_same,
+          registers=registers_of(regs.get("cfo_scan"), "cfo_scan_kernel"),
+          stack_frame_bytes=frame_of(kernel_frames, "cfo_scan",
+                                     "cfo_scan_kernel"))
 
     # --- K6: gather + depuncture into K7's input (int8), on the steady
     # chain's own soft bits: 32 P1 frames read in place, 512 PIDS blocks;
@@ -2446,7 +2454,11 @@ def main() -> int:
                 a_n * a_k * 32 * AST.NSLOT * 24
                 + a_n * a_k * AST.NSLOT * a_m * 20),
           None, [a_n, a_k, AST.NSLOT, a_m, 2], plain_reps=3,
-          plain_inner=2, card=smi)
+          plain_inner=2, card=smi,
+          registers=registers_of(regs.get("sbr_hf_generate"),
+                                 "sbr_hf_generate_kernel"),
+          stack_frame_bytes=frame_of(kernel_frames, "sbr_hf_generate",
+                                     "sbr_hf_generate_kernel"))
     a_xh = got[0]
     args_c = (a_xh, a_xl, a_inp["env_seg"], a_inp["freq_res"],
               a_inp["e_bands"], a_inp["q_bands"], a_inp["harm_act"],

@@ -395,7 +395,8 @@ def sbr_hf_generate(xl, tail_r, tail_i, bwj, src_idx, src_ok, kx: int,
                     plain: bool = False):
     """K16b: the arguments and results of :func:`sbr_hf_generate_plain`.
     A CPU tensor (or ``plain``) takes the plain version; a CUDA tensor
-    launches the kernel, one CTA per (lane, packet)."""
+    launches the kernel (one CTA per (lane, packet), its window of xl in
+    by bulk copies), which takes 16-byte aligned xl and tails."""
     if plain or xl.device.type == "cpu":
         return sbr_hf_generate_plain(xl, tail_r, tail_i, bwj, src_idx,
                                      src_ok, kx)
@@ -406,6 +407,9 @@ def sbr_hf_generate(xl, tail_r, tail_i, bwj, src_idx, src_ok, kx: int,
     K.check(bwj, "bwj", torch.float32)
     K.check(src_idx, "src_idx", torch.int32, (m,))
     K.check(src_ok, "src_ok", torch.float32, (m,))
+    for name, t in (("xl", xl), ("tail_r", tail_r), ("tail_i", tail_i)):
+        if t.data_ptr() % 16:  # the kernel's bulk copies
+            raise ValueError(f"{name}: expected a 16-byte aligned tensor")
     dev = xl.device
     xh = torch.empty(n, kp, NSLOT, m, 2, device=dev)
     new_r = torch.empty(n, 2, 32, device=dev)

@@ -1,10 +1,11 @@
-// The reference-subcarrier Costas PLL step, shared by K3 (costas_track.cu)
-// and K4 (sync_block.cu), so that the two kernels track bit-identically.
+// The reference-subcarrier Costas PLL step, shared by K10 (cfo_scan.cu, the
+// cold start's CFO scan) and K4 (sync_block.cu), so that the two kernels
+// track bit-identically.
 //
 // One step on reference sample v with phase ph and frequency fr:
 //   v2     = v*v
 //   err    = 0.5 * wrap_pi(angle(v2) - 2*ph)
-//   derot  = v * e^{-i ph}                      (returned)
+//   derot  = v * e^{-i ph}
 //   fr     = clip(fr + beta*err, -0.5, 0.5)
 //   ph     = wrap_pi(ph + fr + cf + alpha*err)
 // with wrap_pi(x) = x - 2pi*rint(x / 2pi) (round half to even, as
@@ -21,10 +22,10 @@ __device__ __forceinline__ float wrap_pi(float x, float two_pi) {
   return x - two_pi * rintf(x / two_pi);
 }
 
-// the three parts of a step, for a kernel that runs them apart (K4 takes
-// the angles and the derotations of all its steps in parallel and keeps only
-// the phase and frequency recursion on the track's thread): the same
-// operations as costas_step, so the same bits
+// the three parts of a step, run apart: K4 and K10 take the angles and the
+// derotations of all their steps in parallel and keep only the phase and
+// frequency recursion on the track's thread (a step is costas_derot at the
+// old phase, then costas_advance on costas_angle)
 __device__ __forceinline__ float costas_angle(float2 v) {
   const float v2r = v.x * v.x - v.y * v.y;
   const float v2i = v.x * v.y + v.y * v.x;
@@ -42,14 +43,6 @@ __device__ __forceinline__ void costas_advance(float a, float& ph, float& fr,
 __device__ __forceinline__ float2 costas_derot(float2 v, float ph) {
   const float c = cosf(-ph), s = sinf(-ph);
   return make_float2(v.x * c - v.y * s, v.x * s + v.y * c);
-}
-
-__device__ __forceinline__ float2 costas_step(float2 v, float& ph, float& fr,
-                                              float cf, float alpha,
-                                              float beta, float two_pi) {
-  const float2 derot = costas_derot(v, ph);
-  costas_advance(costas_angle(v), ph, fr, cf, alpha, beta, two_pi);
-  return derot;
 }
 
 }  // namespace nrsc5

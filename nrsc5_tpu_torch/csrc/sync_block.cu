@@ -6,7 +6,7 @@
 // every FM service mode (ppb = 10, 11, 12 or 14 partitions per band,
 // 2R = 2*(ppb+1) reference subcarriers), for all stations of a dispatch in
 // one launch.  Per station, on spectra [32, 2048, 2]:
-//   1. the Costas PLL (costas.cuh, shared with K3) on the 2R reference
+//   1. the Costas PLL (costas.cuh, shared with K10) on the 2R reference
 //      bins from costas_phase[bin] - timing_adj*k_rel*2pi/2048 and
 //      costas_freq[bin];
 //   2. the pi-ambiguity flip from the sync-sign score, the DBPSK needles

@@ -51,9 +51,10 @@ SIGNATURES = {
     "demod_fold": (P, L, P, P, P, P, P, P, F, P, P, P, I, P),
     # a, table, out, rows, width, stream
     "dft_bf16": (P, P, P, I, I, P),
-    # refs, phase0, freq0, cfo_freq, derot, phases, ph_out, fr_out,
-    # n_steps, n_tracks, alpha, beta, two_pi, stream
-    "costas_track": (P, P, P, P, P, P, P, P, I, I, F, F, F, P),
+    # spectra, cfo_freq [76], needle_vals, needle_known, count, n_stations,
+    # n_fft, lb0, ub0 (each sideband's first bin), alpha, beta, two_pi,
+    # stream
+    "cfo_scan": (P, P, P, P, P, I, I, I, I, F, F, F, P),
     # ext, bits, margin, scratch, scratch_bytes, n_seg, n_steps, g0, g1,
     # g2, llr_int8 (ext int8, else float32), stream
     "viterbi_k7": (P, P, P, P, L, I, I, I, I, I, I, P),
@@ -80,9 +81,6 @@ SIGNATURES = {
     # samples, n_samples, taps (host), shape_kernel (host), filter_delay,
     # sums (scratch), samperr, max_v, n_stations, stream
     "coarse_timing": (P, L, P, P, I, P, P, P, I, P),
-    # derot, needle_vals, needle_known, count, n_stations, n_cfo, n_refs,
-    # stream
-    "needle_count": (P, P, P, P, I, I, I, P),
     # ext, bits, margin, scratch, scratch_bytes, n_seg, n_steps, g0, g1,
     # g2, llr_int8 (ext int8, else float32), stream
     "viterbi_k9": (P, P, P, P, L, I, I, I, I, I, I, P),

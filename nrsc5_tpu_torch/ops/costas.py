@@ -4,9 +4,11 @@ PyTorch counterpart of ``nrsc5_tpu/pipeline/scan_chain_rc.py``'s
 ``costas_track_rc`` (lines 107-125): a 32-step PLL over independent
 tracks, used by the sync block (inside K4 on the card) and, lockstep over
 76 integer CFOs × 22 refs with a static per-track frequency, by the cold
-start's CFO scan (:mod:`nrsc5_tpu_torch.ops.detect_cfo`).
-:func:`costas_track_rc` launches ``csrc/costas_track.cu`` on a CUDA tensor;
-:func:`costas_track_rc_plain` is its plain PyTorch version.
+start's CFO scan (:mod:`nrsc5_tpu_torch.ops.detect_cfo`).  On the card
+the PLL runs inside those two kernels, K4 (``csrc/sync_block.cu``) and K10
+(``csrc/cfo_scan.cu``), both through ``csrc/costas.cuh``;
+:func:`costas_track_rc_plain` is its plain PyTorch version, which the CPU
+paths and both kernels' plain versions run.
 """
 
 from __future__ import annotations
@@ -15,7 +17,6 @@ import math
 
 import torch
 
-from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops import rcplx as rc
 from nrsc5_tpu_torch.ops import sync_fm as SF
 
@@ -57,28 +58,11 @@ def costas_track_rc_plain(refs, phase0, freq0, cfo_freq=None):
 
 
 def costas_track_rc(refs, phase0, freq0, cfo_freq=None):
-    """K3: the arguments and results of :func:`costas_track_rc_plain`.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one thread per track, the recurrence in registers)."""
+    """The arguments and results of :func:`costas_track_rc_plain`, which a
+    CPU tensor takes.  On the card the PLL runs inside K4 and K10, from
+    their spectra: a CUDA tensor raises."""
     if refs.device.type == "cpu":
         return costas_track_rc_plain(refs, phase0, freq0, cfo_freq)
-    _check_costas(refs, phase0, freq0, cfo_freq)
-    n_steps, n_tracks, _ = refs.shape
-    K.check(refs, "refs", torch.float32)
-    K.check(phase0, "phase0", torch.float32)
-    K.check(freq0, "freq0", torch.float32)
-    if cfo_freq is not None:
-        K.check(cfo_freq, "cfo_freq", torch.float32)
-    dev = refs.device
-    derot = torch.empty_like(refs)
-    phases = torch.empty(n_steps, n_tracks, dtype=torch.float32, device=dev)
-    ph_out = torch.empty(n_tracks, dtype=torch.float32, device=dev)
-    fr_out = torch.empty(n_tracks, dtype=torch.float32, device=dev)
-    K.launch("costas_track", refs.data_ptr(), phase0.data_ptr(),
-             freq0.data_ptr(),
-             None if cfo_freq is None else cfo_freq.data_ptr(),
-             derot.data_ptr(), phases.data_ptr(), ph_out.data_ptr(),
-             fr_out.data_ptr(), n_steps, n_tracks, SF.ALPHA, SF.BETA,
-             TWO_PI, device=dev)
-    return derot, phases, ph_out, fr_out
+    raise ValueError("costas_track_rc: on the card the Costas PLL runs "
+                     "inside K10 (detect_cfo_scan_rc, csrc/cfo_scan.cu) and "
+                     "K4 (sync_block_rc, csrc/sync_block.cu)")

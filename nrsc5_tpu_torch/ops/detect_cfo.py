@@ -4,12 +4,14 @@ PyTorch counterpart of ``nrsc5_tpu/ops/acquire_rc.py:detect_cfo_scan_rc``
 (lines 114-157) and of the tables of ``nrsc5_tpu/ops/detect_cfo.py``
 (``CFO_RANGE``, ``N_REFS``, ``_needle_tables``, lines 21-41; pinned equal
 by tests/test_torch_tables.py).  For every station, all 76 candidate CFOs
-× 22 reference subcarriers run as lockstep Costas tracks (kernel K3, with
-the static per-track frequency of each CFO), and the needle count
-(``csrc/needle_count.cu``) matches each track's 32 signs, cyclically
+× 22 reference subcarriers run as lockstep Costas tracks (the PLL of
+:mod:`nrsc5_tpu_torch.ops.costas`, with the static per-track frequency of
+each CFO), and the needle count matches each track's 32 signs, cyclically
 shifted by each of the 32 block offsets, against the reference control
-needles.  The host then takes the argmax of the count table
-(:func:`nrsc5_tpu_torch.pipeline.scan_chain_rc.cold_start_rc`).
+needles.  On the card both run in one kernel, ``csrc/cfo_scan.cu``, from
+the spectra to the count; the plain path runs the PLL's plain version and
+:func:`needle_count_plain`.  The host then takes the argmax of the count
+table (:func:`nrsc5_tpu_torch.pipeline.scan_chain_rc.cold_start_rc`).
 """
 
 from __future__ import annotations
@@ -22,12 +24,17 @@ import torch
 from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops import sync_fm as SF
-from nrsc5_tpu_torch.ops.costas import costas_track_rc, costas_track_rc_plain
+from nrsc5_tpu_torch.ops.costas import TWO_PI, costas_track_rc_plain
 
 CFO_RANGE = 2 * C.PARTITION_WIDTH_FM  # +-38 bins
 N_REFS = C.PM_PARTITIONS + 1  # 11 refs per sideband
 N_CFO = 2 * CFO_RANGE
 N_TRACKS = N_CFO * 2 * N_REFS  # 1672 tracks per station
+# the first bin of each sideband's run: every bin the scan reads lies in
+# [LB_FIRST, LB_FIRST + RUN) or [UB_FIRST, UB_FIRST + RUN)
+LB_FIRST = C.LB_START - CFO_RANGE  # 440
+UB_FIRST = C.UB_END - CFO_RANGE - C.PARTITION_WIDTH_FM * (N_REFS - 1)  # 1342
+RUN = N_CFO + C.PARTITION_WIDTH_FM * (N_REFS - 1)  # 266
 
 
 def _needle_tables():
@@ -44,15 +51,15 @@ def _scan_tables(device: str) -> dict:
     bins_l = C.LB_START + cfos[:, None] + C.PARTITION_WIDTH_FM * i[None, :]
     bins_u = C.UB_END + cfos[:, None] - C.PARTITION_WIDTH_FM * i[None, :]
     bins = np.concatenate([bins_l, bins_u], axis=1)  # [76, 22]
-    # 2*pi*cfo*CP/FFT in float32, in the reference's operation order, each
-    # CFO repeated over its 22 refs (jnp.repeat)
+    # 2*pi*cfo*CP/FFT in float32, in the reference's operation order, one
+    # a CFO (the plain scan repeats it over the CFO's 22 refs, jnp.repeat)
     cfo_freq = (np.float32(2 * np.pi) * cfos.astype(np.float32)
                 * np.float32(C.CP_FM) / np.float32(C.FFT_FM))
     vals, known = _needle_tables()
     vals_mask, known_mask = SF.needle_masks(C.PM_PARTITIONS)
     tables = {
         "bins": bins.reshape(-1).astype(np.int64),
-        "cfo_freq": np.repeat(cfo_freq, 2 * N_REFS),
+        "cfo_freq": cfo_freq,
         "vals": np.ascontiguousarray(vals.T.astype(bool)),  # [32, 22]
         "known": np.ascontiguousarray(known.T),
         "vals_mask": vals_mask,
@@ -90,41 +97,58 @@ def needle_count_plain(derot):
 
 def needle_count(derot):
     """The needle count: the argument and result of
-    :func:`needle_count_plain`.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one warp per station and CFO, signs packed into words)."""
+    :func:`needle_count_plain`, which a CPU tensor takes.  On the card the
+    count runs inside K10 (:func:`detect_cfo_scan_rc`), from the spectra:
+    a CUDA tensor raises."""
     if derot.device.type == "cpu":
         return needle_count_plain(derot)
-    _check_derot(derot)
-    K.check(derot, "derot", torch.float32)
-    s = derot.shape[1]
-    t = _scan_tables(str(derot.device))
-    count = torch.empty(s, N_CFO, C.BLKSZ, dtype=torch.int32,
-                        device=derot.device)
-    K.launch("needle_count", derot.data_ptr(), t["vals_mask"].data_ptr(),
-             t["known_mask"].data_ptr(), count.data_ptr(), s, N_CFO,
-             2 * N_REFS, device=derot.device)
-    return count
+    raise ValueError("needle_count: on the card the needle count runs "
+                     "inside K10 (detect_cfo_scan_rc, csrc/cfo_scan.cu); "
+                     "it takes no derot from device memory")
 
 
-def detect_cfo_scan_rc(spectra, plain: bool = False):
-    """spectra: float32 [S, 32, 2048, 2] (one block of each station,
-    demodulated with CFO 0).  Returns count int32 [S, 76, 32], each
-    station's table as the reference's ``detect_cfo_scan_rc`` gives it.
-
-    K3 then the needle count; ``plain=True`` runs their plain versions."""
+def _check_spectra(spectra):
     if spectra.ndim != 4 or spectra.shape[1:] != (C.BLKSZ, C.FFT_FM, 2):
         raise ValueError(f"spectra: expected [S, {C.BLKSZ}, {C.FFT_FM}, 2],"
                          f" got {tuple(spectra.shape)}")
+
+
+def detect_cfo_scan_rc_plain(spectra):
+    """Plain version of K10: the arguments and result of
+    :func:`detect_cfo_scan_rc`, through the PLL's plain version
+    (step-major tracks, track = cfo·22 + ref) and
+    :func:`needle_count_plain`."""
+    _check_spectra(spectra)
     s = spectra.shape[0]
     t = _scan_tables(str(spectra.device))
     # stations × CFOs × refs as independent tracks, step-major
     refs = spectra[:, :, t["bins"]].transpose(0, 1).reshape(
         C.BLKSZ, s * N_TRACKS, 2).contiguous()
-    cfo_freq = t["cfo_freq"].repeat(s)
+    cfo_freq = t["cfo_freq"].repeat_interleave(2 * N_REFS).repeat(s)
     zeros = torch.zeros_like(cfo_freq)
-    costas = costas_track_rc_plain if plain else costas_track_rc
-    derot = costas(refs, zeros, zeros, cfo_freq)[0]
-    count = needle_count_plain if plain else needle_count
-    return count(derot.view(C.BLKSZ, s, N_TRACKS, 2))
+    derot = costas_track_rc_plain(refs, zeros, zeros, cfo_freq)[0]
+    return needle_count_plain(derot.view(C.BLKSZ, s, N_TRACKS, 2))
+
+
+def detect_cfo_scan_rc(spectra, plain: bool = False):
+    """K10.  spectra: float32 [S, 32, 2048, 2] (one block of each station,
+    demodulated with CFO 0).  Returns count int32 [S, 76, 32], each
+    station's table as the reference's ``detect_cfo_scan_rc`` gives it.
+
+    A CPU tensor (or ``plain``) takes :func:`detect_cfo_scan_rc_plain`; a
+    CUDA tensor launches ``csrc/cfo_scan.cu`` once (a CTA a station and
+    CFO residue mod 19, the tracks' PLL and the needle count in shared
+    memory), reading the spectra in place."""
+    if plain or spectra.device.type == "cpu":
+        return detect_cfo_scan_rc_plain(spectra)
+    _check_spectra(spectra)
+    K.check(spectra, "spectra", torch.float32)
+    s = spectra.shape[0]
+    t = _scan_tables(str(spectra.device))
+    count = torch.empty(s, N_CFO, C.BLKSZ, dtype=torch.int32,
+                        device=spectra.device)
+    K.launch("cfo_scan", spectra.data_ptr(), t["cfo_freq"].data_ptr(),
+             t["vals_mask"].data_ptr(), t["known_mask"].data_ptr(),
+             count.data_ptr(), s, C.FFT_FM, LB_FIRST, UB_FIRST, SF.ALPHA,
+             SF.BETA, TWO_PI, device=spectra.device)
+    return count

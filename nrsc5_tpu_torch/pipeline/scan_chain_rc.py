@@ -613,7 +613,8 @@ def coldstart_probe_rc(samples, plain: bool = False):
     """Probe 1, for every station: coarse CP-correlation timing on the
     first 33-symbol window (K9), demodulate that window with the phasor
     1, the timing's angle and CFO 0 (K2's bf16 fold, the DFT kernel), and
-    run the batched CFO × offset needle search (K3, the needle count).
+    run the batched CFO × offset needle search (K10: the Costas tracks and
+    their needle count in one kernel).
 
     samples: [S, >= WINDOW_FM, 2] conjugated rc.  Returns (samperr int32
     [S], angle float32 [S], count int32 [S, 76, 32])."""

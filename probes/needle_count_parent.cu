@@ -1,5 +1,7 @@
-// K10, after K3: the cold start's needle count over integer CFOs x block
-// offsets, one warp per (station, CFO).
+// The needle count of K10 as it was before K10's redesign
+// (nrsc5_tpu_torch/csrc/needle_count.cu at the parent commit), for
+// probes/k10_k16b_variants.py: the cold start's needle count over integer
+// CFOs x block offsets, one warp per (station, CFO), reading K3's derot.
 //
 // Replaces the needle match of the JAX device function
 // nrsc5_tpu/ops/acquire_rc.py:detect_cfo_scan_rc (lines 140-157); its
@@ -59,7 +61,7 @@ __global__ void needle_count_kernel(const float2* __restrict__ derot,
 
 }  // namespace
 
-extern "C" int needle_count(const void* derot, const void* needle_vals,
+extern "C" int needle_count_parent(const void* derot, const void* needle_vals,
                             const void* needle_known, void* count,
                             int n_stations, int n_cfo, int n_refs,
                             void* stream) {

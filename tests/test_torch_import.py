@@ -113,11 +113,11 @@ def test_library_path_hashes_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(K.CSRC, csrc)
     monkeypatch.setattr(K, "CSRC", csrc)
-    names = ("costas_track", "sync_block", "demod_fold")
+    names = ("cfo_scan", "sync_block", "demod_fold")
     before = {n: K.library_path(n) for n in names}
     with open(csrc / "costas.cuh", "a") as f:
         f.write("// changed\n")
     after = {n: K.library_path(n) for n in names}
-    assert after["costas_track"] != before["costas_track"]
+    assert after["cfo_scan"] != before["cfo_scan"]
     assert after["sync_block"] != before["sync_block"]
     assert after["demod_fold"] == before["demod_fold"]

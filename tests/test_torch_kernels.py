@@ -12,10 +12,11 @@ Tolerances:
 - K1 (halfband, and its AM cascade), K6 (FEC gather, int8 out), K7
   (Viterbi, K=7 and K=9; int8 input gives the bits and margins of the
   same values in float32), K8 (FEC epilogue), K9 (coarse timing: samperr
-  and max_v's bits), the needle count of K10, K11 (PX deinterleave, int8
-  out) and K15 (AM gather, int8 out) exact: no FMA contraction and the
-  same operation order, integer path metrics, integer counts, and gathers
-  of int8 values or bits;
+  and max_v's bits), K10 (the CFO scan's needle count, the Costas PLL
+  fused into it), K11 (PX deinterleave, int8 out) and K15 (AM gather,
+  int8 out) exact: no FMA contraction and the same operation order,
+  integer path metrics, integer counts, and gathers of int8 values or
+  bits;
 - K14 (the AM cold start's tone estimate, coarse timing and CFO step)
   exact, floats too: every sum runs in the plain version's order (the
   8910-sample sums strided over 256 lanes, then a fixed pairwise tree),
@@ -41,7 +42,7 @@ Tolerances:
   magnitude: it forms the plain version's products (bf16 x bf16, exact in
   float32) and sums them in another order; two launches, and a launch
   inside a CUDA graph, give the same bits (a fixed K order, no atomics);
-- K2's phase_out, K3 (Costas) and the float outputs of K4 (sync block)
+- K2's phase_out and the float outputs of K4 (sync block)
   within 1e-5 of the largest value (at least 1): float32 sin, cos and
   atan2 may differ in the last bit between the kernel's build and
   PyTorch's (K4's plain version sums in K4's order and divides by numbers
@@ -271,21 +272,30 @@ def test_dft_bf16_refuses(card):
                                        dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("with_cfo", [False, True])
-def test_costas_track(card, with_cfo):
+@pytest.mark.parametrize("stations", [1, 17])
+def test_costas_track(card, stations):
+    """The Costas PLL of the CFO scan, fused into K10 (csrc/cfo_scan.cu:
+    the angles, the recursion and the derotations' signs in shared
+    memory): K10 on random spectra whose reference bins sit near the real
+    axis, as locked reference subcarriers do, at 1 and 17 stations (a
+    partial last wave of residue CTAs), one launch; its count equal to the
+    plain scan's, the PLL's plain version then the needle count.  The
+    PLL's wrapper raises on a card's tensor: it runs only inside K4 and
+    K10 there."""
     g = torch.Generator().manual_seed(3)
-    n = 1000
-    # refs near the real axis, as locked reference subcarriers sit
-    refs = torch.randn(C.BLKSZ, n, 2, generator=g) * torch.tensor([1.0, 0.2])
-    refs = refs.to(card)
-    ph0 = ((torch.rand(n, generator=g) - 0.5) * 0.2).to(card)
-    fr0 = ((torch.rand(n, generator=g) - 0.5) * 0.01).to(card)
-    cf = ((torch.rand(n, generator=g) - 0.5) * 0.5).to(card) \
-        if with_cfo else None
-    got = CO.costas_track_rc(refs, ph0, fr0, cf)
-    want = CO.costas_track_rc_plain(refs, ph0, fr0, cf)
-    for a, b in zip(got, want):
-        _close(a, b, 1e-5)
+    spectra = (torch.randn(stations, C.BLKSZ, C.FFT_FM, 2, generator=g)
+               * torch.tensor([1.0, 0.2])).to(card)
+    before = dict(K.COUNTS)
+    got = DC.detect_cfo_scan_rc(spectra)
+    assert {k: c - before[k] for k, c in K.COUNTS.items()
+            if c != before[k]} == {"cfo_scan": 1}
+    want = DC.detect_cfo_scan_rc(spectra, plain=True)
+    assert got.dtype == torch.int32 and got.shape == (stations, 76, 32)
+    assert torch.equal(got, want)
+    assert int(got.max()) > 0
+    z = torch.zeros(10, device=card)
+    with pytest.raises(ValueError):
+        CO.costas_track_rc(torch.zeros(C.BLKSZ, 10, 2, device=card), z, z)
 
 
 def _viterbi_ext(kind, k, gens, segs, length, seed):
@@ -576,8 +586,11 @@ def test_coarse_timing_stations(card, s):
 
 def test_needle_count(card):
     """The CFO scan on the probe's spectra of stations with a negative and
-    a positive integer CFO: the needle count exact, and its peak at the
-    true CFO (negated by the FM ingest's conjugation)."""
+    a positive integer CFO: one K10 launch (``cfo_scan``: the PLL and the
+    needle count in one kernel) and nothing else, the count exact against
+    the plain scan, and its peak at the true CFO (negated by the FM
+    ingest's conjugation).  The standalone needle count raises on a card's
+    tensor."""
     rng = np.random.default_rng(7)
     true = (-7, 5)
     caps = [_capture(rng, 1, 0, c * BIN_HZ + 20.0) for c in true]
@@ -585,13 +598,16 @@ def test_needle_count(card):
     samperr, max_v = AQ.coarse_timing_rc(x)
     _, spectra = _spectra(card, caps, samperr.tolist(),
                           rc.angle(max_v).tolist(), [0, 0])
-    before = K.COUNTS["needle_count"]
+    before = dict(K.COUNTS)
     count = DC.detect_cfo_scan_rc(spectra)
-    assert K.COUNTS["needle_count"] == before + 1
+    assert {k: c - before[k] for k, c in K.COUNTS.items()
+            if c != before[k]} == {"cfo_scan": 1}
     assert torch.equal(count, DC.detect_cfo_scan_rc(spectra, plain=True))
     for s, c in enumerate(true):
         ci = int(count[s].flatten().argmax()) // C.BLKSZ
         assert ci - DC.CFO_RANGE == -c
+    with pytest.raises(ValueError):
+        DC.needle_count(torch.zeros(C.BLKSZ, 2, DC.N_TRACKS, 2, device=card))
 
 
 def _pm(seed, s, n_blocks):
@@ -1370,6 +1386,55 @@ def test_audio_kernels_refuse(card):
                                         dtype=torch.float64),
                             state["tail_r"], state["tail_i"], inp["bwj"],
                             stage.src_idx, stage.src_ok, stage.kx)
+
+
+@functools.lru_cache(maxsize=None)
+def _audio_stream(kind: str):
+    """``chip_smoke.py``'s audio stream ``kind``, its 8 packets decoded once
+    and prepared again by a one-program decoder on the CPU: (stage, numpy
+    inputs, numpy state)."""
+    import chip_smoke
+    pkts = chip_smoke.make_audio_stream(kind)
+    dec = BatchedAudioDecoder(1, device="cpu")
+    dec.decode([pkts])
+    stage, inp, smooth, key = dec.prepare([pkts])
+    dec._reconcile_state(smooth, key)
+    return stage, inp, {k: v.numpy() for k, v in dec._state.items()}
+
+
+@pytest.mark.parametrize("kp", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["steady", "transient", "mono"])
+def test_sbr_hf_generate_streams(card, kind, kp):
+    """K16b on each audio stream of ``chip_smoke.py`` (stereo steady,
+    stereo with transients, mono), its first ``kp`` packets of xl from
+    K16a's plain version, the carried tails not zero, its lanes tiled to
+    129: x_high and the new tails equal to the plain version's, one
+    launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stage, inp, state = _audio_stream(kind)
+    stage = stage.to(card)
+    st = {k: torch.from_numpy(_lanes(v, 129)).to(card)
+          for k, v in state.items()}
+    inp = device_inputs({k: np.ascontiguousarray(_lanes(v, 129)[:, :kp])
+                         for k, v in inp.items()}, card)
+    n = inp["spec_long"].shape[0]
+    xl = AST.window_qmf_analysis(
+        torch.matmul(inp["spec_long"].reshape(n * kp, -1),
+                     stage.blt).reshape(n, kp, 2048),
+        torch.matmul(inp["spec_short"].reshape(n * kp * 8, -1),
+                     stage.bst).reshape(n, kp, 8, 256),
+        inp["win_long_idx"], inp["win_short_idx"], inp["short"],
+        st["overlap"], st["qa_hist"], stage.lut_long, stage.lut_short,
+        stage.ka, plain=True)[0]
+    assert st["tail_r"].abs().max() > 0
+    args = (xl, st["tail_r"], st["tail_i"], inp["bwj"],
+            stage.src_idx, stage.src_ok, stage.kx)
+    before = K.COUNTS["sbr_hf_generate"]
+    got = AST.sbr_hf_generate(*args)
+    assert K.COUNTS["sbr_hf_generate"] == before + 1
+    want = AST.sbr_hf_generate(*args, plain=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @functools.lru_cache(maxsize=None)
