@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FM and AM receive chains and its batched HDC
-audio decoder on one CUDA card.
+"""Drive the PyTorch port's FM and AM receive chains, its batched HDC
+audio decoder, its receiver, and its session and CLI on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -47,7 +47,12 @@ Phases, each printing one JSON line:
    offset and a CFO as the cold-start capture's, 25 dB, as 1.488 MS/s cu8;
    16 MA1 stations of 24 frames (4 HDC packets a P1 subframe) behind a
    timing offset of 300-3999 samples, 35 dB, cs16; station 5 of each with
-   0.5 s of zeros inserted (after FM frame 3, AM frame 6);
+   0.5 s of zeros inserted (after FM frame 3, AM frame 6).  And the golden
+   capture, support/make_capture.py's recipe on the port's ``tx`` (seed
+   12345, 3 frames of HDC audio of a tone mix, the ID3 title "You're
+   Listening to TPU", a SIG table and the LOT file ``tpu.png``, 1.488 MS/s
+   cu8), and one MA1 station of 8 frames, tests/capture_helpers.py's
+   ``build_am_capture`` on the port's ``tx``, cs16;
 4. one line per kernel: the kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it, with times (K2's bf16 fold
    within one bf16 ulp of its plain version, the share that differs
@@ -181,7 +186,28 @@ the eager wall and device time beside the graph's.  Then:
    events.  Station-seconds of air over the wall of push through flush
    (the first run, which captures any graph it meets first, and a warm
    run), the wall a dispatch, device busy time and idle share, events per
-   station; the same for the eager loop.
+   station; the same for the eager loop;
+14. session_fm: the golden drive, the port's CLI ``cli.main(["-r",
+   capture, "0", "0", "-o", raw, "--dump-aas-files", dir, "--dump-hdc",
+   hdc, "-w", tee])`` on the default device, twice (the first run
+   captures the one-station graph), then once under the profiler.  Gate
+   (each run): "Synchronized" logged once, "Title: You're Listening to
+   TPU" and a "LOT file" line logged, the dumped ``tpu.png`` equal to its
+   100 bytes, at least 2·2048·32 int16 samples of raw PCM with a peak
+   above 3000, an HDC dump above 5000 bytes, the tee equal to the capture,
+   every kernel of the session's FM path launched (K1 a push; the cold
+   start's K9, K2, the DFT kernel, K10, K4; the receiver's K2, the DFT
+   kernel, K4, K5, K6, K7, K8) and no other, no plain version called.
+   The CLI's wall and real-time factor, the cold start's wall, the
+   launches by kernel, the device busy time and idle share;
+15. session_am: the MA1 station through ``NRSC5.open_pipe(..., MODE_AM)``
+   in pushes of 50000 samples, then ``flush``, twice, then once under the
+   profiler.  Gate (each run): one SYNC and no LOST_SYNC, at least 48
+   clean HDC packets that were sent (those after the diversity warm-up)
+   and none that was not, every kernel of the session's AM path launched
+   (the cold start's K14, K12, K13; the receiver's K12, K13, K5, K15, K7
+   at K=9, K8) and no other, no plain version called.  Wall, cold start,
+   launches, device busy.
 
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``:
 the kernels launched, summed over the paths driven and itemised under
@@ -203,6 +229,7 @@ import math
 import multiprocessing
 import os
 import pstats
+import shutil
 import statistics
 import subprocess
 import sys
@@ -256,6 +283,18 @@ SERVE_HOLE_S = 0.5
 SERVE_HOLE_AFTER = 4  # FM: the hole follows frame 3
 SERVE_AM_HOLE_AFTER = 7  # AM: the hole follows frame 6
 SERVE_PUSH = 98765  # odd-sized pushes (wire samples)
+# the golden capture (support/make_capture.py's recipe) and the session
+# phases
+GOLDEN_TITLE = "You're Listening to TPU"
+GOLDEN_SEED = 12345
+GOLDEN_FRAMES = 3
+GOLDEN_LOT_NAME = "tpu.png"
+GOLDEN_LOT_DATA = bytes(range(100))
+GOLDEN_LOT_ID = 7
+GOLDEN_SIG_PORT = 0x1001
+SESSION_AM_FRAMES = 8
+SESSION_AM_PUSH = 50000  # cs16 samples a push
+SESSION_AM_MIN_HDC = 48  # bit-exact HDC packets after the warm-up
 # the card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -1105,6 +1144,125 @@ def make_serve_am_station(index: int) -> dict:
             "frame0": offset, "hole": hole}
 
 
+def golden_sig_table() -> bytes:
+    """The golden capture's SIG table: one data service carrying a LOT
+    component on GOLDEN_SIG_PORT (support/make_capture.py's ``sig_table``;
+    reference SIG record layout: src/output.c:493-625)."""
+    buf = bytearray([0x41, 0x01, 0x00, 0x00])  # data service #1
+    name = b"\x00Traffic"
+    buf += bytes([0x69, 1 + len(name)]) + name
+    comp = bytes([0x00, GOLDEN_SIG_PORT & 0xFF, GOLDEN_SIG_PORT >> 8, 0x00,
+                  0x00, 3, 0, 0])  # AASType.LOT
+    comp += (0x4F328CA0).to_bytes(4, "little")  # MIMEType.PNG
+    buf += bytes([0x67, 1 + len(comp)]) + comp
+    return bytes(buf)
+
+
+def golden_lot_fragment() -> bytes:
+    """The golden capture's single complete-file LOT fragment
+    (support/make_capture.py's ``lot_fragment``; reference:
+    src/output.c:627-760), expiring 2027-06-15 12:30 UTC."""
+    meta = bytearray(16)
+    meta[0:4] = (1).to_bytes(4, "little")  # LOT header version 1
+    year, mon, mday, hour, minute = 2027, 6, 15, 12, 30
+    meta[4] = ((hour & 0x3) << 6) | minute
+    meta[5] = (mday << 3) | (hour >> 2)
+    meta[6] = ((year & 0xF) << 4) | mon
+    meta[7] = year >> 4
+    meta[8:12] = len(GOLDEN_LOT_DATA).to_bytes(4, "little")
+    meta[12:16] = (0x4F328CA0).to_bytes(4, "little")
+    meta += GOLDEN_LOT_NAME.encode()
+    hdr = bytearray([8 + len(meta), 0, GOLDEN_LOT_ID & 0xFF,
+                     GOLDEN_LOT_ID >> 8])
+    hdr += (0).to_bytes(4, "little")  # fragment seq 0
+    return bytes(hdr) + bytes(meta) + GOLDEN_LOT_DATA
+
+
+def make_golden_capture(seed: int = GOLDEN_SEED) -> np.ndarray:
+    """The golden FM capture, support/make_capture.py's recipe built with
+    the port's ``tx`` copy (that script needs JAX): ``seed`` (GOLDEN_SEED
+    by default), 2 lead blocks of a dummy frame, GOLDEN_FRAMES P1 frames of
+    32 HDC packets of a tone mix each, the ID3 title GOLDEN_TITLE (frames 0
+    and 2), the SIG table (frame 0) and the LOT file GOLDEN_LOT_NAME (frame
+    1) in the AAS PSD, 4 trailing blocks; amplitude 0.15, a 1000-sample
+    offset, 100 Hz CFO, 25 dB, upsampled ×2 to the 1.488 MS/s cu8 wire.
+    Returns the wire bytes, uint8 [n]."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch.tx import channel as ch
+    from nrsc5_tpu_torch.tx.encoder import build_pm_matrix
+    from nrsc5_tpu_torch.tx.hdc_encoder import HDCEncoder
+    from nrsc5_tpu_torch.tx.modulator import modulate_fm
+    from nrsc5_tpu_torch.tx.transport_encoder import (aas_frame,
+                                                      build_p1_fm_frame)
+
+    rng = np.random.default_rng(seed)
+    n_frames = GOLDEN_FRAMES
+    t = np.arange(n_frames * 32 * C.AUDIO_FRAME_SAMPLES) \
+        / C.SAMPLE_RATE_AUDIO
+    land = 0.3 * np.sin(2 * np.pi * 440 * t) \
+        + 0.15 * np.sin(2 * np.pi * 1320 * t) \
+        + 0.1 * np.sin(2 * np.pi * 220 * t) * np.sin(2 * np.pi * 2 * t)
+    pcm = np.stack([land, 0.8 * land], axis=-1)
+    enc = HDCEncoder(2)
+    hdc = [enc.encode_frame(pcm[i * 2048:(i + 1) * 2048])
+           for i in range(n_frames * 32)]
+    title = _id3_title(GOLDEN_TITLE)
+    psd = [aas_frame(0x5100, 0, title) + aas_frame(0x20, 0,
+                                                    golden_sig_table()),
+           aas_frame(GOLDEN_SIG_PORT, 1, golden_lot_fragment()),
+           aas_frame(0x5100, 2, title)]
+    frames = [build_p1_fm_frame(hdc[f * 32:(f + 1) * 32], 0, f % 8,
+                                (f * 32) % 64, psd[f])
+              for f in range(n_frames)]
+    pids = np.zeros((16, 80), np.uint8)
+    mats = [build_pm_matrix(fr, pids) for fr in frames]
+    dummy = build_pm_matrix(
+        rng.integers(0, 2, C.P1_FRAME_LEN_FM).astype(np.uint8), pids)
+    matrix = np.concatenate([dummy[14 * 32:]] + mats + [dummy[:4 * 32]])
+    bc_seq = np.concatenate([np.arange(14, 16),
+                             np.tile(np.arange(16), n_frames),
+                             np.arange(4)])
+    sig = modulate_fm(matrix, bc_seq, 1, amplitude=0.15)
+    sig = ch.impair(sig, sample_offset=1000, cfo_hz=100.0, snr_db=25.0,
+                    rng=rng)
+    return ch.to_cu8(ch.upsample2(sig))
+
+
+def make_session_am_capture():
+    """tests/capture_helpers.py's ``build_am_capture`` (seed SEED,
+    SESSION_AM_FRAMES frames of MA1, four random 90-byte HDC packets a P1
+    subframe, random P3 and PIDS) built with the port's ``tx`` copy, at the
+    chain's 46511.7 S/s from sample 0, quantized to cs16 at AM_RMS of full
+    scale.  Returns the int16 [n, 2] wire and the packets as (frame,
+    [bytes]) a subframe."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch.tx import encoder_am as EAM
+    from nrsc5_tpu_torch.tx.modulator_am import modulate_am
+    from nrsc5_tpu_torch.tx.transport_encoder import build_p1_am_frame
+
+    rng = np.random.default_rng(SEED)
+    n_frames = SESSION_AM_FRAMES
+    packets = []
+    p1_bits = np.zeros((n_frames, 8, C.P1_FRAME_LEN_AM), np.uint8)
+    for f in range(n_frames):
+        for sub in range(8):
+            pk = [rng.integers(0, 256, 90).astype(np.uint8).tobytes()
+                  for _ in range(4)]
+            packets.append((f, pk))
+            p1_bits[f, sub] = build_p1_am_frame(
+                pk, 0, pdu_seq=sub, seq=((f * 8 + sub) * 4) % 64)
+    p3 = rng.integers(0, 2, (n_frames, C.P3_FRAME_LEN_MA1)).astype(np.uint8)
+    mats = EAM.interleave_frames(
+        [EAM.encode_p1_am(p1_bits[f]) for f in range(n_frames)],
+        [EAM.encode_p3_am(p3[f], False) for f in range(n_frames)], False)
+    pids = np.stack([EAM.encode_pids_am(
+        rng.integers(0, 2, 80).astype(np.uint8))
+        for _ in range(n_frames * 8)])
+    ref = np.stack([EAM.am_ref_bits(b % 8, C.SERVICE_MODE_MA1)
+                    for b in range(n_frames * 8)])
+    return _cs16(modulate_am(mats, pids, ref, False)), packets
+
+
 def make_audio_stream(kind: str) -> list:
     """AUDIO_PACKETS HDC packets of one program, from the stream's own seed,
     encoded with the port's ``tx`` copy: ``steady`` is stereo SBR content as
@@ -1466,6 +1624,147 @@ def serve_gate(events: dict, fleet: dict, mode: str, counts: dict,
         "pass": bool(ok and launches_ok)}
 
 
+# the kernels each session phase launches: FM from cu8 (K1 a push; the
+# cold start's K9, K2, the DFT kernel, K10 and K4; the receiver's K2, the
+# DFT kernel, K4, K5, K6, K7 and K8), AM from cs16 (the cold start's K14,
+# K12 and K13; the receiver's K12, K13, K5, K15, K7 at K=9 and K8)
+SESSION_FM_KERNELS = ("halfband_cu8", "coarse_timing", "demod_fold",
+                      "dft_bf16", "cfo_scan", "sync_block", "block_carry",
+                      "fec_gather", "viterbi_k7", "fec_epilogue")
+SESSION_AM_KERNELS = ("am_tone", "am_coarse", "am_cfo_step", "am_fold",
+                      "sync_am_block", "block_carry_am", "am_gather",
+                      "viterbi_k9", "fec_epilogue")
+
+
+def timed_cold_starts(torch, module, name: str):
+    """Wrap ``module.name`` (a cold start) so that each call's wall, from a
+    synchronize before it to one after it, is appended to the returned
+    list.  Returns (walls in ms, a function that puts the original
+    back)."""
+    walls, orig = [], getattr(module, name)
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+    setattr(module, name, timed)
+    return walls, lambda: setattr(module, name, orig)
+
+
+def session_fm_run(torch, capture: Path, out: Path) -> dict:
+    """The golden drive: the port's CLI (``cli.main``, the default device)
+    on the golden capture with raw PCM, the AAS files, the HDC dump and the
+    tee written under ``out``.  Returns the "nrsc5-tpu" log lines, the wall
+    of the call, the cold starts' walls, the kernels launched and the plain
+    versions called."""
+    import logging
+    from nrsc5_tpu_torch import cli
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "aas").mkdir(exist_ok=True)
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+    log, keep = logging.getLogger("nrsc5-tpu"), Keep()
+    log.addHandler(keep)
+    log.setLevel(logging.INFO)
+    cold, untime = timed_cold_starts(torch, rcc, "cold_start_rc")
+    plain_calls, restore = count_plain_calls()
+    try:
+        torch.cuda.synchronize()
+        K.reset_counts()
+        t0 = time.perf_counter()
+        cli.main(["-r", str(capture), "0", "0", "-o", str(out / "raw.pcm"),
+                  "--dump-aas-files", str(out / "aas"), "--dump-hdc",
+                  str(out / "dump.hdc"), "-w", str(out / "tee.cu8")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: c for k, c in K.COUNTS.items() if c}
+    finally:
+        restore()
+        untime()
+        log.removeHandler(keep)
+    return {"lines": lines, "wall_s": wall, "cold_start_ms": cold,
+            "launches": counts, "plain_calls": plain_calls}
+
+
+def session_fm_gate(run: dict, capture: Path, out: Path) -> dict:
+    """session_fm's gate: "Synchronized" once, the golden title and a LOT
+    file logged, the dumped LOT file's bytes, at least 32 packets of raw
+    PCM with a peak above 3000, an HDC dump above 5000 bytes, the tee equal
+    to the capture, every kernel of the path launched and no other, no
+    plain version called."""
+    lines = run["lines"]
+    lot = out / "aas" / GOLDEN_LOT_NAME
+    pcm = np.fromfile(out / "raw.pcm", np.int16)
+    checks = {
+        "synchronized": sum(ln.startswith("Synchronized") for ln in lines),
+        "title": sum(ln == f"Title: {GOLDEN_TITLE}" for ln in lines),
+        "lot_logged": any(ln.startswith("LOT file") for ln in lines),
+        "lot_bytes_equal": lot.exists()
+        and lot.read_bytes() == GOLDEN_LOT_DATA,
+        "pcm_samples": int(pcm.size),
+        "pcm_peak": int(np.abs(pcm.astype(np.int32)).max()) if pcm.size
+        else 0,
+        "hdc_dump_bytes": (out / "dump.hdc").stat().st_size,
+        "tee_equal": (out / "tee.cu8").read_bytes()
+        == capture.read_bytes(),
+        "kernels_launched": sorted(run["launches"]),
+    }
+    ok = (checks["synchronized"] == 1 and checks["title"] >= 1
+          and checks["lot_logged"] and checks["lot_bytes_equal"]
+          and checks["pcm_samples"] >= 2 * 2048 * 32
+          and checks["pcm_peak"] > 3000
+          and checks["hdc_dump_bytes"] > 5000 and checks["tee_equal"]
+          and set(run["launches"]) == set(SESSION_FM_KERNELS)
+          and not run["plain_calls"])
+    return {**checks, "pass": ok}
+
+
+def session_am_run(torch, wire: np.ndarray, packets: list) -> dict:
+    """One MA1 station through ``NRSC5.open_pipe(..., MODE_AM)`` on the
+    default device: the cs16 wire pushed SESSION_AM_PUSH samples at a time
+    as interleaved int16, then ``flush``.  Returns the SYNC count, the
+    clean HDC packets that are transmitted ones, the wall, the cold
+    starts' walls, the kernels launched and the plain versions called."""
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch.api.session import MODE_AM, NRSC5
+    from nrsc5_tpu_torch.pipeline import scan_chain_am_rc as scar
+    events = []
+    cold, untime = timed_cold_starts(torch, scar, "cold_start_am_rc")
+    plain_calls, restore = count_plain_calls()
+    try:
+        torch.cuda.synchronize()
+        K.reset_counts()
+        t0 = time.perf_counter()
+        radio = NRSC5.open_pipe(events.append, MODE_AM,
+                                hdc_decoder_factory=None)
+        for lo in range(0, len(wire), SESSION_AM_PUSH):
+            radio.pipe_samples_cs16(wire[lo:lo + SESSION_AM_PUSH]
+                                    .reshape(-1))
+        radio.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: c for k, c in K.COUNTS.items() if c}
+    finally:
+        restore()
+        untime()
+    clean = {e.data for e in events
+             if e.type.name == "HDC" and not e.crc_error}
+    sent = {bytes(p) for _, pk in packets for p in pk}
+    return {"syncs": sum(e.type.name == "SYNC" for e in events),
+            "lost_syncs": sum(e.type.name == "LOST_SYNC" for e in events),
+            "hdc_exact": len(clean & sent), "hdc_foreign": len(clean - sent),
+            "wall_s": wall, "cold_start_ms": cold, "launches": counts,
+            "plain_calls": plain_calls}
+
+
 def make_fleet(station=make_station) -> dict:
     """Every station, built in parallel by spawned worker processes (numpy
     only; the pool ends with the call)."""
@@ -1563,13 +1862,17 @@ def main() -> int:
     t_serve = time.perf_counter() - t5
     t5 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(len(AUDIO_STREAMS), mp_context=ctx) as pool:
+    with ProcessPoolExecutor(len(AUDIO_STREAMS) + 2, mp_context=ctx) as pool:
+        golden_job = pool.submit(make_golden_capture)
+        session_am_job = pool.submit(make_session_am_capture)
         audio_streams = list(pool.map(make_audio_stream, AUDIO_STREAMS))
         t6 = time.perf_counter()
         header_jobs = {h: pool.submit(make_header_batch, h)
                        for h in AUDIO_HEADERS}
         audio_host = list(pool.map(host_audio, audio_streams))
         header_batches = {h: j.result() for h, j in header_jobs.items()}
+        golden = golden_job.result()
+        session_am_capture = session_am_job.result()
     emit({"phase": "signal", "seconds": round(t1 - t0, 3),
           "audio_encode_seconds": round(t6 - t5, 3),
           "audio_host_decode_seconds": round(time.perf_counter() - t6, 3),
@@ -3591,6 +3894,66 @@ def main() -> int:
             by_path = report[name]["launches_by_path"]
             by_path[f"serve_{mode}"] = counts.get(name, 0)
             report[name]["launches"] = sum(by_path.values())
+
+    # --- session_fm: the golden drive through the port's CLI; session_am:
+    # one MA1 station through the session from cs16 ---
+    root = Path(__file__).resolve().parent / "build" / "session"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    capture = root / "golden.cu8"
+    golden.tofile(capture)
+    air = golden.size / 2 / C.SAMPLE_RATE_CU8
+    fm_runs = [session_fm_run(torch, capture, root / f"fm{i}")
+               for i in range(2)]
+    fm_gates = [session_fm_gate(r, capture, root / f"fm{i}")
+                for i, r in enumerate(fm_runs)]
+    fm_busy = profile_device(torch, lambda: session_fm_run(
+        torch, capture, root / "fm_profiled"))
+    ok = all(g["pass"] for g in fm_gates)
+    emit({"phase": "session_fm", "card": smi,
+          "capture_bytes": int(golden.size), "air_seconds": air,
+          **fm_gates[0], "launches": fm_runs[0]["launches"],
+          "plain_calls_on_kernel_path": fm_runs[0]["plain_calls"],
+          "runs": [{"wall_s": r["wall_s"], "air_seconds_per_second":
+                    air / r["wall_s"], "cold_start_ms": r["cold_start_ms"],
+                    "pass": g["pass"]} for r, g in zip(fm_runs, fm_gates)],
+          "log": [ln for ln in fm_runs[0]["lines"]
+                  if not ln.startswith(("BER", "MER"))],
+          "device_time": fm_busy, "pass": ok})
+    if not ok:
+        raise AssertionError("session_fm: the golden drive through the CLI "
+                             "did not pass its gate")
+    am_wire, am_packets = session_am_capture
+    am_air = len(am_wire) / C.SAMPLE_RATE_CS16_AM
+    am_runs = [session_am_run(torch, am_wire, am_packets) for _ in range(2)]
+    am_busy = profile_device(torch, lambda: session_am_run(
+        torch, am_wire, am_packets))
+    am_gates = [r["syncs"] == 1 and r["lost_syncs"] == 0
+                and r["hdc_exact"] >= SESSION_AM_MIN_HDC
+                and r["hdc_foreign"] == 0 and not r["plain_calls"]
+                and set(r["launches"]) == set(SESSION_AM_KERNELS)
+                for r in am_runs]
+    ok = all(am_gates)
+    emit({"phase": "session_am", "card": smi, "mode": "MA1",
+          "frames": SESSION_AM_FRAMES, "push_samples": SESSION_AM_PUSH,
+          "air_seconds": am_air,
+          **{k: am_runs[0][k] for k in ("syncs", "lost_syncs", "hdc_exact",
+                                        "hdc_foreign", "launches")},
+          "hdc_exact_gate": SESSION_AM_MIN_HDC,
+          "hdc_sent": sum(len(pk) for _, pk in am_packets),
+          "plain_calls_on_kernel_path": am_runs[0]["plain_calls"],
+          "runs": [{"wall_s": r["wall_s"], "air_seconds_per_second":
+                    am_air / r["wall_s"], "cold_start_ms": r["cold_start_ms"],
+                    "hdc_exact": r["hdc_exact"], "pass": g}
+                   for r, g in zip(am_runs, am_gates)],
+          "device_time": am_busy, "pass": ok})
+    if not ok:
+        raise AssertionError("session_am did not pass its gate")
+    for name in KERNELS:
+        by_path = report[name]["launches_by_path"]
+        by_path["session_fm"] = fm_runs[0]["launches"].get(name, 0)
+        by_path["session_am"] = am_runs[0]["launches"].get(name, 0)
+        report[name]["launches"] = sum(by_path.values())
 
     print(smi, flush=True)
     emit({"kernels": [dict(report[n]) for n in KERNELS]})

@@ -12,4 +12,27 @@ each beside a plain PyTorch version of the same function.
 
 Entry points take ``device=`` and default to ``"cuda"``: with no card
 they raise unless the caller asks for ``device="cpu"``.
+
+Public surface, as the reference's:
+
+    from nrsc5_tpu_torch import NRSC5, MODE_FM, MODE_AM, EventType
+
+    radio = NRSC5.open_pipe(callback)
+    radio.pipe_samples_cu8(iq_bytes)
+
+and the command line receiver ``python -m nrsc5_tpu_torch.cli``.
 """
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # lazy: importing the package imports no kernel module and builds
+    # nothing
+    if name in ("NRSC5", "MODE_FM", "MODE_AM"):
+        from nrsc5_tpu_torch.api import session
+        return getattr(session, name)
+    if name in ("Event", "EventType"):
+        from nrsc5_tpu_torch.api import events
+        return getattr(events, name)
+    raise AttributeError(name)

@@ -124,6 +124,15 @@ def block_carry_am(keep, offset, plain: bool = False) -> None:
 # the loops as CUDA graphs
 # ---------------------------------------------------------------------------
 
+def station_major(t: torch.Tensor) -> torch.Tensor:
+    """A fresh contiguous copy of a loop's block-major output ``t``
+    [n_blocks, S, ...] as [S, n_blocks, ...], which a graph's next replay
+    cannot overwrite.  ``transpose(0, 1).contiguous()`` is no such copy at
+    one station: the view is contiguous already, and the result would be
+    the graph's own buffer."""
+    return t.transpose(0, 1).clone(memory_format=torch.contiguous_format)
+
+
 class CapturedLoop:
     """``fn(**inputs)`` captured once as a CUDA graph on ``device``.
 

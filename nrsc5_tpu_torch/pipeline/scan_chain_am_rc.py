@@ -55,7 +55,8 @@ from nrsc5_tpu_torch.ops import rcplx as rc
 from nrsc5_tpu_torch.ops import sync_am as SA
 from nrsc5_tpu_torch.ops.acquire_rc import WINDOW_AM, dynamic_start
 from nrsc5_tpu_torch.pipeline import block_graph
-from nrsc5_tpu_torch.pipeline.block_graph import block_carry_am, run_into
+from nrsc5_tpu_torch.pipeline.block_graph import (block_carry_am, run_into,
+                                                  station_major)
 from nrsc5_tpu_torch.pipeline.scan_chain_am import am_buffer_len  # noqa: F401
 
 W = C.PARTITION_WIDTH_AM
@@ -540,9 +541,10 @@ def finish_scan_am(scanned: dict, carry: AMChainCarryRC):
     """:func:`scan_blocks_am`' block-major results -> (codes uint8 [S,
     n_blocks, 4, 800], pids codes uint8 [S, n_blocks, 32, 2], new carry
     with the delay lines untouched): fresh tensors, so that a graph's next
-    replay does not overwrite them."""
-    return (scanned["codes"].transpose(0, 1).contiguous(),
-            scanned["pids"].transpose(0, 1).contiguous(),
+    replay does not overwrite them (:func:`~nrsc5_tpu_torch.pipeline.
+    block_graph.station_major`)."""
+    return (station_major(scanned["codes"]),
+            station_major(scanned["pids"]),
             carry._replace(**{k: v.clone()
                               for k, v in scanned["carry"].items()}))
 

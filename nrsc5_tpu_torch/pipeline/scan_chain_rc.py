@@ -58,7 +58,8 @@ from nrsc5_tpu_torch.ops.costas import TWO_PI, costas_track_rc_plain, wrap_pi
 from nrsc5_tpu_torch.ops.decode_fm import (p1_decode, pids_decode,
                                            px_deinterleave, px_fec)
 from nrsc5_tpu_torch.ops.detect_cfo import CFO_RANGE, detect_cfo_scan_rc
-from nrsc5_tpu_torch.pipeline.block_graph import block_carry, run_into
+from nrsc5_tpu_torch.pipeline.block_graph import (block_carry, run_into,
+                                                  station_major)
 from nrsc5_tpu_torch.pipeline.scan_chain import iv_state_len, px_frame_lens
 
 W = C.PARTITION_WIDTH_FM
@@ -495,11 +496,11 @@ def finish_scan(scanned: dict, carry: ChainCarryRC):
     """:func:`scan_blocks`' block-major results -> (pm int8 [S, n_blocks,
     23040], diag dict of [S, n_blocks] tensors, px dict {"px1": int8 [S,
     n_blocks, 2304 or 4608], ...}, new carry): fresh tensors, so that a
-    graph's next replay does not overwrite them."""
-    pm = scanned["pm"].transpose(0, 1).contiguous()
-    diag = {k: v.t().contiguous() for k, v in scanned["diag"].items()}
-    px = {k: v.transpose(0, 1).contiguous()
-          for k, v in scanned["px"].items()}
+    graph's next replay does not overwrite them (:func:`~nrsc5_tpu_torch.
+    pipeline.block_graph.station_major`)."""
+    pm = station_major(scanned["pm"])
+    diag = {k: station_major(v) for k, v in scanned["diag"].items()}
+    px = {k: station_major(v) for k, v in scanned["px"].items()}
     return pm, diag, px, carry._replace(
         **{k: v.clone() for k, v in scanned["carry"].items()})
 

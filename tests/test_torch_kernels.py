@@ -1830,3 +1830,51 @@ def test_receiver_events_card_cpu(card, mode):
     kinds = [e.type.name for e in runs[1][1]]
     assert "LOST_SYNC" in kinds and "SYNC" in kinds
     assert sum(e.type.name == "HDC" for e in runs[1][0]) >= 128
+
+
+def test_session_file_worker(card, tmp_path):
+    """The session's worker thread drives the card: ``NRSC5.open_file(...)
+    .start()`` on the golden capture (``chip_smoke.make_golden_capture``,
+    support/make_capture.py's recipe) launches every kernel and captures
+    K5's graph in its own thread, then ``flush``.  The same events as the
+    same session on the CPU, each equal by tests/serve_events.py's key,
+    and the MER floats within its MER_DB (the largest difference printed,
+    ``-rP``).  At one station the loop's block-major outputs are copied out
+    of K5's graph (``block_graph.station_major``): without that copy the
+    MER of a dispatch was read after the next replay had overwritten its
+    errors, 0.04-0.22 dB off the CPU's in the first frame
+    (probes/session_mer_gap.py).  The golden title, the LOT file and all
+    96 HDC packets, and every kernel of the path launched."""
+    import chip_smoke
+    from nrsc5_tpu_torch.api.session import NRSC5
+
+    from .serve_events import MER_DB, key
+    path = tmp_path / "golden.cu8"
+    chip_smoke.make_golden_capture().tofile(path)
+    runs = []
+    for dev in ("cpu", card):
+        events = []
+        radio = NRSC5.open_file(str(path), events.append,
+                                hdc_decoder_factory=None, device=dev)
+        K.reset_counts()
+        radio.start()
+        radio._worker.join(timeout=600)
+        assert not radio._worker.is_alive(), "worker thread hung"
+        radio.flush()
+        radio.close()
+        runs.append({0: [e for e in events if e.type.name != "IQ"]})
+    launched = {k for k, c in K.COUNTS.items() if c}
+    assert launched == set(chip_smoke.SESSION_FM_KERNELS), launched
+    want, got = runs[0][0], runs[1][0]
+    assert [key(e)[0] for e in got] == [key(e)[0] for e in want]
+    apart = [float(np.max(np.abs(np.subtract(key(g)[1], key(w)[1]))))
+             for g, w in zip(got, want) if key(w)[1]]
+    print(json.dumps({"session_mer_apart_db": apart}))
+    assert max(apart) <= MER_DB
+    assert sum(e.type.name == "SYNC" for e in got) == 1
+    assert chip_smoke.GOLDEN_TITLE in {e.title for e in got
+                                       if e.type.name == "ID3"}
+    lots = [e for e in got if e.type.name == "LOT"]
+    assert lots and bytes(lots[0].data) == chip_smoke.GOLDEN_LOT_DATA
+    assert sum(e.type.name == "HDC" and not e.crc_error for e in got) == 96
+    assert any(e.type.name == "LOST_DEVICE" for e in got)  # at EOF

@@ -296,3 +296,28 @@ def test_modulator_am_equal(ma3):
     ref = np.stack([JEAM.am_ref_bits(b, 2 if ma3 else 1) for b in range(8)])
     _equal(JMAM.modulate_am(mats, pids, ref, ma3),
            TMAM.modulate_am(mats, pids, ref, ma3))
+
+
+@pytest.mark.parametrize("table", ["PROGRAM_TYPES", "SERVICE_DATA_TYPES",
+                                   "ALERT_CATEGORIES"])
+def test_names_equal(table):
+    """The port's copy of ``api/names.py``: each name table, and its
+    lookup with the "Unknown" default, equal to the JAX package's."""
+    from nrsc5_tpu.api import names as JN
+    from nrsc5_tpu_torch.api import names as TN
+    assert getattr(TN, table) == getattr(JN, table)
+    fn = {"PROGRAM_TYPES": "program_type_name",
+          "SERVICE_DATA_TYPES": "service_data_type_name",
+          "ALERT_CATEGORIES": "alert_category_name"}[table]
+    for code in list(getattr(JN, table)) + [-1, 9999]:
+        assert getattr(TN, fn)(code) == getattr(JN, fn)(code)
+
+
+def test_version_equal():
+    """The port's version string is the JAX package's, and the session
+    reports it."""
+    import nrsc5_tpu
+    import nrsc5_tpu_torch
+    from nrsc5_tpu_torch.api.session import NRSC5
+    assert nrsc5_tpu_torch.__version__ == nrsc5_tpu.__version__
+    assert NRSC5.get_version() == nrsc5_tpu.__version__
