@@ -36,7 +36,10 @@ Phases, each printing one JSON line:
    CFO of -2, -1, +1 or +2 bins plus a fractional part within ±40 Hz, two
    stations of each mode through a 0.5 echo at delay 14, 30 dB AWGN, cs16
    at 0.1 of full scale.  And 2 frames of MA1 a station as a 1.488 MS/s cu8
-   AM wire (Fourier-upsampled ×32, 217 history pairs ahead).  And three
+   AM wire (Fourier-upsampled ×32, 217 history pairs ahead).  And the cu8
+   AM decode fleet: 4 MA1 stations of 6 frames, 4 HDC packets a P1
+   subframe, Fourier-upsampled ×32 with the peak at 0.4 of full scale (a
+   tuner's level, tests/test_serve.py:339), cu8, tiled over 16.  And three
    8-packet HDC audio streams (stereo SBR two tones and noise, a stereo
    stream with sharp bursts that carries EIGHT_SHORT windows, a mono
    stream), encoded with the port's ``tx`` copy, each also decoded by the
@@ -76,8 +79,12 @@ Phases, each printing one JSON line:
    block (its tone estimate three kernels in turn: k0 and z, the grid
    projection, the tail over a cluster of 8; its coarse timing over a
    cluster of 8 CTAs a station; its CFO step four threads a bin), K1's AM
-   cascade on the cu8
-   AM wire; K16a-d one after the other
+   cascade on the cu8 AM wire (with its byte bound and its no-FMA issue
+   floor at the SM clock nvidia-smi reads; then a ``kernel_edges`` line:
+   one station at 300 outputs, a short last tile, rows off a 16-byte
+   boundary, a wire one pair past a 4-byte boundary, each exact); K4 and
+   K13 also as the block loops launch them, with K5's carry step fused in
+   (case ``carry``: the step exact); K16a-d one after the other
    on a batch of the audio fleet, 128 lanes x 8 packets (K16c also on the
    interpol_freq=0 and smoothing headers' batches, one program's 8
    packets tiled to 128 lanes, as cases of its line; K16d beside one
@@ -154,7 +161,16 @@ Phases, each printing one JSON line:
    device busy time;
 10. am_cu8: ``serve.ingest`` of the cu8 AM wire launches K1's AM cascade
    once, and each station's output correlates with its baseband above
-   0.85 (the reference's own bound for this cascade);
+   0.85 (the reference's own bound for this cascade); then
+   am_cu8_decode: three ``serve.chain_step_am`` dispatches of 2 frames
+   straight from the cu8 AM decode fleet's wire, the carry handed on.
+   Gate: every P1 subframe of frames 3-5 bit-exact; each station's host
+   transport delivers only sent HDC packets, every one of frames 3-4 and
+   at least 64; each dispatch launches K1's AM cascade once and the AM
+   dispatch's kernels, no plain version; the plain path the same bits
+   and packets; the graph the eager outputs.  The dispatch's wall, device
+   time, K1's AM cascade's share of its kernel time, beside the cs16 MA1
+   dispatch's;
 11. audio: ``BatchedAudioDecoder`` over 64 stereo programs (128 lanes;
    program p plays stream p % 3) and three dispatches of the same 8
    packets, each batch ``prepare``d once on the host, the device state
@@ -205,8 +221,8 @@ the eager wall and device time beside the graph's.  Then:
    profiler.  Gate (each run): one SYNC and no LOST_SYNC, at least 48
    clean HDC packets that were sent (those after the diversity warm-up)
    and none that was not, every kernel of the session's AM path launched
-   (the cold start's K14, K12, K13; the receiver's K12, K13, K5, K15, K7
-   at K=9, K8) and no other, no plain version called.  Wall, cold start,
+   (the cold start's K14, K12, K13; the receiver's K12, K13, K15, K7 at
+   K=9, K8) and no other, no plain version called.  Wall, cold start,
    launches, device busy.
 
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``:
@@ -258,6 +274,10 @@ AM_COLD_CFO_HZ = 40.0  # fractional CFOs within ±AM_COLD_CFO_HZ
 AM_COLD_MAX_OFFSET = 4000
 AM_COLD_ECHO = (14, 0.5, 2.0)  # delay (the cyclic prefix), amplitude, phase
 AM_CU8_SCALE = 0.05  # the cu8 AM signal's modulator scale (no clipping)
+# the cu8 AM decode fleet: the wire's peak at a tuner's level, of full
+# scale (tests/test_serve.py:339), and the distinct stations tiled over 16
+AM_CU8_LEVEL = 0.4
+AM_CU8_DISTINCT = 4
 # batched HDC audio: the JAX package's audio row (bench.py --mode audio at
 # its default 64 stereo programs, K = 8 packets a dispatch)
 AUDIO_PROGRAMS = 64
@@ -359,16 +379,17 @@ STEADY = ("halfband_cu8", "demod_fold", "dft_bf16", "sync_block",
           "fec_gather", "viterbi_k7", "fec_epilogue", "block_carry")
 COLD_START = ("halfband_cu8", "demod_fold", "dft_bf16", "cfo_scan",
               "sync_block", "coarse_timing")
-# launches of one MP3 dispatch of 32 blocks: K1 once, K2, the DFT kernel,
-# K4 and K5 per block (K5 once more ahead of block 0), K6 for P1 (two
-# kernels) and PIDS, K7 and K8 for P1, PIDS and PX1, K11 once
+# launches of one MP3 dispatch of 32 blocks: K1 once, K2, the DFT kernel
+# and K4 per block (K4 taking K5's carry step after its block), K5 once
+# ahead of block 0, K6 for P1 (two kernels) and PIDS, K7 and K8 for P1,
+# PIDS and PX1, K11 once
 MP3_LAUNCHES = {"halfband_cu8": 1, "demod_fold": 32, "dft_bf16": 32,
-                "sync_block": 32, "block_carry": 33, "fec_gather": 3,
+                "sync_block": 32, "block_carry": 1, "fec_gather": 3,
                 "viterbi_k7": 3, "fec_epilogue": 3, "px_deinterleave": 1}
 # launches of one AM dispatch of 2 frames (16 blocks): K12 twice a block,
-# K13 and K5 once a block, K15 once, K7 at K=9 and K8 for P1, P3 and PIDS
-AM_LAUNCHES = {"am_fold": 32, "sync_am_block": 16, "block_carry_am": 16,
-               "am_gather": 1,
+# K13 once a block (taking K5's carry step: no K5), K15 once, K7 at K=9
+# and K8 for P1, P3 and PIDS
+AM_LAUNCHES = {"am_fold": 32, "sync_am_block": 16, "am_gather": 1,
                "viterbi_k9": 3, "fec_epilogue": 3}
 # launches of one AM cold-start probe block: K14's tone estimate (three
 # kernels in turn), coarse timing and CFO step, K12 in both passes, K13
@@ -1013,6 +1034,164 @@ def make_am_cu8_station(index: int) -> dict:
             "baseband": np.stack([buf.real, buf.imag], -1)[:n]}
 
 
+def make_am_cu8_decode_station(index: int) -> dict:
+    """cu8 AM decode station ``index``, from its own seed: AM_DISPATCHES x
+    AM_FRAMES MA1 frames whose P1 subframes carry 4 random HDC packets
+    each (random P3 and PIDS), frame-aligned (the first symbol FFTCP_AM //
+    2 in, bc 0), Fourier-upsampled x32 to 1.488 MS/s with its peak at
+    AM_CU8_LEVEL of full scale, quantized to cu8 and queued behind the 217
+    history pairs of the ÷32 cascade.  Returns the wire [434 + 32 n, 2]
+    for n = am_queue_len() chain samples, the packets by frame and the P1
+    bits [frames, 8, 3750]."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch import serve
+    from nrsc5_tpu_torch.ops import frontend as FE
+    from nrsc5_tpu_torch.tx import channel as ch
+    from nrsc5_tpu_torch.tx import encoder_am as EAM
+    from nrsc5_tpu_torch.tx.modulator_am import modulate_am
+    from nrsc5_tpu_torch.tx.transport_encoder import build_p1_am_frame
+
+    rng = np.random.default_rng([SEED, 0xC9, index])
+    n = AM_DISPATCHES * AM_FRAMES
+    packets, p1 = [], []
+    for f in range(n):
+        frame_packets, subs = [], []
+        for b in range(8):
+            pk = [rng.integers(0, 256, 100).astype(np.uint8).tobytes()
+                  for _ in range(4)]
+            frame_packets.extend(pk)
+            subs.append(build_p1_am_frame(pk, 0, (f * 8 + b) % 8,
+                                          ((f * 8 + b) * 4) % 64))
+        packets.append(frame_packets)
+        p1.append(np.stack(subs))
+    p3 = rng.integers(0, 2, (n, C.P3_FRAME_LEN_MA1), dtype=np.uint8)
+    mats = EAM.interleave_frames([EAM.encode_p1_am(x) for x in p1],
+                                 [EAM.encode_p3_am(x, False) for x in p3],
+                                 False)
+    pids = np.stack([EAM.encode_pids_am(
+        rng.integers(0, 2, C.PIDS_FRAME_LEN, dtype=np.uint8))
+        for _ in range(8 * n)])
+    ref = np.stack([EAM.am_ref_bits(b % 8, 1) for b in range(8 * n)])
+    sig = modulate_am(mats, pids, ref, False)
+    n_out = am_queue_len()
+    # a length of small prime factors keeps the upsampling FFTs short; the
+    # 217 pairs of lookahead past n_out lie in it
+    buf = np.zeros(-(-(n_out + 8) // 4096) * 4096, np.complex64)
+    start = C.FFTCP_AM // 2
+    buf[start:start + len(sig)] = sig[:len(buf) - start]
+    up = ch.upsample_exact(buf, 32)
+    wire = serve.stream_wire(ch.to_cu8(up * (AM_CU8_LEVEL
+                                             / np.abs(up).max())),
+                             FE.AM_STAGES)
+    return {"wire": wire[:FE.rc_overlap(FE.AM_STAGES) + 32 * n_out],
+            "packets": packets, "p1": np.stack(p1)}
+
+
+def make_am_cu8_decode_fleet() -> dict:
+    """The cu8 AM decode fleet: AM_CU8_DISTINCT stations built in parallel
+    by spawned worker processes, tiled over N_STATIONS (station i is
+    distinct station i % AM_CU8_DISTINCT).  Returns the wire [16, L, 2],
+    and the packets and P1 bits of each station."""
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(AM_CU8_DISTINCT, mp_context=ctx) as pool:
+        built = list(pool.map(make_am_cu8_decode_station,
+                              range(AM_CU8_DISTINCT)))
+    tile = [built[i % AM_CU8_DISTINCT] for i in range(N_STATIONS)]
+    return {"wire": np.stack([st["wire"] for st in tile]),
+            "packets": [st["packets"] for st in tile],
+            "p1": np.stack([st["p1"] for st in tile])}
+
+
+def am_cu8_decode_run(torch, queue, device, plain: bool = False) -> dict:
+    """AM_DISPATCHES ``serve.chain_step_am`` dispatches of AM_FRAMES
+    frames straight from the cu8 AM queues ``queue`` [S, L, 2] (on
+    ``device``), from a fresh carry, the carry handed on and each queue
+    advanced by 32 wire pairs a consumed chain sample.  Returns each
+    dispatch's outputs (unpacked bits), wire, carry and launches."""
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch import serve
+    from nrsc5_tpu_torch.ops import frontend as FE
+    from nrsc5_tpu_torch.pipeline import scan_chain_am_rc as scar
+    from nrsc5_tpu_torch.pipeline.scan_chain_am import am_buffer_len
+
+    s_n, cuda = queue.shape[0], device.type == "cuda"
+    n_wire = FE.rc_overlap(FE.AM_STAGES) + 32 * am_buffer_len(AM_FRAMES)
+    carry = scar.am_chain_rc_init_carry(n_stations=s_n, device=device)
+    pos = np.zeros(s_n, np.int64)
+    run = {"outs": [], "wires": [], "carries": [carry], "launches": []}
+    for _ in range(AM_DISPATCHES):
+        w = torch.stack([queue[i, 32 * p:32 * p + n_wire]
+                         for i, p in enumerate(pos.tolist())])
+        if cuda:
+            torch.cuda.synchronize()
+        K.reset_counts()
+        out, new = serve.chain_step_am(w, carry, AM_FRAMES, device=device,
+                                       plain=plain)
+        if cuda:
+            torch.cuda.synchronize()
+        run["launches"].append({n: c for n, c in K.COUNTS.items() if c})
+        pos = pos + new.offset.cpu().numpy()
+        carry = new._replace(offset=torch.zeros_like(new.offset))
+        for k, v in (("outs", out), ("wires", w), ("carries", carry)):
+            run[k].append(v)
+    return run
+
+
+def am_cu8_hdc(run: dict) -> list:
+    """The clean HDC packets each station's host transport delivers from a
+    run of :func:`am_cu8_decode_run`, fed as the receiver feeds it (frames
+    0-2 the diversity warm-up)."""
+    from nrsc5_tpu_torch import serve
+    from nrsc5_tpu_torch.api.events import EventType
+
+    n = run["outs"][0]["p1"].shape[0]
+    got = [set() for _ in range(n)]
+
+    def collect(station, ev):
+        if ev.type == EventType.HDC and not ev.crc_error:
+            got[station].add(bytes(ev.data))
+
+    transports = [serve._StationTransport(i, collect, mode_fm=False)
+                  for i in range(n)]
+    for d, out in enumerate(run["outs"]):
+        p1, p3, pids = (out[k].cpu().numpy() for k in ("p1", "p3", "pids"))
+        skip = min(max(0, 3 - AM_FRAMES * d), AM_FRAMES)
+        for i, tr in enumerate(transports):
+            tr.consume_am(p1[i], p3[i], pids[i], skip)
+    return got
+
+
+def am_cu8_gate(run: dict, fleet: dict) -> dict:
+    """A run of :func:`am_cu8_decode_run` against what the fleet sent:
+    every P1 subframe of frames 3-5 bit-exact, and each station's clean
+    HDC packets all sent (none foreign), every one of frames 3-4 among
+    them, and at least 64 in all."""
+    s_n = len(fleet["packets"])
+    p1_ok = 0
+    for d, out in enumerate(run["outs"]):
+        p1 = out["p1"].cpu().numpy()
+        for f in range(AM_FRAMES):
+            g_f = AM_FRAMES * d + f
+            if g_f >= 3:
+                p1_ok += int((p1[:, f] == fleet["p1"][:, g_f]).all(
+                    axis=-1).sum())
+    hdc = am_cu8_hdc(run)
+    exact, foreign, whole = [], [], []
+    for i, got in enumerate(hdc):
+        sent = {p for frame in fleet["packets"][i] for p in frame}
+        exact.append(len(got & sent))
+        foreign.append(len(got - sent))
+        whole.append(all(p in got for f in (3, 4)
+                         for p in fleet["packets"][i][f]))
+    n_later = AM_DISPATCHES * AM_FRAMES - 3
+    ok = (p1_ok == s_n * n_later * 8 and all(whole) and not any(foreign)
+          and min(exact) >= 64)
+    return {"p1_subframes_ok_frames_3_5": p1_ok,
+            "p1_subframes_frames_3_5": s_n * n_later * 8,
+            "hdc_exact": exact, "hdc_foreign": foreign,
+            "frames_3_4_whole": whole, "hdc": hdc, "pass": ok}
+
+
 def _id3_title(title: str) -> bytes:
     """An ID3v2.3 tag holding one TIT2 frame: the AAS PSD's content."""
     body = b"\x00" + title.encode("latin-1")
@@ -1399,16 +1578,16 @@ def host_audio(packets: list) -> np.ndarray:
 
 def serve_launches(mode: str, blocks: int = 0) -> dict:
     """The launches of one of the receiver's dispatches: FM's steady
-    dispatch of 32 blocks (K1, then K2, the DFT kernel, K4 and K5 a block
-    and K5 once ahead, then K6, K7 and K8 for P1 and PIDS, K6 for P1 as two
-    kernels) or, with ``blocks``, its PIDS-only alignment dispatch; AM's
-    steady dispatch of 2 frames."""
+    dispatch of 32 blocks (K1, then K2, the DFT kernel and K4 a block, K4
+    taking K5's carry step, and K5 once ahead, then K6, K7 and K8 for P1
+    and PIDS, K6 for P1 as two kernels) or, with ``blocks``, its PIDS-only
+    alignment dispatch; AM's steady dispatch of 2 frames."""
     if mode == "am":
         return AM_LAUNCHES
     n = blocks or DISPATCH_BLOCKS
     fec = 1 if blocks else 2
     return {"halfband_cu8": 1, "demod_fold": n, "dft_bf16": n,
-            "sync_block": n, "block_carry": n + 1,
+            "sync_block": n, "block_carry": 1,
             "fec_gather": 1 if blocks else 3,
             "viterbi_k7": fec, "fec_epilogue": fec}
 
@@ -1627,12 +1806,12 @@ def serve_gate(events: dict, fleet: dict, mode: str, counts: dict,
 # the kernels each session phase launches: FM from cu8 (K1 a push; the
 # cold start's K9, K2, the DFT kernel, K10 and K4; the receiver's K2, the
 # DFT kernel, K4, K5, K6, K7 and K8), AM from cs16 (the cold start's K14,
-# K12 and K13; the receiver's K12, K13, K5, K15, K7 at K=9 and K8)
+# K12 and K13; the receiver's K12, K13, K15, K7 at K=9 and K8)
 SESSION_FM_KERNELS = ("halfband_cu8", "coarse_timing", "demod_fold",
                       "dft_bf16", "cfo_scan", "sync_block", "block_carry",
                       "fec_gather", "viterbi_k7", "fec_epilogue")
 SESSION_AM_KERNELS = ("am_tone", "am_coarse", "am_cfo_step", "am_fold",
-                      "sync_am_block", "block_carry_am", "am_gather",
+                      "sync_am_block", "am_gather",
                       "viterbi_k9", "fec_epilogue")
 
 
@@ -1856,6 +2035,7 @@ def main() -> int:
     am_cold = make_fleet(make_am_cold_station)
     t4 = time.perf_counter()
     am_cu8 = make_fleet(make_am_cu8_station)
+    am_cu8_dec = make_am_cu8_decode_fleet()
     t5 = time.perf_counter()
     serve_fm = make_fleet(make_serve_fm_station)
     serve_am = make_fleet(make_serve_am_station)
@@ -1893,6 +2073,7 @@ def main() -> int:
           "am_cold_ma3": am_cold["ma3"].tolist(),
           "am_cold_echo": am_cold["echo"].tolist(),
           "am_cu8_bytes": int(am_cu8["wire"].nbytes),
+          "am_cu8_decode_bytes": int(am_cu8_dec["wire"].nbytes),
           "mp3_queue_bytes": int(mp3["queue"].nbytes),
           "am_queue_bytes": int(am["queue"].nbytes),
           "am_cfo_hz": am["cfo_hz"].tolist(),
@@ -2141,6 +2322,51 @@ def main() -> int:
           lambda: BG.block_carry(*k5_in, k5_k, False),
           lambda: BG.block_carry_plain(*k5_in, k5_p, False),
           bound(s_n * 4 * (5 + 7), s_n * 5), None, [s_n])
+
+    # K4 at block 1 as the block loop launches it: with K5's FM step for
+    # block 2 (block 1's keep, the carry after block 0, the next
+    # timing_adj a buffer of its own).  K4's outputs against the plain
+    # version with the same step, as sync_line holds them; the step
+    # exactly block_carry_plain's on the kernel's own samperr and angle
+    k4_spec = rc.dft_bf16(fo[0])
+    k4_tadj = k5_state["timing_adj"]
+
+    def k4_step():
+        return {**{k: v.clone() for k, v in k5_state.items()},
+                "keep": fo[2]}
+
+    k4_sk, k4_sp, k4_sr = k4_step(), k4_step(), k4_step()
+    k4_args = (k4_spec, cy.costas_phase, cy.costas_freq, 1, k4_tadj)
+    ko, kph, kfr = rcc.sync_block_rc(*k4_args, k4_sk)
+    po, pph, pfr = rcc.sync_block_rc_plain(*k4_args, k4_sp)
+    BG.block_carry_plain(fo[2], ko["samperr"], ko["angle"], k4_sr, False)
+    step_err = max((k4_sk[k].double() - k4_sr[k].double()).abs().max()
+                   .item() for k in BG.FM_STATE)
+    exact = all(torch.equal(ko[k], po[k]) for k in (
+        "ref_ok", "ref_bc", "ref_psmi", "samperr")) and all(
+        torch.equal(k4_sk[k], k4_sp[k]) for k in (
+            "offset", "samperr_fb", "samperr", "timing_adj"))
+    floats = [(ko[k], po[k]) for k in ("angle", "error_lb", "error_ub")]
+    floats += [(kph, pph), (kfr, pfr)] + [
+        (k4_sk[k], k4_sp[k]) for k in ("prev_angle", "angle_fb", "angle")]
+    rel = max(((a - b).abs().max() / b.abs().max().clamp(min=1)).item()
+              for a, b in floats)
+    pm_diff = (ko["pm"].int() - po["pm"].int()).abs()
+    k4_timing = k4_step()
+    check("sync_block", max(step_err, max(
+              (a - b).abs().max().item() for a, b in floats)),
+          "the step exact against block_carry_plain on the kernel's "
+          "samperr and angle; the rest as the psmi 1 line",
+          lambda: rcc.sync_block_rc(*k4_args, k4_timing),
+          lambda: rcc.sync_block_rc_plain(*k4_args, k4_timing),
+          (report["sync_block"]["bound_ms"],
+           report["sync_block"]["bound_by"]), None,
+          [s_n, C.BLKSZ, C.FFT_FM, 2],
+          ok=step_err == 0.0 and exact and rel <= 1e-5
+          and int(pm_diff.max()) <= 1
+          and float((pm_diff > 0).float().mean()) <= 1e-3,
+          case="carry", psmi=1, step_err=step_err, ints_exact=exact,
+          float_rel_err=rel)
     queue = torch.from_numpy(mp3["queue"]).to(dev)
     n_wire = serve.wire_pairs(DISPATCH_BLOCKS)
     mp3_x = FE.ingest_fm_cu8(queue[:, :n_wire].contiguous())
@@ -2502,6 +2728,25 @@ def main() -> int:
                                  "this run" if k13_frames is None
                                  else k13_frames))
 
+    # K13 as the block loop launches it: with K5's AM step (pass 2's keep,
+    # block 1's offset); the outputs and the offset exact
+    k13_off = {"kernel": am_offset.clone(), "plain": am_offset.clone()}
+    ko = scar.sync_am_block_rc(am_spectra, False, (am_keep, k13_off["kernel"]))
+    po = scar.sync_am_block_rc_plain(am_spectra, False,
+                                     (am_keep, k13_off["plain"]))
+    diff = {k: int((ko[k] != po[k]).sum()) for k in po}
+    diff["offset"] = int((k13_off["kernel"] != k13_off["plain"]).sum())
+    k13_timing = am_offset.clone()
+    check("sync_am_block", float(sum(diff.values())), 0.0,
+          lambda: scar.sync_am_block_rc(am_spectra, False,
+                                        (am_keep, k13_timing)),
+          lambda: scar.sync_am_block_rc_plain(am_spectra, False,
+                                              (am_keep, k13_timing)),
+          (report["sync_am_block"]["bound_ms"],
+           report["sync_am_block"]["bound_by"]), None,
+          list(am_spectra.shape), case="carry",
+          ok=sum(diff.values()) == 0, differing=diff)
+
     # K15 on the first dispatch's own codes (through the kernels) and a
     # random handed-on delay line, MA1 and MA3; then K7 at K=9 on its
     # P1, P3 and PIDS segments, and K8 on the P1 bits
@@ -2697,14 +2942,48 @@ def main() -> int:
         return y
 
     # operations: per stage output 9 products and 8 sums for I and Q
-    # (31 N outputs over the five stages), the conversion's 3 a value
+    # (31 N outputs over the five stages), the conversion's 3 a value.
+    # Beside the bound, the no-FMA issue floor: the stages' separate float
+    # operations and the conversion's two a byte (2^23 + u less 2^23 + 127,
+    # times scale / 16) over every SM's 128 float32 lanes at the SM clock
+    # nvidia-smi reads
+    clock = sm_clock_mhz()
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * 128
+    issue_ops = s_n * (31 * n_am_out * 34 + n_cu8 * 2 * 2)
     check("am_decimate_cu8", err, 0.0,
           lambda: FE.ingest_am_cu8(cu8_wire),
           lambda: FE.ingest_am_cu8_plain(cu8_wire),
           bound(s_n * n_cu8 * 2 + s_n * n_am_out * 8,
                 s_n * (31 * n_am_out * 34 + n_cu8 * 2 * 3)),
-          conv_cascade, [s_n, n_cu8, 2], plain_reps=3, plain_inner=2)
+          conv_cascade, [s_n, n_cu8, 2], plain_reps=3, plain_inner=2,
+          byte_bound_ms=(s_n * n_cu8 * 2 + s_n * n_am_out * 8)
+          / HBM_BYTES_PER_S * 1e3,
+          issue_floor_ms=issue_ops / (lanes * clock * 1e6) * 1e3,
+          issue_ops=issue_ops, sm_clock_mhz=clock)
     del x
+
+    # edge shapes: one station at a few hundred outputs (the session's
+    # pushes), a short last tile, rows not on a 16-byte boundary (station
+    # rows lie 868 + 64 N bytes apart), and a wire that starts one pair
+    # past a 4-byte boundary
+    edges = {}
+    for name, (rows, n_o, shift) in {
+            "one_station_n300": (1, 300, 0),
+            "short_tile_n257": (2, 257, 0),
+            "rows_off_16_n777": (3, 777, 0),
+            "pair_offset_n777": (3, 777, 1)}.items():
+        n_w = FE.rc_overlap(FE.AM_STAGES) + 32 * n_o
+        flat = torch.empty(2 * (rows * n_w + shift), dtype=torch.uint8,
+                           device=dev)
+        w = flat[2 * shift:].view(rows, n_w, 2)
+        w.copy_(cu8_wire[1:1 + rows, :n_w])
+        edges[name] = (FE.ingest_am_cu8(w)
+                       - FE.ingest_am_cu8_plain(w)).abs().max().item()
+    emit({"phase": "kernel_edges", "name": "am_decimate_cu8",
+          "max_abs_err": edges, "pass": max(edges.values()) == 0.0})
+    if max(edges.values()) != 0.0:
+        raise AssertionError(f"am_decimate_cu8 differs on edge shapes: "
+                             f"{edges}")
 
     # --- K16a-d: one batch of the audio fleet (128 lanes x 8 packets), at
     # the state the plain path carries after the first batch; each kernel
@@ -3742,6 +4021,93 @@ def main() -> int:
         by_path = report[name]["launches_by_path"]
         by_path["am_cu8"] = cu8_launches.get(name, 0)
         report[name]["launches"] = sum(by_path.values())
+
+    # --- am_cu8_decode: the cu8 AM fleet at a tuner's level decoded
+    # straight from the wire through serve.chain_step_am (K1's AM cascade
+    # in each dispatch's graph), three dispatches of 2 frames; the same
+    # dispatches through the plain versions and launched eagerly ---
+    dec_q = torch.from_numpy(am_cu8_dec["wire"]).to(dev)
+    plain_calls, restore = count_plain_calls()
+    try:
+        dec_run = am_cu8_decode_run(torch, dec_q, dev)
+    finally:
+        restore()
+    dec_gate = am_cu8_gate(dec_run, am_cu8_dec)
+    dec_launches_ok = all(n == {"am_decimate_cu8": 1, **AM_LAUNCHES}
+                          for n in dec_run["launches"])
+    dec_plain = am_cu8_decode_run(torch, dec_q, dev, plain=True)
+    keys = ("p1", "p3", "pids", "p1_margin", "p3_margin")
+    n_entries = sum(out[k].numel() for out in dec_run["outs"] for k in keys)
+    n_diff = sum(int((a[k] != b[k]).sum()) for a, b in zip(
+        dec_run["outs"], dec_plain["outs"]) for k in keys)
+    hdc_plain_same = am_cu8_hdc(dec_plain) == dec_gate.pop("hdc")
+
+    def dispatch_cu8(graph=True):
+        return serve.chain_step_am(dec_run["wires"][1],
+                                   dec_run["carries"][1], AM_FRAMES,
+                                   graph=graph)
+
+    cu8_wall, cu8_times = wall_ms(dispatch_cu8)
+    out_e, _ = dispatch_cu8(False)
+    cu8_graph_same = all(torch.equal(dec_run["outs"][1][k], out_e[k])
+                         for k in out_e)
+    # the profiler drops spans at times: of three profiles, the one with
+    # the most spans
+    cu8_device = max((profile_device(torch, dispatch_cu8) for _ in range(3)),
+                     key=lambda d: d["spans"])
+    # the dispatch's stages by CUDA events, eagerly: K1's AM cascade (the
+    # ingest), the block loop, the gathers, the FEC
+    cy1 = dec_run["carries"][1]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    x = serve.ingest(dec_run["wires"][1], "am")
+    ev[1].record()
+    codes, pids_c, _ = scar.am_frontend_scan_rc(x, cy1, am_blocks)
+    ev[2].record()
+    exts = DA.am_gather(codes, pids_c, cy1.dec)
+    ev[3].record()
+    DA.am_fec(*exts[:3])
+    ev[4].record()
+    ev[4].synchronize()
+    cu8_stages = dict(zip(("ingest_ms", "block_loop_ms", "gather_ms",
+                           "fec_ms"),
+                          (ev[i].elapsed_time(ev[i + 1]) for i in range(4))))
+    del x, codes, pids_c, exts
+    cascade_ms = report["am_decimate_cu8"]["ms"]
+    dec_ok = (dec_gate["pass"] and dec_launches_ok and not plain_calls
+              and n_diff <= 1e-5 * n_entries and hdc_plain_same
+              and cu8_graph_same)
+    emit({"phase": "am_cu8_decode", "stations": s_n,
+          "distinct_stations": AM_CU8_DISTINCT, "level": AM_CU8_LEVEL,
+          "dispatches": AM_DISPATCHES, "frames_per_dispatch": AM_FRAMES,
+          "wire_shape": list(dec_run["wires"][0].shape), **dec_gate,
+          "launches_per_dispatch": dec_run["launches"],
+          "plain_calls_on_kernel_path": plain_calls,
+          "plain_entries_differing": n_diff, "plain_entries": n_entries,
+          "hdc_plain_same": hdc_plain_same,
+          "graph_same_as_eager": cu8_graph_same,
+          "wall_ms": cu8_wall, "wall_ms_runs": cu8_times,
+          "device_time": cu8_device, "stages": cu8_stages,
+          "cascade_ms": cascade_ms,
+          "cascade_share_of_kernel_busy":
+              cascade_ms / cu8_device["kernel_busy_ms"],
+          "cascade_share_of_stages":
+              cu8_stages["ingest_ms"] / sum(cu8_stages.values()),
+          "cs16_dispatch": {"wall_ms": am_wall,
+                            "kernel_busy_ms": am_device["kernel_busy_ms"],
+                            "busy_ms": am_device["busy_ms"],
+                            "spans": am_device["spans"],
+                            "stages": am_stages},
+          "pass": dec_ok})
+    if not dec_ok:
+        raise AssertionError("the cu8 AM fleet did not decode through K1's "
+                             "AM cascade with its HDC packets exact")
+    for name in KERNELS:
+        by_path = report[name]["launches_by_path"]
+        by_path["am_cu8_decode"] = sum(n.get(name, 0)
+                                       for n in dec_run["launches"])
+        report[name]["launches"] = sum(by_path.values())
+    del dec_q, dec_run, dec_plain
 
     # --- audio: 64 stereo programs (128 lanes) x 8 packets, three
     # dispatches with the state carried; the plain path from a copy of the

@@ -24,6 +24,14 @@
 // block_carry_am (AM), after block b's K13: offset += WINDOW_AM - keep
 // (K12 pass 2 hands phase and prev_angle on, K13 the samperr feedback).
 //
+// Inside the loops these steps are fused into the block's last kernel:
+// K4 (sync_block.cu) takes block_carry's step after each FM block and K13
+// (sync_am_block.cu) block_carry_am's after each AM block, so that a
+// dispatch launches block_carry once (first = 1, block 0's inputs from the
+// carry) and block_carry_am never.  Both kernels stay, with their plain
+// versions, for that first step and as the step the fused kernels are
+// held to.
+//
 // Bound on the H100: a handful of int32/f32 per station, so neither bytes
 // nor operations: the launch itself.  Its point is that the loop body holds
 // no host work and no allocation, which lets the graph replay it.  One

@@ -48,6 +48,20 @@
 //   - CTA 0 writes the per-station outputs and the Costas rows; its warp 0
 //     takes the timing regression (the terms in parallel, their four sums
 //     in index order on one lane) while the other warps demap.
+// In the FM block loop K4 also takes the carry step that K5's block_carry
+// kernel made after it: once the cluster's last barrier has passed, thread
+// 0 of CTA 0 (which formed samperr and angle) folds block b in and sets
+// block b + 1's inputs, for its station:
+//   offset += WINDOW_FM - keep (K2's), prev_angle = angle (the angle K2
+//   ran with), samperr_fb = samperr, angle_fb = angle (this kernel's);
+//   samperr = FFTCP_FM / 2 + samperr_fb and angle = prev_angle - angle_fb
+//   (K2's), timing_adj = FFTCP_FM / 2 - samperr (the next K4's).
+// The step's inputs (keep, offset, angle) are read at the kernel's start,
+// beside its other loads, so that the step adds only stores to its tail.
+// The loop ping-pongs timing_adj, so the one this block's CTAs read is
+// never the one CTA 0 writes.  K2 of this block has read offset, samperr
+// and angle before the DFT and K4 start.  Outside the loop (the FM cold
+// start's probe 2) the carry pointers are null and the step is off.
 // Each thread starts its loads, and a lane its equalizer divisions, all at
 // once before their first use, so that their latencies overlap.
 // Every sum runs in the order the plain version reproduces: the short sums
@@ -90,6 +104,21 @@ static_assert(REF_LOADS * THREADS == NSYM * MAX_R2 && SPC * MAX_R2 <= THREADS,
               "whole passes over the reference values and anchors");
 constexpr int EQ_ITEMS = (MAX_P / 2 * NDC + 31) / 32;
 
+// The block loop's carry (K5's FM step), all int32/float32 [S]; offset
+// null: no step.
+struct Carry {
+  const int* keep;
+  int* offset;
+  float* prev_angle;
+  int* samperr_fb;
+  float* angle_fb;
+  int* samperr;
+  float* angle;
+  int* timing_adj;  // the next block's (ping-pong)
+  int window;
+  int half_fftcp;
+};
+
 static_assert(WARPS == 2 * SPC, "one warp per (symbol, sideband)");
 
 __device__ __forceinline__ float sign(float x) {
@@ -114,7 +143,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
         float* __restrict__ cfr_out, int8_t* __restrict__ px1,
         int8_t* __restrict__ px2, const int* __restrict__ px_cols,
         int n_px1, int n_px2, int ppb, float alpha, float beta,
-        float two_pi, float pi, float two_pi_over_fft) {
+        float two_pi, float pi, float two_pi_over_fft, const Carry carry) {
   __shared__ float2 refv[NSYM][MAX_R2];  // the reference bins' values
   __shared__ float work[NSYM][MAX_R2];   // atan2 of v^2, then Re derot
   __shared__ float phs[NSYM][MAX_R2];    // phases, flipped
@@ -127,6 +156,10 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
   __shared__ float h2[SPC][MAX_P][NDC];    // MMSE weight numerators
   __shared__ float err_g[SPC][2], h_mean[SPC][2], err_all[NSYM][2];
   __shared__ float mult[2], angle_s;
+  // thread 0 of CTA 0: this block's samperr, and the carry step's inputs,
+  // loaded first so that the step at the end only stores
+  int samperr_k4 = 0, keep_c = 0, offset_c = 0;
+  float angle_c = 0.0f;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -163,6 +196,11 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
     }
     // each track's starting phase and frequency, the sync signs and the
     // needles, beside them
+    if (carry.offset != nullptr && rank == 0 && tid == 0) {
+      keep_c = carry.keep[s];
+      offset_c = carry.offset[s];
+      angle_c = carry.angle[s];
+    }
     if (tid < r2) {
       const int bin = ref_bin(tid);
       const float k_rel = (float)(bin - FFT / 2);
@@ -381,7 +419,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
         acc = acc / (float)np * (float)FFT / (float)W / two_pi;
         const float slope = sxy / sxx;
         acc = acc - slope * (float)FFT / two_pi * (float)NSYM;
-        samperr_out[s] = (int)rintf(acc);
+        samperr_k4 = (int)rintf(acc);
+        samperr_out[s] = samperr_k4;
         angle_s = sf / (float)r2;
         angle_out[s] = angle_s;
       }
@@ -437,6 +476,18 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
   }
   // no CTA leaves while another may still read its err_g
   cluster.sync();
+
+  // the loop's carry step for the next block
+  if (carry.offset != nullptr && rank == 0 && tid == 0) {
+    carry.offset[s] = offset_c + (carry.window - keep_c);
+    carry.prev_angle[s] = angle_c;
+    carry.samperr_fb[s] = samperr_k4;
+    carry.angle_fb[s] = angle_s;
+    const int se = carry.half_fftcp + samperr_k4;
+    carry.samperr[s] = se;
+    carry.angle[s] = angle_c - angle_s;
+    carry.timing_adj[s] = carry.half_fftcp - se;
+  }
 }
 
 }  // namespace
@@ -451,9 +502,24 @@ extern "C" int sync_block(const void* spectra, const void* costas_phase,
                           void* px2, const void* px_cols, int n_px1,
                           int n_px2, int n_stations, int ppb, float alpha,
                           float beta, float two_pi, float pi,
-                          float two_pi_over_fft, void* stream) {
+                          float two_pi_over_fft, const void* keep,
+                          void* offset, void* prev_angle, void* samperr_fb,
+                          void* angle_fb, void* samperr_next,
+                          void* angle_next, void* timing_adj_next,
+                          int window, int half_fftcp, void* stream) {
   if (ppb < PMP || 2 * (ppb + 1) > MAX_R2 || (n_px1 > 0) != (px1 != nullptr)
       || (n_px2 > 0) != (px2 != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Carry carry = {(const int*)keep,     (int*)offset,
+                       (float*)prev_angle,   (int*)samperr_fb,
+                       (float*)angle_fb,     (int*)samperr_next,
+                       (float*)angle_next,   (int*)timing_adj_next,
+                       window,               half_fftcp};
+  if (offset != nullptr &&
+      (keep == nullptr || prev_angle == nullptr || samperr_fb == nullptr ||
+       angle_fb == nullptr || samperr_next == nullptr ||
+       angle_next == nullptr || timing_adj_next == nullptr ||
+       timing_adj_next == timing_adj))
     return (int)cudaErrorInvalidValue;
   sync_block_kernel<<<n_stations * CLUSTER, THREADS, 0,
                       (cudaStream_t)stream>>>(
@@ -464,6 +530,6 @@ extern "C" int sync_block(const void* spectra, const void* costas_phase,
       (int*)ref_bc, (int*)ref_psmi, (int*)samperr, (float*)angle,
       (float*)error_lb, (float*)error_ub, (float*)new_phase,
       (float*)new_freq, (int8_t*)px1, (int8_t*)px2, (const int*)px_cols,
-      n_px1, n_px2, ppb, alpha, beta, two_pi, pi, two_pi_over_fft);
+      n_px1, n_px2, ppb, alpha, beta, two_pi, pi, two_pi_over_fft, carry);
   return (int)cudaGetLastError();
 }

@@ -62,9 +62,11 @@ SIGNATURES = {
     # needle_vals, needle_known, pm, ref_ok, ref_bc, ref_psmi, samperr,
     # angle, error_lb, error_ub, new_phase, new_freq, px1, px2, px_cols,
     # n_px1, n_px2, n_stations, ppb, alpha, beta, two_pi, pi,
-    # two_pi_over_fft, stream
+    # two_pi_over_fft, then the loop's carry step (all null: none): keep,
+    # offset, prev_angle, samperr_fb, angle_fb, samperr, angle, timing_adj
+    # (the next block's), window, half_fftcp; stream
     "sync_block": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
-                   P, I, I, I, I, F, F, F, F, F, P),
+                   P, I, I, I, I, F, F, F, F, F) + (P,) * 8 + (I, I, P),
     # pm, map, aux, out, n_groups, frames_per_group, group_stride,
     # frame_stride, pm_len, map_len, aux_len, scratch (P1's deinterleaved
     # streams; none: a warp a frame), stream
@@ -89,8 +91,9 @@ SIGNATURES = {
     # stream
     "am_fold": (P, L, P, P, P, P, P, P, P, P, P, P, P, I, P),
     # spectra, plan (host int32 [4, 12]), codes, pids, ref_bits, samperr,
-    # n_stations, ma3, stream
-    "sync_am_block": (P, P, P, P, P, P, I, I, P),
+    # n_stations, ma3, then the loop's carry step (both null: none): keep,
+    # offset, window; stream
+    "sync_am_block": (P, P, P, P, P, P, I, I, P, P, I, P),
     # codes, pids, map (packed, 3 bytes an entry), ml, mu, eml, emu,
     # p1_out, p3_out, pids_out (int8), ml_out, mu_out, eml_out, emu_out,
     # n_stations, n_frames, p1_len, p3_len, pids_len (a frame's),

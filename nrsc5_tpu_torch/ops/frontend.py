@@ -149,13 +149,17 @@ def ingest_am_cu8(wire: torch.Tensor) -> torch.Tensor:
     :func:`ingest_am_cu8_plain`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one CTA per 128 outputs of a station, all five stages in
+    kernel (one CTA per 256 outputs of a station: its bytes by 16-byte
+    loads, stage 1 from registers, each byte converted once, stages 2-5 in
     shared memory; bit-identical to the plain version: no FMA contraction,
-    same taps, same add order)."""
+    same taps, same add order).  The wire's rows must start on whole pairs
+    (an even address)."""
     if wire.device.type == "cpu":
         return ingest_am_cu8_plain(wire)
     n_out = _check_am_wire(wire)
     K.check(wire, "wire", torch.uint8)
+    if wire.data_ptr() % 2:
+        raise ValueError("wire: expected an even address (whole pairs)")
     n_st, n_in, _ = wire.shape
     out = torch.empty(n_st, n_out, 2, dtype=torch.float32, device=wire.device)
     K.launch("am_decimate_cu8", wire.data_ptr(), out.data_ptr(),

@@ -6,10 +6,15 @@ The reference runs its block loops as ``lax.scan`` (FM:
 while-loop with no host work between blocks.  The port's counterpart has
 two parts:
 
-* the carry step between one block's kernels and the next block's,
-  kernel K5 (``csrc/block_carry.cu``: :func:`block_carry` for FM,
-  :func:`block_carry_am` for AM), beside its plain version.  With it, and
-  with K2/K4 (K12/K13) writing each block's outputs straight into slot b of
+* the carry step between one block's kernels and the next block's, K5
+  (``csrc/block_carry.cu``: :func:`block_carry` for FM,
+  :func:`block_carry_am` for AM), beside its plain version.  Inside the
+  loops the step is fused into the block's last kernel: K4 takes the FM
+  step after each block and K13 the AM one (their ``carry`` argument,
+  whose plain versions call :func:`block_carry_plain` and
+  :func:`block_carry_am_plain`), so a dispatch launches K5 once, FM's
+  first step from the carry, and AM's never.  With it, and with K2/K4
+  (K12/K13) writing each block's outputs straight into slot b of
   block-major buffers, the loop body (in
   :func:`nrsc5_tpu_torch.pipeline.scan_chain_rc.scan_blocks` and
   :func:`nrsc5_tpu_torch.pipeline.scan_chain_am_rc.scan_blocks_am`) holds
@@ -73,7 +78,9 @@ def block_carry_plain(keep, k4_samperr, k4_angle, state: dict,
 def block_carry(keep, k4_samperr, k4_angle, state: dict, first: bool,
                 plain: bool = False) -> None:
     """K5's FM carry step, in place on ``state`` ({name: [S] tensor} for
-    each name of :data:`FM_STATE`).  Unless ``first``, it folds block b's
+    each name of :data:`FM_STATE`).  The block loop launches it once, with
+    ``first``; K4 takes the later steps.  Unless ``first``, it folds block
+    b's
     results in: ``offset += WINDOW_FM - keep`` (K2's keep), ``prev_angle =
     angle`` (the angle block b ran with), ``samperr_fb = k4_samperr`` and
     ``angle_fb = k4_angle`` (K4's).  Then it sets block b + 1's inputs
@@ -107,11 +114,11 @@ def block_carry_am_plain(keep, offset) -> None:
     offset.add_(WINDOW_AM - keep)
 
 
-def block_carry_am(keep, offset, plain: bool = False) -> None:
+def block_carry_am(keep, offset) -> None:
     """K5's AM carry step, in place: ``offset += WINDOW_AM - keep`` (K12
-    pass 2's keep).  A CPU tensor (or ``plain``) takes the plain version;
-    a CUDA tensor launches the kernel."""
-    if plain or offset.device.type == "cpu":
+    pass 2's keep).  The block loop has K13 take it instead.  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel."""
+    if offset.device.type == "cpu":
         return block_carry_am_plain(keep, offset)
     s = offset.shape[0]
     K.check(offset, "offset", torch.int32, (s,))

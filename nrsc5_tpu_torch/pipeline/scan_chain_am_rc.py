@@ -7,7 +7,7 @@ frame-aligned (first symbol FFTCP_AM//2 into the buffer, first block bc
 axis is written out and leads every tensor, and the block loop
 (:func:`scan_blocks_am`) runs its body for all stations at once, with no
 host work and no allocation in it, so that on a card a CUDA graph replays
-it (:mod:`nrsc5_tpu_torch.pipeline.block_graph`, K5 carrying the offset):
+it (:mod:`nrsc5_tpu_torch.pipeline.block_graph`):
 
   * K12 (:func:`am_fold`, ``csrc/am_fold.cu``), pass 1: the ramp, the 32 x
     270-sample slice and the shaped 14-sample cyclic-prefix fold with the
@@ -19,7 +19,9 @@ it (:mod:`nrsc5_tpu_torch.pipeline.block_graph`, K5 carrying the offset):
   * K13 (:func:`sync_am_block_rc`, ``csrc/sync_am_block.cu``): the
     sideband combine, the reference bits, the PIDS and partition training
     mults, the sample-clock regression, the interpolated equalizer and the
-    QAM64/QAM16/QPSK demaps, one launch per block for all stations;
+    QAM64/QAM16/QPSK demaps, one launch per block for all stations, and
+    in the loop the carry step of K5 (offset += WINDOW_AM - keep, from K12
+    pass 2's keep), so that the loop launches no K5;
   * after the loop, one launch of K15 for every frame of the dispatch,
     then K7 at K=9 and K8 for P1, P3 and PIDS, flat over stations × frames
     (:mod:`nrsc5_tpu_torch.ops.decode_am`).
@@ -55,8 +57,8 @@ from nrsc5_tpu_torch.ops import rcplx as rc
 from nrsc5_tpu_torch.ops import sync_am as SA
 from nrsc5_tpu_torch.ops.acquire_rc import WINDOW_AM, dynamic_start
 from nrsc5_tpu_torch.pipeline import block_graph
-from nrsc5_tpu_torch.pipeline.block_graph import (block_carry_am, run_into,
-                                                  station_major)
+from nrsc5_tpu_torch.pipeline.block_graph import (block_carry_am_plain,
+                                                  run_into, station_major)
 from nrsc5_tpu_torch.pipeline.scan_chain_am import am_buffer_len  # noqa: F401
 
 W = C.PARTITION_WIDTH_AM
@@ -382,15 +384,30 @@ def _check_spectra(spectra):
                          f" got {tuple(spectra.shape)}")
 
 
-def sync_am_block_rc_plain(spectra, ma3: bool = False):
+def _check_carry(carry, s: int) -> None:
+    """The block loop's carry step handed to K13: (keep, offset), int32
+    [S] each."""
+    for name, t in zip(("keep", "offset"), carry):
+        if tuple(t.shape) != (s,):
+            raise ValueError(f"carry {name}: expected shape {(s,)}, got "
+                             f"{tuple(t.shape)}")
+
+
+def sync_am_block_rc_plain(spectra, ma3: bool = False, carry=None):
     """Plain version of K13 (the reference's ``sync_am_block_rc`` with the
     interpolated equalizer), for a station batch.  spectra [S, 32, 256,
-    2].  Returns ``codes`` uint8 [S, 4, 800] (pl, pu, s, t, each in
+    2].  ``carry`` (the block loop's (keep, offset), else None): K5's AM
+    step, ``offset += WINDOW_AM - keep`` in place
+    (:func:`~nrsc5_tpu_torch.pipeline.block_graph.block_carry_am_plain`).
+    Returns ``codes`` uint8 [S, 4, 800] (pl, pu, s, t, each in
     (symbol, column) order), ``pids`` uint8 [S, 32, 2], ``ref_bits``
     uint8 [S, 32] and ``samperr`` int32 [S].  Sums run from the first
     term to the last and divisions by numbers are true divisions, as K13
     computes them."""
     _check_spectra(spectra)
+    if carry is not None:
+        _check_carry(carry, spectra.shape[0])
+        block_carry_am_plain(*carry)
     t = _sync_tables(ma3, str(spectra.device))
     c = SA.CENTER
     buf = spectra.clone()
@@ -455,16 +472,17 @@ def sync_am_block_shapes(s: int) -> dict:
             "samperr": ((s,), torch.int32)}
 
 
-def sync_am_block_rc(spectra, ma3: bool = False, out=None):
+def sync_am_block_rc(spectra, ma3: bool = False, carry=None, out=None):
     """K13: the arguments and results of :func:`sync_am_block_rc_plain`,
     written into ``out`` (a dict of every key it returns) where it is
     given.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (four CTAs a station, one a partition, each loading only the
-    bins :func:`sync_am_plan` gives it)."""
+    bins :func:`sync_am_plan` gives it; with ``carry``, thread 0 of a
+    station's first CTA also takes K5's AM step)."""
     if spectra.device.type == "cpu":
-        res = sync_am_block_rc_plain(spectra, ma3)
+        res = sync_am_block_rc_plain(spectra, ma3, carry)
         return res if out is None else K.into(out, res)
     _check_spectra(spectra)
     K.check(spectra, "spectra", torch.float32)
@@ -478,11 +496,17 @@ def sync_am_block_rc(spectra, ma3: bool = False, out=None):
                          f"{sorted(out)}")
     for k, (shape, dtype) in shapes.items():
         K.check(out[k], k, dtype, shape)
+    step = (None, None)
+    if carry is not None:
+        _check_carry(carry, s)
+        for name, t in zip(("keep", "offset"), carry):
+            K.check(t, name, torch.int32, (s,))
+        step = tuple(t.data_ptr() for t in carry)
     K.launch("sync_am_block", spectra.data_ptr(),
              sync_am_plan(bool(ma3)).ctypes.data,
              *(out[k].data_ptr() for k in ("codes", "pids", "ref_bits",
                                            "samperr")),
-             s, int(ma3), device=dev)
+             s, int(ma3), *step, WINDOW_AM, device=dev)
     return out
 
 
@@ -496,9 +520,9 @@ def scan_blocks_am(samples, carry: AMChainCarryRC, n_blocks: int,
     frame), with no host work and no allocation in its body, so that a
     CUDA graph can replay it (:mod:`nrsc5_tpu_torch.pipeline.block_graph`).
     samples: [S, N, 2] rc.  Each block runs :func:`acquire_am_fine_rc`
-    (K12 pass 1, the DFT, K12 pass 2, the DFT), K13 (its codes and PIDS
-    straight into slot b of block-major buffers, its samperr into the
-    carried feedback) and the carry step K5.  Reads only the carry's loop
+    (K12 pass 1, the DFT, K12 pass 2, the DFT) and K13 (its codes and
+    PIDS straight into slot b of block-major buffers, its samperr into the
+    carried feedback, then K5's carry step).  Reads only the carry's loop
     fields (offset, phase, prev_angle, samperr_fb, cfo).  Returns {"codes":
     uint8 [n_blocks, S, 4, 800], "pids": uint8 [n_blocks, S, 32, 2],
     "carry": {field: [S, ...]} after the last block}; :func:`finish_scan_am`
@@ -527,10 +551,10 @@ def scan_blocks_am(samples, carry: AMChainCarryRC, n_blocks: int,
         acquire_am_fine_rc(samples, offset, phase[i], samperr_fb,
                            prev_angle[i], carry.cfo, plain,
                            (spectra, phase[j], prev_angle[j], keep), scratch)
-        run_into(sync_am_block_rc, sync, plain, (spectra, ma3),
+        run_into(sync_am_block_rc, sync, plain,
+                 (spectra, ma3, (keep, offset)),
                  {"codes": codes[b], "pids": pids[b], "ref_bits": ref_bits,
                   "samperr": samperr_fb})
-        block_carry_am(keep, offset, plain)
     last = n_blocks % 2
     loop = {"offset": offset, "phase": phase[last],
             "prev_angle": prev_angle[last], "samperr_fb": samperr_fb}

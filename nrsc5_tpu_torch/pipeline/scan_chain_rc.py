@@ -18,7 +18,8 @@ allocation in it, so that on a card a CUDA graph replays it
     subcarriers, then the flip, needles, equalizer, timing regression and
     int8 soft demap of the PM and PX partitions, one launch per block for
     all stations;
-  * K5 (:func:`nrsc5_tpu_torch.pipeline.block_graph.block_carry`) carries
+  * K4 also takes the carry step of K5 (its FM step, once a dispatch
+    :func:`nrsc5_tpu_torch.pipeline.block_graph.block_carry` for block 0):
     offset, prev_angle and the samperr and angle feedback to the next
     block, K2 and K4 writing their block's outputs into slot b;
   * after the loop the P1, PIDS and PX FEC run flat-batched over stations
@@ -50,7 +51,7 @@ from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops import rcplx as rc
 from nrsc5_tpu_torch.ops import sync_fm as SF
-from nrsc5_tpu_torch.ops.acquire_rc import (coarse_timing_rc,
+from nrsc5_tpu_torch.ops.acquire_rc import (WINDOW_FM, coarse_timing_rc,
                                             coarse_timing_rc_plain,
                                             demod_fold_bf16,
                                             demod_fold_bf16_plain)
@@ -58,7 +59,8 @@ from nrsc5_tpu_torch.ops.costas import TWO_PI, costas_track_rc_plain, wrap_pi
 from nrsc5_tpu_torch.ops.decode_fm import (p1_decode, pids_decode,
                                            px_deinterleave, px_fec)
 from nrsc5_tpu_torch.ops.detect_cfo import CFO_RANGE, detect_cfo_scan_rc
-from nrsc5_tpu_torch.pipeline.block_graph import (block_carry, run_into,
+from nrsc5_tpu_torch.pipeline.block_graph import (FM_STATE, block_carry,
+                                                  block_carry_plain, run_into,
                                                   station_major)
 from nrsc5_tpu_torch.pipeline.scan_chain import iv_state_len, px_frame_lens
 
@@ -236,17 +238,37 @@ def _check_sync(spectra, costas_phase, costas_freq, timing_adj):
                              f"{tuple(t.shape)}")
 
 
+def _check_carry(carry: dict, s: int, timing_adj) -> None:
+    """The block loop's carry step handed to K4: every name of
+    :data:`~nrsc5_tpu_torch.pipeline.block_graph.FM_STATE` and ``keep``,
+    each an [S] tensor, its ``timing_adj`` not the one K4 reads."""
+    for name in FM_STATE + ("keep",):
+        t = carry[name]
+        if tuple(t.shape) != (s,):
+            raise ValueError(f"carry {name}: expected shape {(s,)}, got "
+                             f"{tuple(t.shape)}")
+    if carry["timing_adj"] is timing_adj:
+        raise ValueError("carry timing_adj: the next block's, not the one "
+                         "K4 reads (ping-pong them)")
+
+
 def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
-                        timing_adj):
+                        timing_adj, carry: dict | None = None):
     """Plain version of K4.  spectra: [S, 32, 2048, 2];
-    costas_phase/costas_freq [S, 2048]; timing_adj int32 [S].  Returns (out
-    dict of per-station tensors, new_phase, new_freq): ``pm`` int8
+    costas_phase/costas_freq [S, 2048]; timing_adj int32 [S].  ``carry``
+    (the block loop's, else None): K5's FM step after this block, in place
+    (:func:`~nrsc5_tpu_torch.pipeline.block_graph.block_carry_plain` with
+    its ``keep`` and this block's samperr and angle; its ``timing_adj`` the
+    next block's).  Returns (out dict of per-station tensors, new_phase,
+    new_freq): ``pm`` int8
     [S, 23040], ``ref_ok`` bool [S, 2R], ``ref_bc``/``ref_psmi`` int32
     [S, 2R], ``samperr`` int32 [S], ``angle``, ``error_lb``, ``error_ub``
     float32 [S], and for the modes that carry them ``px1`` int8 [S, 2304]
     (MP2) or [S, 4608] (MP3/MP11) and ``px2`` int8 [S, 4608] (MP11)."""
     check_psmi(psmi)
     _check_sync(spectra, costas_phase, costas_freq, timing_adj)
+    if carry is not None:
+        _check_carry(carry, spectra.shape[0], timing_adj)
     ppb = C.partitions_per_band(psmi)
     t = _sync_tables(ppb, str(spectra.device))
     s = spectra.shape[0]
@@ -367,11 +389,13 @@ def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
     new_phase[:, bins] = wrap_pi(ph_out)
     new_freq = costas_freq.clone()
     new_freq[:, bins] = fr_out
+    if carry is not None:
+        block_carry_plain(carry["keep"], samperr_i, angle, carry, False)
     return out, new_phase, new_freq
 
 
 def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj,
-                  out=None):
+                  carry: dict | None = None, out=None):
     """K4: the arguments and results of :func:`sync_block_rc_plain`, written
     into ``out`` = (out dict with every key the plain version returns,
     new_phase, new_freq) where it is given.
@@ -379,10 +403,10 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj,
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (a cluster of 8 CTAs per station, each equalizing and demapping 4 of
     the 32 symbols; it writes whole new Costas rows and the PX channels'
-    soft bits)."""
+    soft bits; with ``carry``, CTA 0 then takes K5's FM step)."""
     if spectra.device.type == "cpu":
         res = sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi,
-                                  timing_adj)
+                                  timing_adj, carry)
         return res if out is None else K.into(out, res)
     check_psmi(psmi)
     _check_sync(spectra, costas_phase, costas_freq, timing_adj)
@@ -408,6 +432,13 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj,
         K.check(out[k], k, dtype, shape)
     K.check(new_phase, "new_phase", torch.float32, (s, C.FFT_FM))
     K.check(new_freq, "new_freq", torch.float32, (s, C.FFT_FM))
+    step = (None,) * 8
+    if carry is not None:
+        _check_carry(carry, s, timing_adj)
+        for name in ("keep",) + FM_STATE:
+            K.check(carry[name], name, torch.float32 if "angle" in name
+                    else torch.int32, (s,))
+        step = tuple(carry[name].data_ptr() for name in ("keep",) + FM_STATE)
     px1, px2 = px_columns(psmi)
     K.launch("sync_block", spectra.data_ptr(), costas_phase.data_ptr(),
              costas_freq.data_ptr(), timing_adj.data_ptr(),
@@ -421,7 +452,7 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj,
                for k in ("px1", "px2")),
              t["px_cols"][psmi].data_ptr(), len(px1), len(px2), s, ppb,
              SF.ALPHA, SF.BETA, TWO_PI, math.pi, TWO_PI / C.FFT_FM,
-             device=dev)
+             *step, WINDOW_FM, C.FFTCP_FM // 2, device=dev)
     return out, new_phase, new_freq
 
 
@@ -435,10 +466,11 @@ def scan_blocks(samples, carry: ChainCarryRC, n_blocks: int, psmi: int = 1,
     allocation in its body, so that a CUDA graph can replay it
     (:mod:`nrsc5_tpu_torch.pipeline.block_graph`).  samples: [S, N, 2]
     conjugated rc.  Each block runs K2 (its bf16 fold into a reused
-    buffer), the DFT kernel, K4 (its pm, PX soft bits and diagnostics
-    straight into slot b of block-major buffers) and the carry step K5.  Reads only the carry's
-    loop fields (offset, phase, prev_angle, costas_phase, costas_freq,
-    samperr_fb, angle_fb, cfo).  Returns {"pm": int8 [n_blocks, S, 23040],
+    buffer), the DFT kernel and K4 (its pm, PX soft bits and diagnostics
+    straight into slot b of block-major buffers, then K5's carry step for
+    the next block); K5 itself runs once, block 0's step.  Reads only the
+    carry's loop fields (offset, phase, prev_angle, costas_phase,
+    costas_freq, samperr_fb, angle_fb, cfo).  Returns {"pm": int8 [n_blocks, S, 23040],
     "diag": {"samperr", "error_lb", "error_ub": [n_blocks, S]}, "px":
     {"px1": int8 [n_blocks, S, 2304 or 4608], ...} for the channels
     ``psmi`` carries, "carry": {field: [S, ...]} after the last block};
@@ -461,9 +493,10 @@ def scan_blocks(samples, carry: ChainCarryRC, n_blocks: int, psmi: int = 1,
     k4_angle = empty((s,))
     state = {k: getattr(carry, k).clone()
              for k in ("offset", "prev_angle", "samperr_fb", "angle_fb")}
-    state.update(samperr=empty((s,), torch.int32), angle=empty((s,)),
-                 timing_adj=empty((s,), torch.int32))
     # ping-pong pairs: block b reads [b % 2] and writes [(b + 1) % 2]
+    tadj = (empty((s,), torch.int32), empty((s,), torch.int32))
+    state.update(samperr=empty((s,), torch.int32), angle=empty((s,)),
+                 timing_adj=tadj[0])
     phase = (carry.phase.clone(), empty((s, 2)))
     cph = (carry.costas_phase.clone(), empty((s, C.FFT_FM)))
     cfr = (carry.costas_freq.clone(), empty((s, C.FFT_FM)))
@@ -480,10 +513,10 @@ def scan_blocks(samples, carry: ChainCarryRC, n_blocks: int, psmi: int = 1,
         out = {"pm": pm[b], "angle": k4_angle, **ref,
                **{k: v[b] for k, v in diag.items()},
                **{k: v[b] for k, v in px.items()}}
+        step = {**state, "timing_adj": tadj[j], "keep": keep}
         run_into(sync_block_rc, sync, plain,
-                 (spectra, cph[i], cfr[i], psmi, state["timing_adj"]),
+                 (spectra, cph[i], cfr[i], psmi, tadj[i], step),
                  (out, cph[j], cfr[j]))
-        block_carry(keep, diag["samperr"][b], k4_angle, state, False, plain)
     last = n_blocks % 2
     loop = {"offset": state["offset"], "phase": phase[last],
             "prev_angle": state["prev_angle"], "costas_phase": cph[last],

@@ -24,12 +24,15 @@ row holds ``rc_overlap(stages) // 2`` pairs of history ahead of its logical
 stream position (127-valued at stream start, :func:`stream_wire`), so the
 stateless halfband cascade has zero net group delay: 7 pairs for FM's ÷2
 (then ``2 · buffer_len(n_blocks)`` pairs), 217 for AM's ÷32 (then ``32 ·
-am_buffer_len(n_frames)``).  A 1.488 MS/s cu8 AM capture does not reach
-sync through the ÷32 cascade, whose response spans the whole 14-sample
-cyclic prefix (tests/test_l1_am.py:92-100), a property the reference
-shares; AM captures are normally cs16 at the chain's own 46511.7 S/s.
-cs16 is scaled by 1/32768 and cf32, rc float32, passes through, in either
-mode, at the chain's own rate.
+am_buffer_len(n_frames)``).  A 1.488 MS/s cu8 AM wire at a tuner's level
+decodes through the ÷32 cascade (K1's AM cascade, inside each dispatch's
+graph): tests/test_torch_serve_modes.py:131, the twin of
+tests/test_serve.py:339, gets at least 64 exact HDC packets from one, and
+tests/test_serve.py:1563 cold-starts MA1 and MA3 stations from cu8 and
+decodes both.  (tests/test_l1_am.py:92-100, which says cu8 AM cannot
+reach sync, concerns the per-block complex ``AMReceiver`` only, not this
+chain.)  cs16 is scaled by 1/32768 and cf32, rc float32, passes through,
+in either mode, at the chain's own rate.
 """
 
 from __future__ import annotations

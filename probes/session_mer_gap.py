@@ -24,8 +24,9 @@ once for each of these variants:
   launched eagerly (``graph=False``) rather than through K5's graph;
 * ``plain_fold``, ``plain_sync``, ``plain_carry``: as ``card_eager``, with
   one kernel of the block loop on its plain version on the card (in the
-  cold start too): K2 (``demod_fold_bf16``), K4 (``sync_block_rc``) or K5
-  (``block_carry``).
+  cold start too): K2 (``demod_fold_bf16``), K4 (``sync_block_rc``, with
+  the carry step it takes after each block) or K5 (``block_carry``, the
+  loop's first step).
 
 Each card run's events must equal the CPU run's by
 ``tests/serve_events.key``.  A seed a line, the script prints each

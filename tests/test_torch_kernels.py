@@ -1227,6 +1227,33 @@ def test_am_decimate_cu8(card):
         FE.ingest_am_cu8(wire.float())
 
 
+@pytest.mark.parametrize("stations,n,shift", [
+    (1, 300, 0),    # one station, a session push of a few hundred outputs
+    (1, 600, 1),    # the same, one pair past a 4-byte boundary
+    (2, 257, 0),    # a last tile of one output
+    (3, 777, 0),    # rows 868 + 64 N bytes apart: off 16-byte boundaries
+    (3, 777, 1),    # and the wire one pair past a 4-byte boundary
+    (16, 512, 3),   # whole tiles, three pairs in
+])
+def test_am_decimate_cu8_edges(card, stations, n, shift):
+    """K1's AM cascade on random cu8 wires at its edge shapes, the wire
+    placed ``shift`` pairs into its allocation: bit-identical to the plain
+    version; a wire at an odd address is refused."""
+    g = torch.Generator().manual_seed(27 + n + shift)
+    rows = FE.rc_overlap(5) + 32 * n
+    flat = torch.randint(0, 256, (2 * (stations * rows + shift) + 1,),
+                         generator=g, dtype=torch.uint8).to(card)
+    wire = flat[2 * shift:2 * shift + 2 * stations * rows].view(
+        stations, rows, 2)
+    before = K.COUNTS["am_decimate_cu8"]
+    got = FE.ingest_am_cu8(wire)
+    assert K.COUNTS["am_decimate_cu8"] == before + 1
+    assert torch.equal(got, FE.ingest_am_cu8_plain(wire))
+    odd = flat[1:1 + 2 * stations * rows].view(stations, rows, 2)
+    with pytest.raises(ValueError):
+        FE.ingest_am_cu8(odd)
+
+
 # --- K16: batched HDC audio ------------------------------------------------
 
 _AUDIO_HEADERS = {
@@ -1654,7 +1681,8 @@ def test_block_graph_fm(card, psmi):
     margins, diagnostics, PX) and every carry field bit-identical over
     three chained dispatches of 32 blocks, from three stations at CFOs of
     0, +40 and -75 Hz; the launch counts equal, K2, the DFT kernel and K4
-    once a block, K5 once a block and once before the first."""
+    once a block, K5 once, before the first (K4 takes the later carry
+    steps)."""
     from nrsc5_tpu_torch import serve
     rng = np.random.default_rng(50 + psmi)
     wires = [_fm_stream(rng, psmi, 7, f) for f in (0.0, 40.0, -75.0)]
@@ -1665,7 +1693,7 @@ def test_block_graph_fm(card, psmi):
                                            graph=g), wires, carry, n)
         for g in (False, True)}
     _same_runs(runs[False], runs[True])
-    assert runs[True][0][2]["block_carry"] == 33
+    assert runs[True][0][2]["block_carry"] == 1
     for name in ("demod_fold", "dft_bf16", "sync_block"):
         assert runs[True][0][2][name] == 32
 
@@ -1676,7 +1704,7 @@ def test_block_graph_am(card, ma3):
     eager kernel loop: every output and every carry field (delay lines
     included) bit-identical over three chained dispatches of 2 frames,
     from three stations at CFOs of 0, +7 and -9 Hz; the launch counts
-    equal, K5 once a block."""
+    equal, K13 once a block and no K5 (K13 takes the carry step)."""
     from nrsc5_tpu_torch import serve
     rng = np.random.default_rng(60 + ma3)
     wires = [_am_capture(rng, ma3, 7, f) for f in (0.0, 7.0, -9.0)]
@@ -1687,7 +1715,71 @@ def test_block_graph_am(card, ma3):
                                               graph=g), wires, carry, n)
         for g in (False, True)}
     _same_runs(runs[False], runs[True])
-    assert runs[True][0][2]["block_carry_am"] == 16
+    assert runs[True][0][2]["sync_am_block"] == 16
+    assert "block_carry_am" not in runs[True][0][2]
+
+
+@pytest.mark.parametrize("psmi", [1, 3])
+def test_fused_carry_graph_two_dispatches_fm(card, psmi):
+    """The FM loop with K5's step fused into K4, replayed as a CUDA graph,
+    against the eager kernel loop and against the plain versions over two
+    chained dispatches of 32 blocks (one station): the graph the eager
+    run's outputs and carries exactly, the plain path the same decoded
+    bits and consumed samples; one K5 launch a dispatch."""
+    from nrsc5_tpu_torch import serve
+    rng = np.random.default_rng(80 + psmi)
+    wires = [_fm_stream(rng, psmi, 5, 25.0)]
+    n = serve.buffer_len(32)
+    carry = rcc.chain_rc_init_carry(psmi=psmi, n_stations=1, device=card)
+    runs = {g: _chained(
+        lambda w, c, g=g: serve.chain_step(w, c, 32, psmi, device=card,
+                                           graph=g), wires, carry, n)[:2]
+        for g in (False, True)}
+    _same_runs(runs[False], runs[True])
+    plain = _chained(lambda w, c: serve.chain_step(
+        w, c, 32, psmi, device=card, plain=True), wires, carry, n)[:2]
+    for (go, gc, gl), (po, pc, _) in zip(runs[True], plain):
+        assert gl["block_carry"] == 1 and gl["sync_block"] == 32
+        assert torch.equal(go["pids"], po["pids"])
+        if "p1" in po:
+            assert torch.equal(go["p1"], po["p1"])
+        assert torch.equal(gc.offset, pc.offset)
+
+
+def test_fused_carry_graph_two_dispatches_am_cu8(card):
+    """The AM loop from a cu8 wire (K1's AM cascade in the graph) with
+    K5's step fused into K13, replayed as a CUDA graph, against the eager
+    kernel loop over two chained dispatches of 2 frames (two stations at a
+    tuner's level): every output and carry field exactly; each dispatch
+    launches the cascade once, K13 16 times and no K5."""
+    from nrsc5_tpu_torch import serve
+    rng = np.random.default_rng(90)
+    n_out = scar.am_buffer_len(2)
+    wires = []
+    for cfo in (0.0, 6.0):
+        buf = _am_capture(rng, False, 7, cfo)
+        sig = buf[:, 0] + 1j * buf[:, 1]
+        pad = np.zeros(-(-(len(sig) + 8) // 4096) * 4096, np.complex64)
+        pad[:len(sig)] = sig
+        up = ch.upsample_exact(pad, 32)
+        wires.append(serve.stream_wire(ch.to_cu8(up * (0.4 / np.abs(
+            up).max())), FE.AM_STAGES))
+    n = FE.rc_overlap(FE.AM_STAGES) + 32 * n_out
+    carry = scar.am_chain_rc_init_carry(n_stations=2, device=card)
+
+    def step(g):
+        def run(w, c):
+            out, new = serve.chain_step_am(w.to(card), c, 2, device=card,
+                                           graph=g)
+            # the queue advances 32 wire pairs a chain sample
+            return out, new._replace(offset=new.offset * 32)
+        return run
+    runs = {g: _chained(step(g), wires, carry, n)[:2] for g in (False, True)}
+    _same_runs(runs[False], runs[True])
+    for _, _, launches in runs[True]:
+        assert launches["am_decimate_cu8"] == 1
+        assert launches["sync_am_block"] == 16
+        assert "block_carry_am" not in launches
 
 
 def test_probe_graph(card):
