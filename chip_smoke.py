@@ -55,7 +55,15 @@ Phases, each printing one JSON line:
    12345, 3 frames of HDC audio of a tone mix, the ID3 title "You're
    Listening to TPU", a SIG table and the LOT file ``tpu.png``, 1.488 MS/s
    cu8), and one MA1 station of 8 frames, tests/capture_helpers.py's
-   ``build_am_capture`` on the port's ``tx``, cs16;
+   ``build_am_capture`` on the port's ``tx``, cs16.  And the live fleet's
+   16 tuners, 10 frames (14.9 s of air) each as 1.488 MS/s cu8: 8 MP1
+   stations carrying HDC audio (16 packets of a two-tone stereo mix, the
+   station's own tones, encoded with the port's ``tx`` HDCEncoder and
+   repeated) and 2 MP3 stations (random HDC and PX1), each with its ID3
+   title, 1000-3999 samples late, a CFO within ±60 Hz, 25 dB; 4 MA1 and 2
+   MA3 stations (4 random HDC packets a P1 subframe), 300-3999 samples
+   late, a CFO within ±10 Hz, 35 dB, Fourier-upsampled ×32 with the peak
+   at 0.4 of full scale;
 4. one line per kernel: the kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it, with times (K2's bf16 fold
    within one bf16 ulp of its plain version, the share that differs
@@ -223,7 +231,32 @@ the eager wall and device time beside the graph's.  Then:
    and none that was not, every kernel of the session's AM path launched
    (the cold start's K14, K12, K13; the receiver's K12, K13, K15, K7 at
    K=9, K8) and no other, no plain version called.  Wall, cold start,
-   launches, device busy.
+   launches, device busy;
+16. fleet: the live mixed fleet.  Sixteen fake rtl_tcp servers on
+   127.0.0.1 (threads of this script; loopback only), each greeting as an
+   R820T, recording the tuner commands, sending its tuner's capture once
+   and holding the connection open; ``serve.RtlTcpFleet(...,
+   modes="auto", frames_per_dispatch=2, hdc_factory=None, gain_db=30.0)``
+   with no mode argument (a reader thread a tuner into one
+   ``HeterogeneousReceiver``: each station's band and mode found by a cold
+   start on the card, K1's FM halfband or AM cascade first, then one
+   receiver a mode, grown as stations join), its callback
+   ``FleetAudioDecoder(16, cb, programs=(0,), k=8).wrap`` (K16a-d on the
+   card from a dispatch thread).  ``stop()`` once every capture is
+   pushed, then the audio decoder's ``flush()``.  Gate: each station's
+   mode its truth, in exactly 4 groups; one SYNC each and no LOST_SYNC or
+   LOST_DEVICE; FM stations their own ID3 title and no other's and only
+   packets they sent; AM stations at least 32 exact HDC packets and none
+   foreign; each MP1 station at least 64 AUDIO events and, over its
+   longest run of real packets (the decoder pads a lagging row with
+   silence), PCM more than 50 dB from the port's host decoder on the same
+   packets from packet 8 on; the launches exactly the path's kernels
+   (every kernel but K5's AM step), no plain version called; within 180
+   s.  The wall from ``start`` to ``stop``, station-seconds of air a
+   second of wall, each station's wire seconds and wall to discovery, the
+   groups, the graph captures and their wall, fleet audio seconds a
+   second of wall with the prepare and dispatch walls, the launches, and
+   the phase's own seconds.
 
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``:
 the kernels launched, summed over the paths driven and itemised under
@@ -246,9 +279,12 @@ import multiprocessing
 import os
 import pstats
 import shutil
+import socket
 import statistics
+import struct
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
@@ -315,6 +351,17 @@ GOLDEN_SIG_PORT = 0x1001
 SESSION_AM_FRAMES = 8
 SESSION_AM_PUSH = 50000  # cs16 samples a push
 SESSION_AM_MIN_HDC = 48  # bit-exact HDC packets after the warm-up
+FLEET_KINDS = ("mp1",) * 8 + ("mp3",) * 2 + ("ma1",) * 4 + ("ma3",) * 2
+FLEET_FRAMES = 10  # P1 frames of every fleet station: 14.9 s of air
+FLEET_AUDIO_UNIQUE = 16  # distinct HDC audio packets of an MP1 station
+FLEET_DEADLINE_S = 180.0
+FLEET_MIN_AUDIO = 64  # AUDIO events of each MP1 audio station
+FLEET_AUDIO_SNR_DB = 50.0
+FLEET_AUDIO_SKIP = 8  # packets of a run before the SNR is taken
+FLEET_AM_MIN_HDC = 32  # exact HDC packets of each AM station
+# the tuners' socket timeout: a fake server that has sent its whole
+# capture waits for the others, which a live tuner never does
+FLEET_SOCKET_TIMEOUT_S = 60.0
 # the card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -1323,6 +1370,390 @@ def make_serve_am_station(index: int) -> dict:
             "frame0": offset, "hole": hole}
 
 
+def fleet_title(index: int) -> str:
+    return f"Fleet Station {index} Title"
+
+
+def fleet_mode(kind: str) -> tuple:
+    """A fleet station kind's (band, mode), as the receiver keys it."""
+    return {"mp1": ("fm", 1), "mp3": ("fm", 3), "ma1": ("am", False),
+            "ma3": ("am", True)}[kind]
+
+
+def make_fleet_station(index: int) -> dict:
+    """Fleet station ``index``, from its own seed, as the 1.488 MS/s cu8 a
+    tuner delivers, FLEET_FRAMES frames of content behind a timing offset
+    and a fractional CFO.  MP1 (stations 0-7): P1 frames of 32 HDC audio
+    packets each (FLEET_AUDIO_UNIQUE packets of a two-tone stereo mix,
+    the station's own tones, encoded with the port's ``tx`` HDCEncoder and
+    repeated, as tests/test_audio_batch.py:127-160 does) with the
+    station's ID3 title in the AAS PSD; MP3 (8-9): random HDC packets, the
+    title, random PX1 frames; both 1000-3999 samples late, within ±60 Hz,
+    at SNR_DB.  MA1 (10-13) and MA3 (14-15): 4 random HDC packets a P1
+    subframe, random P3 and PIDS, 300-3999 samples late, within
+    ±AM_CFO_HZ, at AM_SNR_DB, Fourier-upsampled ×32 with the peak at
+    AM_CU8_LEVEL of full scale.  Returns the interleaved uint8 wire, its
+    air seconds, the packets sent (in order), the kind and the
+    impairments."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch.tx import channel as ch
+
+    kind = FLEET_KINDS[index]
+    rng = np.random.default_rng([SEED, 0xF1, index])
+    n = FLEET_FRAMES
+    if kind in ("mp1", "mp3"):
+        from nrsc5_tpu_torch.tx.encoder import (build_pm_matrix,
+                                                build_px_stream)
+        from nrsc5_tpu_torch.tx.hdc_encoder import HDCEncoder
+        from nrsc5_tpu_torch.tx.modulator import modulate_fm
+        from nrsc5_tpu_torch.tx.transport_encoder import (aas_frame,
+                                                          build_p1_fm_frame)
+        psmi = 1 if kind == "mp1" else 3
+        if kind == "mp1":
+            t = np.arange(FLEET_AUDIO_UNIQUE * 2048) / AUDIO_FS
+            x = 0.3 * np.sin(2 * np.pi * (300 + 40 * index) * t) \
+                + 0.15 * np.sin(2 * np.pi * (1100 + 130 * index) * t)
+            pcm = np.stack([x, 0.9 * x], -1)
+            enc = HDCEncoder(channels=2, sbr=True, pns=False)
+            unique = [enc.encode_frame(pcm[k * 2048:(k + 1) * 2048])
+                      for k in range(FLEET_AUDIO_UNIQUE)]
+            packets = [unique[k % FLEET_AUDIO_UNIQUE]
+                       for k in range(32 * n)]
+        else:
+            packets = [rng.integers(0, 256, 280).astype(np.uint8).tobytes()
+                       for _ in range(32 * n)]
+        psd = aas_frame(0x5100, 0, _id3_title(fleet_title(index)))
+        pids = np.zeros((C.P1_FM_BLOCKS, C.PIDS_FRAME_LEN), np.uint8)
+        mats = [build_pm_matrix(build_p1_fm_frame(
+            packets[f * 32:(f + 1) * 32], 0, f % 8, (f * 32) % 64, psd=psd),
+            pids) for f in range(n)]
+        px = {}
+        if kind == "mp3":
+            fl = C.P3_FRAME_LEN_MP3_MP11
+            bits = rng.integers(0, 2, (n // 2, 16, fl), dtype=np.uint8)
+            px["px1_signs"] = build_px_stream(bits, fl).reshape(
+                n * C.P1_FM_BLOCKS * C.BLKSZ, -1)
+        clean = modulate_fm(np.concatenate(mats),
+                            np.tile(np.arange(C.P1_FM_BLOCKS), n), psmi,
+                            **px)
+        offset = int(rng.integers(1000, 4000))
+        cfo_hz = float(rng.uniform(-60.0, 60.0))
+        fftcp = C.FFTCP_FM
+        keep = offset + fftcp // 2 + len(clean) + 3 * fftcp
+        # a length of 2^20 samples' multiples keeps upsample2's FFTs short;
+        # the wire is cut back to the content and 3 symbols after it
+        buf = np.zeros(-(-keep // (1 << 20)) << 20, np.complex64)
+        buf[offset + fftcp // 2:offset + fftcp // 2 + len(clean)] = clean
+        noisy = ch.impair(buf, cfo_hz=cfo_hz, snr_db=SNR_DB, rng=rng)
+        wire = ch.to_cu8(ch.upsample2(noisy))[:4 * keep]
+    else:
+        from nrsc5_tpu_torch.tx import encoder_am as EAM
+        from nrsc5_tpu_torch.tx.modulator_am import modulate_am
+        from nrsc5_tpu_torch.tx.transport_encoder import build_p1_am_frame
+        ma3 = kind == "ma3"
+        packets, p1 = [], []
+        for f in range(n):
+            subs = []
+            for b in range(8):
+                pk = [rng.integers(0, 256, 100).astype(np.uint8).tobytes()
+                      for _ in range(4)]
+                packets.extend(pk)
+                subs.append(build_p1_am_frame(pk, 0, (f * 8 + b) % 8,
+                                              ((f * 8 + b) * 4) % 64))
+            p1.append(np.stack(subs))
+        p3_len = C.P3_FRAME_LEN_MA3 if ma3 else C.P3_FRAME_LEN_MA1
+        p3 = rng.integers(0, 2, (n, p3_len), dtype=np.uint8)
+        mats = EAM.interleave_frames([EAM.encode_p1_am(x) for x in p1],
+                                     [EAM.encode_p3_am(x, ma3) for x in p3],
+                                     ma3)
+        pids = np.stack([EAM.encode_pids_am(
+            rng.integers(0, 2, C.PIDS_FRAME_LEN, dtype=np.uint8))
+            for _ in range(8 * n)])
+        ref = np.stack([EAM.am_ref_bits(b % 8, 2 if ma3 else 1)
+                        for b in range(8 * n)])
+        sig = modulate_am(mats, pids, ref, ma3)
+        offset = int(rng.integers(300, 4000))
+        cfo_hz = float(rng.uniform(-AM_CFO_HZ, AM_CFO_HZ))
+        keep = offset + len(sig) + 3 * C.FFTCP_AM
+        buf = np.zeros(-(-keep // 4096) * 4096, np.complex64)
+        buf[offset:offset + len(sig)] = sig
+        buf = ch.impair(buf, cfo_hz=cfo_hz, snr_db=AM_SNR_DB,
+                        sample_rate=C.SAMPLE_RATE_CS16_AM, rng=rng)
+        up = ch.upsample_exact(buf, 32)
+        wire = ch.to_cu8(up * (AM_CU8_LEVEL / np.abs(up).max()))
+    return {"wire": wire, "air_s": len(wire) / 2 / C.SAMPLE_RATE_CU8,
+            "packets": packets, "kind": kind, "index": index,
+            "offset": offset, "cfo_hz": cfo_hz}
+
+
+def make_fleet_stations() -> dict:
+    """Every fleet station, built in parallel by spawned worker processes
+    (numpy only; the pool ends with the call)."""
+    n = len(FLEET_KINDS)
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(min(n, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        stations = list(pool.map(make_fleet_station, range(n)))
+    return {k: [st[k] for st in stations] for k in stations[0]}
+
+
+class FakeTuner:
+    """A fake rtl_tcp server on 127.0.0.1 (loopback only): it greets as an
+    R820T, records the tuner commands, sends its capture once and holds the
+    connection open until :meth:`close`.  Two threads: one sends, one reads
+    the commands."""
+
+    def __init__(self, capture: bytes):
+        self.capture = capture
+        self.commands = []
+        self._sock = socket.socket()
+        self._sock.bind(("127.0.0.1", 0))
+        self._sock.listen(1)
+        self.port = self._sock.getsockname()[1]
+        self._conn = None
+        self._threads = [threading.Thread(target=self._send, daemon=True)]
+
+    def start(self):
+        for t in self._threads:
+            t.start()
+
+    def _send(self):
+        conn, _ = self._sock.accept()
+        self._conn = conn
+        conn.sendall(b"RTL0" + struct.pack(">II", 5, 29))  # R820T
+        reader = threading.Thread(target=self._commands, daemon=True)
+        reader.start()
+        self._threads.append(reader)
+        view = memoryview(self.capture)
+        try:
+            for lo in range(0, len(view), 1 << 20):
+                conn.sendall(view[lo:lo + (1 << 20)])
+        except OSError:
+            pass
+
+    def _commands(self):
+        buf = b""
+        while True:
+            try:
+                data = self._conn.recv(64)
+            except OSError:
+                return
+            if not data:
+                return
+            buf += data
+            while len(buf) >= 5:
+                self.commands.append(struct.unpack(">BI", buf[:5]))
+                buf = buf[5:]
+
+    def close(self):
+        for s in (self._conn, self._sock):
+            if s is None:
+                continue
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            s.close()
+        for t in self._threads:
+            t.join(timeout=10)
+
+
+FLEET_KERNELS = tuple(n for n in KERNELS if n != "block_carry_am")
+
+
+def fleet_run(torch, st: dict) -> dict:
+    """Serve the fleet stations from fake rtl_tcp tuners through
+    ``RtlTcpFleet(..., modes="auto", frames_per_dispatch=2,
+    hdc_factory=None, gain_db=30.0)`` into
+    ``FleetAudioDecoder(n, cb, programs=(0,), k=8).wrap``, on the card,
+    until every station's capture is pushed (or FLEET_DEADLINE_S), then
+    ``stop()`` and the audio decoder's ``flush()``.  Returns the events,
+    the walls, the launches, the plain calls, the packets each audio row
+    was fed in order, the captures and the receiver."""
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch import serve
+    from nrsc5_tpu_torch.audio.fleet import FleetAudioDecoder
+    from nrsc5_tpu_torch.pipeline import block_graph as BG
+
+    n = len(st["wire"])
+    events = {i: [] for i in range(n)}
+    audio = FleetAudioDecoder(n, lambda s, ev: events[s].append(ev),
+                              programs=(0,), k=8)
+    fed = [[] for _ in range(n)]
+    walls = {"prepare": [], "dispatch": []}
+    submit, dec = audio._submit_locked, audio._dec
+    prepare, dispatch = dec.prepare, dec.dispatch
+
+    def record_submit(item, shed_ok=True):
+        batch, lens = item
+        for i in range(n):
+            fed[i].extend(batch[i][:lens[i]])
+        return submit(item, shed_ok)
+
+    def timed(fn, key):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            walls[key].append(time.perf_counter() - t0)
+            return out
+        return run
+    audio._submit_locked = record_submit
+    dec.prepare, dec.dispatch = timed(prepare, "prepare"), \
+        timed(dispatch, "dispatch")
+
+    servers = [FakeTuner(w.tobytes()) for w in st["wire"]]
+    for s in servers:
+        s.start()
+    freqs = [88.1e6 + 0.4e6 * i if fleet_mode(k)[0] == "fm"
+             else 540e3 + 20e3 * i for i, k in enumerate(st["kind"])]
+    plain_calls, restore = count_plain_calls()
+    captures0 = len(BG.CAPTURES)
+    fleet = None
+    try:
+        fleet = serve.RtlTcpFleet(
+            [("127.0.0.1", s.port) for s in servers], freqs, audio.wrap,
+            modes="auto", frames_per_dispatch=2, hdc_factory=None,
+            gain_db=30.0)
+        for c in fleet.clients:
+            c.sock.settimeout(FLEET_SOCKET_TIMEOUT_S)
+        rx = fleet.rx
+        sizes = [len(w) for w in st["wire"]]
+        pushed = [0] * n
+        found = [None] * n
+        push, assign = rx.push, rx._assign
+
+        def counted_push(i, data):
+            if isinstance(data, (bytes, bytearray)):
+                pushed[i] += len(data)
+            return push(i, data)
+
+        def timed_assign(i, key):
+            found[i] = time.perf_counter() - t0
+            return assign(i, key)
+        rx.push, rx._assign = counted_push, timed_assign
+        torch.cuda.synchronize()
+        K.reset_counts()
+        t0 = time.perf_counter()
+        fleet.start()
+        deadline = t0 + FLEET_DEADLINE_S
+        while time.perf_counter() < deadline \
+                and any(p < m for p, m in zip(pushed, sizes)):
+            time.sleep(0.02)
+        t_pushed = time.perf_counter() - t0
+        fleet.stop(flush=True)
+        t_stop = time.perf_counter() - t0
+        audio.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+        if fleet is not None:
+            fleet.stop(flush=False)
+        audio.close()
+        for s in servers:
+            s.close()
+    return {"events": events, "wall_s": wall, "stop_s": t_stop,
+            "pushed_s": t_pushed, "complete": pushed == sizes,
+            "discovered_s": found, "counts": dict(K.COUNTS),
+            "plain_calls": plain_calls, "fed": fed, "walls": walls,
+            "captures": BG.CAPTURES[captures0:], "rx": rx,
+            "commands": [s.commands for s in servers]}
+
+
+def fleet_gate(run: dict, st: dict) -> dict:
+    """The fleet phase's gate: the modes found are the truth, in exactly 4
+    groups; each station one SYNC and no LOST_SYNC or LOST_DEVICE; FM
+    stations their own title and no other's, every clean HDC packet one
+    they sent; AM stations at least FLEET_AM_MIN_HDC exact packets, none
+    foreign; each MP1 audio station at least FLEET_MIN_AUDIO AUDIO events
+    and, over its longest run of real packets (the decoder pads a lagging
+    row with silence packets), more than FLEET_AUDIO_SNR_DB against the
+    port's host decoder fed the same run, from its FLEET_AUDIO_SKIP-th
+    packet on (tests/test_audio_batch.py:172-183's gate); the launches
+    exactly the path's kernels, none plain; every capture pushed before
+    the deadline."""
+    from nrsc5_tpu_torch.api.events import EventType
+    from nrsc5_tpu_torch.audio.hdc_decoder import HDCDecoder
+
+    rx, events = run["rx"], run["events"]
+    n = len(st["wire"])
+    titles = {fleet_title(j) for j in st["index"]}
+    per, ok = {}, True
+    for i in range(n):
+        ev = events[i]
+        kinds = [e.type for e in ev]
+        sent = set(st["packets"][i])
+        clean = [e.data for e in ev
+                 if e.type == EventType.HDC and not e.crc_error]
+        got = set(clean)
+        rec = {"kind": st["kind"][i], "mode": rx.station_modes[i],
+               "syncs": kinds.count(EventType.SYNC),
+               "lost_sync": kinds.count(EventType.LOST_SYNC),
+               "lost_device": kinds.count(EventType.LOST_DEVICE),
+               "hdc_exact": len(got & sent),
+               "hdc_foreign": len(got - sent),
+               "wire_s": st["air_s"][i],
+               "discovered_s": run["discovered_s"][i]}
+        good = (rec["mode"] == fleet_mode(st["kind"][i])
+                and rec["syncs"] == 1
+                and rec["lost_sync"] == 0 and rec["lost_device"] == 0
+                and rec["hdc_foreign"] == 0)
+        if fleet_mode(st["kind"][i])[0] == "fm":
+            title = fleet_title(st["index"][i])
+            heard = {e.title for e in ev if e.type == EventType.ID3}
+            rec["title"] = title in heard
+            rec["other_titles"] = sorted(heard & titles - {title})
+            good &= rec["title"] and not rec["other_titles"]
+        else:
+            good &= rec["hdc_exact"] >= FLEET_AM_MIN_HDC
+        audio = [np.asarray(e.samples) for e in ev
+                 if e.type == EventType.AUDIO]
+        rec["audio_events"] = len(audio)
+        if st["kind"][i] == "mp1":
+            fed = run["fed"][i]
+            # the longest run of real packets, and its AUDIO frames
+            best, lo = (0, 0), 0
+            for k in range(len(fed) + 1):
+                if k == len(fed) or not fed[k]:
+                    if k - lo > best[1] - best[0]:
+                        best = (lo, k)
+                    lo = k + 1
+            a, b = best
+            rec["audio_run"] = [a, b]
+            snr = None
+            if b - a > FLEET_AUDIO_SKIP and len(audio) >= b:
+                host = HDCDecoder()
+                ref = np.concatenate([host.decode(p).reshape(-1)
+                                      for p in fed[a:b]])
+                got_pcm = np.concatenate(audio[a:b])
+                skip = FLEET_AUDIO_SKIP * 4096
+                x = ref[skip:].astype(np.float64)
+                e = got_pcm[skip:].astype(np.float64) - x
+                snr = float(10 * np.log10((x ** 2).sum()
+                                          / max((e ** 2).sum(), 1e-30)))
+            rec["snr_db"] = snr
+            good &= (len(audio) >= FLEET_MIN_AUDIO and b - a
+                     >= FLEET_MIN_AUDIO and snr is not None
+                     and snr > FLEET_AUDIO_SNR_DB)
+        rec["pass"] = bool(good)
+        ok &= good
+        per[i] = rec
+    launched = {k for k, c in run["counts"].items() if c}
+    groups = sorted([list(k), g.n_stations]
+                    for k, g in zip(rx._keys, rx._groups))
+    launches_ok = launched == set(FLEET_KERNELS)
+    groups_ok = len(rx._groups) == len(set(st["kind"]))
+    return {"stations": per, "groups": groups, "groups_ok": groups_ok,
+            "launches_ok": launches_ok,
+            "launched_missing": sorted(set(FLEET_KERNELS) - launched),
+            "launched_extra": sorted(launched - set(FLEET_KERNELS)),
+            "plain_calls_on_kernel_path": run["plain_calls"],
+            "complete": run["complete"], "stations_ok": bool(ok),
+            "pass": bool(ok and launches_ok and groups_ok and run["complete"]
+                         and not run["plain_calls"]
+                         and run["wall_s"] <= FLEET_DEADLINE_S)}
+
+
 def golden_sig_table() -> bytes:
     """The golden capture's SIG table: one data service carrying a LOT
     component on GOLDEN_SIG_PORT (support/make_capture.py's ``sig_table``;
@@ -2041,6 +2472,9 @@ def main() -> int:
     serve_am = make_fleet(make_serve_am_station)
     t_serve = time.perf_counter() - t5
     t5 = time.perf_counter()
+    tuners = make_fleet_stations()
+    t_tuners = time.perf_counter() - t5
+    t5 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(len(AUDIO_STREAMS) + 2, mp_context=ctx) as pool:
         golden_job = pool.submit(make_golden_capture)
@@ -2064,6 +2498,11 @@ def main() -> int:
           "am_cold_seconds": round(t4 - t3, 3),
           "am_cu8_seconds": round(t5 - t4, 3),
           "serve_seconds": round(t_serve, 3),
+          "fleet_seconds": round(t_tuners, 3),
+          "fleet_wire_bytes": sum(w.nbytes for w in tuners["wire"]),
+          "fleet_kinds": list(FLEET_KINDS),
+          "fleet_offsets": tuners["offset"],
+          "fleet_cfo_hz": tuners["cfo_hz"],
           "serve_fm_wire_bytes": sum(w.nbytes for w in serve_fm["wire"]),
           "serve_am_wire_bytes": sum(w.nbytes for w in serve_am["wire"]),
           "serve_fm_lead_blocks": serve_fm["lead"].tolist(),
@@ -4319,6 +4758,46 @@ def main() -> int:
         by_path = report[name]["launches_by_path"]
         by_path["session_fm"] = fm_runs[0]["launches"].get(name, 0)
         by_path["session_am"] = am_runs[0]["launches"].get(name, 0)
+        report[name]["launches"] = sum(by_path.values())
+
+    # --- fleet: 16 fake rtl_tcp tuners (8 MP1 with HDC audio, 2 MP3, 4
+    # MA1, 2 MA3) through RtlTcpFleet(modes="auto") and fleet audio ---
+    t_phase = time.perf_counter()
+    run = fleet_run(torch, tuners)
+    gate = fleet_gate(run, tuners)
+    air = sum(tuners["air_s"])
+    n_audio = sum(e.type.name == "AUDIO" for evs in run["events"].values()
+                  for e in evs)
+    audio_air = n_audio * 2048 / AUDIO_FS
+    caps = run["captures"]
+    prep, disp = run["walls"]["prepare"], run["walls"]["dispatch"]
+    emit({"phase": "fleet", "card": smi, "stations": len(FLEET_KINDS),
+          "kinds": list(FLEET_KINDS), "frames": FLEET_FRAMES, **gate,
+          "wall_s": run["stop_s"], "wall_with_audio_flush_s": run["wall_s"],
+          "pushed_s": run["pushed_s"], "deadline_s": FLEET_DEADLINE_S,
+          "station_seconds": air,
+          "station_seconds_per_second": air / run["stop_s"],
+          "graph_captures": len(caps),
+          "graph_capture_s": sum(c[1] for c in caps),
+          "graph_captures_by_key": [[[str(x) for x in c[0]], c[1]]
+                                    for c in caps],
+          "audio_events": n_audio, "audio_seconds": audio_air,
+          "audio_seconds_per_second": audio_air / run["wall_s"],
+          "audio_batches": len(disp),
+          "prepare_wall_ms": 1e3 * statistics.median(prep) if prep
+          else None, "prepare_wall_s_total": sum(prep),
+          "dispatch_wall_ms": 1e3 * statistics.median(disp) if disp
+          else None, "dispatch_wall_s_total": sum(disp),
+          "launches": {k: c for k, c in run["counts"].items() if c},
+          "tuner_commands": [sorted({c[0] for c in cmds})
+                             for cmds in run["commands"]],
+          "phase_seconds": time.perf_counter() - t_phase})
+    if not gate["pass"]:
+        raise AssertionError("fleet: the live mixed fleet did not pass its "
+                             "gate")
+    for name in KERNELS:
+        by_path = report[name]["launches_by_path"]
+        by_path["fleet"] = run["counts"].get(name, 0)
         report[name]["launches"] = sum(by_path.values())
 
     print(smi, flush=True)

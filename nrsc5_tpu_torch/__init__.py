@@ -20,7 +20,13 @@ Public surface, as the reference's:
     radio = NRSC5.open_pipe(callback)
     radio.pipe_samples_cu8(iq_bytes)
 
-and the command line receiver ``python -m nrsc5_tpu_torch.cli``.
+and the command line receiver ``python -m nrsc5_tpu_torch.cli``.  A fleet
+of stations on one card: :class:`nrsc5_tpu_torch.serve.MultiStationReceiver`
+(one service mode), :class:`~nrsc5_tpu_torch.serve.HeterogeneousReceiver`
+(mixed modes, declared or discovered from each station's cu8 stream),
+:class:`~nrsc5_tpu_torch.serve.RtlTcpFleet` (rtl_tcp tuners) and, on their
+events, :class:`nrsc5_tpu_torch.audio.fleet.FleetAudioDecoder` (batched
+HDC audio to PCM).
 """
 
 __version__ = "0.1.0"

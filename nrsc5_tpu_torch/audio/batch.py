@@ -30,6 +30,7 @@ from nrsc5_tpu_torch.audio.hdc_decoder import HDCDecoder
 from nrsc5_tpu_torch.audio.stage import (MAXENV, NSLOT, DeviceStage,
                                          STATE_SHAPES, _long_window_index,
                                          _short_window_index)
+from nrsc5_tpu_torch.pipeline import block_graph
 
 
 def device_inputs(inp: dict, device) -> dict:
@@ -104,12 +105,15 @@ class BatchedAudioDecoder:
                         nb_t[tgt] = min(max(int(np.searchsorted(
                             ft.f_noise, t + q, "right") - 1), 0), 4)
             self._nb_of_tgt = nb_t
-            self._fn = DeviceStage(
-                ft, S.LIM_GAINS[hdr.limiter_gains],
-                interpol=bool(hdr.interpol_freq),
-                smooth=not hdr.smoothing_mode,
-                cap_long=self._cap_long, cap_short=self._cap_short,
-                device=self.device)
+            # the stage's tables go up to the device: not while another
+            # thread captures a graph
+            with block_graph.CAPTURE_LOCK:
+                self._fn = DeviceStage(
+                    ft, S.LIM_GAINS[hdr.limiter_gains],
+                    interpol=bool(hdr.interpol_freq),
+                    smooth=not hdr.smoothing_mode,
+                    cap_long=self._cap_long, cap_short=self._cap_short,
+                    device=self.device)
 
     def _reconcile_state(self, smooth: bool, hdr_key: tuple):
         """Bring the carried device state in line with one prepared
@@ -212,11 +216,14 @@ class BatchedAudioDecoder:
         """Run one :meth:`prepare`d batch on the device and fetch its PCM.
         Touches only the carried state (and the stage captured at prepare
         time), so it can overlap the NEXT batch's :meth:`prepare` on
-        another thread."""
+        another thread.  Its device work holds ``block_graph.CAPTURE_LOCK``:
+        a receiver on another thread captures no graph meanwhile."""
         fn, inp, smooth, hdr_key = prepared
-        self._reconcile_state(smooth, hdr_key)
-        self._state, pcm = fn(self._state, device_inputs(inp, self.device))
-        pcm = pcm.cpu().numpy()                # [N, K*2048] int16
+        with block_graph.CAPTURE_LOCK:
+            self._reconcile_state(smooth, hdr_key)
+            self._state, pcm = fn(self._state,
+                                  device_inputs(inp, self.device))
+            pcm = pcm.cpu().numpy()            # [N, K*2048] int16
         return pcm.reshape(self.n, 2, -1).transpose(0, 2, 1)
 
     def prepare(self, packets: list[list[bytes]]):

@@ -34,6 +34,11 @@ from nrsc5_tpu_torch.audio import aac_tables as T
 from nrsc5_tpu_torch.audio.bitio import BitReader
 from nrsc5_tpu_torch.audio.huffman import PrefixCode
 
+try:  # the native huffman parse (the hot path); pure Python where it fails
+    from nrsc5_tpu_torch import native as _native
+except Exception:  # pragma: no cover
+    _native = None
+
 ID_FIL = 6
 LEN_SE_ID = 3
 
@@ -245,18 +250,24 @@ def _parse_spectral(br: BitReader, ics: IcsInfo) -> np.ndarray:
             if cb == A.ZERO_HCB or cb >= A.NOISE_HCB:
                 continue
             dim, lav, signed = A.CB_META[cb]
-            huff = SPEC_HUFF[cb]
-            vals = np.zeros(n, np.int64)
-            i = 0
-            while i < n:
-                tup = A.unpack_index(cb, huff.decode(br))
-                if not signed:
-                    tup = [(-v if v and br.read1() else v) for v in tup]
-                if cb == A.ESC_HCB:
-                    tup = [int(np.sign(v)) * _read_escape(br)
-                           if abs(v) == 16 else v for v in tup]
-                vals[i:i + dim] = tup[:n - i]
-                i += dim
+            res = _native.hdc_spectral(br.data, br.pos, cb, n) \
+                if _native is not None else None
+            if res is not None:
+                vals, br.pos = res
+                vals = vals.astype(np.int64)
+            else:
+                huff = SPEC_HUFF[cb]
+                vals = np.zeros(n, np.int64)
+                i = 0
+                while i < n:
+                    tup = A.unpack_index(cb, huff.decode(br))
+                    if not signed:
+                        tup = [(-v if v and br.read1() else v) for v in tup]
+                    if cb == A.ESC_HCB:
+                        tup = [int(np.sign(v)) * _read_escape(br)
+                               if abs(v) == 16 else v for v in tup]
+                    vals[i:i + dim] = tup[:n - i]
+                    i += dim
             if br.overrun():
                 raise HDCError("spectral overrun")
             # bitstream order within a group: sfb-major, then window, then
@@ -272,7 +283,22 @@ def _parse_spectral(br: BitReader, ics: IcsInfo) -> np.ndarray:
 
 def _parse_ics(br: BitReader, ics: IcsInfo) -> np.ndarray:
     """One channel's individual stream: global gain + section data +
-    scale factors + spectral huffman, in pure Python."""
+    scale factors + spectral huffman.  The native library parses it in one
+    call (``nrsc5_hdc_ics``) where it is built; the Python functions are
+    the specification and the path where it is not (the two are pinned
+    equal by tests/test_torch_hdc_native.py)."""
+    res = None
+    if _native is not None:
+        try:
+            res = _native.hdc_ics(br.data, br.pos, ics.short, ics.max_sfb,
+                                  ics.group_len, ics.swb_offset)
+        except ValueError as e:
+            raise HDCError(str(e)) from None
+    if res is not None:
+        # the global gain is consumed inside the native call; nothing
+        # downstream reads ics.global_gain
+        ics.sfb_cb, ics.scale_factors, quant, br.pos = res
+        return quant.astype(np.int64)
     ics.global_gain = br.read(8)
     _parse_section_data(br, ics)
     _parse_scale_factors(br, ics)
@@ -528,7 +554,8 @@ class HDCDecoder:
             ics2.tns = _parse_tns(br, ics2)
 
         # channel 1: side info (scal_flag=1: global gain + sections +
-        # scalefactors only) + spectral data.
+        # scalefactors only) + spectral data.  Each channel's contiguous
+        # stream parses in one native call where the library is built.
         q1 = _parse_ics(br, ics1)
         if stereo:
             q2 = _parse_ics(br, ics2)

@@ -103,7 +103,25 @@ class RtlTcpClient:
     def read(self, n: int) -> bytes:
         return self._read_exact(n)
 
+    def read_some(self, n: int) -> bytes:
+        """One ``recv`` of at most ``n`` bytes (never empty: a clean close
+        raises).  Unlike :meth:`read`, a socket timeout loses no partly
+        read bytes (there is no partial buffer), so a caller may take
+        ``TimeoutError`` as a stall and retry; the receiver's byte
+        leftovers keep the I/Q pairs aligned across reads."""
+        chunk = self.sock.recv(n)
+        if not chunk:
+            raise IOError("rtl_tcp connection closed")
+        return chunk
+
     def close(self):
+        """Shut the connection down, then close it: the shutdown wakes a
+        thread blocked in ``read_some`` on this socket at once (a close
+        alone leaves it waiting for its timeout)."""
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self.sock.close()
         except OSError:

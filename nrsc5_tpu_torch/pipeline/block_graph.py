@@ -29,6 +29,14 @@ graph records, at capture, how many times it launches each kernel, and
 adds those counts to ``kernels.COUNTS`` once per replay.  The warm-up run
 and the capture are set-up: their launches are not counted.
 
+A capture holds :data:`CAPTURE_LOCK`.  A thread that does device work
+beside a receiver's thread (the fleet audio decoder's dispatch and stage
+builds) holds it too, so that no other thread launches, allocates or
+synchronizes while a graph is being captured (a capture in the default
+global mode fails on any of these from another thread), and no launch of
+another thread is counted into a graph's launches.  :data:`CAPTURES`
+records each capture's key and wall.
+
 A graph is captured for CUDA tensors only.  On the CPU, and with
 ``plain=True``, the loops run eagerly (the CPU has no graphs); a caller
 may also ask for the eager kernel loop on the card (``graph=False``), to
@@ -37,6 +45,9 @@ capture or a replay fails: the error is raised.
 """
 
 from __future__ import annotations
+
+import threading
+import time
 
 import torch
 
@@ -153,6 +164,10 @@ class CapturedLoop:
     ``kernels.COUNTS`` and returns the static outputs."""
 
     def __init__(self, fn, inputs: dict, device: torch.device):
+        with CAPTURE_LOCK:
+            self._capture(fn, inputs, device)
+
+    def _capture(self, fn, inputs: dict, device: torch.device):
         self.inputs = {k: torch.empty_like(torch.as_tensor(v),
                                            device=device)
                        for k, v in inputs.items()}
@@ -194,6 +209,10 @@ class CapturedLoop:
 # key -> CapturedLoop: the graphs of a process, kept for its life, as the
 # reference's jit keeps one program per static shape
 _GRAPHS: dict = {}
+# held by every capture, and by other threads' device work beside it
+CAPTURE_LOCK = threading.RLock()
+# (key, seconds) of every capture of the process, in order
+CAPTURES: list = []
 
 
 def captured(key: tuple, fn, inputs: dict,
@@ -202,5 +221,7 @@ def captured(key: tuple, fn, inputs: dict,
     first use."""
     loop = _GRAPHS.get(key)
     if loop is None:
+        t0 = time.perf_counter()
         loop = _GRAPHS[key] = CapturedLoop(fn, inputs, device)
+        CAPTURES.append((key, time.perf_counter() - t0))
     return loop

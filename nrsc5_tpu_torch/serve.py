@@ -19,6 +19,12 @@ relock by a cold start on the station's queue, ``cold_start=True``, and
 and carry order, so that either package resumes the other's file.  The
 reference's ``mesh`` (station sharding over devices) is not ported.
 
+The fleets (the reference's lines 984-1520): :class:`HeterogeneousReceiver`
+groups stations by (band, service mode), one :class:`MultiStationReceiver`
+a group, declared or discovered on the card from each station's cu8
+stream; :class:`RtlTcpFleet` feeds either receiver from rtl_tcp tuners,
+one reader thread a tuner.
+
 The native wire is the reference's 1.488 MS/s cu8 format.  Each station's
 row holds ``rc_overlap(stages) // 2`` pairs of history ahead of its logical
 stream position (127-valued at stream start, :func:`stream_wire`), so the
@@ -1050,3 +1056,573 @@ class MultiStationReceiver:
             if self._relock and seq >= self._watch_after[i]:
                 self._watch(i, out["p1_bit_errors"][i],
                             out["p1_margin"][i])
+
+
+# ---------------------------------------------------------------------------
+# fleets: the live rtl_tcp fleet and the heterogeneous receiver
+# ---------------------------------------------------------------------------
+
+class RtlTcpFleet:
+    """Serve a fleet of rtl_tcp tuners on one card (the reference's
+    ``serve.RtlTcpFleet``).
+
+    The reference binds one session, one whole decode chain, per dongle
+    (src/nrsc5.c:331-403); here N tuners share one batched receiver: a
+    reader thread a tuner streams the native 1.488 MS/s cu8 wire into it
+    (``input_format="cu8"``, the decimation on the device), and each
+    station's events come back tagged with the tuner's index.
+
+    ``addrs``: ``[(host, port), ...]``, one rtl_tcp server a station;
+    ``frequencies``: Hz a station.  ``gain_db=None`` leaves the dongle's
+    hardware AGC on; a dB value selects manual gain (snapped to the
+    tuner's gain table, reference src/rtltcp.c:100-154).  Other keyword
+    arguments go to the receiver (``device`` among them, default
+    ``"cuda"``).
+
+    ``modes`` selects the fleet's shape: ``None`` (default), one
+    homogeneous :class:`MultiStationReceiver` (every tuner as the ``mode``
+    and ``psmi`` keywords say); a list a tuner such as ``["fm", "am"]``
+    (with ``psmis``/``ma3s`` as needed), a :class:`HeterogeneousReceiver`;
+    or ``"auto"``, serve-side mode discovery: each tuner's band and
+    service mode are found from its own stream, so the fleet takes no mode
+    argument at all, as the reference's one session a dongle never
+    declares its mode (src/nrsc5.c:325-358).
+
+    Pushes, and the dispatches they start, run under one lock, so one
+    reader at a time drives the receiver; TCP backpressure holds the other
+    tuners meanwhile.  A tuner that stalls (``stall_timeouts`` socket
+    timeouts in a row count as lost) is padded with cu8 silence to the
+    deepest live queue, so that the dispatches, which wait for every
+    station's samples, go on for the live ones; a lost tuner is quiesced
+    and reported with LOST_DEVICE, and padded from then on.
+    """
+
+    def __init__(self, addrs, frequencies, callback, gain_db=None,
+                 stall_timeouts: int = 3, modes=None, **rx_kwargs):
+        import threading
+
+        from nrsc5_tpu_torch.io.rtltcp import RtlTcpClient
+
+        if len(addrs) != len(frequencies):
+            raise ValueError(f"{len(addrs)} addresses for "
+                             f"{len(frequencies)} frequencies")
+        self._stall_timeouts = max(int(stall_timeouts), 1)
+        rx_kwargs.setdefault("input_format", "cu8")
+        if rx_kwargs["input_format"] != "cu8":
+            raise ValueError("rtl_tcp delivers cu8; another wire format "
+                             "cannot be served from it")
+        # a live tuner's stream is never aligned beforehand: acquire each
+        # lock (timing and CFO) from the stream before decoding anything
+        rx_kwargs.setdefault("cold_start", "locks" not in rx_kwargs)
+        if modes == "auto":
+            if not rx_kwargs["cold_start"]:
+                raise ValueError("mode discovery needs cold_start=True "
+                                 "(no locks)")
+            self.rx = HeterogeneousReceiver(len(addrs), callback,
+                                            **rx_kwargs)
+        elif modes is not None:
+            self.rx = HeterogeneousReceiver(len(addrs), callback,
+                                            modes=modes, **rx_kwargs)
+        else:
+            self.rx = MultiStationReceiver(len(addrs), callback,
+                                           **rx_kwargs)
+        self.clients = []
+        try:
+            for (host, port), freq in zip(addrs, frequencies):
+                c = RtlTcpClient(host, port)
+                self.clients.append(c)
+                c.set_sample_rate(int(C.SAMPLE_RATE_CU8))
+                if gain_db is None:
+                    c.set_gain_mode(False)  # the dongle's hardware AGC
+                else:
+                    c.set_gain(gain_db)
+                c.set_frequency(int(freq))
+        except BaseException:
+            for c in self.clients:
+                c.close()
+            raise
+        self._lock = threading.Lock()
+        self._stopped = threading.Event()
+        self._dead = [False] * len(addrs)
+        self._cb = callback
+        self._threads = [
+            threading.Thread(target=self._reader, args=(i,), daemon=True,
+                             name=f"rtltcp-fleet-{i}")
+            for i in range(len(addrs))]
+
+    def start(self):
+        for t in self._threads:
+            t.start()
+
+    def _reader(self, i: int):
+        client = self.clients[i]
+        stalls = 0
+        while not self._stopped.is_set():
+            try:
+                data = client.read_some(65536)
+                stalls = 0
+            except TimeoutError:
+                # a stall (a server hiccup, a network pause): retry, and pad
+                # this tuner meanwhile so that the live stations' dispatches
+                # go on (the silence breaks its lock when samples resume,
+                # and the watchdog relocks it).  read_some loses no partial
+                # bytes, so the retry keeps the I/Q pairs aligned.
+                stalls += 1
+                if stalls < self._stall_timeouts:
+                    with self._lock:
+                        self._pad_station(i)
+                    continue
+                self._mark_dead(i)
+                break
+            except OSError:
+                self._mark_dead(i)
+                break
+            with self._lock:
+                self.rx.push(i, data)
+                self._pad_dead()
+
+    def _mark_dead(self, i: int):
+        """A lost tuner: report it and keep the fleet running, its queue
+        padded with silence from then on (the reference's one-dongle
+        analog: LOST_DEVICE and the worker stops, src/nrsc5.c:197-201)."""
+        if self._stopped.is_set() or self._dead[i]:
+            return
+        self._dead[i] = True
+        with self._lock:
+            # its silence would trip the watchdog and burn a futile relock
+            # probe every dispatch
+            self.rx.quiesce(i)
+        self._cb(i, make(EventType.LOST_DEVICE))
+
+    def _pad_station(self, k: int):
+        """Level one tuner's queue with the deepest live queue (cu8 silence,
+        127), so that the dispatches go on.  Called under the lock."""
+        live = [self.rx.queue_depth(j) for j in range(len(self._dead))
+                if not self._dead[j] and j != k]
+        if not live:
+            return
+        short = max(live) - self.rx.queue_depth(k)
+        if short > 0:
+            self.rx.push(k, np.full((short, 2), 127, np.uint8))
+
+    def _pad_dead(self):
+        """Keep the lost tuners' queues level with the deepest live queue.
+        Called under the lock."""
+        if not any(self._dead):
+            return
+        for k, dead in enumerate(self._dead):
+            if dead:
+                self._pad_station(k)
+
+    def stop(self, flush: bool = True):
+        """Disconnect every tuner, join the readers and (by default) drain
+        the receiver's in-flight dispatches through the transports."""
+        self._stopped.set()
+        for c in self.clients:
+            c.close()
+        for t in self._threads:
+            if t.is_alive():
+                t.join(timeout=10)
+        if flush:
+            with self._lock:
+                self.rx.flush()
+
+
+class HeterogeneousReceiver:
+    """Serve a fleet whose stations run different service modes, or
+    different bands, through one surface (the reference's
+    ``serve.HeterogeneousReceiver``).
+
+    One dispatch bakes one L1 geometry (FM psmi, AM MA1 or MA3) into its
+    shapes, so :class:`MultiStationReceiver` serves one mode.  The
+    reference runs one session a station, each in its own mode
+    (src/nrsc5.c:325-358).  Here stations are grouped by ``(band, service
+    mode)`` and each group is one :class:`MultiStationReceiver`: a fleet
+    mixing MP1, MP3, MP11, MA1 and MA3 carriers runs one set of graphs a
+    distinct mode, and every event keeps its station's global index.
+
+    Three ways to declare the fleet:
+
+    * ``psmis=[...]`` / ``ma3s=[...]`` (with ``modes=["fm", "am", ...]``,
+      default all ``mode``): explicit;
+    * ``locks=[...]``: one cold-start lock a station; each lock's band
+      follows from its fields (AM locks carry ``"ma3"``).  A single dict
+      is given to every station, as :class:`MultiStationReceiver` does;
+    * no mode argument at all, with ``cold_start=True`` and
+      ``input_format="cu8"``: serve-side mode discovery.  Each station's
+      stream is staged (behind 217 pairs of cu8 silence, the AM cascade's
+      history) until a probe on the card finds its mode: the FM cold start
+      on the freshest ``need_fm`` pairs of the stage, its start rounded
+      down to a multiple of 32 (K1's ÷2 halfband on a [1, 14 + 2N, 2]
+      wire, N = ``buffer_len(6)``), then the AM cold start on the first
+      ``need_am`` pairs (K1's ÷32 cascade on [1, 434 + 32N, 2], N =
+      ``am_buffer_len(3)``).  On a lock the station joins its mode's group,
+      made on the mode's first appearance or grown
+      (:meth:`MultiStationReceiver._admit`), and the group acquires the
+      station's alignment from the staged stream itself.  Both probes
+      failing trims the stage and waits ``need_fm`` pushed pairs before the
+      next probe.  Discovery needs the rate-unambiguous cu8 wire (the
+      tuner's format); any other wire's rate already gives the band.
+
+    Other keyword arguments go to every group (``device``, default
+    ``"cuda"``, which raises with no card, among them).
+    push/drain/flush/checkpoint/restore/save/load compose over the groups;
+    a file saved by either package loads in the other.
+
+    Two departures from the reference: :meth:`restore` raises when the
+    snapshot's groups do not match this wrapper's (the reference zips over
+    the groups and, on a fresh auto wrapper, silently restores nothing),
+    and :meth:`flush` probes every station still undiscovered once more,
+    cooldown or not, before it drains (the reference drains the groups
+    only, and such a station's stream is lost).
+    """
+
+    def __init__(self, n_stations: int, callback, psmis=None,
+                 ma3s=None, locks=None, mode: str = "fm", modes=None,
+                 device="cuda", **kw):
+        self.device = K.resolve_device(device)
+        self.n_stations = n_stations
+        self.mode = mode
+        self._cb = callback
+        self._kw = dict(kw, device=self.device)
+        self._groups: list[MultiStationReceiver] = []
+        self._remaps: list[list[int]] = []
+        self._keys: list[tuple] = []
+        self._gindex: dict = {}
+        self._slot: list = [None] * n_stations
+        self.station_modes: list = [None] * n_stations
+
+        if isinstance(locks, dict):
+            locks = [locks] * n_stations
+        self._auto = (locks is None and psmis is None and ma3s is None
+                      and modes is None)
+        if self._auto:
+            if not kw.get("cold_start"):
+                raise ValueError(
+                    "without modes a station's band and service mode are "
+                    "discovered from its stream: pass cold_start=True")
+            if kw.get("input_format") != "cu8":
+                raise ValueError(
+                    "mode discovery needs the rate-unambiguous cu8 wire "
+                    "(a cf32 or cs16 rate already gives the band)")
+            # the staging queues, seeded with the AM cascade's history of
+            # cu8 silence (leading DC ahead of an FM signal is nothing to
+            # its timing search)
+            pad = FE.rc_overlap(FE.AM_STAGES) // 2
+            self._staging = [[np.full((pad, 2), 127, np.uint8)]
+                             for _ in range(n_stations)]
+            self._staged = [pad] * n_stations
+            self._sleft = [b""] * n_stations
+            self._pushed = [0] * n_stations
+            self._probe_next = [0.0] * n_stations
+            # the probe windows of the receiver's own relock probes
+            self._need_fm = FE.rc_overlap(1) + 2 * buffer_len(6)
+            self._need_am = FE.rc_overlap(FE.AM_STAGES) \
+                + (1 << FE.AM_STAGES) * am_buffer_len(3)
+            return
+
+        # an explicit fleet: one (band, mode) key a station
+        if locks is not None:
+            if len(locks) != n_stations:
+                raise ValueError(f"{len(locks)} locks for {n_stations} "
+                                 "stations")
+            sm = modes or ["am" if "ma3" in lk else "fm" for lk in locks]
+            keys = [("am", bool(lk["ma3"])) if m == "am"
+                    else ("fm", int(lk["psmi"]))
+                    for m, lk in zip(sm, locks)]
+        else:
+            sm = list(modes) if modes is not None \
+                else [mode] * n_stations
+            if len(sm) != n_stations:
+                raise ValueError(f"{len(sm)} modes for {n_stations} "
+                                 "stations")
+            keys = []
+            for st, m in enumerate(sm):
+                if m not in ("fm", "am"):
+                    raise ValueError(f"unknown mode {m!r}")
+                if m == "fm":
+                    if psmis is None or psmis[st] is None:
+                        raise ValueError(f"station {st} is FM: its psmis "
+                                         "entry is required")
+                    keys.append(("fm", int(psmis[st])))
+                else:
+                    keys.append(("am", bool(ma3s[st])
+                                 if ma3s is not None else False))
+        # stable grouping: stations in ascending order within a group,
+        # groups in order of first appearance
+        order: dict = {}
+        for st, key in enumerate(keys):
+            order.setdefault(key, []).append(st)
+        for key, members in order.items():
+            self._spawn_group(
+                key, members,
+                locks=[locks[st] for st in members]
+                if locks is not None else None)
+
+    # ------------------------------------------------------------------
+    def _spawn_group(self, key, members, locks=None):
+        """Make the receiver of one (band, mode) group and register its
+        station map; returns the receiver."""
+        gi = len(self._groups)
+        remap = list(members)
+
+        def cb(slot_st, ev, _remap=remap):
+            self._cb(_remap[slot_st], ev)
+
+        gkw = dict(self._kw)
+        band, param = key
+        if locks is not None:
+            gkw["locks"] = locks
+            gkw.pop("cold_start", None)
+        if band == "fm":
+            gkw["psmi"] = param
+        else:
+            gkw["ma3"] = param
+        rx = MultiStationReceiver(len(members), cb, mode=band, **gkw)
+        self._groups.append(rx)
+        self._remaps.append(remap)
+        self._keys.append(key)
+        self._gindex[key] = gi
+        for slot, st in enumerate(members):
+            self._slot[st] = (gi, slot)
+            self.station_modes[st] = key
+        return rx
+
+    # ---- serve-side mode discovery (auto fleets) ---------------------
+    def _tail_start(self, st: int, n: int) -> int:
+        """The start of the freshest ``n`` staged pairs, rounded down to a
+        multiple of 32 to keep the cascade's phase."""
+        start = self._staged[st] - n
+        return start - start % 32
+
+    def _peek(self, st: int, n: int, start: int = 0) -> np.ndarray:
+        """A copy of ``n`` staged pairs from ``start``, not consumed: the
+        head window (the AM probe, which needs the backlog) or the freshest
+        tail window (the FM probe, which must see new samples on each
+        retry)."""
+        out = np.empty((n, 2), np.uint8)
+        filled, pos = 0, 0
+        for chunk in self._staging[st]:
+            end = pos + len(chunk)
+            if end > start:
+                lo = max(0, start - pos)
+                take = min(len(chunk) - lo, n - filled)
+                out[filled:filled + take] = chunk[lo:lo + take]
+                filled += take
+                if filled == n:
+                    return out
+            pos = end
+        raise RuntimeError(f"station {st}'s staging underflowed")
+
+    def _drop_staged(self, st: int, n: int):
+        chunks = self._staging[st]
+        self._staged[st] -= n
+        while n > 0:
+            if len(chunks[0]) <= n:
+                n -= len(chunks.pop(0))
+            else:
+                chunks[0] = chunks[0][n:]
+                n = 0
+
+    def _try_discover(self, st: int, final: bool = False):
+        """Find one undiscovered station's band and service mode from its
+        staged stream: the FM cold start first (the smaller window), then
+        the AM one.  On a lock the station joins its mode's group, which
+        acquires the station's alignment itself from the staged stream.
+        Both probes failing trims the backlog and waits ``need_fm`` pushed
+        pairs, as the receiver's relock probe does on a carrier that never
+        locks.  ``final`` (flush's last pass) ignores that wait, and an FM
+        lock there hands the group the stream from the window that locked:
+        no push follows, so the group's own probe of the stream's head
+        (where the last probe found no carrier) would be the last."""
+        if not final and self._pushed[st] < self._probe_next[st]:
+            return
+        ran = False
+        if self._staged[st] >= self._need_fm:
+            # the freshest window: an FM carrier emerging after noise must
+            # not hide behind a stale head kept for the AM probe
+            start = self._tail_start(st, self._need_fm)
+            lock = cold_start(self._peek(st, self._need_fm, start)[None],
+                              "fm", device=self.device)[0]
+            if lock is not None:
+                if final:
+                    self._drop_staged(st, start)
+                return self._assign(st, ("fm", int(lock["psmi"])))
+            ran = True
+        if self._staged[st] >= self._need_am:
+            lock = cold_start(self._peek(st, self._need_am)[None], "am",
+                              device=self.device)[0]
+            if lock is not None:
+                return self._assign(st, ("am", bool(lock["ma3"])))
+            # neither band locked on a full backlog: bound it (keep a fresh
+            # AM window's worth) before the next probe
+            excess = self._staged[st] - (self._need_am + self._need_fm)
+            excess -= excess % 32  # keep the ÷32 cascade's phase
+            if excess > 0:
+                self._drop_staged(st, excess)
+            ran = True
+        if ran:
+            self._probe_next[st] = self._pushed[st] + self._need_fm
+
+    def _assign(self, st: int, key):
+        """Move a station whose mode was just found from its staging queue
+        into its (band, mode) group: a new group on the mode's first
+        appearance, else the existing group grown by one
+        (:meth:`MultiStationReceiver._admit`, which drains the group's
+        in-flight dispatches first: their outputs are the old size's)."""
+        chunks = self._staging[st]
+        left, pushed = self._sleft[st], self._pushed[st]
+        self._staging[st] = None
+        gi = self._gindex.get(key)
+        if gi is None:
+            rx = self._spawn_group(key, [st])
+            # the staged stream goes over whole: the cold-started group
+            # acquires its lock from it (one SYNC, no LOST_SYNC)
+            rx._chunks[0] = chunks
+            rx._sizes[0] = sum(len(c) for c in chunks)
+            rx._leftover[0] = left
+            rx._pushed[0] = pushed
+            rx._pump()
+        else:
+            rx = self._groups[gi]
+            slot = rx.n_stations
+            self._remaps[gi].append(st)
+            self._slot[st] = (gi, slot)
+            self.station_modes[st] = key
+            rx._admit(1, chunks=[chunks], leftovers=[left],
+                      pushed=[pushed])
+
+    # ------------------------------------------------------------------
+    def push(self, station: int, samples):
+        """Append samples for one station: to its group, or, while its mode
+        is undiscovered, to its staging queue (raw bytes' partial pairs
+        carried), followed by a discovery probe when the wait allows."""
+        if self._slot[station] is None:
+            s, self._sleft[station] = _wire_convert(
+                samples, self._sleft[station], True, False, np.uint8,
+                False)
+            if s is not None:
+                self._staging[station].append(s)
+                self._staged[station] += len(s)
+                self._pushed[station] += len(s)
+            return self._try_discover(station)
+        gi, slot = self._slot[station]
+        self._groups[gi].push(slot, samples)
+
+    def drain(self):
+        for g in self._groups:
+            g.drain()
+
+    def flush(self):
+        """The end of the streams: one last discovery probe of every
+        station still undiscovered and not quiesced, the wait between
+        probes ignored (a station too short for the FM window is not
+        probed, and its samples stay staged, in :meth:`queue_depth`); then
+        every group flushed."""
+        if self._auto:
+            for st in range(self.n_stations):
+                if self._slot[st] is None \
+                        and self._probe_next[st] != float("inf"):
+                    self._try_discover(st, final=True)
+        for g in self._groups:
+            g.flush()
+
+    def queue_depth(self, station: int) -> int:
+        """A station's buffered wire samples (its staged samples while its
+        mode is undiscovered): the fleet's backpressure and padding
+        signal (:class:`RtlTcpFleet`)."""
+        if self._slot[station] is None:
+            return self._staged[station]
+        gi, slot = self._slot[station]
+        return self._groups[gi].queue_depth(slot)
+
+    def quiesce(self, station: int):
+        """Stop watching or probing a station whose input is known dead
+        (:class:`RtlTcpFleet`'s lost tuner): an undiscovered station stops
+        probing its silence, a grouped one is quiesced in its group."""
+        if self._slot[station] is None:
+            self._probe_next[station] = float("inf")
+            return
+        gi, slot = self._slot[station]
+        self._groups[gi].quiesce(slot)
+
+    @property
+    def transports(self):
+        """The groups' transports in global station order (None for a
+        station whose mode is undiscovered)."""
+        return [None if s is None else self._groups[s[0]].transports[s[1]]
+                for s in self._slot]
+
+    # checkpoint / resume: the groups composed
+    def checkpoint(self) -> list:
+        return [g.checkpoint() for g in self._groups]
+
+    def restore(self, states: list):
+        """Install a :meth:`checkpoint` (one snapshot a group) into a
+        wrapper with the same groups.  Raises ValueError when the counts
+        differ (a fresh auto wrapper has no group yet: :meth:`load` a
+        :meth:`save` file into it instead)."""
+        if len(states) != len(self._groups):
+            raise ValueError(
+                f"{len(states)} group snapshots for {len(self._groups)} "
+                "groups" + (" (an auto wrapper makes its groups on "
+                            "discovery: use save/load)" if self._auto
+                            else ""))
+        for g, st in zip(self._groups, states):
+            g.restore(st)
+
+    def save(self, path: str):
+        """One ``.npz`` for the whole fleet, under the reference's names:
+        each group's arrays under ``g{i}_``, its members, the group header
+        (band and mode a group) and every undiscovered station's staging
+        queue, byte leftover and pushed count; a fresh wrapper of the same
+        parameters (an auto one included, whose groups the header rebuilds)
+        of either package loads it."""
+        out = {}
+        meta = []
+        for gi, g in enumerate(self._groups):
+            for k, v in g.save_arrays().items():
+                out[f"g{gi}_{k}"] = v
+            band, param = self._keys[gi]
+            meta.append([1 if band == "am" else 0, int(param)])
+            out[f"g{gi}_members"] = np.asarray(self._remaps[gi], np.int64)
+        out["groups"] = np.asarray(meta, np.int64).reshape(-1, 2)
+        if self._auto:
+            for st in range(self.n_stations):
+                if self._slot[st] is None:
+                    ch = self._staging[st]
+                    out[f"stage_{st}"] = np.concatenate(ch) if ch \
+                        else np.zeros((0, 2), np.uint8)
+                    out[f"sleft_{st}"] = np.frombuffer(self._sleft[st],
+                                                       np.uint8)
+                    out[f"spushed_{st}"] = np.asarray(self._pushed[st])
+        np.savez(path, **out)
+
+    def load(self, path: str):
+        """Install a :meth:`save` file into this fresh wrapper."""
+        with np.load(path) as data:
+            if self._auto:
+                if self._groups:
+                    raise ValueError("load() into a fresh auto wrapper")
+                meta = np.asarray(data["groups"]).reshape(-1, 2)
+                for gi in range(meta.shape[0]):
+                    band = "am" if meta[gi, 0] else "fm"
+                    param = bool(meta[gi, 1]) if band == "am" \
+                        else int(meta[gi, 1])
+                    members = [int(m) for m in data[f"g{gi}_members"]]
+                    for st in members:
+                        self._staging[st] = None
+                    self._spawn_group((band, param), members)
+                for st in range(self.n_stations):
+                    if f"stage_{st}" in data.files:
+                        self._staging[st] = [np.array(data[f"stage_{st}"])]
+                        self._staged[st] = len(self._staging[st][0])
+                        self._sleft[st] = bytes(
+                            np.asarray(data[f"sleft_{st}"]).tobytes())
+                        self._pushed[st] = int(data[f"spushed_{st}"])
+            for gi, g in enumerate(self._groups):
+                pre = f"g{gi}_"
+                g.load_arrays({k[len(pre):]: data[k]
+                               for k in data.files
+                               if k.startswith(pre)
+                               and k != f"{pre}members"})

@@ -13,6 +13,7 @@ from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch import serve, state
 from nrsc5_tpu_torch.audio import sbr as SBR
 from nrsc5_tpu_torch.audio.batch import BatchedAudioDecoder
+from nrsc5_tpu_torch.audio.fleet import FleetAudioDecoder
 from nrsc5_tpu_torch.audio.stage import DeviceStage
 from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
 
@@ -58,11 +59,12 @@ print(",".join(sorted(m for m in sys.modules
     "nrsc5_tpu_torch.native", "nrsc5_tpu_torch.transport.output",
     "nrsc5_tpu_torch.transport.pids", "nrsc5_tpu_torch.tx.sis_encoder",
     "nrsc5_tpu_torch.tx.transport_encoder",
-    "nrsc5_tpu_torch.pipeline.block_graph"])
+    "nrsc5_tpu_torch.pipeline.block_graph", "nrsc5_tpu_torch.audio.fleet",
+    "nrsc5_tpu_torch.io.rtltcp"])
 def test_host_copies_import_no_jax(module):
     """Each of the receiver's host copies (events, CRCs, the native host
-    ops, the transport, the SIS and transport encoders) and K5's graph
-    runner, imported alone in a fresh interpreter, pulls in no ``jax*``
+    ops, the transport, the SIS and transport encoders), K5's graph
+    runner, fleet audio and the rtl_tcp client, imported alone in a fresh interpreter, pulls in no ``jax*``
     module and no module of ``nrsc5_tpu``."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
                          cwd=Path(__file__).resolve().parents[1],
@@ -95,6 +97,16 @@ _ENTRY_POINTS = {
         1, lambda station, event: None, mode="am"),
     "DeviceStage": lambda: DeviceStage(SBR.derive_tables(SBR.SbrHeader()),
                                        1.0, interpol=True),
+    "FleetAudioDecoder": lambda: FleetAudioDecoder(
+        1, lambda station, event: None),
+    "HeterogeneousReceiver": lambda: serve.HeterogeneousReceiver(
+        2, lambda station, event: None, psmis=[1, 3]),
+    "HeterogeneousReceiver_auto": lambda: serve.HeterogeneousReceiver(
+        2, lambda station, event: None, cold_start=True,
+        input_format="cu8"),
+    "RtlTcpFleet": lambda: serve.RtlTcpFleet(
+        [("127.0.0.1", 1)], [88.5e6], lambda station, event: None,
+        modes="auto"),
 }
 
 
