@@ -9,12 +9,13 @@ Run from the root of the repository on a machine with a CUDA card and
 Phases, each printing one JSON line:
 
 1. device: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
-2. build: the twenty-four hand kernels (K1 and its AM cascade, K2, the FM
+2. build: the twenty-five hand kernels (K1 and its AM cascade, K2, the FM
    DFT kernel ``dft_bf16``, K4, K5's FM and AM carry steps, K6, K7 at
    K=7 and at K=9, K8, K9, K10 (the CFO scan, the Costas PLL of K3 fused
    into it), K11, K12, K13, K14's
-   tone estimate, coarse timing and CFO step, K15, and K16a-d of batched
-   HDC audio) built from the twenty-one sources of
+   tone estimate, coarse timing and CFO step, K15 and its PIDS-only
+   launch, and K16a-d of batched HDC audio) built from the twenty-one
+   sources of
    ``nrsc5_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``, one process per
    source, all in parallel, with ptxas's registers, shared memory and
    stack frames of every kernel;
@@ -80,7 +81,9 @@ Phases, each printing one JSON line:
    within 1e-5 of the plain version's unrounded fold, the entries that
    are not the nearest rounding printed), K13 and K15 in MA1 and MA3 (K15
    int8 out, exact, the lines the mode does not delay handed back as the
-   same tensors), K7 at K=9 on K15's int8 P1, P3 of MA1 and MA3 and PIDS
+   same tensors; its PIDS-only launch at one block, the per-block AM
+   receiver's call, with and without ``pids1_disabled``, as cases of its
+   line, one launch of its own count each), K7 at K=9 on K15's int8 P1, P3 of MA1 and MA3 and PIDS
    (also on the same values in float32, the same bits and margins), and
    K8
    on the AM P1; K14's three kernels at the AM cold start's first probe
@@ -256,7 +259,32 @@ the eager wall and device time beside the graph's.  Then:
    second of wall, each station's wire seconds and wall to discovery, the
    groups, the graph captures and their wall, fleet audio seconds a
    second of wall with the prepare and dispatch walls, the launches, and
-   the phase's own seconds.
+   the phase's own seconds;
+17. receiver_fm: the per-block receivers on the card through the session
+   (``NRSC5(..., chain="block")``, the complex chain as plain PyTorch,
+   the FEC through the kernels): the golden capture pushed as cu8 in
+   32768-byte pieces, per-block twice (the first run meets each op's
+   first call), then with the FM decoders' plain versions on the card,
+   then through the turbo receiver.  Gate: one SYNC at psmi
+   1, the ID3 title and LOT file events the CPU twin of this drive gives
+   (``BLOCK_GOLDEN_TITLES``, ``BLOCK_GOLDEN_LOTS``;
+   tests/test_torch_block_session.py), the LOT file's bytes, the P1 and
+   PIDS bits equal to the plain run's, the turbo receiver's HDC packets
+   equal to the per-block run's, exactly K6, K7 and K8 launched and no
+   plain version called; and one MP3 and one MP11 station (2 IV cycles
+   behind 2 lead blocks, 25 dB) through ``FMReceiver``: every P1 frame and
+   every PX1 and PX2 frame of IV cycle 1 exact against the transmitted
+   frames, exactly K6, K7, K8 and K11 launched; the second per-block
+   run the same P1 and PIDS bits.  The wall a block of each;
+18. receiver_am: session_am's capture with rdbi set from frame
+   ``BLOCK_AM_RDBI_FROM`` on, cs16 pushes of 50000 samples through the
+   per-block AM session.  Gate: one SYNC, no LOST_SYNC, at least
+   session_am's 48 exact HDC packets and none foreign, every launch of
+   K15's PIDS-only launch (a block, counted on its own; with
+   ``pids1_disabled`` once rdbi is read) exact against its plain version
+   on the same codes, exactly K15, its PIDS-only launch, K7 at K=9 and K8
+   launched, no plain version called; a second run the same HDC
+   packets.  The wall a block of both runs.
 
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``:
 the kernels launched, summed over the paths driven and itemised under
@@ -349,8 +377,14 @@ GOLDEN_LOT_DATA = bytes(range(100))
 GOLDEN_LOT_ID = 7
 GOLDEN_SIG_PORT = 0x1001
 SESSION_AM_FRAMES = 8
+# the golden capture through the per-block session (receiver_fm): the ID3
+# title and LOT file events its CPU twin gives
+# (tests/test_torch_block_session.py::test_golden_capture_block_and_turbo)
+BLOCK_GOLDEN_TITLES = 2
+BLOCK_GOLDEN_LOTS = 1
 SESSION_AM_PUSH = 50000  # cs16 samples a push
 SESSION_AM_MIN_HDC = 48  # bit-exact HDC packets after the warm-up
+BLOCK_AM_RDBI_FROM = 6  # receiver_am: the frame from which rdbi is set
 FLEET_KINDS = ("mp1",) * 8 + ("mp3",) * 2 + ("ma1",) * 4 + ("ma3",) * 2
 FLEET_FRAMES = 10  # P1 frames of every fleet station: 14.9 s of air
 FLEET_AUDIO_UNIQUE = 16  # distinct HDC audio packets of an MP1 station
@@ -1838,13 +1872,15 @@ def make_golden_capture(seed: int = GOLDEN_SEED) -> np.ndarray:
     return ch.to_cu8(ch.upsample2(sig))
 
 
-def make_session_am_capture():
+def make_session_am_capture(rdbi_from: int | None = None):
     """tests/capture_helpers.py's ``build_am_capture`` (seed SEED,
     SESSION_AM_FRAMES frames of MA1, four random 90-byte HDC packets a P1
     subframe, random P3 and PIDS) built with the port's ``tx`` copy, at the
     chain's 46511.7 S/s from sample 0, quantized to cs16 at AM_RMS of full
-    scale.  Returns the int16 [n, 2] wire and the packets as (frame,
-    [bytes]) a subframe."""
+    scale; with ``rdbi_from``, the reference subcarrier sets rdbi from
+    that frame on (MA1: the receiver zeroes the lower PIDS stream and
+    delivers no P3).  Returns the int16 [n, 2] wire and the packets as
+    (frame, [bytes]) a subframe."""
     from nrsc5_tpu_torch import constants as C
     from nrsc5_tpu_torch.tx import encoder_am as EAM
     from nrsc5_tpu_torch.tx.modulator_am import modulate_am
@@ -1868,8 +1904,10 @@ def make_session_am_capture():
     pids = np.stack([EAM.encode_pids_am(
         rng.integers(0, 2, 80).astype(np.uint8))
         for _ in range(n_frames * 8)])
-    ref = np.stack([EAM.am_ref_bits(b % 8, C.SERVICE_MODE_MA1)
-                    for b in range(n_frames * 8)])
+    ref = np.stack([EAM.am_ref_bits(
+        b % 8, C.SERVICE_MODE_MA1,
+        rdbi=int(rdbi_from is not None and b // 8 >= rdbi_from))
+        for b in range(n_frames * 8)])
     return _cs16(modulate_am(mats, pids, ref, False)), packets
 
 
@@ -2375,6 +2413,160 @@ def session_am_run(torch, wire: np.ndarray, packets: list) -> dict:
             "plain_calls": plain_calls}
 
 
+BLOCK_PX_CYCLES = 2  # interleaver-IV cycles of receiver_fm's PX stations
+BLOCK_PX_LEAD = 2  # their lead blocks (block counts 14, 15)
+# the kernels of the per-block paths on the card: FM K6, K7, K8 (and K11
+# in the PX modes); AM K15 (a frame), K15's PIDS-only launch (a block), K7
+# at K=9 and K8
+BLOCK_FM_KERNELS = ("fec_gather", "viterbi_k7", "fec_epilogue")
+BLOCK_PX_KERNELS = BLOCK_FM_KERNELS + ("px_deinterleave",)
+BLOCK_AM_KERNELS = ("am_gather", "am_gather_pids", "viterbi_k9",
+                    "fec_epilogue")
+
+
+def make_block_px_station(psmi: int) -> dict:
+    """One station of ``psmi`` (MP3 or MP11) for the per-block receiver:
+    BLOCK_PX_LEAD lead blocks, then BLOCK_PX_CYCLES interleaver-IV cycles
+    (2 P1 frames each) of random P1 frames, PIDS words and PX1 (and MP11's
+    PX2) frames, 2 trail blocks, at SNR_DB, complex64 at the chain rate
+    (tests/test_l1_fm.py:78 and :128's recipe on the port's ``tx``).
+    Returns the signal and the transmitted bits: p1 [F, 146176], px1 [C,
+    16, fl] and px2 (or None)."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch.pipeline.scan_chain import px_frame_lens
+    from nrsc5_tpu_torch.tx import channel as ch
+    from nrsc5_tpu_torch.tx.encoder import build_pm_matrix, build_px_stream
+    from nrsc5_tpu_torch.tx.modulator import modulate_fm
+
+    rng = np.random.default_rng([SEED, psmi, 21])
+    n_frames = 2 * BLOCK_PX_CYCLES
+    p1 = rng.integers(0, 2, (n_frames, C.P1_FRAME_LEN_FM), dtype=np.uint8)
+    pids = rng.integers(0, 2, (n_frames + 1, 16, C.PIDS_FRAME_LEN),
+                        dtype=np.uint8)
+    mats = [build_pm_matrix(p1[f], pids[f]) for f in range(n_frames)]
+    dummy = build_pm_matrix(
+        rng.integers(0, 2, C.P1_FRAME_LEN_FM, dtype=np.uint8), pids[-1])
+    lead = BLOCK_PX_LEAD
+    matrix = np.concatenate([dummy[(16 - lead) * 32:]] + mats
+                            + [dummy[:2 * 32]])
+    bc_seq = np.concatenate([np.arange(16 - lead, 16),
+                             np.tile(np.arange(16), n_frames),
+                             np.arange(2)])
+    out = {"p1": p1, "px2": None}
+    signs = {}
+    for key, fl in zip(("px1", "px2"), px_frame_lens(psmi)):
+        if not fl:
+            continue
+        out[key] = rng.integers(0, 2, (BLOCK_PX_CYCLES, 16, fl),
+                                dtype=np.uint8)
+        stream = build_px_stream(out[key], fl, rng=rng).reshape(
+            BLOCK_PX_CYCLES * 32 * C.BLKSZ, -1)
+        pad = np.ones((lead * 32, stream.shape[1]), np.int8)
+        tail = np.ones((2 * 32, stream.shape[1]), np.int8)
+        signs[f"{key}_signs"] = np.concatenate([pad, stream, tail])
+    sig = modulate_fm(matrix, bc_seq, psmi, **signs)
+    out["sig"] = ch.impair(sig, snr_db=SNR_DB, rng=rng).astype(np.complex64)
+    return out
+
+
+def block_session_run(torch, wire, mode: int, push: int, turbo=False,
+                      plain=False) -> dict:
+    """One stream through the port's session on its per-block receivers on
+    the card (``chain="block"``, no audio decoder): cu8 (uint8 wire) or
+    cs16 (int16 [n, 2] wire) pushes of ``push`` bytes or samples, then
+    ``flush``.  ``plain`` runs the FM decoders' plain versions on the card
+    (the kernels' yardstick for the decoded bits).  Returns the events,
+    the decoded frames (channel, bits) in order, the blocks, the wall, the
+    launches and the plain versions called."""
+    import functools
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch.api.session import NRSC5
+    from nrsc5_tpu_torch.ops import decode_fm as DF
+    from nrsc5_tpu_torch.pipeline import receiver as RX
+    events, frames, blocks = [], [], [0]
+    radio = NRSC5.open_pipe(events.append, mode, chain="block", turbo=turbo,
+                            hdc_decoder_factory=None)
+    on_frame, on_l1 = radio._on_frame, radio._on_l1_event
+
+    def frame(chan, bits, margin):
+        frames.append((chan, np.array(bits)))
+        return on_frame(chan, bits, margin)
+
+    def l1(kind, info):
+        blocks[0] += kind == "block"
+        on_l1(kind, info)
+    radio._on_frame, radio._on_l1_event = frame, l1
+    radio._wire()  # the radio calls the recording callbacks
+    undo = []
+    if plain:
+        for name in ("p1_decode", "pids_decode"):
+            undo.append((name, getattr(RX, name)))
+            setattr(RX, name, functools.partial(getattr(DF, name),
+                                                plain=True))
+    plain_calls, restore = count_plain_calls()
+    try:
+        torch.cuda.synchronize()
+        K.reset_counts()
+        t0 = time.perf_counter()
+        pipe = radio.pipe_samples_cu8 if wire.dtype == np.uint8 \
+            else radio.pipe_samples_cs16
+        flat = wire.reshape(-1) if wire.dtype == np.uint8 else wire
+        for lo in range(0, len(flat), push):
+            pipe(flat[lo:lo + push].reshape(-1))
+        radio.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: c for k, c in K.COUNTS.items() if c}
+    finally:
+        restore()
+        for name, fn in undo:
+            setattr(RX, name, fn)
+    return {"events": events, "frames": frames, "blocks": blocks[0],
+            "wall_s": wall, "launches": counts, "plain_calls": plain_calls}
+
+
+def block_px_run(torch, st: dict, psmi: int) -> dict:
+    """One PX station through the per-block FM receiver on the card, the
+    signal pushed whole.  Gate: SYNC at ``psmi``; every transmitted P1
+    frame, and every PX1 (and PX2) frame of IV cycles 1 on, decoded
+    bit-exact; exactly the FM PX path's kernels; no plain version."""
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch.pipeline.receiver import FMReceiver
+    frames, events = [], []
+    rx = FMReceiver(lambda c, b, m: frames.append((c, np.array(b))),
+                    lambda k, i: events.append((k, i)))
+    plain_calls, restore = count_plain_calls()
+    try:
+        torch.cuda.synchronize()
+        K.reset_counts()
+        t0 = time.perf_counter()
+        rx.push_cs16(st["sig"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: c for k, c in K.COUNTS.items() if c}
+    finally:
+        restore()
+
+    def got(chan):
+        return {b.tobytes() for c, b in frames if c == chan}
+    exact = {"p1": sum(f.tobytes() in got(0) for f in st["p1"])}
+    for chan, key in ((1, "px1"), (2, "px2")):
+        if st[key] is not None:
+            exact[key] = sum(f.tobytes() in got(chan)
+                             for f in st[key][1:].reshape(
+                                 -1, st[key].shape[-1]))
+    want = {"p1": len(st["p1"])}
+    want.update({k: (BLOCK_PX_CYCLES - 1) * 16 for k in ("px1", "px2")
+                 if st[k] is not None})
+    ok = (("sync", {"psmi": psmi}) in events and exact == want
+          and set(counts) == set(BLOCK_PX_KERNELS) and not plain_calls)
+    return {"psmi": psmi, "sync": [i for k, i in events if k == "sync"],
+            "exact": exact, "want": want, "blocks": rx.blocks_processed,
+            "wall_s": wall, "wall_ms_per_block": 1e3 * wall
+            / max(rx.blocks_processed, 1), "launches": counts,
+            "plain_calls_on_kernel_path": plain_calls, "pass": ok}
+
+
 def make_fleet(station=make_station) -> dict:
     """Every station, built in parallel by spawned worker processes (numpy
     only; the pool ends with the call)."""
@@ -2479,6 +2671,10 @@ def main() -> int:
     with ProcessPoolExecutor(len(AUDIO_STREAMS) + 2, mp_context=ctx) as pool:
         golden_job = pool.submit(make_golden_capture)
         session_am_job = pool.submit(make_session_am_capture)
+        block_am_job = pool.submit(make_session_am_capture,
+                                   BLOCK_AM_RDBI_FROM)
+        block_px_jobs = {psmi: pool.submit(make_block_px_station, psmi)
+                         for psmi in (3, 11)}
         audio_streams = list(pool.map(make_audio_stream, AUDIO_STREAMS))
         t6 = time.perf_counter()
         header_jobs = {h: pool.submit(make_header_batch, h)
@@ -2487,6 +2683,8 @@ def main() -> int:
         header_batches = {h: j.result() for h, j in header_jobs.items()}
         golden = golden_job.result()
         session_am_capture = session_am_job.result()
+        block_am_capture = block_am_job.result()
+        block_px = {p: j.result() for p, j in block_px_jobs.items()}
     emit({"phase": "signal", "seconds": round(t1 - t0, 3),
           "audio_encode_seconds": round(t6 - t5, 3),
           "audio_host_decode_seconds": round(time.perf_counter() - t6, 3),
@@ -3231,6 +3429,33 @@ def main() -> int:
         k9["p3_ma3" if ma3 else "p3_ma1"] = got[1]
         if not ma3:
             k9["p1"], k9["pids"] = got[0], got[2]
+            # K15's PIDS-only launch at the per-block receiver's shape (one
+            # block's codes), the lower stream as it comes and zeroed
+            # (pids1_disabled): int8 exact, one launch of its own count
+            blk = pids_c[:1, :1].reshape(1, C.BLKSZ, 2).contiguous()
+            for disabled in (False, True):
+                before = dict(K.COUNTS)
+                pgot = DA.am_gather_pids(blk, disabled)
+                launched = {k: K.COUNTS[k] - before[k] for k in before
+                            if K.COUNTS[k] != before[k]}
+                pwant = DA.am_gather_pids_plain(blk, disabled)
+                perr = float((pgot != pwant).sum())
+                check("am_gather", perr, 0.0,
+                      lambda blk=blk, d=disabled: DA.am_gather_pids(blk, d),
+                      lambda blk=blk, d=disabled: DA.am_gather_pids_plain(
+                          blk, d),
+                      bound(blk.numel() + pgot.numel()
+                            + 2 * DA.pids_block_map().size, 0),
+                      None, list(blk.shape),
+                      case="pids_only_disabled" if disabled
+                      else "pids_only",
+                      ok=perr == 0.0 and pgot.dtype == torch.int8
+                      and launched == {"am_gather_pids": 1},
+                      dtype="int8", launched=launched,
+                      library_call="none: no one PyTorch call pulls a bit "
+                      "plane through a gather",
+                      stack_frame_bytes=frame_of(kernel_frames, "am_gather",
+                                                 "am_gather_pids_kernel"))
 
     for key, gens in (("p1", C.CONV_E1_GEN), ("p3_ma1", C.CONV_E2_E3_GEN),
                       ("p3_ma3", C.CONV_E1_GEN), ("pids", C.CONV_E2_E3_GEN)):
@@ -4799,6 +5024,140 @@ def main() -> int:
         by_path = report[name]["launches_by_path"]
         by_path["fleet"] = run["counts"].get(name, 0)
         report[name]["launches"] = sum(by_path.values())
+
+    # --- receiver_fm: the per-block FM receiver and the turbo receiver on
+    # the card through the session (chain="block"): the golden capture as
+    # cu8, per-block, then through the plain versions, then turbo; one MP3
+    # and one MP11 station through FMReceiver ---
+    from nrsc5_tpu_torch.api.session import MODE_AM, MODE_FM
+    t_phase = time.perf_counter()
+    push = 32768  # the CLI's file reads
+    # twice: the first run meets each op's first call (cuFFT plans)
+    fm_runs = [block_session_run(torch, golden, MODE_FM, push)
+               for _ in range(2)]
+    fm_block = fm_runs[0]
+    fm_block_plain = block_session_run(torch, golden, MODE_FM, push,
+                                       plain=True)
+    fm_turbo = block_session_run(torch, golden, MODE_FM, push, turbo=True)
+
+    def hdc_of(run):
+        return [e.data for e in run["events"] if e.type.name == "HDC"]
+
+    def frames_of(run, chans):
+        return [(c, b.tobytes()) for c, b in run["frames"] if c in chans]
+    titles = sum(e.type.name == "ID3" and e.title == GOLDEN_TITLE
+                 for e in fm_block["events"])
+    lots = [e for e in fm_block["events"] if e.type.name == "LOT"]
+    px_runs = [block_px_run(torch, block_px[p], p) for p in (3, 11)]
+    gate = {
+        "syncs": [e.psmi for e in fm_block["events"]
+                  if e.type.name == "SYNC"],
+        "titles": titles, "titles_cpu_twin": BLOCK_GOLDEN_TITLES,
+        "lots": [(e.name, len(e.data)) for e in lots],
+        "lots_cpu_twin": BLOCK_GOLDEN_LOTS,
+        "p1_pids_equal_plain": frames_of(fm_block, (-1, 0))
+        == frames_of(fm_block_plain, (-1, 0)),
+        "p1_frames": sum(c == 0 for c, _ in fm_block["frames"]),
+        "pids_words": sum(c == -1 for c, _ in fm_block["frames"]),
+        "hdc_packets": len(hdc_of(fm_block)),
+        "turbo_hdc_equal": hdc_of(fm_turbo) == hdc_of(fm_block),
+        "kernels_launched": sorted(fm_block["launches"]),
+    }
+    gate["warm_run_same_frames"] = frames_of(fm_runs[1], (-1, 0)) \
+        == frames_of(fm_block, (-1, 0))
+    ok = (gate["syncs"] == [1] and titles == BLOCK_GOLDEN_TITLES
+          and gate["warm_run_same_frames"]
+          and len(lots) == BLOCK_GOLDEN_LOTS
+          and all(e.name == GOLDEN_LOT_NAME
+                  and bytes(e.data) == GOLDEN_LOT_DATA for e in lots)
+          and gate["p1_pids_equal_plain"] and gate["p1_frames"] > 0
+          and gate["turbo_hdc_equal"] and gate["hdc_packets"] > 0
+          and set(fm_block["launches"]) == set(BLOCK_FM_KERNELS)
+          and set(fm_turbo["launches"]) == set(BLOCK_FM_KERNELS)
+          and not fm_block["plain_calls"] and not fm_turbo["plain_calls"]
+          and all(r["pass"] for r in px_runs))
+    emit({"phase": "receiver_fm", "card": smi, **gate,
+          "launches": fm_block["launches"],
+          "launches_turbo": fm_turbo["launches"],
+          "plain_calls_on_kernel_path": fm_block["plain_calls"],
+          "blocks": fm_block["blocks"],
+          "wall_s": [r["wall_s"] for r in fm_runs],
+          "wall_ms_per_block": [1e3 * r["wall_s"] / max(r["blocks"], 1)
+                                for r in fm_runs],
+          "plain_wall_ms_per_block": 1e3 * fm_block_plain["wall_s"]
+          / max(fm_block_plain["blocks"], 1),
+          "turbo_blocks": fm_turbo["blocks"],
+          "turbo_wall_ms_per_block": 1e3 * fm_turbo["wall_s"]
+          / max(fm_turbo["blocks"], 1),
+          "px_stations": px_runs,
+          "phase_seconds": time.perf_counter() - t_phase, "pass": ok})
+    if not ok:
+        raise AssertionError("receiver_fm did not pass its gate")
+
+    # --- receiver_am: session_am's capture, rdbi set from frame
+    # BLOCK_AM_RDBI_FROM on, through the per-block AM receiver on the card;
+    # every K15 PIDS-only launch held to its plain version ---
+    t_phase = time.perf_counter()
+    am_wire, am_packets = block_am_capture
+    pids_calls, gather_pids = [], DA.am_gather_pids
+
+    def recorded(pids, disabled=False, plain=False):
+        out = gather_pids(pids, disabled, plain)
+        pids_calls.append((pids.clone(), bool(disabled), out.clone()))
+        return out
+    DA.am_gather_pids = recorded
+    try:
+        am_block = block_session_run(torch, am_wire, MODE_AM,
+                                     SESSION_AM_PUSH)
+    finally:
+        DA.am_gather_pids = gather_pids
+    am_warm = block_session_run(torch, am_wire, MODE_AM, SESSION_AM_PUSH)
+    pids_diff = [int((out != DA.am_gather_pids_plain(p, d)).sum())
+                 for p, d, out in pids_calls]
+    clean = {e.data for e in am_block["events"]
+             if e.type.name == "HDC" and not e.crc_error}
+    sent = {bytes(p) for _, pk in am_packets for p in pk}
+    gate = {
+        "syncs": sum(e.type.name == "SYNC" for e in am_block["events"]),
+        "lost_syncs": sum(e.type.name == "LOST_SYNC"
+                          for e in am_block["events"]),
+        "hdc_exact": len(clean & sent), "hdc_foreign": len(clean - sent),
+        "hdc_exact_gate": SESSION_AM_MIN_HDC,
+        "rdbi_from_frame": BLOCK_AM_RDBI_FROM,
+        "pids_only_calls": len(pids_calls),
+        "pids_only_disabled_calls": sum(d for _, d, _ in pids_calls),
+        "pids_only_differing": sum(pids_diff),
+        "kernels_launched": sorted(am_block["launches"]),
+    }
+    ok = (gate["syncs"] == 1 and gate["lost_syncs"] == 0
+          and gate["hdc_exact"] >= SESSION_AM_MIN_HDC
+          and gate["hdc_foreign"] == 0
+          and gate["pids_only_disabled_calls"] > 0
+          and gate["pids_only_differing"] == 0
+          and am_block["launches"].get("am_gather_pids") == len(pids_calls)
+          and set(am_block["launches"]) == set(BLOCK_AM_KERNELS)
+          and not am_block["plain_calls"]
+          and [e.data for e in am_warm["events"] if e.type.name == "HDC"]
+          == [e.data for e in am_block["events"] if e.type.name == "HDC"])
+    emit({"phase": "receiver_am", "card": smi, "mode": "MA1", **gate,
+          "launches": am_block["launches"],
+          "plain_calls_on_kernel_path": am_block["plain_calls"],
+          "blocks": am_block["blocks"],
+          "wall_s": [r["wall_s"] for r in (am_block, am_warm)],
+          "wall_ms_per_block": [1e3 * r["wall_s"] / max(r["blocks"], 1)
+                                for r in (am_block, am_warm)],
+          "phase_seconds": time.perf_counter() - t_phase, "pass": ok})
+    if not ok:
+        raise AssertionError("receiver_am did not pass its gate")
+    for name in KERNELS:
+        by_path = report[name]["launches_by_path"]
+        by_path["receiver_fm"] = fm_block["launches"].get(name, 0) \
+            + fm_turbo["launches"].get(name, 0) + sum(
+                r["launches"].get(name, 0) for r in px_runs)
+        by_path["receiver_am"] = am_block["launches"].get(name, 0)
+        report[name]["launches"] = sum(by_path.values())
+    report["am_gather"]["launches_pids_only"] = \
+        am_block["launches"]["am_gather_pids"]
 
     print(smi, flush=True)
     emit({"kernels": [dict(report[n]) for n in KERNELS]})

@@ -7,13 +7,29 @@ worker, sample push (cu8 and cs16), a single event callback, and mode
 selection.
 
 Composition (reference analog: nrsc5_init, src/nrsc5.c:209-230): the
-radio is always :class:`~nrsc5_tpu_torch.pipeline.device_receiver.
-DeviceReceiver` — a cold start, then a one-station
-``serve.MultiStationReceiver`` whose station transport (FrameDecoder /
-PIDSDecoder / Output, host) emits the events to the user callback.  The
-per-block host receivers the reference session runs on a CPU backend,
-and the session-level transport objects and hard resync that only they
-feed, are not ported.
+radio (device compute) -> FrameDecoder / PIDSDecoder (host transport) ->
+Output (elastic buffer, AAS/SIG/LOT/ID3) -> the user callback.  The radio
+is chosen as the reference's ``device`` argument chooses it, here by
+``chain``:
+
+  * ``"block"``: the per-block receivers (:class:`~nrsc5_tpu_torch.
+    pipeline.receiver.FMReceiver`, :class:`~nrsc5_tpu_torch.pipeline.
+    turbo.TurboFMReceiver` with ``turbo=True``, :class:`~nrsc5_tpu_torch.
+    pipeline.receiver_am.AMReceiver`), which feed the session's own
+    transport and take its hard resync (a transport RS failure asks the
+    radio to re-acquire);
+  * ``"device"``: :class:`~nrsc5_tpu_torch.pipeline.device_receiver.
+    DeviceReceiver`, a cold start, then a one-station
+    ``serve.MultiStationReceiver`` whose own station transport emits the
+    events (the session's transport objects stay idle; its resync forces
+    the receiver's relock watchdog);
+  * ``"auto"`` (the default): the per-block receivers on ``device="cpu"``
+    and ``DeviceReceiver`` on a card, as the reference's ``device="auto"``
+    picks its host receivers on a CPU backend and the serving chain on an
+    accelerator.
+
+``device`` is where the radio runs (``"cuda"`` by default, which raises
+with no card).
 """
 
 from __future__ import annotations
@@ -27,6 +43,12 @@ from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.api.events import Event, EventType, make
 from nrsc5_tpu_torch.pipeline.device_receiver import DeviceReceiver
+from nrsc5_tpu_torch.pipeline.receiver import FMReceiver
+from nrsc5_tpu_torch.pipeline.receiver_am import AMReceiver
+from nrsc5_tpu_torch.pipeline.turbo import TurboFMReceiver
+from nrsc5_tpu_torch.transport import frame as TF
+from nrsc5_tpu_torch.transport.output import Output
+from nrsc5_tpu_torch.transport.pids import PIDSDecoder
 
 MODE_FM = 0
 MODE_AM = 1
@@ -35,6 +57,7 @@ SAMPLE_RATE_CU8 = C.SAMPLE_RATE_CU8
 SAMPLE_RATE_CS16_FM = C.SAMPLE_RATE_CS16_FM
 SAMPLE_RATE_CS16_AM = C.SAMPLE_RATE_CS16_AM
 SAMPLE_RATE_AUDIO = C.SAMPLE_RATE_AUDIO
+CHAINS = ("auto", "device", "block")
 
 
 class NRSC5:
@@ -45,19 +68,25 @@ class NRSC5:
       default "auto" selects nrsc5_tpu_torch.audio.hdc.HDCDecoder (built-in
       codec, or a patched libfaad via NRSC5_TPU_FAAD_HDC); pass None to
       disable audio decode (HDC packet events still flow).
-    turbo: accepted for the reference's signature and has no effect, as on
-      the reference's device path: the device chain is always the fused
-      one.
-    device: where the chain runs, ``"cuda"`` by default (raises with no
+    turbo: on the per-block path, FM through the turbo receiver (a fused
+      frame a call once locked); the device chain is always fused.
+    device: where the radio runs, ``"cuda"`` by default (raises with no
       card); ``"cpu"`` runs the kernels' plain versions.
+    chain: ``"auto"``, ``"device"`` or ``"block"``, the radio (see the
+      module's docstring).
     """
 
     def __init__(self, callback: Callable[[Event], None],
                  mode: int = MODE_FM, hdc_decoder_factory="auto",
-                 turbo: bool = False, device="cuda"):
+                 turbo: bool = False, device="cuda", chain: str = "auto"):
+        if chain not in CHAINS:
+            raise ValueError(f"chain: expected one of {CHAINS}, got "
+                             f"{chain!r}")
         self.callback = callback
         self.mode = mode
+        self.turbo = turbo
         self.device = K.resolve_device(device)
+        self.chain = chain
         if hdc_decoder_factory == "auto":
             from nrsc5_tpu_torch.audio.hdc import HDCDecoder
             hdc_decoder_factory = HDCDecoder
@@ -78,10 +107,59 @@ class NRSC5:
         self.callback(event)
 
     def _wire(self):
-        self.radio = DeviceReceiver(self._emit,
-                                    mode_fm=self.mode == MODE_FM,
-                                    hdc_factory=self._hdc_factory,
+        self.output = Output(self._emit, mode_fm=self.mode == MODE_FM,
+                             hdc_decoder_factory=self._hdc_factory)
+        self.pids = PIDSDecoder(self._emit)
+        self.frame = TF.FrameDecoder(
+            self.output,
+            on_audio_service=lambda info: self._emit(
+                make(EventType.AUDIO_SERVICE, **info)),
+            on_resync=self._resync)
+        block = self.chain == "block" or (self.chain == "auto"
+                                          and self.device.type == "cpu")
+        if not block:
+            self.radio = DeviceReceiver(self._emit,
+                                        mode_fm=self.mode == MODE_FM,
+                                        hdc_factory=self._hdc_factory,
+                                        device=self.device)
+        elif self.mode == MODE_FM:
+            rx = TurboFMReceiver if self.turbo else FMReceiver
+            self.radio = rx(self._on_frame, self._on_l1_event,
+                            device=self.device)
+        else:
+            self.radio = AMReceiver(self._on_frame, self._on_l1_event,
                                     device=self.device)
+
+    def _resync(self):
+        """The transport's hard resync request (reference:
+        src/frame.c:535-540): the radio re-acquires."""
+        self.radio.resync()
+
+    def _on_l1_event(self, kind: str, info: dict):
+        if kind == "sync":
+            self._emit(make(EventType.SYNC, psmi=info.get("psmi")))
+        elif kind == "lost_sync":
+            self._emit(make(EventType.LOST_SYNC))
+        elif kind == "block":
+            self.output.advance()
+        elif kind == "mer":
+            self._emit(make(EventType.MER, **info))
+        elif kind == "ber":
+            self._emit(make(EventType.BER, **info))
+
+    def _on_frame(self, chan: int, bits: np.ndarray, margin: float):
+        """A decoded frame into the transport: -1 PIDS, 0 P1, 1 and 3 P3,
+        2 P4.  Returns the transport's accept status."""
+        if chan == -1:
+            self.pids.frame_push(bits)
+            return True
+        if chan == 0:
+            return self.frame.push_frame(bits, TF.P1)
+        if chan in (1, 3):
+            return self.frame.push_frame(bits, TF.P3)
+        if chan == 2:
+            return self.frame.push_frame(bits, TF.P4)
+        return True
 
     # ------------------------------------------------------------------
     # session opening (reference: nrsc5_open_file/open_pipe/open_rtltcp)
@@ -117,6 +195,7 @@ class NRSC5:
             raise RuntimeError("no tunable source")
         self._source.set_frequency(int(freq_hz))
         self.radio.reset()
+        self.output.reset()
 
     def get_frequency(self) -> float:
         """Tuned frequency in Hz, or NaN without a tunable source
@@ -196,7 +275,10 @@ class NRSC5:
     def flush(self):
         """Drain pending frames/packets at the end of a finite capture."""
         with self._lock:
-            self.radio.flush()
+            if hasattr(self.radio, "flush"):
+                self.radio.flush()
+            for _ in range(4):
+                self.output.advance()
 
     def close(self):
         self.stop()

@@ -1,11 +1,13 @@
-"""nrsc5-tpu command line receiver on the port's device chain: the
-reference's ``nrsc5_tpu/cli.py``.
+"""nrsc5-tpu command line receiver on the port: the reference's
+``nrsc5_tpu/cli.py``.
 
 Feature parity with the reference CLI (reference: src/main.c:798-970 flag
 set, support/cli.py): file / pipe / rtl_tcp input, program selection, WAV
-or raw audio output, HDC / AAS-file dumps, event logging.  One flag more,
+or raw audio output, HDC / AAS-file dumps, event logging.  Two flags more:
 ``--device`` (default ``cuda``, which raises with no card; ``cpu`` runs the
-kernels' plain versions).
+kernels' plain versions) and ``--chain`` (the session's radio: ``auto``,
+the default, is the device chain on a card and the per-block receivers on
+the CPU, as the reference picks them by backend; ``device``; ``block``).
 
 Usage examples:
     python -m nrsc5_tpu_torch.cli -r capture.cu8 0
@@ -120,7 +122,7 @@ class CLI:
             host, _, port = a.rtltcp.partition(":")
             radio = NRSC5.open_rtltcp(host, int(port or 1234), self.on_event,
                                       mode, hdc_decoder_factory=hdc_factory,
-                                      device=a.device)
+                                      device=a.device, chain=a.chain)
             if a.iq_output:
                 radio.set_iq_dump(open(a.iq_output, "wb"))
             if a.ppm:
@@ -145,7 +147,7 @@ class CLI:
                 else open(a.iq_input, "rb")
             radio = NRSC5.open_pipe(self.on_event, mode,
                                     hdc_decoder_factory=hdc_factory,
-                                    device=a.device)
+                                    device=a.device, chain=a.chain)
             # -w tees the raw input in any mode (reference: src/main.c:336)
             iq_dump = open(a.iq_output, "wb") if a.iq_output else None
             fmt = a.iq_input_format
@@ -315,6 +317,11 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="where the receive chain runs: cuda (default; "
                         "raises with no card) or cpu")
+    p.add_argument("--chain", choices=("auto", "device", "block"),
+                   default="auto",
+                   help="the session's radio: auto (default: the device "
+                        "chain on a card, the per-block receivers on the "
+                        "cpu), device or block")
     args = p.parse_args(argv)
     K.resolve_device(args.device)  # no card: raise before any output opens
 

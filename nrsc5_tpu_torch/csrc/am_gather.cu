@@ -48,6 +48,16 @@
 // next while it gathers), gathers 16 bits from shared memory and writes 16
 // bytes.  The frame and CTA come from the grid's
 // coordinates: no 64-bit division.
+//
+// am_gather_pids, the PIDS-only launch: the per-block AM receiver decodes
+// each block's PIDS as the block arrives, before its frame is complete, and
+// MA1 with rdbi set zeroes the lower stream (decode_am.py:199's
+// pids1_disabled).  A CTA a block stages the block's 64 QAM16 codes in
+// shared memory and a thread an output of the block's 432 K7 inputs reads
+// its bit through the one-block map (ops/decode_am.py:pids_block_map, an
+// int16 bit address an entry); the lower stream's bits lie in the even
+// bytes, written 0 under the flag.  Bound: bytes, 64 in and 432 out a
+// block, far below a launch's cost at the receiver's one block a call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -182,7 +192,39 @@ __global__ void __launch_bounds__(THREADS) am_gather_kernel(
   }
 }
 
+constexpr int PIDS_OUT = (80 + 64) * 3;  // a block's wrap-extended trellis
+constexpr int PIDS_THREADS = 448;
+
+__global__ void __launch_bounds__(PIDS_THREADS) am_gather_pids_kernel(
+    const uint8_t* __restrict__ pids, const int16_t* __restrict__ map,
+    int8_t* __restrict__ out, int disabled) {
+  __shared__ uint8_t codes[64];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  if (tid < 64) codes[tid] = pids[(size_t)b * 64 + tid];
+  __syncthreads();
+  for (int i = tid; i < PIDS_OUT; i += PIDS_THREADS) {
+    const int a = map[i];
+    const int byte = a >> 3;
+    const int bit = (codes[byte] >> (a & 7)) & 1;
+    out[(size_t)b * PIDS_OUT + i] =
+        (disabled && !(byte & 1)) ? 0 : (bit ? 1 : -1);
+  }
+}
+
 }  // namespace
+
+// pids: [B, 32, 2] uint8 QAM16 codes; map: int16 [432] bit addresses into
+// a block's 64 bytes; out: int8 [B, 144, 3]; disabled: zero the lower
+// stream (MA1 with rdbi set).
+extern "C" int am_gather_pids(const void* pids, const void* map, void* out,
+                              int n_blocks, int disabled, void* stream) {
+  if (n_blocks <= 0 || n_blocks > 0x7fffffff / PIDS_OUT)
+    return (int)cudaErrorInvalidValue;
+  am_gather_pids_kernel<<<n_blocks, PIDS_THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      (const uint8_t*)pids, (const int16_t*)map, (int8_t*)out, disabled);
+  return (int)cudaGetLastError();
+}
 
 // map3: the packed map; lines: ml, mu, eml, emu, [S, 54000] uint8 each;
 // only the first n_delayed are read and written (the outputs may be null

@@ -99,6 +99,9 @@ SIGNATURES = {
     # n_stations, n_frames, p1_len, p3_len, pids_len (a frame's),
     # n_delayed, stream
     "am_gather": (P,) * 14 + (I,) * 6 + (P,),
+    # pids, map (int16 [432]), out (int8 [B, 144, 3]), n_blocks,
+    # pids1_disabled, stream: K15's PIDS-only launch
+    "am_gather_pids": (P, P, P, I, I, P),
     # spectra, samples, n_samples, offset, grid_u, derot, twiddle, z
     # (scratch), part (scratch), k0 (scratch), f, amp, n_stations, stream
     "am_tone": (P, P, L, P, P, P, P, P, P, P, P, P, I, P),
@@ -136,7 +139,8 @@ SIGNATURES = {
 # kernel name -> the csrc/ source (without ".cu") that holds it, where that
 # is not a file of the kernel's own name
 SOURCES = {"am_tone": "am_coldstart", "am_coarse": "am_coldstart",
-           "am_cfo_step": "am_coldstart", "block_carry_am": "block_carry"}
+           "am_cfo_step": "am_coldstart", "block_carry_am": "block_carry",
+           "am_gather_pids": "am_gather"}
 
 COUNTS = {name: 0 for name in SIGNATURES}
 _FUNCS: dict = {}

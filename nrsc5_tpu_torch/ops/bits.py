@@ -1,6 +1,7 @@
 """Bit packing for decoded-frame outputs.
 
-PyTorch counterpart of ``nrsc5_tpu/ops/bits.py``: decoded frames are
+PyTorch counterpart of ``nrsc5_tpu/ops/bits.py`` (``pack_bits``,
+``unpack_bits``, ``pack_out``, ``unpack_out``): decoded frames are
 bits-as-bytes, so packing them 8-to-a-byte on the device before they are
 copied to the host moves an eighth of the bytes.  Little-endian bit order
 within each byte, matching ``np.unpackbits(..., bitorder="little")``.  On
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 # the chain outputs that ``packed=True`` packs (the reference's list; the
-# port's chain has no p3)
+# FM chains have no p3)
 PACKED_KEYS = ("p1", "px1", "px2", "p3", "pids")
 
 
@@ -34,6 +35,14 @@ def unpack_bits(packed) -> np.ndarray:
         packed = packed.cpu().numpy()
     return np.unpackbits(np.asarray(packed), axis=-1, bitorder="little")
 
+
+def pack_out(out: dict) -> dict:
+    """Pack the :data:`PACKED_KEYS` entries of a chain output dict of
+    tensors, in place (the fused complex chain's ``packed=True``)."""
+    for k in PACKED_KEYS:
+        if k in out:
+            out[k] = pack_bits(out[k])
+    return out
 
 
 def unpack_out(out: dict) -> dict:

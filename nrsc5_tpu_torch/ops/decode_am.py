@@ -3,10 +3,14 @@ depuncture -> K=9 Viterbi -> descramble (reference: src/decode.c:74-231,
 439-554).
 
 PyTorch counterpart of ``nrsc5_tpu/ops/decode_am.py``: ``AMDecodeState``,
-``_phase_tables`` (pinned equal by tests/test_torch_tables.py), and the
-reference's per-frame functions ``am_frame_gather``, ``am_frame_fec`` and
-``am_pids_decode`` as CPU twins (plain PyTorch; a tensor on another
-device raises).  On the chain a dispatch decodes in three kernels:
+``_phase_tables`` (pinned equal by tests/test_torch_tables.py), the
+reference's per-frame functions ``am_frame_gather`` and ``am_frame_fec``
+as CPU twins (plain PyTorch; a tensor on another device raises), and
+the per-block AM receiver's ``am_frame_decode`` and ``am_pids_decode``
+(``pids1_disabled`` too), which run the plain versions on the CPU and, on
+a card, K15 (one frame's codes; for PIDS its PIDS-only launch,
+:func:`am_gather_pids`, a block at a time), K7 at K=9 and K8.  On the
+chain a dispatch decodes in three kernels:
 
   * K15 (:func:`am_gather`, ``csrc/am_gather.cu``): for every station and
     frame of the dispatch at once, the bit-plane gathers from the QAM
@@ -185,6 +189,25 @@ def _compose_map(src, dly):
     return np.where(src < 0, -1, out).astype(np.int32)
 
 
+@functools.lru_cache(maxsize=1)
+def pids_block_map() -> np.ndarray:
+    """int32 [(80 + 64) * 3]: for each K7 input of one block's
+    wrap-extended PIDS trellis, the bit address (byte * 8 + plane) of its
+    bit in the block's QAM16 codes [32, 2] (byte = row * 2 + stream): the
+    reference's il/iu gather and delay scatter into the 240-entry stream,
+    inverted (every entry is filled).  The lower (il) stream's bits lie in
+    the even bytes, the upper's (iu) in the odd."""
+    il_row, il_p, iu_row, iu_p, il_delay, iu_delay = IL.am_pids_tables()
+    i = np.arange(120)
+    where = np.full(240, -1, np.int64)
+    where[(i // 12) * 24 + il_delay[i % 12]] = (il_row * 2 + 0) * 8 + il_p
+    where[(i // 12) * 24 + iu_delay[i % 12]] = (iu_row * 2 + 1) * 8 + iu_p
+    assert (where >= 0).all(), "the PIDS scatter must fill all 240 bits"
+    t = C.PIDS_FRAME_LEN
+    steps = (np.arange(t + 2 * WRAP) - WRAP) % t
+    return where.reshape(t, 3)[steps].reshape(-1).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=4)
 def gather_maps(ma3: bool) -> dict:
     """K15's static map for one service mode, numpy:
@@ -236,18 +259,9 @@ def gather_maps(ma3: bool) -> dict:
     out["n3"], out["l3"] = seg3.shape
     out["t3"] = t3
 
-    # PIDS: the il/iu scatter into the 240-entry trellis stream, inverted
-    il_row, il_p, iu_row, iu_p, il_delay, iu_delay = IL.am_pids_tables()
-    i = np.arange(120)
-    where = np.full(240, -1, np.int64)
-    where[(i // 12) * 24 + il_delay[i % 12]] = (il_row * 2 + 0) * 8 + il_p
-    where[(i // 12) * 24 + iu_delay[i % 12]] = (iu_row * 2 + 1) * 8 + iu_p
-    assert (where >= 0).all(), "the PIDS scatter must fill all 240 bits"
-    t = C.PIDS_FRAME_LEN
-    steps = (np.arange(t + 2 * WRAP) - WRAP) % t
-    pids_src = where.reshape(t, 3)[steps].reshape(-1)
+    # PIDS: each of the frame's 8 blocks through the one-block map
     pids_map = (FRAME_CODES * 8 + np.arange(C.P1_AM_BLOCKS)[:, None]
-                * (C.BLKSZ * 2 * 8) + pids_src[None]).reshape(-1)
+                * (C.BLKSZ * 2 * 8) + pids_block_map()[None]).reshape(-1)
 
     names = [n for n in DELAYED if n in streams]
     line_map = np.concatenate([streams[n] for n in names])
@@ -375,16 +389,21 @@ def am_frame_gather(pl, pu, s, t, state: AMDecodeState, ma3: bool = False):
         **{k: new[k][0] for k in DELAYED})
 
 
-def _pids_ext_plain(pids: torch.Tensor) -> torch.Tensor:
-    """The reference's ``am_pids_decode`` up to its Viterbi, with
-    ``pids1_disabled`` false (as on the chain), and the Viterbi's wrap:
-    [B, 32, 2] uint8 QAM16 codes -> [B, 80 + 64, 3] float32 LLRs."""
+def _pids_ext_plain(pids: torch.Tensor,
+                    pids1_disabled: bool = False) -> torch.Tensor:
+    """The reference's ``am_pids_decode`` up to its Viterbi, and the
+    Viterbi's wrap: [B, 32, 2] uint8 QAM16 codes -> [B, 80 + 64, 3]
+    float32 LLRs.  ``pids1_disabled`` (MA1 with rdbi set) zeroes the lower
+    stream's LLRs (reference: src/decode.c:474-505); the chain passes it
+    false."""
     il_row, il_p, iu_row, iu_p, pos_il, pos_iu = _plain_tables(
         False, str(pids.device))["pids"]
     il = (pids[:, il_row, 0] >> il_p) & 1
     iu = (pids[:, iu_row, 1] >> iu_p) & 1
     llr = pids.new_zeros(pids.shape[0], 240, dtype=torch.float32)
-    llr[:, pos_il] = il.float() * 2 - 1
+    il_llr = il.float() * 2 - 1
+    # a device-side fill, so that the plain version runs in a CUDA graph
+    llr[:, pos_il] = torch.zeros_like(il_llr) if pids1_disabled else il_llr
     llr[:, pos_iu] = iu.float() * 2 - 1
     llr = llr.reshape(-1, C.PIDS_FRAME_LEN, 3)
     t = C.PIDS_FRAME_LEN
@@ -515,13 +534,87 @@ def am_frame_fec(p1_full, p3_full, ma3: bool = False):
              "p3": m3.reshape(batch + (seg3.shape[0],)).amin(-1)})
 
 
-def am_pids_decode(pids_syms):
+def _check_pids(pids):
+    if pids.ndim < 2 or tuple(pids.shape[-2:]) != (C.BLKSZ, 2):
+        raise ValueError(f"pids: expected [..., {C.BLKSZ}, 2], got "
+                         f"{tuple(pids.shape)}")
+
+
+def am_gather_pids_plain(pids, pids1_disabled: bool = False):
+    """Plain version of K15's PIDS-only launch: blocks of QAM16 codes
+    uint8 [B, 32, 2] -> K7's input int8 [B, 80 + 64, 3], each block's
+    wrap-extended PIDS trellis (-1, 0 or +1), the lower stream's entries 0
+    where ``pids1_disabled``."""
+    _check_pids(pids)
+    return _pids_ext_plain(pids.reshape(-1, C.BLKSZ, 2),
+                           pids1_disabled).to(torch.int8)
+
+
+@functools.lru_cache(maxsize=8)
+def _pids_device_map(device: str) -> torch.Tensor:
+    return torch.from_numpy(pids_block_map().astype(np.int16)).to(device)
+
+
+def am_gather_pids(pids, pids1_disabled: bool = False, plain: bool = False):
+    """K15's PIDS-only launch: the arguments and result of
+    :func:`am_gather_pids_plain`, for blocks decoded before their frame is
+    complete (the per-block AM receiver decodes PIDS every block).
+
+    A CPU tensor (or ``plain``) takes the plain version; a CUDA tensor
+    launches the kernel (``csrc/am_gather.cu``: a CTA a block, its 64
+    codes staged in shared memory, a thread an output through
+    :func:`pids_block_map`)."""
+    if plain or pids.device.type == "cpu":
+        return am_gather_pids_plain(pids, pids1_disabled)
+    _check_pids(pids)
+    K.check(pids, "pids", torch.uint8)
+    b = pids.numel() // (C.BLKSZ * 2)
+    ext = torch.empty(b, C.PIDS_FRAME_LEN + 2 * WRAP, 3, dtype=torch.int8,
+                      device=pids.device)
+    K.launch("am_gather_pids", pids.data_ptr(),
+             _pids_device_map(str(pids.device)).data_ptr(), ext.data_ptr(),
+             b, int(bool(pids1_disabled)), device=pids.device)
+    return ext
+
+
+def am_pids_decode(pids_syms, pids1_disabled: bool = False):
     """AM PIDS decode of blocks [..., 32, 2] uint8 QAM16 codes (inner,
-    outer) -> bits [..., 80] uint8 (the reference's function with
-    ``pids1_disabled`` false), through K7's and K8's plain versions.  CPU
-    only."""
-    _cpu_only("am_pids_decode", pids_syms)
+    outer) -> bits [..., 80] uint8 (the reference's function of that name;
+    ``pids1_disabled``: MA1 with rdbi set zeroes the lower stream).  A CPU
+    tensor runs the plain versions; a CUDA tensor runs K15's PIDS-only
+    launch, K7 at K=9 and K8."""
+    _check_pids(pids_syms)
     batch = pids_syms.shape[:-2]
-    bits, _ = _fec(_pids_ext_plain(pids_syms.reshape(-1, C.BLKSZ, 2)),
-                   C.CONV_E2_E3_GEN, "am_pids", True)
+    bits, _ = _fec(am_gather_pids(pids_syms, pids1_disabled),
+                   C.CONV_E2_E3_GEN, "am_pids",
+                   pids_syms.device.type == "cpu")
     return bits.reshape(batch + (C.PIDS_FRAME_LEN,))
+
+
+def am_frame_decode(pl, pu, s, t, state: AMDecodeState, ma3: bool = False):
+    """Decode one full AM frame of one station (the reference's function of
+    that name): pl/pu/s/t [8*32*25] uint8 QAM codes (block-major), state:
+    delay lines of [54000].  Returns (p1_bits [8, 3750] uint8, p3_bits
+    [t3] uint8, margins {"p1": [8], "p3": []}, new state).
+
+    A CPU tensor runs :func:`am_frame_gather` and :func:`am_frame_fec`
+    (the plain versions); a CUDA tensor packs the codes into K15's
+    ``codes [1, 8, 4, 800]`` and runs K15, K7 at K=9 and K8."""
+    if pl.device.type == "cpu":
+        p1_full, p3_full, new = am_frame_gather(pl, pu, s, t, state, ma3)
+        p1, p3, margins = am_frame_fec(p1_full, p3_full, ma3)
+        return p1, p3, margins, new
+    codes = torch.stack([pl, pu, s, t]).reshape(
+        len(MATRICES), C.P1_AM_BLOCKS, SYMS).transpose(0, 1).contiguous()
+    pids = torch.zeros(1, C.P1_AM_BLOCKS, C.BLKSZ, 2, dtype=torch.uint8,
+                       device=pl.device)
+    p1e, p3e, _, new = am_gather(codes[None], pids,
+                                 AMDecodeState(*(x[None] for x in state)),
+                                 ma3)
+    t3, _, gen3 = p3_spec(ma3)
+    g = gather_maps(ma3)
+    p1, m1 = _fec(p1e, C.CONV_E1_GEN, "am_p1", False)
+    p3, m3 = _fec(p3e, gen3, P3_CHANNEL[ma3], False)
+    return (p1.reshape(8, C.P1_FRAME_LEN_AM), p3.reshape(t3),
+            {"p1": m1.reshape(8, g["n1"]).amin(-1), "p3": m3.amin()},
+            AMDecodeState(*(x[0] for x in new)))

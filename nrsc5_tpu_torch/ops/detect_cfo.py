@@ -1,10 +1,14 @@
-"""Integer-CFO + block-offset search of the FM cold start, kernel K10.
+"""Integer-CFO + block-offset search of the FM cold start, kernel K10, and
+the per-block receiver's complex scan.
 
 PyTorch counterpart of ``nrsc5_tpu/ops/acquire_rc.py:detect_cfo_scan_rc``
-(lines 114-157) and of the tables of ``nrsc5_tpu/ops/detect_cfo.py``
-(``CFO_RANGE``, ``N_REFS``, ``_needle_tables``, lines 21-41; pinned equal
-by tests/test_torch_tables.py).  For every station, all 76 candidate CFOs
-× 22 reference subcarriers run as lockstep Costas tracks (the PLL of
+(lines 114-157) and of ``nrsc5_tpu/ops/detect_cfo.py`` (the tables
+``CFO_RANGE``, ``N_REFS``, ``_needle_tables``, lines 21-41, pinned equal
+by tests/test_torch_tables.py; and :func:`detect_cfo_scan`, line 45, the
+per-block receiver's scan on one block's complex spectra, plain PyTorch
+through :func:`nrsc5_tpu_torch.ops.sync_fm.costas_track`).  For every
+station, all 76 candidate CFOs × 22 reference subcarriers run as
+lockstep Costas tracks (the PLL of
 :mod:`nrsc5_tpu_torch.ops.costas`, with the static per-track frequency of
 each CFO), and the needle count matches each track's 32 signs, cyclically
 shifted by each of the 32 block offsets, against the reference control
@@ -152,3 +156,24 @@ def detect_cfo_scan_rc(spectra, plain: bool = False):
              count.data_ptr(), s, C.FFT_FM, LB_FIRST, UB_FIRST, SF.ALPHA,
              SF.BETA, TWO_PI, device=spectra.device)
     return count
+
+
+def detect_cfo_scan(spectra):
+    """The per-block receiver's scan.  spectra: [32, 2048] complex64 (one
+    block, demodulated at the receiver's current CFO).  Returns count
+    int32 [76, 32]: count[c, o] = the reference subcarriers whose sign
+    sequence, shifted cyclically by block offset o, matches the control
+    needle (or its complement) under CFO (c - 38) bins."""
+    t = _scan_tables(str(spectra.device))
+    refs = spectra[:, t["bins"]]  # [32, 76 * 22]
+    cfo_flat = t["cfo_freq"].repeat_interleave(2 * N_REFS)
+    zeros = torch.zeros_like(cfo_flat)
+    derot = SF.costas_track(refs, zeros, zeros, cfo_flat)[0]
+    signs = (derot.real > 0).reshape(C.BLKSZ, N_CFO, 2 * N_REFS)
+    n = torch.arange(C.BLKSZ, device=spectra.device)
+    sh = signs[(n[None, :] + n[:, None]) % C.BLKSZ]  # [o, n, 76, 22]
+    vals = t["vals"][None, :, None, :]
+    known = t["known"][None, :, None, :]
+    match = torch.where(known, sh == vals, True).all(dim=1) \
+        | torch.where(known, sh != vals, True).all(dim=1)
+    return match.sum(dim=-1, dtype=torch.int32).T.contiguous()  # [76, 32]

@@ -1,9 +1,12 @@
-"""Input front end: cu8 ingest + FM ÷2 and AM ÷32 halfband cascades, on rc
-tensors.
+"""Input front end: cu8 ingest + FM ÷2 and AM ÷32 halfband cascades.
 
-PyTorch counterpart of the rc half of ``nrsc5_tpu/ops/frontend.py``
+PyTorch counterpart of ``nrsc5_tpu/ops/frontend.py``: its complex half
+(``FrontendState``, ``frontend_init_state``, ``cu8_to_cf``,
+``_halfband``, ``fm_decimate``, ``am_decimate``, ``decimate_batch``;
+lines 40-117), which the per-block receivers run as plain PyTorch on
+complex64 tensors with carried overlap-save tails, and its rc half
 (``halfband_rc``, ``rc_overlap``, ``decimate_overlap_rc``, ``AM_STAGES``)
-and of the cu8 ingest in ``nrsc5_tpu/serve.py`` (``ingest``, lines
+with the cu8 ingest in ``nrsc5_tpu/serve.py`` (``ingest``, lines
 308-324).  The halfband impulse response is built from the 4 designed
 taps (reference: src/input.c:26-39): h = [t3 0 t2 0 t1 0 t0 1 t0 0 t1 0
 t2 0 t3] / 2.
@@ -20,6 +23,7 @@ plain PyTorch versions, :func:`ingest_fm_cu8_plain` and
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,6 +46,62 @@ def halfband_taps() -> np.ndarray:
     h[7] = 1.0
     h[8:15:2] = t  # t0 t1 t2 t3 at 8,10,12,14
     return h / 2.0
+
+
+class FrontendState(NamedTuple):
+    """Carried overlap-save tails, one per halfband stage."""
+    tails: tuple  # of [..., HB_NTAPS-1] complex64
+
+
+def frontend_init_state(stages: int = 1, *, device="cuda") -> FrontendState:
+    """Zero tails for a ``stages``-deep cascade on ``device``."""
+    dev = K.resolve_device(device)
+    return FrontendState(tails=tuple(
+        torch.zeros(HB_NTAPS - 1, dtype=torch.complex64, device=dev)
+        for _ in range(stages)))
+
+
+def cu8_to_cf(data: torch.Tensor) -> torch.Tensor:
+    """Interleaved cu8 -> complex64, the reference's U8_Q15 scaling (value
+    127 = zero, LSB = 64/32767; reference: src/defines.h:92-93)."""
+    f = (data.float() - 127.0) * CU8_SCALE
+    return torch.complex(f[0::2], f[1::2])
+
+
+def _halfband(x: torch.Tensor, tail: torch.Tensor):
+    """One ÷2 halfband stage with overlap-save on complex samples.
+    x: [..., N] (N even), tail [..., 14] -> (y [..., N//2], new tail).
+    The same polyphase sum as :func:`halfband_rc`, in the same order."""
+    h = halfband_taps()
+    xx = torch.cat([tail, x], dim=-1)
+    n_out = x.shape[-1] // 2
+    xe, xo = xx[..., 0::2], xx[..., 1::2]
+    y = float(h[7]) * xo[..., 3:3 + n_out]
+    for j in range(8):
+        y = y + float(h[2 * j]) * xe[..., j:j + n_out]
+    return y, xx[..., -(HB_NTAPS - 1):]
+
+
+def decimate_batch(x: torch.Tensor, state: FrontendState, stages: int):
+    """A ``stages``-deep cascade of :func:`_halfband`: x [..., N] ->
+    ([..., N >> stages], new state); the tails carry x's leading dims."""
+    y, tails = x, []
+    for s in range(stages):
+        y, tail = _halfband(y, state.tails[s])
+        tails.append(tail)
+    return y, FrontendState(tails=tuple(tails))
+
+
+def fm_decimate(x: torch.Tensor, state: FrontendState):
+    """FM path: one halfband, 1.488 MS/s complex in, 744.2 kS/s out
+    (reference: src/input.c:52-60)."""
+    return decimate_batch(x, state, 1)
+
+
+def am_decimate(x: torch.Tensor, state: FrontendState):
+    """AM path: ÷32 through 5 cascaded halfbands, after the reference's
+    extra 1/16 input scaling (reference: src/input.c:62-90)."""
+    return decimate_batch(x * (1.0 / 16.0), state, AM_STAGES)
 
 
 def halfband_rc(x: torch.Tensor, tail: torch.Tensor):

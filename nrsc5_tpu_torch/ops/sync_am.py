@@ -1,14 +1,17 @@
-"""AM fine-sync tables, the elementwise pieces of the AM sync block, and
-the host lock logic of the AM cold start.
+"""AM fine sync: the tables, the complex sync block of the per-block
+receivers, and the host lock logic of the AM receivers.
 
-PyTorch counterpart of the tables and helpers of
-``nrsc5_tpu/ops/sync_am.py`` (lines 37-80; pinned equal by
-tests/test_torch_tables.py): the Gray level tables, the training points
-and rows, the Gray demaps and the phase wraps.  The sync block itself is
-kernel K13 (:func:`nrsc5_tpu_torch.pipeline.scan_chain_am_rc.
+PyTorch counterpart of ``nrsc5_tpu/ops/sync_am.py``: its tables and
+helpers (lines 37-80; pinned equal by tests/test_torch_tables.py): the
+Gray level tables, the training points and rows, the Gray demaps and the
+phase wraps; the QAM demaps ``qam64_map``, ``qam16_map``, ``qpsk_map`` and
+the complex sync block ``sync_am_block`` with its ``train_mult`` (lines
+52-213), plain PyTorch on complex64, which the per-block AM receiver runs
+on the card and on the CPU alike.  The rc chain's sync block is kernel
+K13 (:func:`nrsc5_tpu_torch.pipeline.scan_chain_am_rc.
 sync_am_block_rc`).  And a numpy copy of the reference's host functions
-of lines 215-269, which the cold start runs on each probe block's
-reference bits: :func:`timing_consensus`, :func:`find_ref_am` and
+of lines 215-269, which the cold start and the per-block receiver run on
+each block's reference bits: :func:`timing_consensus`, :func:`find_ref_am` and
 :func:`find_block_am` (pinned equal by tests/test_torch_am_coldstart.py).
 
 The reference equalizes with the interpolated training equalizer by
@@ -70,6 +73,132 @@ def _wrap_half_pi(d: torch.Tensor) -> torch.Tensor:
 
 def _wrap_pi(d: torch.Tensor) -> torch.Tensor:
     return d - 2 * math.pi * torch.round(rc.fdiv(d, 2 * math.pi))
+
+
+def qam64_map(z: torch.Tensor) -> torch.Tensor:
+    return gray8_map(z.real) | (gray8_map(z.imag) << 3)
+
+
+def qam16_map(z: torch.Tensor) -> torch.Tensor:
+    return gray4_map(z.real) | (gray4_map(z.imag) << 2)
+
+
+def qpsk_map(z: torch.Tensor) -> torch.Tensor:
+    return ((z.real >= 0).to(torch.uint8)
+            | ((z.imag >= 0).to(torch.uint8) << 1))
+
+
+@functools.lru_cache(maxsize=8)
+def _am_bins(ma3: bool, device: str) -> dict:
+    c = CENTER
+    primary = C.OUTER_PARTITION_START_AM if not ma3 \
+        else C.INNER_PARTITION_START_AM
+    secondary = C.MIDDLE_PARTITION_START_AM
+    tertiary = C.INNER_PARTITION_START_AM if not ma3 \
+        else C.MIDDLE_PARTITION_START_AM
+    col = np.arange(W)
+    a_lo = np.minimum(TRAIN1, TRAIN2)  # the anchors are 16 rows apart
+    tables = {
+        "low": c - np.arange(C.REF_INDEX_AM, C.MAX_INDEX_AM + 1),
+        "comb": np.arange(C.REF_INDEX_AM, C.PIDS_OUTER_INDEX_AM + 1),
+        "pl": c - primary - col, "pu": c + primary + col,
+        "s": c + secondary + col,
+        "t": (c + tertiary + col) if not ma3 else (c - tertiary - col),
+        "t1": TRAIN1, "t2": TRAIN2, "col": col, "a_lo": a_lo,
+    }
+    out = {k: torch.from_numpy(np.asarray(v, np.int64)).to(device)
+           for k, v in tables.items()}
+    out["u"] = ((torch.arange(32)[:, None] - out["a_lo"][None, :].cpu()
+                 - 8) / 16.0).to(device)  # [32, W]
+    out["colf"] = torch.arange(W, dtype=torch.float32, device=device)
+    return out
+
+
+def sync_am_block(spectra: torch.Tensor, ma3: bool = False) -> dict:
+    """Process one AM L1 block (reference: src/sync.c:612-768).
+
+    spectra: [32, 256] complex64 fftshifted (bin CENTER = the carrier);
+    ma3: service mode MA3 (True) or MA1/hybrid (False).
+
+    Returns a dict: ref_bits [32] uint8 (the reference subcarrier's sign
+    bits, imaginary axis), pids [32, 2] uint8 (QAM16 codes, inner and
+    outer), pl/pu/s/t [800] uint8 (partition codes in (symbol, column)
+    order), samperr int32."""
+    c = CENTER
+    t = _am_bins(ma3, str(spectra.device))
+    buf = spectra.clone()
+    # conjugate the lower sideband (reference: src/sync.c:616-623)
+    buf[:, t["low"]] = -buf[:, t["low"]].conj()
+    if not ma3:
+        # complementary combine into the upper sideband (src/sync.c:625-633)
+        buf[:, c + t["comb"]] += buf[:, c - t["comb"]]
+
+    ref_bits = (buf[:, c + C.REF_INDEX_AM].imag > 0).to(torch.uint8)
+
+    # PIDS (QAM16)
+    pids1_bin = c + (C.PIDS_INNER_INDEX_AM if not ma3
+                     else -C.PIDS_INNER_INDEX_AM)
+    pids2_bin = c + (C.PIDS_OUTER_INDEX_AM if not ma3
+                     else C.PIDS_INNER_INDEX_AM)
+    p1col, p2col = buf[:, pids1_bin], buf[:, pids2_bin]
+    p1m = 2 * TRAIN_QAM16 / (p1col[8] + p1col[24])
+    p2m = 2 * TRAIN_QAM16 / (p2col[8] + p2col[24])
+    pids = torch.stack([qam16_map(p1col * p1m), qam16_map(p2col * p2m)],
+                       dim=1)
+
+    col = t["col"]
+
+    def train_mult(bins, nominal):
+        cols = buf[:, bins]  # [32, W]
+        tr = cols[t["t1"], col] + cols[t["t2"], col]
+        return 2 * nominal / tr  # [W]
+
+    pl_mult = train_mult(t["pl"], TRAIN_QAM64)
+    pu_mult = train_mult(t["pu"], TRAIN_QAM64)
+    s_mult = train_mult(t["s"], TRAIN_QAM64 if ma3 else TRAIN_QAM16)
+    t_mult = train_mult(t["t"], TRAIN_QAM64 if ma3 else TRAIN_QPSK)
+
+    # sample clock error from the phase slope across the primary columns
+    # (reference: src/sync.c:717-723)
+    dp = _wrap_half_pi(torch.angle(pl_mult[1:])
+                       - torch.angle(pl_mult[:-1])).sum()
+    du = _wrap_half_pi(torch.angle(pu_mult[1:])
+                       - torch.angle(pu_mult[:-1])).sum()
+    samperr = (dp + du) / (2 * (W - 1)) * C.FFT_AM / (2 * math.pi)
+    samperr = torch.round(samperr).to(torch.int32)
+
+    # the interpolated training equalizer (the reference's AM_EQ_INTERP
+    # default): a per-row mult anchored at the training midpoint, the
+    # anchor-to-anchor phase delta fitted linearly across the partition's
+    # columns (weights: the anchors' magnitudes) and spread across rows
+    a_lo, u, colf = t["a_lo"], t["u"], t["colf"]
+
+    def rows_mult(bins, base):
+        cols = buf[:, bins]
+        lo, hi = cols[a_lo, col], cols[a_lo + 16, col]
+        dphi = _wrap_pi(torch.angle(lo) - torch.angle(hi))  # [W]
+        w = lo.abs() * hi.abs() + 1e-12
+        wsum = w.sum()
+        cbar = (w * colf).sum() / wsum
+        dbar = (w * dphi).sum() / wsum
+        b = (w * (colf - cbar) * (dphi - dbar)).sum() \
+            / ((w * (colf - cbar) ** 2).sum() + 1e-12)
+        fit = dbar + b * (colf - cbar)  # [W]
+        return base[None, :] * torch.exp(1j * u * fit[None, :])
+
+    pl_eq = buf[:, t["pl"]] * rows_mult(t["pl"], pl_mult)
+    pu_eq = buf[:, t["pu"]] * rows_mult(t["pu"], pu_mult)
+    s_eq = buf[:, t["s"]] * rows_mult(t["s"], s_mult)
+    t_eq = buf[:, t["t"]] * rows_mult(t["t"], t_mult)
+
+    pl_c, pu_c = qam64_map(pl_eq), qam64_map(pu_eq)
+    if not ma3:
+        s_c, t_c = qam16_map(s_eq), qpsk_map(t_eq)
+    else:
+        s_c, t_c = qam64_map(s_eq), qam64_map(t_eq)
+    return {"ref_bits": ref_bits, "pids": pids, "pl": pl_c.reshape(-1),
+            "pu": pu_c.reshape(-1), "s": s_c.reshape(-1),
+            "t": t_c.reshape(-1), "samperr": samperr}
 
 
 # ---------------------------------------------------------------------------

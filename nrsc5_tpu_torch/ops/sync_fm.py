@@ -1,20 +1,33 @@
-"""FM fine-sync tables: Costas gains, reference bins, needles, sync signs.
+"""FM fine sync: the tables (Costas gains, reference bins, needles, sync
+signs) and the complex sync block of the per-block receivers.
 
-A numpy copy of the tables of ``nrsc5_tpu/ops/sync_fm.py`` (lines 30-100;
-pinned equal by tests/test_torch_tables.py).  The sync arithmetic itself
-lives in :mod:`nrsc5_tpu_torch.pipeline.scan_chain_rc`, as in the
-reference's fused chain.  The reference's ``NRSC5_EQ_MMSE`` switch is not
-read: the port always applies its default, the per-bin channel-power LLR
-weighting.
+PyTorch counterpart of ``nrsc5_tpu/ops/sync_fm.py``: a numpy copy of its
+tables (lines 30-100; pinned equal by tests/test_torch_tables.py), and its
+complex functions (``SyncState``, ``sync_init_state``, ``_wrap_pi``,
+``_phase_diff``, ``costas_track``, ``sync_fm_block``; lines 50-292) as
+plain PyTorch on complex64, which the per-block receivers and their fused
+chain (:mod:`nrsc5_tpu_torch.pipeline.scan_chain`) run on the card and on
+the CPU alike: the per-reference-subcarrier Costas loops advance in
+lockstep over the 32 symbols, then the pi-ambiguity fix, the control-word
+decode, the partition equalization, the sample-clock regression, the MER
+and the int8 soft demap (reference: src/sync.c:339-609).  The rc chain's
+sync block is kernel K4 (:mod:`nrsc5_tpu_torch.pipeline.scan_chain_rc`).
+The reference's ``NRSC5_EQ_MMSE`` switch is not read: the port always
+applies its default, the per-bin channel-power LLR weighting.
 """
 
 from __future__ import annotations
 
 import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from nrsc5_tpu_torch import constants as C
+from nrsc5_tpu_torch import kernels as K
+from nrsc5_tpu_torch.ops import rcplx as rc
 
 # Costas loop constants (reference: src/sync.c:832-841)
 _LOOP_BW = 0.05
@@ -76,3 +89,202 @@ def _sync_signs() -> np.ndarray:
     reference: src/sync.c:96-99)."""
     s = np.array(C.REF_SIGNS_FIXED, dtype=np.float32)
     return np.where(s < 0, 0.0, s * 2 - 1).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# the complex sync block (reference: src/sync.c:339-609)
+# ---------------------------------------------------------------------------
+
+class SyncState(NamedTuple):
+    costas_phase: torch.Tensor  # [FFT_FM] float32
+    costas_freq: torch.Tensor  # [FFT_FM] float32
+
+
+def sync_init_state(*, device="cuda") -> SyncState:
+    dev = K.resolve_device(device)
+    return SyncState(
+        costas_phase=torch.zeros(C.FFT_FM, dtype=torch.float32, device=dev),
+        costas_freq=torch.zeros(C.FFT_FM, dtype=torch.float32, device=dev))
+
+
+def _wrap_pi(x):
+    return x - 2 * math.pi * torch.round(rc.fdiv(x, 2 * math.pi))
+
+
+def _phase_diff(a, b):
+    """Wrap a-b into (-pi/2, pi/2] (reference: src/sync.c:284-290)."""
+    d = a - b
+    return d - math.pi * torch.round(rc.fdiv(d, math.pi))
+
+
+def costas_track(refs, phase0, freq0, cfo_freq=None):
+    """Run the Costas loops over one block: refs [32, R] complex64,
+    phase0/freq0 [R] float32, the optional static per-loop frequency
+    ``cfo_freq`` [R].  Returns (derot [32, R], phases [32, R], phase_out
+    [R], freq_out [R])."""
+    ph, fr = phase0, freq0
+    derots, phases = [], []
+    for v in refs:
+        err = 0.5 * torch.angle(v * v * torch.exp(-2j * ph))
+        derots.append(v * torch.exp(-1j * ph))
+        phases.append(ph)
+        fr = torch.clamp(fr + BETA * err, -0.5, 0.5)
+        step = ph + fr if cfo_freq is None else ph + fr + cfo_freq
+        ph = _wrap_pi(step + ALPHA * err)
+    return torch.stack(derots), torch.stack(phases), ph, fr
+
+
+@functools.lru_cache(maxsize=32)
+def _block_tables(ppb: int, device: str) -> dict:
+    r = ppb + 1
+    part = np.arange(ppb)
+    kk = np.arange(1, W)
+    low_bins = C.LB_START + part[:, None] * W + kk[None, :]
+    up_bins = C.UB_END - (part[:, None] + 1) * W + kk[None, :]
+    vals, known = _needles(ppb)
+    tables = {
+        "bins": _ref_bins(ppb).astype(np.int64),
+        "sync_signs": _sync_signs(),
+        "vals": np.ascontiguousarray(vals.T),  # [32, 2R]
+        "known": np.ascontiguousarray(known.T),
+        "lo_idx": np.concatenate([np.arange(ppb), r + np.arange(ppb) + 1]),
+        "hi_idx": np.concatenate([np.arange(ppb) + 1, r + np.arange(ppb)]),
+        "data_bins": np.concatenate([low_bins, up_bins]).astype(np.int64),
+        "k": np.arange(1, W, dtype=np.float32),
+        "w_bc": np.array([8, 4, 2, 1], np.int32),
+        "w_ps": np.array([32, 16, 8, 4, 2, 1], np.int32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in tables.items()}
+
+
+def _demod(z, mult):
+    """int8 soft bits of z [..., n] at per-value scale ``mult``:
+    [..., n, 2] (I, Q)."""
+    i8 = torch.round(torch.clamp(z.real, -1, 1) * mult)
+    q8 = torch.round(torch.clamp(z.imag, -1, 1) * mult)
+    return torch.stack([i8, q8], dim=-1).to(torch.int8)
+
+
+def sync_fm_block(spectra, state: SyncState, psmi: int, timing_adj):
+    """Process one L1 block of 32 symbol spectra.
+
+    spectra: [32, 2048] complex64 (fftshifted).  timing_adj: the int32
+    sample adjustment from acquire (fftcp/2 - samperr), applied to the
+    carried Costas phases first (reference: src/sync.c:769-777).  psmi:
+    the service mode (the partition geometry).
+
+    Returns a dict of tensors (pm [23040] int8, ref_ok, ref_bc, ref_psmi,
+    samperr, angle, error_lb, error_ub, and px1/px2 in the extended modes)
+    and the new SyncState."""
+    ppb = C.partitions_per_band(psmi)
+    cm = C.COMPATIBILITY_MODE[psmi]
+    dev = spectra.device
+    t = _block_tables(ppb, str(dev))
+    bins = t["bins"]
+    timing_adj = torch.as_tensor(timing_adj, device=dev)
+
+    # sync_adjust: a timing shift rotates each subcarrier's phase
+    k_rel = (bins - C.FFT_FM // 2).float()
+    adj_phase = timing_adj.float() * k_rel * (2 * math.pi / C.FFT_FM)
+    phase0 = state.costas_phase[bins] - adj_phase
+    freq0 = state.costas_freq[bins]
+
+    refs = spectra[:, bins]  # [32, 2R]
+    derot, phases, ph_out, fr_out = costas_track(refs, phase0, freq0)
+
+    # pi-ambiguity fix against the fixed sync signs
+    score = (derot.real * t["sync_signs"][:, None]).sum(0)  # [2R]
+    flip = score < 0
+    derot = torch.where(flip[None, :], -derot, derot)
+    phases = torch.where(flip[None, :], phases + math.pi, phases)
+    ph_out = torch.where(flip, ph_out + math.pi, ph_out)
+
+    # --- COARSE: per-ref control-word decode (reference: src/sync.c:169-186)
+    signs = (derot.real > 0).to(torch.uint8)  # [32, 2R]
+    match = torch.where(t["known"], signs == t["vals"], True)
+    ref_ok = match.all(dim=0)  # [2R]
+    data = signs ^ torch.cat([torch.zeros_like(signs[:1]), signs[:-1]])
+    ref_bc = (data[16:20].to(torch.int32) * t["w_bc"][:, None]).sum(0)
+    ref_psmi = (data[25:31].to(torch.int32) * t["w_ps"][:, None]).sum(0)
+
+    # --- FINE: equalization ------------------------------------------------
+    smag = derot.real.abs().mean(dim=0)  # [2R]
+    lo_idx, hi_idx = t["lo_idx"], t["hi_idx"]
+    phi_lo, phi_hi = phases[:, lo_idx], phases[:, hi_idx]  # [32, 2*ppb]
+    smag_lo, smag_hi = smag[lo_idx], smag[hi_idx]
+    k = t["k"]  # [18]
+    denom = (k[None, None, :] * (smag_hi[None, :, None]
+             * torch.exp(1j * phi_hi)[:, :, None])
+             + (W - k)[None, None, :] * (smag_lo[None, :, None]
+             * torch.exp(1j * phi_lo)[:, :, None]))
+    eq = (W + W * 1j) / denom  # [32, 2*ppb, 18]
+    data_eq = spectra[:, t["data_bins"]] * eq  # [32, 2*ppb, 18]
+
+    # --- sample-clock error + angle (reference: src/sync.c:426-463) -------
+    samperr = _phase_diff(phi_lo[0], phi_hi[0]).sum()
+    samperr = samperr / (ppb * 2) * C.FFT_FM / W / (2 * math.pi)
+    slope = (k_rel * fr_out).sum() / (k_rel * k_rel).sum()
+    samperr = samperr - slope * C.FFT_FM / (2 * math.pi) * C.ACQUIRE_SYMBOLS
+    samperr_i = torch.round(samperr).to(torch.int32)
+    angle = fr_out.mean()
+    fr_out = fr_out - angle
+
+    # --- MER + soft demap (reference: src/sync.c:465-607) -----------------
+    ideal = torch.complex(torch.sign(data_eq.real), torch.sign(data_eq.imag))
+    err2 = (ideal - data_eq).abs() ** 2  # [32, 2*ppb, 18]
+    error_lb = err2[:, :ppb].sum()
+    error_ub = err2[:, ppb:].sum()
+    sig_block = 2.0 * C.BLKSZ * (ppb * C.PARTITION_DATA_CARRIERS)
+    mult_lb = torch.clamp(sig_block / error_lb * 10, 1, 127)
+    mult_ub = torch.clamp(sig_block / error_ub * 10, 1, 127)
+
+    # the per-bin channel-power LLR weighting (the reference's EQ_MMSE,
+    # on by default): weight each bin's soft output by its channel power,
+    # normalized per sideband and capped at 1
+    h2 = 1.0 / torch.clamp(eq.abs() ** 2, min=1e-12)
+    w_lb = torch.clamp(h2[:, :ppb] / h2[:, :ppb].mean(dim=(1, 2),
+                                                      keepdim=True), 0, 1)
+    w_ub = torch.clamp(h2[:, ppb:] / h2[:, ppb:].mean(dim=(1, 2),
+                                                      keepdim=True), 0, 1)
+    mlb = mult_lb * w_lb
+    mub = mult_ub * w_ub
+
+    pm = C.PM_PARTITIONS
+    # PM: lower partitions 0..9 with mult_lb; upper partitions m = 9..0
+    pm_low = _demod(data_eq[:, :pm], mlb[:, :pm])  # [32, 10, 18, 2]
+    up = data_eq[:, ppb:ppb + pm]  # m = 0..9
+    pm_up = _demod(up.flip(1), mub[:, :pm].flip(1))
+    pm_block = torch.cat([pm_low, pm_up], dim=1).reshape(C.BLKSZ, -1)
+
+    out = {
+        "pm": pm_block.reshape(-1),  # [23040] int8
+        "ref_ok": ref_ok, "ref_bc": ref_bc, "ref_psmi": ref_psmi,
+        "samperr": samperr_i, "angle": angle,
+        "error_lb": error_lb, "error_ub": error_ub,
+    }
+    if cm == 2:
+        px1 = torch.cat([
+            _demod(data_eq[:, 10:11], mlb[:, 10:11]),
+            _demod(data_eq[:, ppb + 10:ppb + 11], mub[:, 10:11])], dim=1)
+        out["px1"] = px1.reshape(-1)  # [2304]
+    elif cm in (3, 11):
+        px1 = torch.cat([
+            _demod(data_eq[:, 10:12], mlb[:, 10:12]),
+            _demod(data_eq[:, ppb + 11:ppb + 12], mub[:, 11:12]),
+            _demod(data_eq[:, ppb + 10:ppb + 11], mub[:, 10:11])], dim=1)
+        out["px1"] = px1.reshape(-1)  # [4608]
+    if cm == 11:
+        # the reference applies mult_lb to both px2 sidebands
+        # (src/sync.c:574-595)
+        px2 = torch.cat([
+            _demod(data_eq[:, 12:14], mlb[:, 12:14]),
+            _demod(data_eq[:, ppb + 13:ppb + 14], mult_lb * w_ub[:, 13:14]),
+            _demod(data_eq[:, ppb + 12:ppb + 13], mult_lb * w_ub[:, 12:13])],
+            dim=1)
+        out["px2"] = px2.reshape(-1)
+
+    new_phase = state.costas_phase.clone()
+    new_phase[bins] = _wrap_pi(ph_out)
+    new_freq = state.costas_freq.clone()
+    new_freq[bins] = fr_out
+    return out, SyncState(costas_phase=new_phase, costas_freq=new_freq)

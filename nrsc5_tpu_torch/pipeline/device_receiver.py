@@ -15,9 +15,9 @@ cu8 runs through K1 on the device (the FM ÷2 halfband, or the AM ÷32
 cascade) a push at a time, over a carried tail of raw pairs; the chain
 input comes back to the host, as in the reference, and is queued there.
 
-Transport events flow from the receiver's station transport.  As on the
-reference's device path, no transport-triggered hard resync reaches the
-receiver: its relock watchdog alone acts on signal loss.
+Transport events flow from the receiver's station transport.  A hard
+resync the session's transport asks for (:meth:`DeviceReceiver.resync`)
+forces the receiver's relock watchdog, as the reference's does.
 """
 
 from __future__ import annotations
@@ -148,4 +148,16 @@ class DeviceReceiver:
     def flush(self):
         if self._rx is not None:
             self._rx.flush()
+
+    def resync(self):
+        """Transport-triggered hard resync (reference: src/frame.c:535-540):
+        force the receiver's watchdog into re-acquisition and emit
+        LOST_SYNC; before the first lock, and while already re-acquiring,
+        there is nothing to force."""
+        rx = self._rx
+        if rx is not None and not rx._relocking[0]:
+            rx._bad_frames[0] = 0
+            rx._relocking[0] = True
+            rx._relock_next[0] = 0
+            self._emit(make(EventType.LOST_SYNC))
 

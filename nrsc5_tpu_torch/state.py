@@ -8,6 +8,14 @@ carry, the PX channels' interleaver-IV state included) or, for AM, of
 ``AMChainCarryRC`` with its ``dec`` delay lines flattened to their own
 names (``ml``, ``mu``, ``eml``, ``emu``), so a stream decoded so far by one
 receiver continues bit-exactly in the other.
+
+The per-block receivers' and the complex chains' state (``AcquireState``,
+``SyncState``, ``FrontendState``, ``ChainCarry``, ``PxState``,
+``AMChainCarry``) goes the same way through :func:`block_state_to_numpy`
+and :func:`block_state_from_numpy`: one array a leaf under the leaf's
+field name in the reference (nested states flattened, a frontend's tails
+stacked under ``tails``), so either package's state, flattened alike,
+continues in the other.
 """
 
 from __future__ import annotations
@@ -17,8 +25,13 @@ import torch
 
 from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
+from nrsc5_tpu_torch.ops.acquire import AcquireState
 from nrsc5_tpu_torch.ops.decode_am import DD, AMDecodeState
-from nrsc5_tpu_torch.pipeline.scan_chain import iv_state_len, px_frame_lens
+from nrsc5_tpu_torch.ops.frontend import FrontendState
+from nrsc5_tpu_torch.ops.sync_fm import SyncState
+from nrsc5_tpu_torch.pipeline.scan_chain import (ChainCarry, PxState,
+                                                 iv_state_len, px_frame_lens)
+from nrsc5_tpu_torch.pipeline.scan_chain_am import AMChainCarry
 from nrsc5_tpu_torch.pipeline.scan_chain_am_rc import AMChainCarryRC
 from nrsc5_tpu_torch.pipeline.scan_chain_rc import ChainCarryRC
 
@@ -143,3 +156,60 @@ def carry_from_leaves(leaves: list, like):
         return AMChainCarryRC(*tensors[:n],
                               dec=AMDecodeState(*tensors[n:]))
     return ChainCarryRC(*tensors)
+
+
+# the complex chains' states: the nested fields of each
+BLOCK_STATES = {"acquire": AcquireState, "sync": SyncState,
+                "frontend": FrontendState, "chain": ChainCarry,
+                "px": PxState, "am_chain": AMChainCarry}
+_NESTED = {"acq": AcquireState, "sync": SyncState, "dec": AMDecodeState}
+
+
+def block_state_to_numpy(state) -> dict:
+    """A complex-chain state (of this package or, with the same field
+    names, of the reference) -> {leaf field: numpy array}: nested states
+    flattened into their fields, a frontend's ``tails`` stacked [stages,
+    14]."""
+    out = {}
+    for name, value in zip(state._fields, state):
+        if name in _NESTED:
+            out.update(block_state_to_numpy(value))
+        elif name == "tails":
+            out[name] = np.stack([np.asarray(
+                t.cpu() if isinstance(t, torch.Tensor) else t)
+                for t in value])
+        else:
+            out[name] = np.asarray(value.cpu() if isinstance(
+                value, torch.Tensor) else value)
+    return out
+
+
+def block_state_from_numpy(d: dict, kind: str, *, device="cuda"):
+    """Inverse of :func:`block_state_to_numpy`: ``kind`` names the state
+    (a key of :data:`BLOCK_STATES`), ``d`` holds exactly its leaf fields;
+    each array keeps its dtype."""
+    dev = K.resolve_device(device)
+
+    def build(cls):
+        vals = []
+        for name in cls._fields:
+            if name in _NESTED:
+                vals.append(build(_NESTED[name]))
+            elif name == "tails":
+                vals.append(tuple(torch.from_numpy(np.array(t)).to(dev)
+                                  for t in d[name]))
+            else:
+                vals.append(torch.from_numpy(np.array(d[name])).to(dev))
+        return cls(*vals)
+
+    cls = BLOCK_STATES[kind]
+    want = set(_leaf_names(cls))
+    if set(d) != want:
+        raise ValueError(f"{kind} state fields {sorted(d)} != "
+                         f"{sorted(want)}")
+    return build(cls)
+
+
+def _leaf_names(cls) -> list:
+    return [leaf for n in cls._fields for leaf in (
+        _leaf_names(_NESTED[n]) if n in _NESTED else [n])]

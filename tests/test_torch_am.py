@@ -509,21 +509,26 @@ def test_am_k8_tables_match_fec():
 
 
 _TWINS = {
-    "am_frame_gather": lambda x: TDA.am_frame_gather(
-        x, x, x, x, TDA.AMDecodeState(x, x, x, x)),
-    "am_frame_fec": lambda x: TDA.am_frame_fec(x, x),
-    "am_pids_decode": lambda x: TDA.am_pids_decode(x),
+    "am_frame_gather": (lambda x: TDA.am_frame_gather(
+        x, x, x, x, TDA.AMDecodeState(x, x, x, x)), "am_gather and am_fec"),
+    "am_frame_fec": (lambda x: TDA.am_frame_fec(x, x),
+                     "am_gather and am_fec"),
+    "am_pids_decode": (lambda x: TDA.am_pids_decode(
+        x.new_empty(4, 32, 2, dtype=torch.uint8)), "a CUDA tensor"),
 }
 
 
 @pytest.mark.parametrize("twin", sorted(_TWINS))
 def test_per_frame_twins_are_cpu_only(twin):
-    """The reference's per-frame functions are CPU twins: a tensor on any
-    other device (here ``meta``) raises and points at the kernels' path,
-    so no plain version runs in place of K15, K7 or K8."""
+    """No plain version runs in place of K15, K7 or K8 off the CPU: the
+    reference's per-frame gather and FEC are CPU twins, and a tensor on
+    any other device (here ``meta``) raises and points at the kernels'
+    path; ``am_pids_decode`` takes the kernels' path there (K15's
+    PIDS-only launch), which refuses a tensor that is not on a card."""
+    fn, match = _TWINS[twin]
     x = torch.empty(4, 3, device="meta")
-    with pytest.raises(ValueError, match="am_gather and am_fec"):
-        _TWINS[twin](x)
+    with pytest.raises(ValueError, match=match):
+        fn(x)
 
 
 def test_ingest_am_cs16():

@@ -60,12 +60,19 @@ print(",".join(sorted(m for m in sys.modules
     "nrsc5_tpu_torch.transport.pids", "nrsc5_tpu_torch.tx.sis_encoder",
     "nrsc5_tpu_torch.tx.transport_encoder",
     "nrsc5_tpu_torch.pipeline.block_graph", "nrsc5_tpu_torch.audio.fleet",
-    "nrsc5_tpu_torch.io.rtltcp"])
+    "nrsc5_tpu_torch.io.rtltcp", "nrsc5_tpu_torch.ops.acquire",
+    "nrsc5_tpu_torch.pipeline.scan_chain",
+    "nrsc5_tpu_torch.pipeline.scan_chain_am",
+    "nrsc5_tpu_torch.pipeline.receiver",
+    "nrsc5_tpu_torch.pipeline.receiver_am",
+    "nrsc5_tpu_torch.pipeline.turbo"])
 def test_host_copies_import_no_jax(module):
     """Each of the receiver's host copies (events, CRCs, the native host
     ops, the transport, the SIS and transport encoders), K5's graph
-    runner, fleet audio and the rtl_tcp client, imported alone in a fresh interpreter, pulls in no ``jax*``
-    module and no module of ``nrsc5_tpu``."""
+    runner, fleet audio, the rtl_tcp client, and the per-block path (the
+    complex acquire, the fused complex chains, the per-block and turbo
+    receivers), imported alone in a fresh interpreter, pulls in no
+    ``jax*`` module and no module of ``nrsc5_tpu``."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
                          cwd=Path(__file__).resolve().parents[1],
                          capture_output=True, text=True, timeout=300,
@@ -107,7 +114,29 @@ _ENTRY_POINTS = {
     "RtlTcpFleet": lambda: serve.RtlTcpFleet(
         [("127.0.0.1", 1)], [88.5e6], lambda station, event: None,
         modes="auto"),
+    "FMReceiver": lambda: _block().FMReceiver(lambda *a: None),
+    "AMReceiver": lambda: _block("receiver_am").AMReceiver(lambda *a: None),
+    "TurboFMReceiver": lambda: _block("turbo").TurboFMReceiver(
+        lambda *a: None),
+    "chain_init_carry": lambda: _block("scan_chain").chain_init_carry(),
+    "am_chain_init_carry": lambda: _block(
+        "scan_chain_am").am_chain_init_carry(),
+    "px_init_state": lambda: _block("scan_chain").px_init_state(3),
+    "NRSC5_block": lambda: _session().NRSC5(lambda ev: None,
+                                            chain="block"),
+    "block_state_from_numpy": lambda: state.block_state_from_numpy(
+        {"phase": 1, "prev_angle": 0}, "acquire"),
 }
+
+
+def _block(name: str = "receiver"):
+    import importlib
+    return importlib.import_module(f"nrsc5_tpu_torch.pipeline.{name}")
+
+
+def _session():
+    from nrsc5_tpu_torch.api import session
+    return session
 
 
 @pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))

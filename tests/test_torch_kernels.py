@@ -968,6 +968,27 @@ def test_am_gather(card, ma3, s, n_frames):
         assert (a is b) == (i >= nd)
 
 
+@pytest.mark.parametrize("disabled", [False, True])
+@pytest.mark.parametrize("blocks", [1, 8, 33])
+def test_am_gather_pids(card, disabled, blocks):
+    """K15's PIDS-only launch on random QAM16 codes, int8 exact against
+    its plain version, one launch counted on its own: a block (the
+    per-block receiver's call), a frame's 8 and 33, with the lower stream
+    zeroed (pids1_disabled) and not; through K7 at K=9 and K8 the bits of
+    the plain decode."""
+    g = torch.Generator().manual_seed(60 + blocks + disabled)
+    pids = torch.randint(0, 16, (blocks, 32, 2), generator=g,
+                         dtype=torch.uint8).to(card)
+    before = dict(K.COUNTS)
+    got = DA.am_gather_pids(pids, disabled)
+    assert K.COUNTS["am_gather_pids"] == before["am_gather_pids"] + 1
+    assert K.COUNTS["am_gather"] == before["am_gather"]
+    want = DA.am_gather_pids_plain(pids, disabled)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert torch.equal(DA.am_pids_decode(pids, disabled),
+                       DA.am_pids_decode(pids.cpu(), disabled).to(card))
+
+
 @pytest.mark.parametrize("segs,length,gens", [
     (1024, 1258, C.CONV_E1_GEN), (768, 1320, C.CONV_E2_E3_GEN),
     (960, 1320, C.CONV_E1_GEN), (256, 144, C.CONV_E2_E3_GEN),

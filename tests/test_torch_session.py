@@ -1,7 +1,8 @@
-"""The port's session (``nrsc5_tpu_torch.api.session.NRSC5``) and its
-``DeviceReceiver`` against the JAX package's, on the CPU: the port runs
-its kernels' plain versions (``device="cpu"``), JAX its device receiver
-(``device=True``) on the CPU backend.
+"""The port's session (``nrsc5_tpu_torch.api.session.NRSC5``) on its
+device chain (``chain="device"``) and its ``DeviceReceiver`` against the
+JAX package's, on the CPU: the port runs its kernels' plain versions
+(``device="cpu"``), JAX its device receiver (``device=True``) on the CPU
+backend.
 
 Tolerances: the event streams are compared by tests/serve_events.py's
 ``same_events`` — every event equal (decoded bits, HDC packets, ID3, SIS,
@@ -77,6 +78,7 @@ def _both_sessions(mode_jax, mode_port, sig, chunk):
             lambda cb: JNRSC5.open_pipe(cb, mode_jax, device=True,
                                         hdc_decoder_factory=None),
             lambda cb: NRSC5.open_pipe(cb, mode_port, device="cpu",
+                                       chain="device",
                                        hdc_decoder_factory=None)):
         events = []
         radio = radio_of(events.append)
@@ -241,7 +243,7 @@ def test_set_mode_switch_and_version(rng):
     lookahead, so frame 4 is the one held whole here."""
     events = []
     radio = NRSC5.open_pipe(events.append, MODE_FM, device="cpu",
-                            hdc_decoder_factory=None)
+                            chain="device", hdc_decoder_factory=None)
     radio.set_mode(MODE_AM)
     assert not radio.radio._fm
     sig, packets = build_am_capture(rng, n_frames=7, ma3=False)
@@ -273,7 +275,7 @@ def test_set_mode_reentrant_from_callback(rng):
             done.append(True)
             radio.set_callback(lambda e: None)
 
-    radio = NRSC5.open_pipe(cb, MODE_AM, device="cpu",
+    radio = NRSC5.open_pipe(cb, MODE_AM, device="cpu", chain="device",
                             hdc_decoder_factory=None)
     sig, _ = build_am_capture(rng, n_frames=5, ma3=False)
     for i in range(0, len(sig), 32768):

@@ -1,6 +1,8 @@
 """Every table and constant the PyTorch port copies from the JAX package is
-equal to the original, and the port's transmitter copy makes the same
-signal from the same seed."""
+equal to the original (the per-block path's too: its acquire shape
+kernel, CP window indices and tone grid, reference bins, needles, PIDS
+tables, Gray tables and QAM demaps, and its initial states), and the
+port's transmitter copy makes the same signal from the same seed."""
 
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from nrsc5_tpu.tx import encoder_am as JEAM
 from nrsc5_tpu.tx import modulator as JMO
 from nrsc5_tpu.tx import modulator_am as JMAM
 from nrsc5_tpu_torch import constants as TC
+from nrsc5_tpu_torch.ops import acquire as TAQB
 from nrsc5_tpu_torch.ops import acquire_am_rc as TAA
 from nrsc5_tpu_torch.ops import acquire_rc as TAQ
 from nrsc5_tpu_torch.ops import convolutional as TCV
@@ -135,6 +138,21 @@ TABLES.update({
                       jnp.float32)),
                   lambda: TAA.TONE_GRID),
     "am_stages": (lambda: JFE.AM_STAGES, lambda: TFE.AM_STAGES),
+    "frontend_init_state": (
+        lambda: tuple(np.asarray(t) for t in JFE.frontend_init_state(5)
+                      .tails),
+        lambda: tuple(t.numpy() for t in TFE.frontend_init_state(
+            5, device="cpu").tails)),
+    "acquire_windows": (lambda: (JAQ.WINDOW_FM, JAQ.WINDOW_AM),
+                        lambda: (TAQB.WINDOW_FM, TAQB.WINDOW_AM)),
+    "block_init_states": (
+        lambda: tuple(np.asarray(x) for x in (
+            *JAQ.acquire_init_state(), *JSF.sync_init_state(),
+            *JSCH.px_init_state(11))),
+        lambda: tuple(x.numpy() for x in (
+            *TAQB.acquire_init_state(device="cpu"),
+            *TSF.sync_init_state(device="cpu"),
+            *TSCH.px_init_state(11, device="cpu")))),
     "trellis_tables_k9": (
         lambda: (JCV.trellis_tables(9, JC.CONV_E1_GEN),
                  JCV.trellis_tables(9, JC.CONV_E2_E3_GEN)),
@@ -175,6 +193,19 @@ def test_table_equal(name):
         assert a == b
     else:
         _equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["qam64_map", "qam16_map", "qpsk_map"])
+def test_qam_maps_equal(name):
+    """The per-block AM sync's QAM demaps give the reference's codes on a
+    grid of points across and beyond every decision level (the Gray
+    tables themselves: ``sync_am_tables``)."""
+    import torch
+    v = np.arange(-5.25, 5.5, 0.25, dtype=np.float32)
+    z = (v[:, None] + 1j * v[None, :]).astype(np.complex64).reshape(-1)
+    want = np.asarray(getattr(JSA, name)(jnp.asarray(z)))
+    got = getattr(TSA, name)(torch.from_numpy(z)).numpy()
+    _equal(got, want)
 
 
 def test_encoder_equal():
