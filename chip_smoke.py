@@ -269,22 +269,27 @@ the eager wall and device time beside the graph's.  Then:
    1, the ID3 title and LOT file events the CPU twin of this drive gives
    (``BLOCK_GOLDEN_TITLES``, ``BLOCK_GOLDEN_LOTS``;
    tests/test_torch_block_session.py), the LOT file's bytes, the P1 and
-   PIDS bits equal to the plain run's, the turbo receiver's HDC packets
-   equal to the per-block run's, exactly K6, K7 and K8 launched and no
+   PIDS bits equal to the plain run's, the turbo receiver's HDC packets,
+   P1 frames and PIDS words equal to the per-block run's, frame for
+   frame, exactly K6, K7 and K8 launched and no
    plain version called; and one MP3 and one MP11 station (2 IV cycles
    behind 2 lead blocks, 25 dB) through ``FMReceiver``: every P1 frame and
    every PX1 and PX2 frame of IV cycle 1 exact against the transmitted
    frames, exactly K6, K7, K8 and K11 launched; the second per-block
    run the same P1 and PIDS bits.  The wall a block of each;
 18. receiver_am: session_am's capture with rdbi set from frame
-   ``BLOCK_AM_RDBI_FROM`` on, cs16 pushes of 50000 samples through the
-   per-block AM session.  Gate: one SYNC, no LOST_SYNC, at least
-   session_am's 48 exact HDC packets and none foreign, every launch of
-   K15's PIDS-only launch (a block, counted on its own; with
-   ``pids1_disabled`` once rdbi is read) exact against its plain version
-   on the same codes, exactly K15, its PIDS-only launch, K7 at K=9 and K8
-   launched, no plain version called; a second run the same HDC
-   packets.  The wall a block of both runs.
+   ``BLOCK_AM_RDBI_FROM`` on, and the same recipe in MA3 without rdbi,
+   cs16 pushes of 50000 samples through the per-block AM session, each
+   run again with the AM decoders' CPU twins on the codes copied to the
+   host.  Gate, in each mode: one SYNC at its psmi, no LOST_SYNC, at
+   least session_am's 48 exact HDC packets and none foreign, PIDS words,
+   P1 and P3 frames on each channel, every one of them (bits and margin)
+   equal to the twin run's, frame for frame, exactly K15, its PIDS-only
+   launch, K7 at K=9 and K8 launched, no plain version called; in MA1
+   every launch of K15's PIDS-only launch (a block, counted on its own;
+   with ``pids1_disabled`` once rdbi is read) exact against its plain
+   version on the same codes, and a second run the same frames.  The
+   wall a block of the runs.
 
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``:
 the kernels launched, summed over the paths driven and itemised under
@@ -1872,15 +1877,16 @@ def make_golden_capture(seed: int = GOLDEN_SEED) -> np.ndarray:
     return ch.to_cu8(ch.upsample2(sig))
 
 
-def make_session_am_capture(rdbi_from: int | None = None):
+def make_session_am_capture(rdbi_from: int | None = None,
+                            ma3: bool = False):
     """tests/capture_helpers.py's ``build_am_capture`` (seed SEED,
-    SESSION_AM_FRAMES frames of MA1, four random 90-byte HDC packets a P1
-    subframe, random P3 and PIDS) built with the port's ``tx`` copy, at the
-    chain's 46511.7 S/s from sample 0, quantized to cs16 at AM_RMS of full
-    scale; with ``rdbi_from``, the reference subcarrier sets rdbi from
-    that frame on (MA1: the receiver zeroes the lower PIDS stream and
-    delivers no P3).  Returns the int16 [n, 2] wire and the packets as
-    (frame, [bytes]) a subframe."""
+    SESSION_AM_FRAMES frames of MA1, or of MA3 with ``ma3``, four random
+    90-byte HDC packets a P1 subframe, random P3 and PIDS) built with the
+    port's ``tx`` copy, at the chain's 46511.7 S/s from sample 0, quantized
+    to cs16 at AM_RMS of full scale; with ``rdbi_from``, the reference
+    subcarrier sets rdbi from that frame on (MA1: the receiver zeroes the
+    lower PIDS stream and delivers no P3).  Returns the int16 [n, 2] wire
+    and the packets as (frame, [bytes]) a subframe."""
     from nrsc5_tpu_torch import constants as C
     from nrsc5_tpu_torch.tx import encoder_am as EAM
     from nrsc5_tpu_torch.tx.modulator_am import modulate_am
@@ -1897,18 +1903,19 @@ def make_session_am_capture(rdbi_from: int | None = None):
             packets.append((f, pk))
             p1_bits[f, sub] = build_p1_am_frame(
                 pk, 0, pdu_seq=sub, seq=((f * 8 + sub) * 4) % 64)
-    p3 = rng.integers(0, 2, (n_frames, C.P3_FRAME_LEN_MA1)).astype(np.uint8)
+    t3 = C.P3_FRAME_LEN_MA3 if ma3 else C.P3_FRAME_LEN_MA1
+    p3 = rng.integers(0, 2, (n_frames, t3)).astype(np.uint8)
     mats = EAM.interleave_frames(
         [EAM.encode_p1_am(p1_bits[f]) for f in range(n_frames)],
-        [EAM.encode_p3_am(p3[f], False) for f in range(n_frames)], False)
+        [EAM.encode_p3_am(p3[f], ma3) for f in range(n_frames)], ma3)
     pids = np.stack([EAM.encode_pids_am(
         rng.integers(0, 2, 80).astype(np.uint8))
         for _ in range(n_frames * 8)])
     ref = np.stack([EAM.am_ref_bits(
-        b % 8, C.SERVICE_MODE_MA1,
+        b % 8, C.SERVICE_MODE_MA3 if ma3 else C.SERVICE_MODE_MA1,
         rdbi=int(rdbi_from is not None and b // 8 >= rdbi_from))
         for b in range(n_frames * 8)])
-    return _cs16(modulate_am(mats, pids, ref, False)), packets
+    return _cs16(modulate_am(mats, pids, ref, ma3)), packets
 
 
 def make_audio_stream(kind: str) -> list:
@@ -2474,22 +2481,25 @@ def block_session_run(torch, wire, mode: int, push: int, turbo=False,
     """One stream through the port's session on its per-block receivers on
     the card (``chain="block"``, no audio decoder): cu8 (uint8 wire) or
     cs16 (int16 [n, 2] wire) pushes of ``push`` bytes or samples, then
-    ``flush``.  ``plain`` runs the FM decoders' plain versions on the card
-    (the kernels' yardstick for the decoded bits).  Returns the events,
-    the decoded frames (channel, bits) in order, the blocks, the wall, the
-    launches and the plain versions called."""
+    ``flush``.  ``plain`` runs the decoders' plain versions (the kernels'
+    yardstick for the decoded bits): FM's on the card, AM's as the CPU
+    twins on the codes copied to the host.  Returns the events, the
+    decoded frames (channel, bits, margin) in order, the blocks, the wall,
+    the launches and the plain versions called."""
     import functools
     from nrsc5_tpu_torch import kernels as K
     from nrsc5_tpu_torch.api.session import NRSC5
+    from nrsc5_tpu_torch.ops import decode_am as DA
     from nrsc5_tpu_torch.ops import decode_fm as DF
     from nrsc5_tpu_torch.pipeline import receiver as RX
+    from nrsc5_tpu_torch.pipeline import receiver_am as RA
     events, frames, blocks = [], [], [0]
     radio = NRSC5.open_pipe(events.append, mode, chain="block", turbo=turbo,
                             hdc_decoder_factory=None)
     on_frame, on_l1 = radio._on_frame, radio._on_l1_event
 
     def frame(chan, bits, margin):
-        frames.append((chan, np.array(bits)))
+        frames.append((chan, np.array(bits), float(margin)))
         return on_frame(chan, bits, margin)
 
     def l1(kind, info):
@@ -2497,12 +2507,27 @@ def block_session_run(torch, wire, mode: int, push: int, turbo=False,
         on_l1(kind, info)
     radio._on_frame, radio._on_l1_event = frame, l1
     radio._wire()  # the radio calls the recording callbacks
+    def am_pids_twin(syms, disabled=False):
+        return DA.am_pids_decode(syms.cpu(), disabled).to(syms.device)
+
+    def am_frame_twin(pl, pu, s, t, state, ma3=False):
+        dev = pl.device
+        p1, p3, margins, new = DA.am_frame_decode(
+            *(x.cpu() for x in (pl, pu, s, t)),
+            DA.AMDecodeState(*(x.cpu() for x in state)), ma3)
+        return (p1.to(dev), p3.to(dev),
+                {k: v.to(dev) for k, v in margins.items()},
+                DA.AMDecodeState(*(x.to(dev) for x in new)))
     undo = []
     if plain:
         for name in ("p1_decode", "pids_decode"):
-            undo.append((name, getattr(RX, name)))
+            undo.append((RX, name, getattr(RX, name)))
             setattr(RX, name, functools.partial(getattr(DF, name),
                                                 plain=True))
+        for name, twin in (("am_pids_decode", am_pids_twin),
+                           ("am_frame_decode", am_frame_twin)):
+            undo.append((RA, name, getattr(RA, name)))
+            setattr(RA, name, twin)
     plain_calls, restore = count_plain_calls()
     try:
         torch.cuda.synchronize()
@@ -2519,8 +2544,8 @@ def block_session_run(torch, wire, mode: int, push: int, turbo=False,
         counts = {k: c for k, c in K.COUNTS.items() if c}
     finally:
         restore()
-        for name, fn in undo:
-            setattr(RX, name, fn)
+        for mod, name, fn in undo:
+            setattr(mod, name, fn)
     return {"events": events, "frames": frames, "blocks": blocks[0],
             "wall_s": wall, "launches": counts, "plain_calls": plain_calls}
 
@@ -2673,6 +2698,7 @@ def main() -> int:
         session_am_job = pool.submit(make_session_am_capture)
         block_am_job = pool.submit(make_session_am_capture,
                                    BLOCK_AM_RDBI_FROM)
+        block_am3_job = pool.submit(make_session_am_capture, None, True)
         block_px_jobs = {psmi: pool.submit(make_block_px_station, psmi)
                          for psmi in (3, 11)}
         audio_streams = list(pool.map(make_audio_stream, AUDIO_STREAMS))
@@ -2684,6 +2710,7 @@ def main() -> int:
         golden = golden_job.result()
         session_am_capture = session_am_job.result()
         block_am_capture = block_am_job.result()
+        block_am3_capture = block_am3_job.result()
         block_px = {p: j.result() for p, j in block_px_jobs.items()}
     emit({"phase": "signal", "seconds": round(t1 - t0, 3),
           "audio_encode_seconds": round(t6 - t5, 3),
@@ -5043,8 +5070,9 @@ def main() -> int:
     def hdc_of(run):
         return [e.data for e in run["events"] if e.type.name == "HDC"]
 
-    def frames_of(run, chans):
-        return [(c, b.tobytes()) for c, b in run["frames"] if c in chans]
+    def frames_of(run, chans, margins=False):
+        return [(c, b.tobytes(), m if margins else None)
+                for c, b, m in run["frames"] if c in chans]
     titles = sum(e.type.name == "ID3" and e.title == GOLDEN_TITLE
                  for e in fm_block["events"])
     lots = [e for e in fm_block["events"] if e.type.name == "LOT"]
@@ -5057,10 +5085,12 @@ def main() -> int:
         "lots_cpu_twin": BLOCK_GOLDEN_LOTS,
         "p1_pids_equal_plain": frames_of(fm_block, (-1, 0))
         == frames_of(fm_block_plain, (-1, 0)),
-        "p1_frames": sum(c == 0 for c, _ in fm_block["frames"]),
-        "pids_words": sum(c == -1 for c, _ in fm_block["frames"]),
+        "p1_frames": sum(c == 0 for c, _, _ in fm_block["frames"]),
+        "pids_words": sum(c == -1 for c, _, _ in fm_block["frames"]),
         "hdc_packets": len(hdc_of(fm_block)),
         "turbo_hdc_equal": hdc_of(fm_turbo) == hdc_of(fm_block),
+        "turbo_p1_pids_equal": frames_of(fm_turbo, (-1, 0))
+        == frames_of(fm_block, (-1, 0)),
         "kernels_launched": sorted(fm_block["launches"]),
     }
     gate["warm_run_same_frames"] = frames_of(fm_runs[1], (-1, 0)) \
@@ -5071,7 +5101,8 @@ def main() -> int:
           and all(e.name == GOLDEN_LOT_NAME
                   and bytes(e.data) == GOLDEN_LOT_DATA for e in lots)
           and gate["p1_pids_equal_plain"] and gate["p1_frames"] > 0
-          and gate["turbo_hdc_equal"] and gate["hdc_packets"] > 0
+          and gate["turbo_hdc_equal"] and gate["turbo_p1_pids_equal"]
+          and gate["hdc_packets"] > 0
           and set(fm_block["launches"]) == set(BLOCK_FM_KERNELS)
           and set(fm_turbo["launches"]) == set(BLOCK_FM_KERNELS)
           and not fm_block["plain_calls"] and not fm_turbo["plain_calls"]
@@ -5095,8 +5126,10 @@ def main() -> int:
         raise AssertionError("receiver_fm did not pass its gate")
 
     # --- receiver_am: session_am's capture, rdbi set from frame
-    # BLOCK_AM_RDBI_FROM on, through the per-block AM receiver on the card;
-    # every K15 PIDS-only launch held to its plain version ---
+    # BLOCK_AM_RDBI_FROM on, and an MA3 capture through the per-block AM
+    # receiver on the card; every K15 PIDS-only launch held to its plain
+    # version, every PIDS word, P1 and P3 frame and margin to the same run
+    # through the CPU twins ---
     t_phase = time.perf_counter()
     am_wire, am_packets = block_am_capture
     pids_calls, gather_pids = [], DA.am_gather_pids
@@ -5112,33 +5145,58 @@ def main() -> int:
     finally:
         DA.am_gather_pids = gather_pids
     am_warm = block_session_run(torch, am_wire, MODE_AM, SESSION_AM_PUSH)
+    am_plain = block_session_run(torch, am_wire, MODE_AM, SESSION_AM_PUSH,
+                                 plain=True)
+    am3_wire, am3_packets = block_am3_capture
+    am3_block = block_session_run(torch, am3_wire, MODE_AM, SESSION_AM_PUSH)
+    am3_plain = block_session_run(torch, am3_wire, MODE_AM, SESSION_AM_PUSH,
+                                  plain=True)
     pids_diff = [int((out != DA.am_gather_pids_plain(p, d)).sum())
                  for p, d, out in pids_calls]
-    clean = {e.data for e in am_block["events"]
-             if e.type.name == "HDC" and not e.crc_error}
-    sent = {bytes(p) for _, pk in am_packets for p in pk}
-    gate = {
-        "syncs": sum(e.type.name == "SYNC" for e in am_block["events"]),
-        "lost_syncs": sum(e.type.name == "LOST_SYNC"
-                          for e in am_block["events"]),
-        "hdc_exact": len(clean & sent), "hdc_foreign": len(clean - sent),
+
+    def am_gate(run, plain_run, packets, psmi):
+        clean = {e.data for e in run["events"]
+                 if e.type.name == "HDC" and not e.crc_error}
+        sent = {bytes(p) for _, pk in packets for p in pk}
+        chans = (-1, 0, 3)
+        return {
+            "syncs": [int(e.psmi) for e in run["events"]
+                      if e.type.name == "SYNC"], "psmi": int(psmi),
+            "lost_syncs": sum(e.type.name == "LOST_SYNC"
+                              for e in run["events"]),
+            "hdc_exact": len(clean & sent),
+            "hdc_foreign": len(clean - sent),
+            "frames_by_channel": {c: sum(f[0] == c for f in run["frames"])
+                                  for c in chans},
+            "frames_equal_plain": frames_of(run, chans, True)
+            == frames_of(plain_run, chans, True),
+            "kernels_launched": sorted(run["launches"]),
+        }
+
+    def am_ok(g, run):
+        return (g["syncs"] == [g["psmi"]] and g["lost_syncs"] == 0
+                and g["hdc_exact"] >= SESSION_AM_MIN_HDC
+                and g["hdc_foreign"] == 0 and g["frames_equal_plain"]
+                and all(g["frames_by_channel"].values())
+                and not run["plain_calls"])
+    gate = am_gate(am_block, am_plain, am_packets, C.SERVICE_MODE_MA1)
+    gate3 = am_gate(am3_block, am3_plain, am3_packets, C.SERVICE_MODE_MA3)
+    gate.update({
         "hdc_exact_gate": SESSION_AM_MIN_HDC,
         "rdbi_from_frame": BLOCK_AM_RDBI_FROM,
         "pids_only_calls": len(pids_calls),
         "pids_only_disabled_calls": sum(d for _, d, _ in pids_calls),
         "pids_only_differing": sum(pids_diff),
-        "kernels_launched": sorted(am_block["launches"]),
-    }
-    ok = (gate["syncs"] == 1 and gate["lost_syncs"] == 0
-          and gate["hdc_exact"] >= SESSION_AM_MIN_HDC
-          and gate["hdc_foreign"] == 0
+        "warm_run_same_frames": frames_of(am_warm, (-1, 0, 3), True)
+        == frames_of(am_block, (-1, 0, 3), True),
+    })
+    ok = (am_ok(gate, am_block) and am_ok(gate3, am3_block)
           and gate["pids_only_disabled_calls"] > 0
           and gate["pids_only_differing"] == 0
           and am_block["launches"].get("am_gather_pids") == len(pids_calls)
           and set(am_block["launches"]) == set(BLOCK_AM_KERNELS)
-          and not am_block["plain_calls"]
-          and [e.data for e in am_warm["events"] if e.type.name == "HDC"]
-          == [e.data for e in am_block["events"] if e.type.name == "HDC"])
+          and set(am3_block["launches"]) == set(BLOCK_AM_KERNELS)
+          and gate["warm_run_same_frames"])
     emit({"phase": "receiver_am", "card": smi, "mode": "MA1", **gate,
           "launches": am_block["launches"],
           "plain_calls_on_kernel_path": am_block["plain_calls"],
@@ -5146,6 +5204,13 @@ def main() -> int:
           "wall_s": [r["wall_s"] for r in (am_block, am_warm)],
           "wall_ms_per_block": [1e3 * r["wall_s"] / max(r["blocks"], 1)
                                 for r in (am_block, am_warm)],
+          "plain_wall_ms_per_block": 1e3 * am_plain["wall_s"]
+          / max(am_plain["blocks"], 1),
+          "ma3": {**gate3, "launches": am3_block["launches"],
+                  "plain_calls_on_kernel_path": am3_block["plain_calls"],
+                  "blocks": am3_block["blocks"],
+                  "wall_ms_per_block": 1e3 * am3_block["wall_s"]
+                  / max(am3_block["blocks"], 1)},
           "phase_seconds": time.perf_counter() - t_phase, "pass": ok})
     if not ok:
         raise AssertionError("receiver_am did not pass its gate")
@@ -5154,10 +5219,12 @@ def main() -> int:
         by_path["receiver_fm"] = fm_block["launches"].get(name, 0) \
             + fm_turbo["launches"].get(name, 0) + sum(
                 r["launches"].get(name, 0) for r in px_runs)
-        by_path["receiver_am"] = am_block["launches"].get(name, 0)
+        by_path["receiver_am"] = am_block["launches"].get(name, 0) \
+            + am3_block["launches"].get(name, 0)
         report[name]["launches"] = sum(by_path.values())
     report["am_gather"]["launches_pids_only"] = \
-        am_block["launches"]["am_gather_pids"]
+        am_block["launches"]["am_gather_pids"] \
+        + am3_block["launches"]["am_gather_pids"]
 
     print(smi, flush=True)
     emit({"kernels": [dict(report[n]) for n in KERNELS]})

@@ -604,17 +604,26 @@ def am_frame_decode(pl, pu, s, t, state: AMDecodeState, ma3: bool = False):
         p1_full, p3_full, new = am_frame_gather(pl, pu, s, t, state, ma3)
         p1, p3, margins = am_frame_fec(p1_full, p3_full, ma3)
         return p1, p3, margins, new
+    return am_frame_decode_k15(pl, pu, s, t, state, ma3)
+
+
+def am_frame_decode_k15(pl, pu, s, t, state: AMDecodeState,
+                        ma3: bool = False, plain: bool = False):
+    """:func:`am_frame_decode`'s card path: the codes packed into K15's
+    ``codes [1, 8, 4, 800]`` (no PIDS), K15, then K7 at K=9 and K8 on P1
+    and P3; ``plain`` runs their plain versions on any device (the tests
+    hold the packing to the CPU twin with it)."""
     codes = torch.stack([pl, pu, s, t]).reshape(
         len(MATRICES), C.P1_AM_BLOCKS, SYMS).transpose(0, 1).contiguous()
     pids = torch.zeros(1, C.P1_AM_BLOCKS, C.BLKSZ, 2, dtype=torch.uint8,
                        device=pl.device)
     p1e, p3e, _, new = am_gather(codes[None], pids,
                                  AMDecodeState(*(x[None] for x in state)),
-                                 ma3)
+                                 ma3, plain)
     t3, _, gen3 = p3_spec(ma3)
     g = gather_maps(ma3)
-    p1, m1 = _fec(p1e, C.CONV_E1_GEN, "am_p1", False)
-    p3, m3 = _fec(p3e, gen3, P3_CHANNEL[ma3], False)
+    p1, m1 = _fec(p1e, C.CONV_E1_GEN, "am_p1", plain)
+    p3, m3 = _fec(p3e, gen3, P3_CHANNEL[ma3], plain)
     return (p1.reshape(8, C.P1_FRAME_LEN_AM), p3.reshape(t3),
             {"p1": m1.reshape(8, g["n1"]).amin(-1), "p3": m3.amin()},
             AMDecodeState(*(x[0] for x in new)))

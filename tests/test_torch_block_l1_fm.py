@@ -3,12 +3,16 @@
 tests/test_l1_fm.py:62 (five impairments) and :282 (MP5 and MP6, PM
 only), each stream held to JAX's frame for frame and event for event
 (tests/block_twins.py's tolerances), and the JAX test's own assertions
-on the port's output."""
+on the port's output; and the witness of ROADMAP §3.10's P1 margins."""
+
+import functools
 
 import numpy as np
 import pytest
 
 from nrsc5_tpu import constants as C
+from nrsc5_tpu.ops import decode_fm as JDF
+from nrsc5_tpu.pipeline import receiver as JR
 from nrsc5_tpu.pipeline.receiver import FMReceiver as JFMReceiver
 from nrsc5_tpu.tx import channel as ch
 from nrsc5_tpu.tx.encoder import build_pm_matrix
@@ -22,7 +26,8 @@ _one_thread = pytest.fixture(scope="module", autouse=True)(BT.one_thread)
 
 
 def _twin(sig):
-    return BT.l1_twin(JFMReceiver, FMReceiver, lambda rx: rx.push_cs16(sig))
+    return BT.l1_twin(JFMReceiver, FMReceiver, lambda rx: rx.push_cs16(sig),
+                      p1_margins=False)
 
 
 def _pids_decoded(col, pids_frames):
@@ -82,3 +87,24 @@ def test_fm_mp5_mp6_pm_roundtrip(rng, psmi):
     assert np.array_equal(col.channel(0)[-1], p1_frames[0])
     assert not _pids_decoded(col, pids_frames)
     assert not col.channel(1), "cm 5/6 must not emit PX frames"
+
+
+@pytest.mark.parametrize("impair_kw", [
+    dict(),
+    dict(snr_db=25.0),
+    dict(sample_offset=12345, cfo_hz=-250.0, snr_db=22.0),
+])
+def test_fm_p1_margin_is_the_chunked_decoders(rng, impair_kw, monkeypatch):
+    """ROADMAP §3.10's witness: the per-block FM receiver's P1 margins,
+    which the twins do not compare (the port decodes P1 through its
+    chains' chunked decoder), equal those of the reference's receiver with
+    its P1 decoder switched to the chunked one, frame for frame; every
+    other frame, margin and event as in the twins."""
+    sig, p1_frames, _ = _make_signal(rng, n_frames=1, **impair_kw)
+    monkeypatch.setattr(JR, "p1_decode",
+                        functools.partial(JDF.p1_decode, chunked=True))
+    want, got = BT.l1_twin(JFMReceiver, FMReceiver,
+                           lambda rx: rx.push_cs16(sig))
+    assert [m for c, m in got.margins if c == 0] \
+        == [m for c, m in want.margins if c == 0]
+    assert np.array_equal(got.channel(0)[-1], p1_frames[0])

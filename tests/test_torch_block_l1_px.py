@@ -67,7 +67,7 @@ def _px_capture(rng, psmi, fl, n_cycles, px2=False, filler=0, junk=False):
 
 def _twin(sig):
     return BT.l1_twin(JFMReceiver, FMReceiver,
-                      lambda rx: rx.push_cs16(sig))[1]
+                      lambda rx: rx.push_cs16(sig), p1_margins=False)[1]
 
 
 def _missing(col, chan, frames):

