@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FM and AM receive chains, its batched HDC
-audio decoder, its receiver, and its session and CLI on one CUDA card.
+audio decoder, its receiver, its session and CLI, and its sharded receive
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -291,6 +292,37 @@ the eager wall and device time beside the graph's.  Then:
    version on the same codes, and a second run the same frames.  The
    wall a block of the runs.
 
+19. parallel: the on-device FM cold start (``scan_chain_rc.
+   cold_start_device_rc``) on the coldstart phase's 16 stations and one of
+   noise only (gate: start, first_bc, cfo and locked those of the host
+   ``cold_start_rc``, the angle bit-equal, the plain run bit-equal, the
+   noise station unlocked, launches exactly K9 2 (kernels), K2 2, the DFT
+   kernel 2, K10 1, K4 1, and no device-to-host copy in the profile); then
+   ``parallel.receive``'s four sharded steps (FM, self-sync, AM, PX at psmi
+   3; 2 stations each, from the port's ``tx``) over a 1 x 1 NCCL mesh in
+   this process, and over a 1 x 2 (station, time) gloo mesh of two
+   processes on this card (``parallel.distributed.run_ranks``: halos and
+   sums staged through pinned host memory), where each rank also runs the
+   two-stage ``pipelined_receive`` (3 frames of each station) and the
+   two-host ``distributed`` self-test.  Gate: every P1, PIDS, PX1 (the
+   second IV cycle) and AM P1/P3 frame past each shard's warm-up (and
+   every AM PIDS word) the transmitted bits; each rank's block equal to
+   the one-process ``fm_chain_scan``/``am_chain_scan`` (or the self-sync
+   shard's work) on the extended chunk built from the whole capture;
+   ``quality`` equal on every rank; the self-sync shards locked at |cfo|
+   3; the pipeline's outputs and carry equal to the fused chain's; every
+   rank's ``DCN_OK``.  Prints each step's wall, the exchange's time, bytes
+   through the host and backend, and the pipeline's step time beside the
+   fused chain's frame time; 20. serve_mesh: ``MultiStationReceiver(mesh=
+   ["cuda:0", "cuda:0"])`` on two serve_fm stations (gate: the unsharded
+   receiver's HDC packets and ID3 titles, station by station, one SYNC
+   each); 21. am_drift: tests/test_am_multipath.py:136's MA1 capture at
+   ±50 ppm of clock drift through the AM session (gate: the per-block
+   receivers, the path that test drives, one SYNC, no LOST_SYNC and every
+   HDC packet of frames 6-10; the device chain one SYNC, no LOST_SYNC, no
+   foreign packet and at least 144 of those 160 packets, the count both
+   packages give on the CPU).
+
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (``launches``:
 the kernels launched, summed over the paths driven and itemised under
 ``launches_by_path``; a call that runs two kernels in turn, K6 on P1 and
@@ -388,6 +420,13 @@ SESSION_AM_FRAMES = 8
 BLOCK_GOLDEN_TITLES = 2
 BLOCK_GOLDEN_LOTS = 1
 SESSION_AM_PUSH = 50000  # cs16 samples a push
+DRIFT_AM_FRAMES = 12  # frames of the clock-drift AM capture
+# HDC packets of the gate frames that the device chain delivers on the
+# drifting capture: 144 of 160 in both packages (tests/test_torch_am_drift.py)
+DRIFT_AM_MIN_HDC = 144
+DRIFT_PPM = (50.0, -50.0)
+DRIFT_PUSH = 16384  # samples a push, as tests/test_am_multipath.py:161
+DRIFT_FRAMES = range(6, 11)  # frames whose packets must all arrive
 SESSION_AM_MIN_HDC = 48  # bit-exact HDC packets after the warm-up
 BLOCK_AM_RDBI_FROM = 6  # receiver_am: the frame from which rdbi is set
 FLEET_KINDS = ("mp1",) * 8 + ("mp3",) * 2 + ("ma1",) * 4 + ("ma3",) * 2
@@ -1877,23 +1916,21 @@ def make_golden_capture(seed: int = GOLDEN_SEED) -> np.ndarray:
     return ch.to_cu8(ch.upsample2(sig))
 
 
-def make_session_am_capture(rdbi_from: int | None = None,
-                            ma3: bool = False):
-    """tests/capture_helpers.py's ``build_am_capture`` (seed SEED,
-    SESSION_AM_FRAMES frames of MA1, or of MA3 with ``ma3``, four random
-    90-byte HDC packets a P1 subframe, random P3 and PIDS) built with the
-    port's ``tx`` copy, at the chain's 46511.7 S/s from sample 0, quantized
-    to cs16 at AM_RMS of full scale; with ``rdbi_from``, the reference
-    subcarrier sets rdbi from that frame on (MA1: the receiver zeroes the
-    lower PIDS stream and delivers no P3).  Returns the int16 [n, 2] wire
-    and the packets as (frame, [bytes]) a subframe."""
+def am_capture(rng, n_frames: int, ma3: bool = False,
+               rdbi_from: int | None = None):
+    """tests/capture_helpers.py's ``build_am_capture`` built with the port's
+    ``tx`` copy: ``n_frames`` frames of MA1, or of MA3 with ``ma3``, four
+    random 90-byte HDC packets a P1 subframe, random P3 and PIDS, at the
+    chain's 46511.7 S/s from sample 0, drawn from ``rng``; with
+    ``rdbi_from``, the reference subcarrier sets rdbi from that frame on
+    (MA1: the receiver zeroes the lower PIDS stream and delivers no P3).
+    Returns the complex64 signal and the packets as (frame, [bytes]) a
+    subframe."""
     from nrsc5_tpu_torch import constants as C
     from nrsc5_tpu_torch.tx import encoder_am as EAM
     from nrsc5_tpu_torch.tx.modulator_am import modulate_am
     from nrsc5_tpu_torch.tx.transport_encoder import build_p1_am_frame
 
-    rng = np.random.default_rng(SEED)
-    n_frames = SESSION_AM_FRAMES
     packets = []
     p1_bits = np.zeros((n_frames, 8, C.P1_FRAME_LEN_AM), np.uint8)
     for f in range(n_frames):
@@ -1915,7 +1952,32 @@ def make_session_am_capture(rdbi_from: int | None = None,
         b % 8, C.SERVICE_MODE_MA3 if ma3 else C.SERVICE_MODE_MA1,
         rdbi=int(rdbi_from is not None and b // 8 >= rdbi_from))
         for b in range(n_frames * 8)])
-    return _cs16(modulate_am(mats, pids, ref, ma3)), packets
+    return modulate_am(mats, pids, ref, ma3), packets
+
+
+def make_session_am_capture(rdbi_from: int | None = None,
+                            ma3: bool = False):
+    """:func:`am_capture` of SESSION_AM_FRAMES frames from seed SEED,
+    quantized to cs16 at AM_RMS of full scale.  Returns the int16 [n, 2]
+    wire and the packets."""
+    sig, packets = am_capture(np.random.default_rng(SEED),
+                              SESSION_AM_FRAMES, ma3, rdbi_from)
+    return _cs16(sig), packets
+
+
+def make_drift_am_capture(ppm: float):
+    """tests/test_am_multipath.py:136-160's capture on the port's ``tx``:
+    12 MA1 frames of :func:`am_capture` from seed 0xD81F, resampled by a
+    sample clock ``ppm`` parts per million off (``channel.clock_drift``),
+    then 30 dB AWGN from the same generator.  Returns the complex64 signal
+    and the packets."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch.tx import channel as ch
+    rng = np.random.default_rng(0xD81F)
+    sig, packets = am_capture(rng, DRIFT_AM_FRAMES)
+    sig = ch.clock_drift(np.asarray(sig, np.complex64), ppm)
+    return ch.impair(sig, snr_db=30.0, sample_rate=C.SAMPLE_RATE_CS16_AM,
+                     rng=rng), packets
 
 
 def make_audio_stream(kind: str) -> list:
@@ -2590,6 +2652,608 @@ def block_px_run(torch, st: dict, psmi: int) -> dict:
             "wall_s": wall, "wall_ms_per_block": 1e3 * wall
             / max(rx.blocks_processed, 1), "launches": counts,
             "plain_calls_on_kernel_path": plain_calls, "pass": ok}
+
+
+# ---------------------------------------------------------------------------
+# parallel: the sharded receive, its pipeline and replay, station meshes
+# ---------------------------------------------------------------------------
+
+PAR_STATIONS = 2  # stations of each sharded capture (a block a station row)
+PAR_TIME = 2  # time shards of the two-rank mesh
+PAR_FM_BLOCKS = 16  # blocks a time shard: FM
+PAR_SYNC_BLOCKS = 33  # self-sync (one whole frame a shard)
+PAR_AM_FRAMES = 7  # AM frames a time shard (frames 0-2 its warm-up)
+PAR_PX_BLOCKS = 32  # PX (MP3): one interleaver-IV cycle a shard
+PAR_PIPE_FRAMES = 3  # P1 frames through the two-stage pipeline
+PAR_SNR_DB = 25.0
+PAR_SYNC_OFFSET = 947  # the self-sync capture (tests/test_parallel.py:165)
+PAR_SYNC_SNR_DB = 28.0
+PAR_TIMEOUT_S = 420.0
+# kernel launches of one on-device FM cold start: K9 (two kernels), K2 and
+# the DFT kernel a probe each, K10, K4
+COLD_DEVICE_LAUNCHES = {"coarse_timing": 2, "demod_fold": 2, "dft_bf16": 2,
+                        "cfo_scan": 1, "sync_block": 1}
+
+
+def _par_fm_capture(rng, n_blocks_total: int, psmi: int = 1,
+                    snr_db: float | None = PAR_SNR_DB, n_px_cycles: int = 0):
+    """One station at the steady offset: ``n_blocks_total // 16`` P1 frames
+    of random P1 and PIDS bits (and ``n_px_cycles`` interleaver-IV cycles
+    of random PX1 frames for psmi 3), one trailing block, AWGN.  Returns
+    (complex64 signal, p1, pids, px1)."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch.tx import channel as ch
+    from nrsc5_tpu_torch.tx.encoder import build_pm_matrix, build_px_stream
+    from nrsc5_tpu_torch.tx.modulator import modulate_fm
+    n_frames = n_blocks_total // C.P1_FM_BLOCKS
+    p1 = rng.integers(0, 2, (n_frames, C.P1_FRAME_LEN_FM), dtype=np.uint8)
+    pids = rng.integers(0, 2, (n_frames, 16, C.PIDS_FRAME_LEN),
+                        dtype=np.uint8)
+    mats = [build_pm_matrix(p1[f], pids[f]) for f in range(n_frames)]
+    matrix = np.concatenate(mats + [mats[0][:C.BLKSZ]])
+    bc = np.concatenate([np.tile(np.arange(16), n_frames), [0]])
+    kw, px1 = {}, None
+    if n_px_cycles:
+        fl = C.P3_FRAME_LEN_MP3_MP11
+        px1 = rng.integers(0, 2, (n_px_cycles, 16, fl), dtype=np.uint8)
+        signs = build_px_stream(px1, fl).reshape(n_blocks_total * C.BLKSZ,
+                                                 -1)
+        kw["px1_signs"] = np.concatenate([signs, signs[:C.BLKSZ]])
+    sig = modulate_fm(matrix, bc, psmi, **kw)
+    if snr_db is not None:
+        sig = ch.impair(sig, snr_db=snr_db, rng=rng)
+    return sig, p1, pids, px1
+
+
+def _frame_aligned(sig, total: int, halo: int):
+    """The signal in a buffer at the steady offset, split at ``total``."""
+    from nrsc5_tpu_torch import constants as C
+    buf = np.zeros(total + halo, np.complex64)
+    start = C.FFTCP_FM // 2
+    n = min(len(sig), len(buf) - start)
+    buf[start:start + n] = sig[:n]
+    return buf[:total], buf[total:]
+
+
+def make_parallel_captures(out_dir: Path) -> dict:
+    """The parallel phase's captures, PAR_STATIONS stations each from their
+    own seeds, written as ``.npz`` files the ranks read (``samples`` [S,
+    PAR_TIME·chunk(, 2)], ``tails``); returns their paths and the
+    transmitted bits.  fm: 2 P1 frames at 25 dB; selfsync: 5 P1 frames at
+    offset 947, CFO 3 bins + 25 Hz, 28 dB, conjugated rc (the reference's
+    self-sync test); am: 14 MA1 frames, noiseless (the reference's AM
+    test); px: 2 IV cycles of MP3 at 25 dB; pipeline: 3 frames at 25 dB in
+    a buffer_len(48) buffer; each from the port's ``tx``."""
+    from nrsc5_tpu_torch import constants as C
+    from nrsc5_tpu_torch.parallel import receive as PR
+    from nrsc5_tpu_torch.pipeline.scan_chain import buffer_len
+    from nrsc5_tpu_torch.tx import channel as ch
+    from nrsc5_tpu_torch.tx import encoder_am as EAM
+    from nrsc5_tpu_torch.tx.encoder import build_pm_matrix
+    from nrsc5_tpu_torch.tx.modulator import modulate_fm
+    from nrsc5_tpu_torch.tx.modulator_am import modulate_am
+    out_dir.mkdir(parents=True, exist_ok=True)
+    caps = {k: {"samples": [], "tails": []} for k in
+            ("fm", "selfsync", "am", "px", "pipeline")}
+    truth = {k: [] for k in caps}
+    for st in range(PAR_STATIONS):
+        rng = np.random.default_rng([SEED, 22, st])
+        total = PAR_TIME * PR.shard_chunk_len(PAR_FM_BLOCKS)
+        sig, p1, pids, _ = _par_fm_capture(rng, PAR_TIME * PAR_FM_BLOCKS)
+        a, b = _frame_aligned(sig, total, PR.HALO)
+        caps["fm"]["samples"].append(a)
+        caps["fm"]["tails"].append(b)
+        truth["fm"].append({"p1": p1, "pids": pids})
+
+        n_sync = 5
+        p1 = rng.integers(0, 2, (n_sync, C.P1_FRAME_LEN_FM), dtype=np.uint8)
+        zeros = np.zeros((16, C.PIDS_FRAME_LEN), np.uint8)
+        sig = modulate_fm(np.concatenate([build_pm_matrix(f, zeros)
+                                          for f in p1]),
+                          np.tile(np.arange(16), n_sync), 1)
+        bin_hz = C.SAMPLE_RATE_CS16_FM / C.FFT_FM
+        sig = ch.impair(sig, cfo_hz=3 * bin_hz + 25.0,
+                        snr_db=PAR_SYNC_SNR_DB, rng=rng)
+        total = PAR_TIME * PR.shard_chunk_len(PAR_SYNC_BLOCKS)
+        halo = PR.selfsync_halo()
+        buf = np.zeros(total + halo, np.complex64)
+        n = min(len(sig), len(buf) - PAR_SYNC_OFFSET)
+        buf[PAR_SYNC_OFFSET:PAR_SYNC_OFFSET + n] = sig[:n]
+        rc = np.stack([buf.real, -buf.imag], -1).astype(np.float32)
+        caps["selfsync"]["samples"].append(rc[:total])
+        caps["selfsync"]["tails"].append(rc[total:])
+        truth["selfsync"].append({"p1": p1})
+
+        n_am = PAR_TIME * PAR_AM_FRAMES
+        p1 = rng.integers(0, 2, (n_am, 8, C.P1_FRAME_LEN_AM), dtype=np.uint8)
+        p3 = rng.integers(0, 2, (n_am, C.P3_FRAME_LEN_MA1), dtype=np.uint8)
+        mats = EAM.interleave_frames(
+            [EAM.encode_p1_am(p1[f]) for f in range(n_am)],
+            [EAM.encode_p3_am(p3[f], False) for f in range(n_am)], False)
+        pids = rng.integers(0, 2, (n_am * 8, 80), dtype=np.uint8)
+        codes = np.stack([EAM.encode_pids_am(w) for w in pids])
+        ref = np.stack([EAM.am_ref_bits(b % 8, 1) for b in range(n_am * 8)])
+        sig = modulate_am(mats, codes, ref, False)
+        total = PAR_TIME * PR.shard_chunk_len_am(PAR_AM_FRAMES)
+        buf = np.zeros(total + PR.HALO_AM, np.complex64)
+        start = C.FFTCP_AM // 2
+        n = min(len(sig), len(buf) - start)
+        buf[start:start + n] = sig[:n]
+        caps["am"]["samples"].append(buf[:total])
+        caps["am"]["tails"].append(buf[total:])
+        truth["am"].append({"p1": p1, "p3": p3, "pids": pids})
+
+        total = PAR_TIME * PR.shard_chunk_len(PAR_PX_BLOCKS)
+        sig, p1, _, px1 = _par_fm_capture(rng, PAR_TIME * PAR_PX_BLOCKS,
+                                          psmi=3, n_px_cycles=PAR_TIME)
+        a, b = _frame_aligned(sig, total, PR.HALO)
+        caps["px"]["samples"].append(a)
+        caps["px"]["tails"].append(b)
+        truth["px"].append({"p1": p1, "px1": px1})
+
+        n_blocks = 16 * PAR_PIPE_FRAMES
+        sig, p1, pids, _ = _par_fm_capture(rng, n_blocks)
+        a, _ = _frame_aligned(sig, buffer_len(n_blocks), 0)
+        caps["pipeline"]["samples"].append(a)
+        caps["pipeline"]["tails"].append(np.zeros(0, np.complex64))
+        truth["pipeline"].append({"p1": p1, "pids": pids})
+    paths = {}
+    for k, v in caps.items():
+        paths[k] = str(out_dir / f"{k}.npz")
+        np.savez(paths[k], samples=np.stack(v["samples"]),
+                 tails=np.stack(v["tails"]))
+    return {"paths": paths, "truth": truth}
+
+
+def _par_sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _par_steps():
+    from nrsc5_tpu_torch.parallel import receive as PR
+    return {"fm": (PR.sharded_fm_chain, PAR_FM_BLOCKS, {}, PR.HALO, 0),
+            "selfsync": (PR.sharded_fm_chain_selfsync, PAR_SYNC_BLOCKS, {},
+                         PR.selfsync_halo(), 0),
+            "am": (PR.sharded_am_chain, PAR_AM_FRAMES, {}, PR.HALO_AM, 0),
+            "px": (PR.sharded_fm_chain_px, PAR_PX_BLOCKS, {"psmi": 3},
+                   PR.HALO, PR.px_left_blocks(3)[0] * PR.shard_chunk_len(1))}
+
+
+def _one_process(torch, kind: str, ext, arg: int):
+    """The one-process chain on a shard's extended chunk: each station
+    through ``fm_chain_scan``/``am_chain_scan`` alone (the PX shard's with
+    its IV state, its warm-up dropped), or the self-sync shard's work."""
+    from nrsc5_tpu_torch.parallel import receive as PR
+    from nrsc5_tpu_torch.pipeline import scan_chain as sc
+    from nrsc5_tpu_torch.pipeline import scan_chain_am as sca
+    dev = ext.device
+    if kind == "selfsync":
+        return list(PR.selfsync_decode(ext, arg)[:-1])
+    rows = []
+    for x in ext:
+        if kind == "fm":
+            out, _ = sc.fm_chain_scan(x, sc.chain_init_carry(device=dev), arg)
+            rows.append((out["p1"], out["p1_margin"], out["pids"]))
+        elif kind == "am":
+            out, _ = sca.am_chain_scan(x, sca.am_chain_init_carry(device=dev),
+                                       arg)
+            rows.append((out["p1"], out["p3"], out["pids"]))
+        else:
+            left, warm_p1, warm_px = PR.px_left_blocks(3)
+            out, _ = sc.fm_chain_scan(
+                x, sc.chain_init_carry(device=dev), arg + left, 3, 0,
+                px_state=sc.px_init_state(3, device=dev))
+            rows.append((out["p1"][warm_p1:], out["px1"][warm_px:]))
+    return [torch.stack(col) for col in zip(*rows)]
+
+
+def parallel_sharded(torch, mesh, dev, kind: str, path: str) -> dict:
+    """One shard of the ``kind`` sharded step over ``mesh`` (each rank
+    calls it): its time chunk of the capture at ``path``, the step timed
+    twice (the launches counted on the first), its outputs gathered into
+    the reference's layout, and its own outputs against the one-process
+    chain on the extended chunk built from the whole capture."""
+    from dataclasses import asdict
+
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch.parallel import receive as PR
+    make, arg, kw, halo, left = _par_steps()[kind]
+    _, t = mesh.get_coordinate()
+    n_time = mesh.mesh.shape[1]
+    with np.load(path) as d:
+        whole, tails_all = d["samples"], d["tails"]
+    chunk = whole.shape[1] // n_time
+    samples = torch.from_numpy(whole[:, t * chunk:(t + 1) * chunk].copy()) \
+        .to(dev)
+    tails = torch.from_numpy(tails_all).to(dev)
+    step = make(mesh, arg * (PAR_TIME // n_time), **kw)
+    walls = []
+    for i in range(2):
+        _par_sync(torch, dev)
+        K.reset_counts()
+        t0 = time.perf_counter()
+        out = step(samples, tails)
+        _par_sync(torch, dev)
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            counts = {k: c for k, c in K.COUNTS.items() if c}
+            exchange = asdict(step.exchange)
+    blocks = [o for o in out if o.ndim >= 2]
+    gathered = [PR.gather_mesh(mesh, o).cpu().numpy() for o in blocks]
+    # the extended chunk, from the whole capture
+    nxt = whole[:, (t + 1) * chunk:(t + 1) * chunk + halo] \
+        if t < n_time - 1 else tails_all
+    parts = [whole[:, t * chunk:(t + 1) * chunk], nxt]
+    if left:
+        prev = whole[:, t * chunk - left:t * chunk] if t else \
+            np.zeros_like(whole[:, :left])
+        parts.insert(0, prev)
+    ext = torch.from_numpy(np.concatenate(parts, axis=1)).to(dev)
+    ref = _one_process(torch, kind, ext, arg * (PAR_TIME // n_time))
+    same = len(ref) == len(blocks) and all(
+        torch.equal(a, b) for a, b in zip(blocks, ref))
+    return {"global": gathered, "quality": [float(o) for o in out
+                                            if o.ndim == 0],
+            "same_as_one_process": same, "wall_s": walls,
+            "exchange": exchange, "launches": counts}
+
+
+def parallel_pipeline(torch, dev, path: str) -> dict:
+    """Each station of the pipeline capture through ``pipelined_receive``
+    on a two-rank stage mesh (each rank calls it), against the fused chain
+    on one rank: outputs and carry equal, and both walls."""
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch.parallel import pipeline as PP
+    from nrsc5_tpu_torch.pipeline import scan_chain as sc
+    mesh = PP.make_stage_mesh(device=dev)
+    with np.load(path) as d:
+        rows = d["samples"]
+    res = []
+    for row in rows:
+        samples = torch.from_numpy(row).to(dev)
+        _par_sync(torch, dev)
+        K.reset_counts()
+        t0 = time.perf_counter()
+        out, carry = PP.pipelined_receive(
+            samples, sc.chain_init_carry(device=dev), PAR_PIPE_FRAMES, mesh)
+        _par_sync(torch, dev)
+        wall = time.perf_counter() - t0
+        counts = {k: c for k, c in K.COUNTS.items() if c}
+        t0 = time.perf_counter()
+        fused, fused_carry = sc.fm_chain_scan(
+            samples, sc.chain_init_carry(device=dev), 16 * PAR_PIPE_FRAMES)
+        _par_sync(torch, dev)
+        fused_wall = time.perf_counter() - t0
+        same = (torch.equal(out["p1"], fused["p1"])
+                and torch.equal(out["p1_margin"], fused["p1_margin"])
+                and torch.equal(out["pids"].reshape(-1, 80), fused["pids"])
+                and all(torch.equal(a, b) for a, b in zip(
+                    sc.tree_leaves(carry), sc.tree_leaves(fused_carry))))
+        res.append({"p1": out["p1"].cpu().numpy(),
+                    "pids": out["pids"].cpu().numpy(),
+                    "same_as_fused": same, "wall_s": wall,
+                    "fused_wall_s": fused_wall, "launches": counts,
+                    "stage": mesh.get_coordinate()[0]})
+    return res
+
+
+def parallel_rank(rank: int, world: int, dev, paths: dict) -> dict:
+    """One of the two ranks of the parallel phase on one card (gloo): the
+    four sharded steps over a 1 x 2 (station, time) mesh, the pipeline,
+    and the multi-host self-test with two "hosts" of one rank."""
+    import torch
+
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch.parallel import distributed as TD
+    from nrsc5_tpu_torch.parallel import receive as PR
+    mesh = PR.make_mesh(1, world, device=dev)
+    out = {k: parallel_sharded(torch, mesh, dev, k, paths[k])
+           for k in ("fm", "selfsync", "am", "px")}
+    out["pipeline"] = parallel_pipeline(torch, dev, paths["pipeline"])
+    K.reset_counts()
+    t0 = time.perf_counter()
+    out["replay"] = TD.selftest(rank, world, dev, n_time=1,
+                                n_blocks=PAR_FM_BLOCKS)
+    out["replay_wall_s"] = time.perf_counter() - t0
+    out["replay_launches"] = {k: c for k, c in K.COUNTS.items() if c}
+    return out
+
+
+def parallel_truth_gate(kind: str, got: list, truth: list) -> dict:
+    """The transmitted bits against a sharded step's gathered outputs (the
+    reference's layout: [S, PAR_TIME·F, ...])."""
+    if kind == "fm":
+        p1, _, pids = got
+        ok = [np.array_equal(p1[s], tr["p1"]) and np.array_equal(
+            pids[s], tr["pids"].reshape(-1, 80)) for s, tr in enumerate(truth)]
+    elif kind == "selfsync":
+        p1, _, _, cfo, locked = got
+        ok = [bool(locked[s].all()) and bool((np.abs(cfo[s]) == 3).all())
+              and all(any(np.array_equal(f, t) for t in tr["p1"])
+                      for f in p1[s]) for s, tr in enumerate(truth)]
+    elif kind == "am":
+        p1, p3, pids = got
+        ok = []
+        for s, tr in enumerate(truth):
+            frames = [t * PAR_AM_FRAMES + f for t in range(PAR_TIME)
+                      for f in range(3, PAR_AM_FRAMES
+                                     - (t == PAR_TIME - 1))]
+            ok.append(all(np.array_equal(p1[s, g], tr["p1"][g])
+                          and np.array_equal(p3[s, g], tr["p3"][g])
+                          for g in frames)
+                      and np.array_equal(pids[s], tr["pids"]))
+    else:
+        p1, px1 = got
+        per = px1.shape[1] // PAR_TIME
+        ok = [np.array_equal(p1[s], tr["p1"])
+              and np.array_equal(px1[s, per:], tr["px1"][1])
+              for s, tr in enumerate(truth)]
+    return {"stations_exact": sum(ok), "stations": len(truth),
+            "pass": all(ok)}
+
+
+def parallel_phase(torch, smi: str, capture, serve_fm: dict) -> dict:
+    """The parallel phase (see the module's docstring): emits its lines and
+    returns each path's launches by kernel; raises if a gate fails."""
+    import torch.distributed as dist
+
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch import serve
+    from nrsc5_tpu_torch.parallel import distributed as TD
+    from nrsc5_tpu_torch.parallel import receive as PR
+    from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+
+    # the on-device FM cold start: the coldstart phase's 16 stations and
+    # one of noise only, against the host cold start and the plain run
+    samples = serve.ingest(torch.from_numpy(capture).to(dev))
+    gen = torch.Generator().manual_seed(SEED)
+    noise = torch.randn((1,) + tuple(samples.shape[1:]), generator=gen) \
+        * float(samples[0].std())
+    samples = torch.cat([samples, noise.to(dev)]).contiguous()
+    torch.cuda.synchronize()
+    K.reset_counts()
+    got = rcc.cold_start_device_rc(samples)
+    torch.cuda.synchronize()
+    cd_counts = {k: c for k, c in K.COUNTS.items() if c}
+    cd_dtoh = dtoh_copies(torch, lambda: rcc.cold_start_device_rc(samples))
+    cd_ms = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rcc.cold_start_device_rc(samples)
+        torch.cuda.synchronize()
+        cd_ms.append((time.perf_counter() - t0) * 1e3)
+    plain = [x.cpu().numpy() for x in rcc.cold_start_device_rc(samples,
+                                                               plain=True)]
+    host = rcc.cold_start_rc(samples)
+    start, first_bc, cfo, angle, locked = (x.cpu().numpy() for x in got)
+    host_same = all(
+        (lk is None) == (not locked[i]) and (lk is None or (
+            (lk["offset"], lk["first_bc"], lk["cfo"])
+            == (start[i], first_bc[i], cfo[i])
+            and lk["carry"].prev_angle.cpu().numpy() == angle[i]))
+        for i, lk in enumerate(host))
+    plain_same = all(np.array_equal(a, b) for a, b in zip(
+        plain, (start, first_bc, cfo, angle, locked)))
+    cd_ok = (host_same and plain_same and locked[:-1].all()
+             and not locked[-1] and cd_counts == COLD_DEVICE_LAUNCHES
+             and cd_dtoh == 0)
+    emit({"phase": "parallel_cold_start", "card": smi,
+          "stations": int(samples.shape[0]), "locked": locked.tolist(),
+          "start": start.tolist(), "first_bc": first_bc.tolist(),
+          "cfo": cfo.tolist(), "equal_host_cold_start": host_same,
+          "equal_plain_bitwise": plain_same, "launches": cd_counts,
+          "launches_gate": COLD_DEVICE_LAUNCHES,
+          "device_to_host_copies": cd_dtoh,
+          "wall_ms": statistics.median(cd_ms), "wall_ms_runs": cd_ms,
+          "pass": cd_ok})
+    if not cd_ok:
+        raise AssertionError("parallel: the on-device cold start did not "
+                             "pass its gate")
+
+    # the four sharded steps over a 1 x 1 NCCL mesh in this process
+    caps = make_parallel_captures(Path(__file__).resolve().parent / "build"
+                                  / "parallel")
+    kinds = ("fm", "selfsync", "am", "px")
+    TD.init_distributed(f"127.0.0.1:{TD.free_port()}", 1, 0, device=dev)
+    try:
+        backend_one = str(dist.get_backend())
+        mesh = PR.make_mesh(1, 1, device="cuda")
+        one = {k: parallel_sharded(torch, mesh, dev, k, caps["paths"][k])
+               for k in kinds}
+    finally:
+        dist.destroy_process_group()
+    one_truth = {k: parallel_truth_gate(k, one[k]["global"],
+                                        caps["truth"][k]) for k in kinds}
+
+    # two processes on this card, gloo: a 1 x 2 mesh through the four
+    # steps, the pipeline, the two-host self-test
+    t0 = time.perf_counter()
+    ranks = TD.run_ranks(parallel_rank, 2, caps["paths"], device=dev,
+                         backend="gloo", timeout=PAR_TIMEOUT_S)
+    ranks_wall = time.perf_counter() - t0
+    two_truth = {k: parallel_truth_gate(k, ranks[0][k]["global"],
+                                        caps["truth"][k]) for k in kinds}
+    same_one = {k: [r[k]["same_as_one_process"] for r in ranks]
+                for k in kinds}
+    quality = {k: [r[k]["quality"] for r in ranks] for k in kinds}
+    pipe = [[st for st in r["pipeline"]] for r in ranks]
+    pipe_ok = all(
+        st["same_as_fused"] and np.array_equal(st["p1"], tr["p1"])
+        and np.array_equal(st["pids"], tr["pids"])
+        for r in pipe for st, tr in zip(r, caps["truth"]["pipeline"]))
+    exchange = {k: [r[k]["exchange"] for r in ranks] for k in kinds}
+    par_ok = (all(g["pass"] for g in one_truth.values())
+              and all(g["pass"] for g in two_truth.values())
+              and all(one[k]["same_as_one_process"] for k in kinds)
+              and all(all(v) for v in same_one.values())
+              and all(len({q for qs in v for q in qs}) <= 1
+                      for v in quality.values())
+              and all(e["route"] == "host" and e["backend"] == "gloo"
+                      for v in exchange.values() for e in v)
+              and pipe_ok and backend_one == "nccl"
+              and all(r["replay"].startswith("DCN_OK") for r in ranks))
+    steps = PAR_PIPE_FRAMES + 1
+    emit({"phase": "parallel", "card": smi,
+          "stations": PAR_STATIONS, "time_shards": PAR_TIME,
+          "one_process": {"backend": backend_one, "mesh": [1, 1], **{
+              k: {"wall_s": one[k]["wall_s"], "quality": one[k]["quality"],
+                  "exchange": one[k]["exchange"], **one_truth[k],
+                  "same_as_one_process": one[k]["same_as_one_process"]}
+              for k in kinds}},
+          "two_processes": {
+              "backend": "gloo", "mesh": [1, PAR_TIME],
+              "wall_s": ranks_wall, **{
+                  k: {"wall_s": [r[k]["wall_s"] for r in ranks],
+                      "quality": quality[k], "exchange": exchange[k],
+                      "same_as_one_process": same_one[k], **two_truth[k]}
+                  for k in kinds}},
+          "pipeline": [{
+              "stage": st["stage"], "same_as_fused": st["same_as_fused"],
+              "wall_s": st["wall_s"], "step_ms": 1e3 * st["wall_s"] / steps,
+              "fused_wall_s": st["fused_wall_s"],
+              "fused_frame_ms": 1e3 * st["fused_wall_s"] / PAR_PIPE_FRAMES}
+              for r in pipe for st in r],
+          "replay": [r["replay"] for r in ranks],
+          "replay_wall_s": [r["replay_wall_s"] for r in ranks],
+          "pass": par_ok})
+    if not par_ok:
+        raise AssertionError("parallel: the sharded receive did not pass "
+                             "its gate")
+    counts = {}
+    for name in K.SIGNATURES:
+        counts[name] = cd_counts.get(name, 0) + sum(
+            one[k]["launches"].get(name, 0) for k in kinds) + sum(
+            r[k]["launches"].get(name, 0) for r in ranks for k in kinds) \
+            + sum(st["launches"].get(name, 0) for r in pipe for st in r) \
+            + sum(r["replay_launches"].get(name, 0) for r in ranks)
+
+    # the receiver over a station mesh of two devices (one card twice)
+    wires = [serve_fm["wire"][i] for i in range(2)]
+    sharded = serve_mesh_run(torch, wires, ["cuda:0", "cuda:0"])
+    unsharded = serve_mesh_run(torch, wires, None)
+    names = [serve_names(i)[0] for i in range(2)]
+    sm_ok = (sharded["hdc"] == unsharded["hdc"]
+             and sharded["titles"] == unsharded["titles"]
+             and sharded["syncs"] == [1, 1]
+             and all(len(h) > 0 for h in sharded["hdc"])
+             and all(n in t for n, t in zip(names, sharded["titles"])))
+    emit({"phase": "serve_mesh", "card": smi, "mesh": ["cuda:0", "cuda:0"],
+          "stations": 2, "hdc_packets": [len(h) for h in sharded["hdc"]],
+          "titles": [sorted(set(t)) for t in sharded["titles"]],
+          "syncs": sharded["syncs"],
+          "equal_unsharded": sharded["hdc"] == unsharded["hdc"]
+          and sharded["titles"] == unsharded["titles"],
+          "wall_s": sharded["wall_s"],
+          "unsharded_wall_s": unsharded["wall_s"],
+          "launches": sharded["launches"], "pass": sm_ok})
+    if not sm_ok:
+        raise AssertionError("serve_mesh did not pass its gate")
+
+    # a drifting MA1 station (±50 ppm) through the AM session
+    drift = []
+    for ppm in DRIFT_PPM:
+        sig, packets = make_drift_am_capture(ppm)
+        drift.append((ppm, drift_am_run(torch, sig, packets, "block"),
+                      drift_am_run(torch, sig, packets, "auto")))
+    dr_ok = all(b["syncs"] >= 1 and b["lost_syncs"] == 0
+                and b["hdc_exact"] == b["hdc_want"] and b["hdc_foreign"] == 0
+                and a["syncs"] >= 1 and a["lost_syncs"] == 0
+                and a["hdc_exact"] >= DRIFT_AM_MIN_HDC
+                and a["hdc_foreign"] == 0 for _, b, a in drift)
+    emit({"phase": "am_drift", "card": smi, "frames": DRIFT_AM_FRAMES,
+          "gate_frames": [DRIFT_FRAMES.start, DRIFT_FRAMES.stop - 1],
+          "device_chain_min_hdc": DRIFT_AM_MIN_HDC,
+          "runs": [{"ppm": ppm, "block": b, "device_chain": a}
+                   for ppm, b, a in drift], "pass": dr_ok})
+    if not dr_ok:
+        raise AssertionError("am_drift did not pass its gate")
+    drift_counts = {}
+    for _, b, a in drift:
+        for d in (b["launches"], a["launches"]):
+            for k, c in d.items():
+                drift_counts[k] = drift_counts.get(k, 0) + c
+    emit({"phase": "parallel_seconds",
+          "seconds": time.perf_counter() - t_phase})
+    return {"parallel": counts, "serve_mesh": sharded["launches"],
+            "am_drift": drift_counts}
+
+
+def serve_mesh_run(torch, wires: list, mesh) -> dict:
+    """``MultiStationReceiver(cold_start=True, input_format="cu8",
+    frames_per_dispatch=2, depth=2, mesh=mesh)`` over the stations' cu8
+    wires pushed in turn in SERVE_PUSH-pair pieces, then flush: the clean
+    HDC packets and ID3 titles by station, the wall and the launches."""
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch import serve
+    events = {i: [] for i in range(len(wires))}
+    rx = serve.MultiStationReceiver(
+        len(wires), lambda st, ev: events[st].append(ev),
+        frames_per_dispatch=2, depth=2, cold_start=True, input_format="cu8",
+        mesh=mesh)
+    data = [w.tobytes() for w in wires]
+    piece = 2 * SERVE_PUSH + 1
+    torch.cuda.synchronize()
+    K.reset_counts()
+    t0 = time.perf_counter()
+    for lo in range(0, max(map(len, data)), piece):
+        for i, w in enumerate(data):
+            if lo < len(w):
+                rx.push(i, w[lo:lo + piece])
+    rx.flush()
+    torch.cuda.synchronize()
+    return {"hdc": [[e.data for e in events[i] if e.type.name == "HDC"
+                     and not e.crc_error] for i in events],
+            "titles": [[e.title for e in events[i] if e.type.name == "ID3"]
+                       for i in events],
+            "syncs": [sum(e.type.name == "SYNC" for e in events[i])
+                      for i in events],
+            "wall_s": time.perf_counter() - t0,
+            "launches": {k: c for k, c in K.COUNTS.items() if c}}
+
+
+def drift_am_run(torch, sig, packets, chain: str) -> dict:
+    """The drifting MA1 capture through the port's AM session on the
+    default device (``chain``: ``"block"``, the per-block receiver the
+    reference's test drives, or ``"auto"``, the device chain), pushed as
+    complex64 in DRIFT_PUSH-sample pieces, then flush."""
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch.api.session import MODE_AM, NRSC5
+    events = []
+    torch.cuda.synchronize()
+    K.reset_counts()
+    t0 = time.perf_counter()
+    radio = NRSC5.open_pipe(events.append, MODE_AM, chain=chain)
+    for i in range(0, len(sig), DRIFT_PUSH):
+        radio.pipe_samples_cs16(sig[i:i + DRIFT_PUSH])
+    radio.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hdc = {e.data for e in events if e.type.name == "HDC"
+           and not e.crc_error}
+    want = {p for f, pk in packets if f in DRIFT_FRAMES for p in pk}
+    return {"syncs": sum(e.type.name == "SYNC" for e in events),
+            "lost_syncs": sum(e.type.name == "LOST_SYNC" for e in events),
+            "hdc_exact": sum(p in hdc for p in want), "hdc_want": len(want),
+            "hdc_foreign": len(hdc - {bytes(p) for _, pk in packets
+                                      for p in pk}),
+            "wall_s": wall,
+            "launches": {k: c for k, c in K.COUNTS.items() if c}}
+
+
+def dtoh_copies(torch, fn) -> int:
+    """Device-to-host copies the profiler records in one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum("DtoH" in e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def make_fleet(station=make_station) -> dict:
@@ -5225,6 +5889,15 @@ def main() -> int:
     report["am_gather"]["launches_pids_only"] = \
         am_block["launches"]["am_gather_pids"] \
         + am3_block["launches"]["am_gather_pids"]
+
+    # --- parallel: the sharded receive, its pipeline and replay, the
+    # receiver over a station mesh, a drifting AM station ---
+    paths = parallel_phase(torch, smi, fleet["capture"], serve_fm)
+    for name in KERNELS:
+        by_path = report[name]["launches_by_path"]
+        for path, counts in paths.items():
+            by_path[path] = counts.get(name, 0)
+        report[name]["launches"] = sum(by_path.values())
 
     print(smi, flush=True)
     emit({"kernels": [dict(report[n]) for n in KERNELS]})

@@ -100,6 +100,9 @@ class RtlTcpClient:
     def set_direct_sampling(self, mode: int):
         self._cmd(CMD_SET_DIRECT_SAMPLING, mode)
 
+    def set_offset_tuning(self, on: bool):
+        self._cmd(CMD_SET_OFFSET_TUNING, 1 if on else 0)
+
     def read(self, n: int) -> bytes:
         return self._read_exact(n)
 

@@ -221,28 +221,30 @@ def fm_chain_scan(samples: torch.Tensor, carry: ChainCarry, n_blocks: int,
     return out, carry
 
 
-def _leaves(tree):
+def tree_leaves(tree):
+    """The leaves of a tree of tuples (NamedTuple states nested in
+    NamedTuples) in field order: ``jax.tree.flatten``'s order."""
     if isinstance(tree, tuple):
-        return [x for t in tree for x in _leaves(t)]
+        return [x for t in tree for x in tree_leaves(t)]
     return [tree]
 
 
-def _rebuild(like, leaves):
+def tree_rebuild(like, leaves):
     """A tree of ``like``'s structure from an iterator of leaves."""
     if isinstance(like, tuple):
-        return type(like)(*(_rebuild(t, leaves) for t in like))
+        return type(like)(*(tree_rebuild(t, leaves) for t in like))
     return next(leaves)
 
 
 def index_tree(tree, i: int):
     """Station ``i`` of a tree of stacked tensors."""
-    return _rebuild(tree, iter([x[i] for x in _leaves(tree)]))
+    return tree_rebuild(tree, iter([x[i] for x in tree_leaves(tree)]))
 
 
 def stack_trees(trees: list):
     """Stack a list of trees of tensors along a new leading axis."""
-    cols = zip(*(_leaves(t) for t in trees))
-    return _rebuild(trees[0], iter([torch.stack(c) for c in cols]))
+    cols = zip(*(tree_leaves(t) for t in trees))
+    return tree_rebuild(trees[0], iter([torch.stack(c) for c in cols]))
 
 
 def _stack_outputs(outs: list):
@@ -280,13 +282,13 @@ def carry_to_real(carry: ChainCarry) -> ChainCarry:
     """Each complex leaf as stacked (re, im) float32 [2, ...]: the
     reference's form for the host to read (inverse:
     :func:`carry_from_real`)."""
-    return _rebuild(carry, iter([
+    return tree_rebuild(carry, iter([
         torch.stack([x.real, x.imag]) if x.is_complex() else x
-        for x in _leaves(carry)]))
+        for x in tree_leaves(carry)]))
 
 
 def carry_from_real(carry) -> ChainCarry:
     like = chain_init_carry(device="cpu")
-    return _rebuild(like, iter([
+    return tree_rebuild(like, iter([
         torch.complex(x[0], x[1]) if ref.is_complex() else x
-        for ref, x in zip(_leaves(like), _leaves(carry))]))
+        for ref, x in zip(tree_leaves(like), tree_leaves(carry))]))

@@ -1,8 +1,8 @@
 """Real-valued fused FM chain: cold start, then acquire -> sync -> FEC over
 L1 blocks.
 
-PyTorch counterpart of ``nrsc5_tpu/pipeline/scan_chain_rc.py`` (lines
-37-478 and 510-553), PX channels of MP2/MP3/MP11 included.  The reference
+PyTorch counterpart of ``nrsc5_tpu/pipeline/scan_chain_rc.py``, PX
+channels of MP2/MP3/MP11 included.  The reference
 ``vmap``s a per-station ``lax.scan``; here the station axis is written out
 and leads every tensor, and the block scan (:func:`scan_blocks`) is a loop
 whose body runs for all stations at once, with no host work and no
@@ -31,7 +31,11 @@ The cold start (:func:`cold_start_rc`) locks a capture with unknown timing
 and CFO in two device dispatches for the whole fleet: the timing/CFO probe
 (K9, K2, the DFT kernel, K3 and the needle count of K10), then the
 block-count probe (K2, the DFT kernel, K4), with the reference's argmax
-and votes on the host.
+and votes on the host; :func:`cold_start_device_rc` runs the same probes
+with the argmax and votes on the device and no read-back (the
+self-synchronizing time shards' lock, :mod:`nrsc5_tpu_torch.parallel.
+receive`), and :func:`acquire_fine_rc` is the reference's one-block fine
+acquire (K2's fold, then the DFT kernel) for every station.
 
 The chain and cold-start functions take ``plain=True`` to run the
 kernels' plain PyTorch versions instead (on any device); on a CPU tensor
@@ -131,6 +135,25 @@ def chain_rc_init_carry(offset: int = 0, psmi: int = 1, cfo: int = 0, *,
 def _phase_diff(a, b):
     d = a - b
     return d - math.pi * torch.round(rc.fdiv(d, math.pi))
+
+
+def acquire_fine_rc(samples, offset, phase, prev_angle, sync_samperr,
+                    sync_angle, cfo, plain: bool = False):
+    """One FINE-state acquire for every station: samples [S, N, 2]
+    conjugated rc, each station's window at ``offset`` (int32 [S]), its
+    phasor ``phase`` [S, 2], ``prev_angle`` and the previous block's sync
+    feedback (``sync_samperr`` int32, ``sync_angle`` float32) and ``cfo``
+    (int32 bins), all [S].  K2's bf16 fold, then the DFT kernel (their
+    plain versions with ``plain``).  Returns (spectra [S, 32, 2048, 2],
+    phase_out [S, 2], the block's angle [S], samperr [S], keep [S]) as the
+    reference's ``acquire_fine_rc`` gives them a station at a time."""
+    samperr = (C.FFTCP_FM // 2 + sync_samperr).to(torch.int32)
+    angle = prev_angle - sync_angle
+    fold = demod_fold_bf16_plain if plain else demod_fold_bf16
+    dft = rc.dft_bf16_plain if plain else rc.dft_bf16
+    folded, phase_out, keep = fold(samples, offset, phase, samperr, angle,
+                                   cfo)
+    return dft(folded), phase_out, angle, samperr, keep
 
 
 # ---------------------------------------------------------------------------
@@ -684,6 +707,34 @@ def bc_probe_rc(samples, offset, angle, cfo, plain: bool = False):
     sync = sync_block_rc_plain if plain else sync_block_rc
     out, _, _ = sync(dft(folded), zeros, zeros, 1, torch.zeros_like(samperr))
     return out["ref_ok"], out["ref_bc"], out["ref_psmi"]
+
+
+def cold_start_device_rc(samples, plain: bool = False):
+    """The cold start of every station with no host in the loop (the
+    self-synchronizing time shards' lock, :mod:`nrsc5_tpu_torch.parallel.
+    receive`): the two probes of :func:`cold_start_rc` with the reference's
+    argmax, threshold (a needle count of at least 3), start wrap, block
+    count votes and ``ok.sum() >= 4`` on the device, and no read-back.
+
+    samples: [S, N, 2] conjugated rc with N >= WINDOW_FM + 33 blocks.
+    Returns (start int32, first_bc int32, cfo int32, angle float32, locked
+    bool), each [S]: ``start`` is where the chain starts reading (the
+    symbol boundary less FFTCP//2), ``first_bc`` the block count there."""
+    fftcp = C.FFTCP_FM
+    samperr, angle, count = coldstart_probe_rc(samples, plain=plain)
+    flat = count.reshape(count.shape[0], -1)
+    best = torch.argmax(flat, dim=1)  # the first of equal maxima, as JAX's
+    locked = flat.gather(1, best[:, None])[:, 0] >= 3
+    cfo = (torch.div(best, C.BLKSZ, rounding_mode="floor")
+           - CFO_RANGE).to(torch.int32)
+    start = samperr - fftcp // 2 + (best % C.BLKSZ).to(torch.int32) * fftcp
+    start = torch.where(start < 0, start + C.BLKSZ * fftcp, start).to(
+        torch.int32)
+    ok, bcs, _ = bc_probe_rc(samples, start, angle, cfo, plain=plain)
+    bc = torch.arange(C.P1_FM_BLOCKS, device=samples.device)
+    votes = ((bcs[:, :, None] == bc) & ok[:, :, None]).sum(dim=1)
+    first_bc = torch.argmax(votes, dim=1).to(torch.int32)
+    return start, first_bc, cfo, angle, locked & (ok.sum(dim=1) >= 4)
 
 
 def cold_start_rc(samples_rc, *, device="cuda", plain: bool = False):

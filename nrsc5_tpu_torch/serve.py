@@ -16,8 +16,9 @@ per-station FM frame alignment after a lock, the watchdogs (FM: channel BER
 and the K=7 margin; AM: the K=9 margin, outside the diversity warm-up),
 relock by a cold start on the station's queue, ``cold_start=True``, and
 ``checkpoint``/``restore``/``save``/``load`` under the reference's names
-and carry order, so that either package resumes the other's file.  The
-reference's ``mesh`` (station sharding over devices) is not ported.
+and carry order, so that either package resumes the other's file, and
+``mesh`` (the station axis sharded over several devices, each running its
+share of every dispatch).
 
 The fleets (the reference's lines 984-1520): :class:`HeterogeneousReceiver`
 groups stations by (band, service mode), one :class:`MultiStationReceiver`
@@ -59,7 +60,8 @@ from nrsc5_tpu_torch.ops.bits import unpack_out
 from nrsc5_tpu_torch.pipeline import block_graph
 from nrsc5_tpu_torch.pipeline import scan_chain_am_rc as scar
 from nrsc5_tpu_torch.pipeline import scan_chain_rc as rcc
-from nrsc5_tpu_torch.pipeline.scan_chain import buffer_len, px_frame_lens
+from nrsc5_tpu_torch.pipeline.scan_chain import (buffer_len, px_frame_lens,
+                                                 tree_leaves, tree_rebuild)
 from nrsc5_tpu_torch.pipeline.scan_chain_am import am_buffer_len
 from nrsc5_tpu_torch.transport import frame as TF
 from nrsc5_tpu_torch.transport.output import Output
@@ -470,9 +472,41 @@ def _stack(rows: list):
 
 
 def _to_host(v):
+    """A dispatch's outputs as numpy; a mesh's list of outputs a device
+    joined along the station axis."""
+    if isinstance(v, list):
+        return _join_host([_to_host(x) for x in v])
     if isinstance(v, dict):
         return {k: _to_host(x) for k, x in v.items()}
     return v.cpu().numpy()
+
+
+def _join_host(parts: list):
+    if isinstance(parts[0], dict):
+        return {k: _join_host([p[k] for p in parts]) for k in parts[0]}
+    return np.concatenate(parts)
+
+
+def _tree_map(tree, fn):
+    return tree_rebuild(tree, iter([fn(x) for x in tree_leaves(tree)]))
+
+
+def mesh_devices(mesh) -> list:
+    """The devices of a ``mesh=`` argument: a sequence of devices, or a 1-D
+    ``DeviceMesh`` (rank ``r`` is device ``r`` of its type, modulo the
+    cards)."""
+    if hasattr(mesh, "device_type"):
+        if mesh.mesh.ndim != 1:
+            raise ValueError("a station mesh has one dimension")
+        kind = K.resolve_device(mesh.device_type)
+        if kind.type == "cpu":
+            return [kind] * mesh.mesh.numel()
+        n = torch.cuda.device_count()
+        return [torch.device("cuda", r % n) for r in mesh.mesh.tolist()]
+    devices = [K.resolve_device(d) for d in mesh]
+    if not devices:
+        raise ValueError("an empty mesh")
+    return devices
 
 
 class MultiStationReceiver:
@@ -511,8 +545,17 @@ class MultiStationReceiver:
 
     ``device`` (default ``"cuda"``, which raises with no card) is where the
     dispatches run; ``packed`` (default: on a card) packs decoded bits on
-    the device before they are copied to the host.  The reference's
-    ``mesh`` (station-axis sharding over several devices) is not ported.
+    the device before they are copied to the host.
+
+    ``mesh`` (a sequence of devices, or a 1-D ``DeviceMesh`` whose rank
+    ``r`` is device ``r`` of its type) shards the station axis as the
+    reference's ``jax.sharding.Mesh`` does, with no collectives:
+    ``n_stations`` must divide among its devices, each device runs its
+    block of stations through every dispatch with its own graphs, and the
+    host joins the outputs in station order.  The carries live on the
+    mesh's first device between dispatches (where the relock cold starts
+    and alignment dispatches run, and ``device`` is not read); a sharded
+    fleet cannot grow.
     """
 
     def __init__(self, n_stations: int, callback: Callable[[int, Event],
@@ -522,14 +565,19 @@ class MultiStationReceiver:
                  input_format: str = "cf32", mode: str = "fm",
                  ma3: bool = False, locks=None,
                  packed: bool | None = None, relock: bool = True,
-                 cold_start: bool = False, device="cuda"):
+                 cold_start: bool = False, device="cuda", mesh=None):
         if input_format not in ("cf32", "cs16", "cu8"):
             raise ValueError(f"unknown input_format {input_format!r}")
         if mode not in ("fm", "am"):
             raise ValueError(f"unknown mode {mode!r}")
         if cold_start and locks is not None:
             raise ValueError("cold_start acquires its own locks")
-        self.device = dev = K.resolve_device(device)
+        self._mesh = None if mesh is None else mesh_devices(mesh)
+        if self._mesh is not None and n_stations % len(self._mesh):
+            raise ValueError(f"{n_stations} stations over "
+                             f"{len(self._mesh)} devices")
+        self.device = dev = K.resolve_device(device) if mesh is None \
+            else self._mesh[0]
         self.mode = mode
         self.n_stations = n_stations
         self.depth = max(depth, 1)
@@ -773,7 +821,10 @@ class MultiStationReceiver:
         acquires their locks from their queues (``chunks``, their byte
         ``leftovers`` and ``pushed`` counts, or empty ones).  In-flight
         dispatches are drained first (their outputs are shaped for the old
-        fleet); the next dispatch runs at the new size."""
+        fleet); the next dispatch runs at the new size.  A sharded fleet
+        cannot grow: its stations divide among the mesh's devices."""
+        if self._mesh is not None:
+            raise ValueError("cannot grow a mesh-sharded fleet")
         self.drain()
         base = self.n_stations
         self.n_stations = base + k
@@ -936,12 +987,31 @@ class MultiStationReceiver:
         self.transports[i]._emit(make(
             EventType.SYNC, psmi=lock["psmi"] if am else self.psmi))
 
-    def _dispatch(self, batch):
+    def _step(self, batch, carries, dev: torch.device):
         if self.mode == "am":
-            return chain_step_am(batch, self._carries, self.n_frames,
-                                 self._ma3, self._packed, device=self.device)
-        return chain_step(batch, self._carries, self.n_blocks, self.psmi, 0,
-                          self._packed, device=self.device)
+            return chain_step_am(batch, carries, self.n_frames, self._ma3,
+                                 self._packed, device=dev)
+        return chain_step(batch, carries, self.n_blocks, self.psmi, 0,
+                          self._packed, device=dev)
+
+    def _dispatch(self, batch):
+        """One dispatch of every station: on a mesh, each device its block
+        of stations (its rows of the batch and of the carries); the outputs
+        stay a list a device, joined on the host when consumed, and the new
+        carries are joined on the first device."""
+        if self._mesh is None:
+            return self._step(batch, self._carries, self.device)
+        n = self.n_stations // len(self._mesh)
+        outs, carries = [], []
+        for k, dev in enumerate(self._mesh):
+            rows = slice(k * n, (k + 1) * n)
+            out, carry = self._step(batch[rows], _tree_map(
+                self._carries, lambda x: x[rows].to(dev)), dev)
+            outs.append(out)
+            carries.append(carry)
+        return outs, tree_rebuild(carries[0], iter([
+            torch.cat([x.to(self.device) for x in col])
+            for col in zip(*(tree_leaves(c) for c in carries))]))
 
     def _batch_buffer(self) -> torch.Tensor:
         """The dispatch's host buffer, reused: pinned on a card, so that

@@ -30,7 +30,8 @@ from nrsc5_tpu_torch.ops.decode_am import DD, AMDecodeState
 from nrsc5_tpu_torch.ops.frontend import FrontendState
 from nrsc5_tpu_torch.ops.sync_fm import SyncState
 from nrsc5_tpu_torch.pipeline.scan_chain import (ChainCarry, PxState,
-                                                 iv_state_len, px_frame_lens)
+                                                 iv_state_len, px_frame_lens,
+                                                 tree_leaves, tree_rebuild)
 from nrsc5_tpu_torch.pipeline.scan_chain_am import AMChainCarry
 from nrsc5_tpu_torch.pipeline.scan_chain_am_rc import AMChainCarryRC
 from nrsc5_tpu_torch.pipeline.scan_chain_rc import ChainCarryRC
@@ -131,31 +132,23 @@ def am_carry_to_numpy(carry: AMChainCarryRC) -> dict:
 
 
 def carry_leaves(carry) -> list:
-    """A carry (FM or AM, station axis kept) -> its leaves as numpy arrays
-    in the reference's pytree order (``jax.tree.flatten``: the fields in
-    order, an AM carry's delay lines last): the ``carry_{i}`` arrays of a
+    """A carry or any state of NamedTuples of tensors (station axis kept)
+    -> its leaves as numpy arrays in the reference's pytree order
+    (``jax.tree.flatten``: the fields in order, nested states in place, so
+    an AM carry's delay lines last): the ``carry_{i}`` arrays of a
     receiver's saved state."""
-    if isinstance(carry, AMChainCarryRC):
-        leaves = list(carry[:-1]) + list(carry.dec)
-    else:
-        leaves = list(carry)
-    return [t.cpu().numpy() for t in leaves]
+    return [t.cpu().numpy() for t in tree_leaves(carry)]
 
 
 def carry_from_leaves(leaves: list, like):
     """Inverse of :func:`carry_leaves`: numpy leaves in the reference's
-    pytree order -> a carry of ``like``'s type, dtypes and device."""
-    ref = carry_leaves(like)
+    pytree order -> a state of ``like``'s structure, dtypes and device."""
+    ref = tree_leaves(like)
     if len(leaves) != len(ref):
         raise ValueError(f"{len(leaves)} carry leaves, expected {len(ref)}")
-    dev = (like.offset).device
-    tensors = [torch.as_tensor(np.asarray(a).astype(r.dtype), device=dev)
-               for a, r in zip(leaves, ref)]
-    if isinstance(like, AMChainCarryRC):
-        n = len(AMChainCarryRC._fields) - 1
-        return AMChainCarryRC(*tensors[:n],
-                              dec=AMDecodeState(*tensors[n:]))
-    return ChainCarryRC(*tensors)
+    return tree_rebuild(like, iter([
+        torch.as_tensor(np.asarray(a), device=r.device).to(r.dtype)
+        for a, r in zip(leaves, ref)]))
 
 
 # the complex chains' states: the nested fields of each

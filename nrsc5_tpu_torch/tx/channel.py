@@ -1,9 +1,10 @@
 """Channel impairments for the truth harness: delay, CFO, AWGN, echo,
-upsampling, cu8 quantize.
+clock drift, Rayleigh fading, upsampling, cu8 quantize and back.
 
-A numpy copy of ``impair``, ``multipath``, ``upsample2``,
-``upsample_exact`` and ``to_cu8`` from ``nrsc5_tpu/tx/channel.py`` (pinned
-equal by tests/test_torch_tables.py).
+A numpy copy of ``nrsc5_tpu/tx/channel.py`` (``impair``, ``multipath``,
+``upsample2``, ``upsample_exact`` and ``to_cu8`` pinned equal by
+tests/test_torch_tables.py; ``clock_drift``, ``from_cu8`` and ``fading``
+by tests/test_torch_copies.py).
 """
 
 from __future__ import annotations
@@ -52,6 +53,19 @@ def multipath(sig: np.ndarray, delay: int, amp: float,
     return (sig + echo).astype(np.complex64)
 
 
+def clock_drift(sig: np.ndarray, ppm: float) -> np.ndarray:
+    """Resample by a constant sample-clock error of ``ppm`` parts-per-million
+    (linear interpolation; exercises the receiver's samperr feedback loop,
+    reference: src/sync.c:426-463 -> src/acquire.c:110-119)."""
+    if not ppm:
+        return sig
+    n_out = int(len(sig) / (1.0 + ppm * 1e-6))
+    t = np.arange(n_out, dtype=np.float64) * (1.0 + ppm * 1e-6)
+    re = np.interp(t, np.arange(len(sig)), sig.real)
+    im = np.interp(t, np.arange(len(sig)), sig.imag)
+    return (re + 1j * im).astype(np.complex64)
+
+
 def upsample_exact(sig: np.ndarray, factor: int) -> np.ndarray:
     """Ideal Fourier interpolation by an integer factor, for high-rate
     captures of narrowband signals (46.5 kS/s AM -> 1.488 MS/s cu8)."""
@@ -84,3 +98,38 @@ def to_cu8(sig: np.ndarray) -> np.ndarray:
     iq[0::2] = np.real(sig)
     iq[1::2] = np.imag(sig)
     return np.clip(np.round(iq * 128 + 127), 0, 255).astype(np.uint8)
+
+
+def from_cu8(data: np.ndarray) -> np.ndarray:
+    """cu8 -> complex64, matching U8_Q15 scaling up to the 32767 divisor."""
+    f = (data.astype(np.float32) - 127.0) * (64.0 / 32767.0)
+    return (f[0::2] + 1j * f[1::2]).astype(np.complex64)
+
+
+def fading(sig: np.ndarray, doppler_hz: float,
+           delays=(0,), amps=(1.0,), rng=None,
+           sample_rate: float = C.SAMPLE_RATE_CS16_FM,
+           n_sines: int = 16) -> np.ndarray:
+    """Rayleigh fading channel (Jakes sum-of-sinusoids): each tap at
+    ``delays[i]`` samples carries an independent complex Rayleigh gain
+    process of RMS ``amps[i]`` with maximum Doppler ``doppler_hz``.
+    ``delays=(0,)`` is flat fading; several taps give time-varying
+    frequency-selective fading."""
+    rng = rng or np.random.default_rng(0)
+    t = np.arange(len(sig), dtype=np.float64) / sample_rate
+    out = np.zeros(len(sig), np.complex64)
+    for delay, amp in zip(delays, amps):
+        g = np.zeros(len(sig), np.complex128)
+        for _ in range(n_sines):
+            # classic Jakes: arrival angles uniform, random phases
+            fd = doppler_hz * np.cos(rng.uniform(0, 2 * np.pi))
+            g += np.exp(1j * (2 * np.pi * fd * t
+                              + rng.uniform(0, 2 * np.pi)))
+        g *= amp / np.sqrt(n_sines)
+        ray = np.zeros(len(sig), np.complex64)
+        if delay:
+            ray[delay:] = sig[:-delay]
+        else:
+            ray[:] = sig
+        out += (ray * g).astype(np.complex64)
+    return out

@@ -267,7 +267,7 @@ def test_carry_real_round_trip(rng):
     assert real.acq.phase.shape == (2,) and not real.acq.phase.is_complex()
     jreal = JSC.carry_to_real(JSC.chain_init_carry())
     assert [np.shape(x) for x in jax.tree.leaves(jreal)] \
-        == [tuple(x.shape) for x in TSC._leaves(real)]
+        == [tuple(x.shape) for x in TSC.tree_leaves(real)]
     back = TSC.carry_from_real(real)
-    for a, b in zip(TSC._leaves(back), TSC._leaves(carry)):
+    for a, b in zip(TSC.tree_leaves(back), TSC.tree_leaves(carry)):
         assert a.dtype == b.dtype and torch.equal(a, b)
