@@ -10,13 +10,13 @@ Run from the root of the repository on a machine with a CUDA card and
 Phases, each printing one JSON line:
 
 1. device: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
-2. build: the twenty-five hand kernels (K1 and its AM cascade, K2, the FM
+2. build: the twenty-nine hand kernels (K1 and its AM cascade, K2, the FM
    DFT kernel ``dft_bf16``, K4, K5's FM and AM carry steps, K6, K7 at
    K=7 and at K=9, K8, K9, K10 (the CFO scan, the Costas PLL of K3 fused
    into it), K11, K12, K13, K14's
    tone estimate, coarse timing and CFO step, K15 and its PIDS-only
-   launch, and K16a-d of batched HDC audio) built from the twenty-one
-   sources of
+   launch, K16a-d of batched HDC audio, and the complex chain's block
+   step K17-K20) built from the twenty-five sources of
    ``nrsc5_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``, one process per
    source, all in parallel, with ptxas's registers, shared memory and
    stack frames of every kernel;
@@ -115,7 +115,14 @@ Phases, each printing one JSON line:
    probe block past the end of the kernel ahead of it).  K13's line
    carries the stack frames ptxas reports for its source, K14's coarse
    timing and CFO step lines and K11's and K15's their kernel's
-   (reported, not gated);
+   (reported, not gated).  The complex chain's block step at 16
+   stations: K17 (``fm_demod_c``) at block 1 of the complex chain on the
+   steady wire and at K2's moved state, K18 (``sync_fm_c``) on its
+   spectra at psmi 1, 11 and with the loop's carry step, K19
+   (``am_demod_c``) at block 1 of the MA1 chain and K20 (``sync_am_c``)
+   on its spectra in MA1, MA3 and with the carry step; K17's and K19's
+   lines print cuFFT's time for their FFT stage alone
+   (``fft_stage_cufft_ms``), the yardstick of that part;
 5. coldstart: ``serve.cold_start`` on the capture must lock 16/16 stations
    with the true |CFO| under one sign convention, first_bc 14 and psmi 1;
    then ``serve.chain_step`` from the locks over 34 blocks must decode
@@ -262,8 +269,10 @@ the eager wall and device time beside the graph's.  Then:
    second of wall with the prepare and dispatch walls, the launches, and
    the phase's own seconds;
 17. receiver_fm: the per-block receivers on the card through the session
-   (``NRSC5(..., chain="block")``, the complex chain as plain PyTorch,
-   the FEC through the kernels): the golden capture pushed as cu8 in
+   (``NRSC5(..., chain="block")``, the complex chain's block step through
+   K17 and K18 at one station, the FEC through the kernels;
+   turbo's frames through the batched loop, K5's step ahead of block 0):
+   the golden capture pushed as cu8 in
    32768-byte pieces, per-block twice (the first run meets each op's
    first call), then with the FM decoders' plain versions on the card,
    then through the turbo receiver.  Gate: one SYNC at psmi
@@ -272,11 +281,12 @@ the eager wall and device time beside the graph's.  Then:
    tests/test_torch_block_session.py), the LOT file's bytes, the P1 and
    PIDS bits equal to the plain run's, the turbo receiver's HDC packets,
    P1 frames and PIDS words equal to the per-block run's, frame for
-   frame, exactly K6, K7 and K8 launched and no
+   frame, exactly K17, K18, K6, K7 and K8 launched (turbo: and K5) and no
    plain version called; and one MP3 and one MP11 station (2 IV cycles
    behind 2 lead blocks, 25 dB) through ``FMReceiver``: every P1 frame and
    every PX1 and PX2 frame of IV cycle 1 exact against the transmitted
-   frames, exactly K6, K7, K8 and K11 launched; the second per-block
+   frames, exactly K17, K18, K6, K7, K8 and K11 launched; the second
+   per-block
    run the same P1 and PIDS bits.  The wall a block of each;
 18. receiver_am: session_am's capture with rdbi set from frame
    ``BLOCK_AM_RDBI_FROM`` on, and the same recipe in MA3 without rdbi,
@@ -285,8 +295,9 @@ the eager wall and device time beside the graph's.  Then:
    host.  Gate, in each mode: one SYNC at its psmi, no LOST_SYNC, at
    least session_am's 48 exact HDC packets and none foreign, PIDS words,
    P1 and P3 frames on each channel, every one of them (bits and margin)
-   equal to the twin run's, frame for frame, exactly K15, its PIDS-only
-   launch, K7 at K=9 and K8 launched, no plain version called; in MA1
+   equal to the twin run's, frame for frame, exactly K19, K20, K15, its
+   PIDS-only launch, K7 at K=9 and K8 launched, no plain version called;
+   in MA1
    every launch of K15's PIDS-only launch (a block, counted on its own;
    with ``pids1_disabled`` once rdbi is read) exact against its plain
    version on the same codes, and a second run the same frames.  The
@@ -299,8 +310,16 @@ the eager wall and device time beside the graph's.  Then:
    noise station unlocked, launches exactly K9 2 (kernels), K2 2, the DFT
    kernel 2, K10 1, K4 1, and no device-to-host copy in the profile); then
    ``parallel.receive``'s four sharded steps (FM, self-sync, AM, PX at psmi
-   3; 2 stations each, from the port's ``tx``) over a 1 x 1 NCCL mesh in
-   this process, and over a 1 x 2 (station, time) gloo mesh of two
+   3, from the port's ``tx``; the complex chain's through K17-K20 batched
+   over stations) over a 1 x 1 NCCL mesh in this process (FM, AM and PX at
+   16 stations, each from its own seed; self-sync at 2), then one FM step
+   under the profiler (gate: no device span named like an FFT, K17 and K18
+   once a block; prints the launches and spans a block) and the FM
+   capture's whole buffer through the block loop on the kernels and on
+   the plain versions (gate: the same P1 and PIDS bits; prints whether
+   the consumed samples agree and the share of pm soft bits that moved),
+   and over a 1 x 2
+   (station, time) gloo mesh of two
    processes on this card (``parallel.distributed.run_ranks``: halos and
    sums staged through pinned host memory), where each rank also runs the
    two-stage ``pipelined_receive`` (3 frames of each station) and the
@@ -308,8 +327,9 @@ the eager wall and device time beside the graph's.  Then:
    second IV cycle) and AM P1/P3 frame past each shard's warm-up (and
    every AM PIDS word) the transmitted bits; each rank's block equal to
    the one-process ``fm_chain_scan``/``am_chain_scan`` (or the self-sync
-   shard's work) on the extended chunk built from the whole capture;
-   ``quality`` equal on every rank; the self-sync shards locked at |cfo|
+   shard's work) on the extended chunk built from the whole capture, and
+   its decoded bits equal to that chain's with the block step's plain
+   versions; ``quality`` equal on every rank; the self-sync shards locked at |cfo|
    3; the pipeline's outputs and carry equal to the fused chain's; every
    rank's ``DCN_OK``.  Prints each step's wall, the exchange's time, bytes
    through the host and backend, and the pipeline's step time beside the
@@ -336,6 +356,7 @@ with no CUDA card it exits 2 before printing anything.
 from __future__ import annotations
 
 import cProfile
+import functools
 import hashlib
 import inspect
 import json
@@ -496,7 +517,19 @@ KERNELS = {
                     "nrsc5_tpu/pipeline/scan_chain_rc.py:274"),
     "block_carry_am": ("nrsc5_tpu_torch/csrc/block_carry.cu",
                        "nrsc5_tpu/pipeline/scan_chain_am_rc.py:259"),
+    "fm_demod_c": ("nrsc5_tpu_torch/csrc/fm_demod_c.cu",
+                   "nrsc5_tpu/ops/acquire.py:176"),
+    "sync_fm_c": ("nrsc5_tpu_torch/csrc/sync_fm_c.cu",
+                  "nrsc5_tpu/ops/sync_fm.py:130"),
+    "am_demod_c": ("nrsc5_tpu_torch/csrc/am_demod_c.cu",
+                   "nrsc5_tpu/ops/acquire.py:371"),
+    "sync_am_c": ("nrsc5_tpu_torch/csrc/sync_am_c.cu",
+                  "nrsc5_tpu/ops/sync_am.py:84"),
 }
+# the complex chain's block step (K17-K20): the per-block receivers, the
+# sharded receive, the stage pipeline and turbo run it, the rc paths never
+COMPLEX_FM = ("fm_demod_c", "sync_fm_c")
+COMPLEX_AM = ("am_demod_c", "sync_am_c")
 AUDIO_KERNELS = ("aac_window_qmf_analysis", "sbr_hf_generate",
                  "sbr_hf_adjust", "qmf_synthesis")
 # the kernels each path launches
@@ -1636,7 +1669,8 @@ class FakeTuner:
             t.join(timeout=10)
 
 
-FLEET_KERNELS = tuple(n for n in KERNELS if n != "block_carry_am")
+FLEET_KERNELS = tuple(n for n in KERNELS if n not in (
+    "block_carry_am",) + COMPLEX_FM + COMPLEX_AM)
 
 
 def fleet_run(torch, st: dict) -> dict:
@@ -2487,10 +2521,13 @@ BLOCK_PX_LEAD = 2  # their lead blocks (block counts 14, 15)
 # the kernels of the per-block paths on the card: FM K6, K7, K8 (and K11
 # in the PX modes); AM K15 (a frame), K15's PIDS-only launch (a block), K7
 # at K=9 and K8
-BLOCK_FM_KERNELS = ("fec_gather", "viterbi_k7", "fec_epilogue")
+BLOCK_FM_KERNELS = COMPLEX_FM + ("fec_gather", "viterbi_k7",
+                                  "fec_epilogue")
 BLOCK_PX_KERNELS = BLOCK_FM_KERNELS + ("px_deinterleave",)
-BLOCK_AM_KERNELS = ("am_gather", "am_gather_pids", "viterbi_k9",
-                    "fec_epilogue")
+BLOCK_AM_KERNELS = COMPLEX_AM + ("am_gather", "am_gather_pids",
+                                  "viterbi_k9", "fec_epilogue")
+# turbo's frame dispatches also run K5's step ahead of their block 0
+BLOCK_TURBO_KERNELS = BLOCK_FM_KERNELS + ("block_carry",)
 
 
 def make_block_px_station(psmi: int) -> dict:
@@ -2669,6 +2706,10 @@ PAR_SNR_DB = 25.0
 PAR_SYNC_OFFSET = 947  # the self-sync capture (tests/test_parallel.py:165)
 PAR_SYNC_SNR_DB = 28.0
 PAR_TIMEOUT_S = 420.0
+# the 1 x 1 NCCL mesh's FM, AM and PX steps: 16 stations, the main path's
+# width (the two-process gloo mesh keeps PAR_STATIONS)
+PAR_ONE_STATIONS = 16
+PAR_ONE_KINDS = ("fm", "am", "px")
 # kernel launches of one on-device FM cold start: K9 (two kernels), K2 and
 # the DFT kernel a probe each, K10, K4
 COLD_DEVICE_LAUNCHES = {"coarse_timing": 2, "demod_fold": 2, "dft_bf16": 2,
@@ -2715,15 +2756,14 @@ def _frame_aligned(sig, total: int, halo: int):
     return buf[:total], buf[total:]
 
 
-def make_parallel_captures(out_dir: Path) -> dict:
-    """The parallel phase's captures, PAR_STATIONS stations each from their
-    own seeds, written as ``.npz`` files the ranks read (``samples`` [S,
-    PAR_TIME·chunk(, 2)], ``tails``); returns their paths and the
-    transmitted bits.  fm: 2 P1 frames at 25 dB; selfsync: 5 P1 frames at
-    offset 947, CFO 3 bins + 25 Hz, 28 dB, conjugated rc (the reference's
-    self-sync test); am: 14 MA1 frames, noiseless (the reference's AM
-    test); px: 2 IV cycles of MP3 at 25 dB; pipeline: 3 frames at 25 dB in
-    a buffer_len(48) buffer; each from the port's ``tx``."""
+PAR_KINDS = ("fm", "selfsync", "am", "px", "pipeline")
+
+
+def _par_station(st: int, kinds=PAR_KINDS, seed_tag: int = 22) -> dict:
+    """Station ``st``'s capture of each kind of ``kinds`` (see
+    :func:`make_parallel_captures`), from its own seed ([SEED, seed_tag,
+    st]): {kind: (samples, tails, truth)}.  A worker process's task (numpy
+    and the port's ``tx`` only)."""
     from nrsc5_tpu_torch import constants as C
     from nrsc5_tpu_torch.parallel import receive as PR
     from nrsc5_tpu_torch.pipeline.scan_chain import buffer_len
@@ -2732,19 +2772,14 @@ def make_parallel_captures(out_dir: Path) -> dict:
     from nrsc5_tpu_torch.tx.encoder import build_pm_matrix
     from nrsc5_tpu_torch.tx.modulator import modulate_fm
     from nrsc5_tpu_torch.tx.modulator_am import modulate_am
-    out_dir.mkdir(parents=True, exist_ok=True)
-    caps = {k: {"samples": [], "tails": []} for k in
-            ("fm", "selfsync", "am", "px", "pipeline")}
-    truth = {k: [] for k in caps}
-    for st in range(PAR_STATIONS):
-        rng = np.random.default_rng([SEED, 22, st])
+    rng = np.random.default_rng([SEED, seed_tag, st])
+    out = {}
+    if "fm" in kinds:
         total = PAR_TIME * PR.shard_chunk_len(PAR_FM_BLOCKS)
         sig, p1, pids, _ = _par_fm_capture(rng, PAR_TIME * PAR_FM_BLOCKS)
-        a, b = _frame_aligned(sig, total, PR.HALO)
-        caps["fm"]["samples"].append(a)
-        caps["fm"]["tails"].append(b)
-        truth["fm"].append({"p1": p1, "pids": pids})
-
+        out["fm"] = _frame_aligned(sig, total, PR.HALO) + (
+            {"p1": p1, "pids": pids},)
+    if "selfsync" in kinds:
         n_sync = 5
         p1 = rng.integers(0, 2, (n_sync, C.P1_FRAME_LEN_FM), dtype=np.uint8)
         zeros = np.zeros((16, C.PIDS_FRAME_LEN), np.uint8)
@@ -2760,10 +2795,8 @@ def make_parallel_captures(out_dir: Path) -> dict:
         n = min(len(sig), len(buf) - PAR_SYNC_OFFSET)
         buf[PAR_SYNC_OFFSET:PAR_SYNC_OFFSET + n] = sig[:n]
         rc = np.stack([buf.real, -buf.imag], -1).astype(np.float32)
-        caps["selfsync"]["samples"].append(rc[:total])
-        caps["selfsync"]["tails"].append(rc[total:])
-        truth["selfsync"].append({"p1": p1})
-
+        out["selfsync"] = (rc[:total], rc[total:], {"p1": p1})
+    if "am" in kinds:
         n_am = PAR_TIME * PAR_AM_FRAMES
         p1 = rng.integers(0, 2, (n_am, 8, C.P1_FRAME_LEN_AM), dtype=np.uint8)
         p3 = rng.integers(0, 2, (n_am, C.P3_FRAME_LEN_MA1), dtype=np.uint8)
@@ -2779,29 +2812,48 @@ def make_parallel_captures(out_dir: Path) -> dict:
         start = C.FFTCP_AM // 2
         n = min(len(sig), len(buf) - start)
         buf[start:start + n] = sig[:n]
-        caps["am"]["samples"].append(buf[:total])
-        caps["am"]["tails"].append(buf[total:])
-        truth["am"].append({"p1": p1, "p3": p3, "pids": pids})
-
+        out["am"] = (buf[:total], buf[total:],
+                     {"p1": p1, "p3": p3, "pids": pids})
+    if "px" in kinds:
         total = PAR_TIME * PR.shard_chunk_len(PAR_PX_BLOCKS)
         sig, p1, _, px1 = _par_fm_capture(rng, PAR_TIME * PAR_PX_BLOCKS,
                                           psmi=3, n_px_cycles=PAR_TIME)
-        a, b = _frame_aligned(sig, total, PR.HALO)
-        caps["px"]["samples"].append(a)
-        caps["px"]["tails"].append(b)
-        truth["px"].append({"p1": p1, "px1": px1})
-
+        out["px"] = _frame_aligned(sig, total, PR.HALO) + (
+            {"p1": p1, "px1": px1},)
+    if "pipeline" in kinds:
         n_blocks = 16 * PAR_PIPE_FRAMES
         sig, p1, pids, _ = _par_fm_capture(rng, n_blocks)
         a, _ = _frame_aligned(sig, buffer_len(n_blocks), 0)
-        caps["pipeline"]["samples"].append(a)
-        caps["pipeline"]["tails"].append(np.zeros(0, np.complex64))
-        truth["pipeline"].append({"p1": p1, "pids": pids})
-    paths = {}
-    for k, v in caps.items():
-        paths[k] = str(out_dir / f"{k}.npz")
-        np.savez(paths[k], samples=np.stack(v["samples"]),
-                 tails=np.stack(v["tails"]))
+        out["pipeline"] = (a, np.zeros(0, np.complex64),
+                           {"p1": p1, "pids": pids})
+    return out
+
+
+def make_parallel_captures(out_dir: Path, n_stations: int = PAR_STATIONS,
+                           kinds=PAR_KINDS, seed_tag: int = 22,
+                           prefix: str = "") -> dict:
+    """The parallel phase's captures, ``n_stations`` stations each from
+    their own seed, built by a process a core (:func:`_par_station`) and
+    written as ``.npz`` files the ranks read (``samples`` [S,
+    PAR_TIME·chunk(, 2)], ``tails``); returns their paths and the
+    transmitted bits.  fm: 2 P1 frames at 25 dB; selfsync: 5 P1 frames at
+    offset 947, CFO 3 bins + 25 Hz, 28 dB, conjugated rc (the reference's
+    self-sync test); am: 14 MA1 frames, noiseless (the reference's AM
+    test); px: 2 IV cycles of MP3 at 25 dB; pipeline: 3 frames at 25 dB in
+    a buffer_len(48) buffer; each from the port's ``tx``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    workers = max(1, min(n_stations, os.cpu_count() or 1))
+    with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        rows = list(pool.map(functools.partial(
+            _par_station, kinds=tuple(kinds), seed_tag=seed_tag),
+            range(n_stations)))
+    paths, truth = {}, {}
+    for k in kinds:
+        paths[k] = str(out_dir / f"{prefix}{k}.npz")
+        np.savez(paths[k], samples=np.stack([r[k][0] for r in rows]),
+                 tails=np.stack([r[k][1] for r in rows]))
+        truth[k] = [r[k][2] for r in rows]
     return {"paths": paths, "truth": truth}
 
 
@@ -2820,10 +2872,12 @@ def _par_steps():
                    PR.HALO, PR.px_left_blocks(3)[0] * PR.shard_chunk_len(1))}
 
 
-def _one_process(torch, kind: str, ext, arg: int):
+def _one_process(torch, kind: str, ext, arg: int, plain: bool = False):
     """The one-process chain on a shard's extended chunk: each station
     through ``fm_chain_scan``/``am_chain_scan`` alone (the PX shard's with
-    its IV state, its warm-up dropped), or the self-sync shard's work."""
+    its IV state, its warm-up dropped), or the self-sync shard's work.
+    ``plain``: the complex chain's block step through its plain versions
+    (K17-K20's), the FEC through its kernels as always."""
     from nrsc5_tpu_torch.parallel import receive as PR
     from nrsc5_tpu_torch.pipeline import scan_chain as sc
     from nrsc5_tpu_torch.pipeline import scan_chain_am as sca
@@ -2833,27 +2887,49 @@ def _one_process(torch, kind: str, ext, arg: int):
     rows = []
     for x in ext:
         if kind == "fm":
-            out, _ = sc.fm_chain_scan(x, sc.chain_init_carry(device=dev), arg)
+            out, _ = sc.fm_chain_scan(x, sc.chain_init_carry(device=dev), arg,
+                                      plain=plain)
             rows.append((out["p1"], out["p1_margin"], out["pids"]))
         elif kind == "am":
             out, _ = sca.am_chain_scan(x, sca.am_chain_init_carry(device=dev),
-                                       arg)
+                                       arg, plain=plain)
             rows.append((out["p1"], out["p3"], out["pids"]))
         else:
             left, warm_p1, warm_px = PR.px_left_blocks(3)
             out, _ = sc.fm_chain_scan(
                 x, sc.chain_init_carry(device=dev), arg + left, 3, 0,
-                px_state=sc.px_init_state(3, device=dev))
+                px_state=sc.px_init_state(3, device=dev), plain=plain)
             rows.append((out["p1"][warm_p1:], out["px1"][warm_px:]))
     return [torch.stack(col) for col in zip(*rows)]
+
+
+def _bits_vs_plain(torch, kind: str, blocks, plain, t: int) -> bool:
+    """Time shard ``t``'s decoded bits against the same chain's with the
+    block step's plain versions, where the truth gate holds them: FM's P1
+    and PIDS; AM's P1 and P3 past each shard's three diversity warm-up
+    frames, and PIDS; PX's P1, and PX1 past the stream's first IV cycle
+    (frames decoded from a state no sample set, whose bits a soft bit
+    moved by one can change)."""
+    if kind == "fm":
+        pairs = [(blocks[0], plain[0]), (blocks[2], plain[2])]
+    elif kind == "am":
+        pairs = [(blocks[0][:, 3:], plain[0][:, 3:]),
+                 (blocks[1][:, 3:], plain[1][:, 3:]), (blocks[2], plain[2])]
+    else:
+        first = max(0, PAR_PX_BLOCKS // 2 - t * blocks[1].shape[1])
+        pairs = [(blocks[0], plain[0]),
+                 (blocks[1][:, first:], plain[1][:, first:])]
+    return all(torch.equal(a, b) for a, b in pairs)
 
 
 def parallel_sharded(torch, mesh, dev, kind: str, path: str) -> dict:
     """One shard of the ``kind`` sharded step over ``mesh`` (each rank
     calls it): its time chunk of the capture at ``path``, the step timed
     twice (the launches counted on the first), its outputs gathered into
-    the reference's layout, and its own outputs against the one-process
-    chain on the extended chunk built from the whole capture."""
+    the reference's layout, its own outputs against the one-process chain
+    on the extended chunk built from the whole capture, and its decoded
+    bits against that chain's with the block step's plain versions (the
+    complex chain's kinds, :func:`_bits_vs_plain`)."""
     from dataclasses import asdict
 
     from nrsc5_tpu_torch import kernels as K
@@ -2893,10 +2969,101 @@ def parallel_sharded(torch, mesh, dev, kind: str, path: str) -> dict:
     ref = _one_process(torch, kind, ext, arg * (PAR_TIME // n_time))
     same = len(ref) == len(blocks) and all(
         torch.equal(a, b) for a, b in zip(blocks, ref))
+    bits_plain = None
+    if kind != "selfsync":
+        plain = _one_process(torch, kind, ext, arg * (PAR_TIME // n_time),
+                             plain=True)
+        bits_plain = _bits_vs_plain(torch, kind, blocks, plain, t)
     return {"global": gathered, "quality": [float(o) for o in out
                                             if o.ndim == 0],
-            "same_as_one_process": same, "wall_s": walls,
-            "exchange": exchange, "launches": counts}
+            "same_as_one_process": same, "bits_same_as_plain": bits_plain,
+            "wall_s": walls, "exchange": exchange, "launches": counts}
+
+
+def chained_fm_check(torch, dev, path: str) -> dict:
+    """The FM capture at ``path`` (samples and tails: one buffer of
+    PAR_TIME x PAR_FM_BLOCKS blocks a station) through the complex chain's
+    block loop and FEC on the kernels (K17, K18) and with the block step's
+    plain versions: the decoded P1 and PIDS bits (gated equal), the
+    samples each station consumed and the share of pm soft bits that
+    differ, and by how much (printed: the Costas feedback carries float
+    differences from block to block)."""
+    from nrsc5_tpu_torch.pipeline import scan_chain as sc
+    with np.load(path) as d:
+        x = torch.from_numpy(np.concatenate([d["samples"], d["tails"]],
+                                            axis=1)).to(dev)
+    n_blocks = PAR_TIME * PAR_FM_BLOCKS
+    carries = sc.stack_trees([sc.chain_init_carry(device=dev)]
+                             * x.shape[0])
+    runs = [sc.scan_blocks_c(x, carries, n_blocks, plain=plain)
+            for plain in (False, True)]
+    outs = [sc.fm_decode_c(*r[:3], n_blocks) for r in runs]
+    diff = (runs[0][0].int() - runs[1][0].int()).abs()
+    return {"stations": int(x.shape[0]), "blocks": n_blocks,
+            "bits_equal": all(torch.equal(outs[0][k], outs[1][k])
+                              for k in ("p1", "pids")),
+            "consumed_equal": torch.equal(runs[0][3].offset,
+                                          runs[1][3].offset),
+            "pm_diff_share": float((diff > 0).float().mean()),
+            "pm_max_diff": int(diff.max())}
+
+
+def sharded_fm_profile(torch, mesh, dev, path: str,
+                       sessions: int = 3) -> dict:
+    """One warm sharded FM step over ``mesh`` (one time shard: the whole
+    capture at ``path``) under ``torch.profiler``: every device span's
+    name, the launches by kernel a block, and the gate: no span whose name
+    holds "fft" in any session (no cuFFT: the spectra come from K17's own
+    FFT), K17 and K18 launched once a block for all stations (the launch
+    counts), K18's spans under its own name (``sync_fm_c_kernel``) and none
+    under ``sync_block_kernel`` (K4's).  The profiler has been seen to drop
+    a span of a session (31 of 32 ``fm_demod_c_kernel`` spans), so a
+    session without one span a block of each of K17 and K18 is run again,
+    up to ``sessions`` in all; ``sessions`` says how many ran and
+    ``spans_whole`` whether the last had them all.  What it reads is
+    reported, not gated on: the launch counts are the gate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nrsc5_tpu_torch import kernels as K
+    from nrsc5_tpu_torch.parallel import receive as PR
+    with np.load(path) as d:
+        samples = torch.from_numpy(d["samples"]).to(dev)
+        tails = torch.from_numpy(d["tails"]).to(dev)
+    n_blocks = PAR_FM_BLOCKS * PAR_TIME
+    step = PR.sharded_fm_chain(mesh, n_blocks)
+    step(samples, tails)
+    _par_sync(torch, dev)
+    fft, k4_spans = set(), 0
+    for session in range(1, sessions + 1):
+        K.reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(samples, tails)
+            _par_sync(torch, dev)
+        counts = {k: c for k, c in K.COUNTS.items() if c}
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        fft |= {n for n in names if "fft" in n.lower()}
+        by_name = {}
+        for n in names:
+            short = short_kernel_name(n)
+            by_name[short] = by_name.get(short, 0) + 1
+        k4_spans += by_name.get("sync_block_kernel", 0)
+        whole = all(by_name.get(k) == n_blocks
+                    for k in ("fm_demod_c_kernel", "sync_fm_c_kernel"))
+        if whole:
+            break
+    launched = all(counts.get(k) == n_blocks
+                   for k in ("fm_demod_c", "sync_fm_c"))
+    return {"stations": int(samples.shape[0]), "blocks": n_blocks,
+            "device_spans": len(names),
+            "device_spans_a_block": len(names) / n_blocks,
+            "spans_by_name": by_name, "fft_spans": sorted(fft),
+            "sessions": session, "spans_whole": whole,
+            "launches": counts,
+            "launches_a_block": {k: c / n_blocks for k, c in counts.items()},
+            "pass": not fft and launched and k4_spans == 0
+            and by_name.get("sync_fm_c_kernel", 0) > 0}
 
 
 def parallel_pipeline(torch, dev, path: str) -> dict:
@@ -3054,20 +3221,32 @@ def parallel_phase(torch, smi: str, capture, serve_fm: dict) -> dict:
         raise AssertionError("parallel: the on-device cold start did not "
                              "pass its gate")
 
-    # the four sharded steps over a 1 x 1 NCCL mesh in this process
-    caps = make_parallel_captures(Path(__file__).resolve().parent / "build"
-                                  / "parallel")
+    # the four sharded steps over a 1 x 1 NCCL mesh in this process: FM,
+    # AM and PX at PAR_ONE_STATIONS stations, each from its own seed, the
+    # self-sync shard at PAR_STATIONS; then one FM step under the profiler
+    par_dir = Path(__file__).resolve().parent / "build" / "parallel"
+    t_caps = time.perf_counter()
+    caps = make_parallel_captures(par_dir)
+    wide = make_parallel_captures(par_dir, PAR_ONE_STATIONS, PAR_ONE_KINDS,
+                                  seed_tag=23, prefix="wide_")
+    t_caps = time.perf_counter() - t_caps
+    one_caps = {"paths": {**caps["paths"], **wide["paths"]},
+                "truth": {**caps["truth"], **wide["truth"]}}
     kinds = ("fm", "selfsync", "am", "px")
     TD.init_distributed(f"127.0.0.1:{TD.free_port()}", 1, 0, device=dev)
     try:
         backend_one = str(dist.get_backend())
         mesh = PR.make_mesh(1, 1, device="cuda")
-        one = {k: parallel_sharded(torch, mesh, dev, k, caps["paths"][k])
-               for k in kinds}
+        one = {k: parallel_sharded(torch, mesh, dev, k,
+                                   one_caps["paths"][k]) for k in kinds}
+        fm_profile = sharded_fm_profile(torch, mesh, dev,
+                                        one_caps["paths"]["fm"])
     finally:
         dist.destroy_process_group()
     one_truth = {k: parallel_truth_gate(k, one[k]["global"],
-                                        caps["truth"][k]) for k in kinds}
+                                        one_caps["truth"][k]) for k in kinds}
+    complex_kinds = ("fm", "am", "px")
+    chained = chained_fm_check(torch, dev, one_caps["paths"]["fm"])
 
     # two processes on this card, gloo: a 1 x 2 mesh through the four
     # steps, the pipeline, the two-host self-test
@@ -3086,30 +3265,46 @@ def parallel_phase(torch, smi: str, capture, serve_fm: dict) -> dict:
         and np.array_equal(st["pids"], tr["pids"])
         for r in pipe for st, tr in zip(r, caps["truth"]["pipeline"]))
     exchange = {k: [r[k]["exchange"] for r in ranks] for k in kinds}
-    par_ok = (all(g["pass"] for g in one_truth.values())
-              and all(g["pass"] for g in two_truth.values())
-              and all(one[k]["same_as_one_process"] for k in kinds)
-              and all(all(v) for v in same_one.values())
-              and all(len({q for qs in v for q in qs}) <= 1
-                      for v in quality.values())
-              and all(e["route"] == "host" and e["backend"] == "gloo"
-                      for v in exchange.values() for e in v)
-              and pipe_ok and backend_one == "nccl"
-              and all(r["replay"].startswith("DCN_OK") for r in ranks))
+    gates = {
+        "one_process_truth": all(g["pass"] for g in one_truth.values()),
+        "two_process_truth": all(g["pass"] for g in two_truth.values()),
+        "one_process_same": all(one[k]["same_as_one_process"] for k in kinds),
+        "one_process_plain": all(one[k]["bits_same_as_plain"]
+                                 for k in complex_kinds),
+        "two_process_plain": all(r[k]["bits_same_as_plain"] for r in ranks
+                                 for k in complex_kinds),
+        "profile_fm_step": fm_profile["pass"],
+        "chained_fm_vs_plain": chained["bits_equal"],
+        "two_process_same": all(all(v) for v in same_one.values()),
+        "quality": all(len({q for qs in v for q in qs}) <= 1
+                       for v in quality.values()),
+        "exchange": all(e["route"] == "host" and e["backend"] == "gloo"
+                        for v in exchange.values() for e in v),
+        "pipeline": pipe_ok, "nccl": backend_one == "nccl",
+        "replay": all(r["replay"].startswith("DCN_OK") for r in ranks)}
+    failed = [name for name, ok in gates.items() if not ok]
+    par_ok = not failed
     steps = PAR_PIPE_FRAMES + 1
     emit({"phase": "parallel", "card": smi,
           "stations": PAR_STATIONS, "time_shards": PAR_TIME,
+          "captures_s": t_caps,
           "one_process": {"backend": backend_one, "mesh": [1, 1], **{
               k: {"wall_s": one[k]["wall_s"], "quality": one[k]["quality"],
                   "exchange": one[k]["exchange"], **one_truth[k],
-                  "same_as_one_process": one[k]["same_as_one_process"]}
-              for k in kinds}},
+                  "same_as_one_process": one[k]["same_as_one_process"],
+                  "bits_same_as_plain": one[k]["bits_same_as_plain"],
+                  "launches": one[k]["launches"]}
+              for k in kinds}, "profile_fm_step": fm_profile,
+              "chained_fm_vs_plain": chained},
           "two_processes": {
               "backend": "gloo", "mesh": [1, PAR_TIME],
               "wall_s": ranks_wall, **{
                   k: {"wall_s": [r[k]["wall_s"] for r in ranks],
                       "quality": quality[k], "exchange": exchange[k],
-                      "same_as_one_process": same_one[k], **two_truth[k]}
+                      "same_as_one_process": same_one[k],
+                      "bits_same_as_plain": [r[k]["bits_same_as_plain"]
+                                             for r in ranks],
+                      **two_truth[k]}
                   for k in kinds}},
           "pipeline": [{
               "stage": st["stage"], "same_as_fused": st["same_as_fused"],
@@ -3119,17 +3314,18 @@ def parallel_phase(torch, smi: str, capture, serve_fm: dict) -> dict:
               for r in pipe for st in r],
           "replay": [r["replay"] for r in ranks],
           "replay_wall_s": [r["replay_wall_s"] for r in ranks],
-          "pass": par_ok})
+          "gates_failed": failed, "pass": par_ok})
     if not par_ok:
         raise AssertionError("parallel: the sharded receive did not pass "
-                             "its gate")
+                             f"its gate: {', '.join(failed)}")
     counts = {}
     for name in K.SIGNATURES:
         counts[name] = cd_counts.get(name, 0) + sum(
             one[k]["launches"].get(name, 0) for k in kinds) + sum(
             r[k]["launches"].get(name, 0) for r in ranks for k in kinds) \
             + sum(st["launches"].get(name, 0) for r in pipe for st in r) \
-            + sum(r["replay_launches"].get(name, 0) for r in ranks)
+            + sum(r["replay_launches"].get(name, 0) for r in ranks) \
+            + fm_profile["launches"].get(name, 0)
 
     # the receiver over a station mesh of two devices (one card twice)
     wires = [serve_fm["wire"][i] for i in range(2)]
@@ -3241,6 +3437,8 @@ def drift_am_run(torch, sig, packets, chain: str) -> dict:
             "hdc_foreign": len(hdc - {bytes(p) for _, pk in packets
                                       for p in pk}),
             "wall_s": wall,
+            # the wall a block of the capture's air (32 symbols of 270)
+            "wall_ms_per_block": 1e3 * wall / (len(sig) / (32 * 270)),
             "launches": {k: c for k, c in K.COUNTS.items() if c}}
 
 
@@ -4506,6 +4704,202 @@ def main() -> int:
     del long_raw, short_raw, ext, a_xl, a_xh, a_x, a_v, args_a, args_b
     del args_c, args_d
 
+    # --- K17-K20, the complex chain's block step, at 16 stations:
+    # block 1 of the complex chain on the steady wire (block 0 through the
+    # plain versions), the AM chain on the MA1 dispatch's wire.  K17's and
+    # K19's spectra within 2e-5 of each row's largest magnitude (their own
+    # radix-2 FFT against cuFFT's order), their other floats within 1e-5,
+    # keep exact; K18 as K4 is held (ints exact, soft bits within 1 on at
+    # most 0.1 %, floats 1e-5 of max(|plain|, 1)); K20 exact: its codes,
+    # PIDS codes, reference bits, samperr and carry.
+    # No one PyTorch call ramps, folds and transforms (library_ms null):
+    # cuFFT's time for the FFT stage alone is printed beside K17 and K19 ---
+    from nrsc5_tpu_torch.ops import acquire as ACQ
+    from nrsc5_tpu_torch.ops import sync_am as SAM
+    from nrsc5_tpu_torch.pipeline import scan_chain as SCC
+    xc = torch.view_as_complex(torch.stack(
+        [samples[..., 0], -samples[..., 1]], -1).contiguous())
+    _, _, _, ccy = SCC.scan_blocks_c(xc, SCC.stack_trees(
+        [SCC.chain_init_carry(device=dev)] * s_n), 1, 1, plain=True)
+    zero_c = torch.zeros(s_n, dtype=torch.int32, device=dev)
+    samperr_c = (C.FFTCP_FM // 2 + ccy.samperr_fb).to(torch.int32)
+    k17_cases = {
+        None: (xc, ccy.offset, ccy.acq.phase, samperr_c,
+               ccy.acq.prev_angle - ccy.angle_fb, zero_c),
+        # K2's moved state: offsets, samperr 1078-1082, CFOs -3..3 bins
+        "moved": (xc, offset, torch.view_as_complex(phase.contiguous()),
+                  samperr, angle, cfo)}
+    fft_in = torch.randn(s_n, C.BLKSZ, C.FFT_FM, dtype=torch.complex64,
+                         device=dev)
+    k17_fft_ms = time_ms(torch, lambda: torch.fft.fft(fft_in, dim=-1),
+                         graph=True)
+    for case, a17 in k17_cases.items():
+        got = ACQ.demod_fm_c(*a17)
+        want = ACQ.demod_fm_c_plain(*a17)
+        row_max = want[0].abs().amax(dim=-1, keepdim=True)
+        err = ((got[0] - want[0]).abs() / row_max).max().item()
+        p_err = (got[1] - want[1]).abs().max().item()
+        keep_same = torch.equal(got[2], want[2])
+        check("fm_demod_c", err, "spectra 2e-5 of each row's largest "
+              "magnitude; phase_out 1e-5; keep exact",
+              lambda a17=a17: ACQ.demod_fm_c(*a17),
+              lambda a17=a17: ACQ.demod_fm_c_plain(*a17),
+              bound(s_n * (C.BLKSZ * C.FFTCP_FM * 8
+                           + C.BLKSZ * C.FFT_FM * 8 + 40),
+                    s_n * C.BLKSZ * (5 * C.FFT_FM * 11
+                                     + C.FFTCP_FM * 20)),
+              None, [s_n, C.BLKSZ, C.FFT_FM], plain_reps=3, plain_inner=2,
+              ok=err <= 2e-5 and p_err <= 1e-5 and keep_same, case=case,
+              phase_out_max_abs_err=p_err, keep_exact=keep_same,
+              fft_stage_cufft_ms=k17_fft_ms,
+              fft_stage_call="torch.fft.fft over [16, 32, 2048] complex64 "
+              "(cuFFT), the FFT stage alone",
+              registers=registers_of(regs.get("fm_demod_c"),
+                                     "fm_demod_c_kernel"),
+              stack_frame_bytes=frame_of(kernel_frames, "fm_demod_c",
+                                         "fm_demod_c_kernel"))
+
+    def k18_line(x_rc, psmi, case=None, carry=False):
+        """K18 at block 1 of the complex chain on the conjugated rc input
+        ``x_rc`` (block 0 through the plain versions), on K17's spectra."""
+        xk = torch.view_as_complex(torch.stack(
+            [x_rc[..., 0], -x_rc[..., 1]], -1).contiguous())
+        _, _, _, cy = SCC.scan_blocks_c(xk, SCC.stack_trees(
+            [SCC.chain_init_carry(device=dev)] * s_n), 1, psmi, plain=True)
+        se = (C.FFTCP_FM // 2 + cy.samperr_fb).to(torch.int32)
+        spec, _, keep = ACQ.demod_fm_c(xk, cy.offset, cy.acq.phase, se,
+                                       cy.acq.prev_angle - cy.angle_fb,
+                                       zero_c)
+        tadj = (C.FFTCP_FM // 2 - se).to(torch.int32)
+        a18 = (spec, cy.sync.costas_phase, cy.sync.costas_freq, psmi, tadj)
+
+        def step():
+            return {"offset": cy.offset.clone(),
+                    "prev_angle": cy.acq.prev_angle.clone(),
+                    "samperr_fb": cy.samperr_fb.clone(),
+                    "angle_fb": cy.angle_fb.clone(), "samperr": se.clone(),
+                    "angle": cy.acq.prev_angle - cy.angle_fb,
+                    "timing_adj": tadj.clone(), "keep": keep.clone()}
+        sk, sp = (step(), step()) if carry else (None, None)
+        ko, kph, kfr = SF.sync_fm_c(*a18, sk)
+        po, pph, pfr = SF.sync_fm_c_plain(*a18, sp)
+        exact = set(ko) == set(po) and all(
+            torch.equal(ko[k], po[k])
+            for k in ("ref_ok", "ref_bc", "ref_psmi", "samperr"))
+        if carry:
+            exact = exact and all(torch.equal(sk[k], sp[k]) for k in (
+                "offset", "samperr_fb", "samperr", "timing_adj"))
+        soft = {}
+        for k in ("pm", "px1", "px2"):
+            if k in po:
+                diff = (ko[k].int() - po[k].int()).abs()
+                soft[k] = (int(diff.max()), float((diff > 0).float().mean()))
+        floats = [(ko["angle"], po["angle"]), (kph, pph), (kfr, pfr)]
+        if carry:
+            floats += [(sk[k], sp[k]) for k in ("prev_angle", "angle_fb",
+                                                "angle")]
+        sums = [(ko[k], po[k]) for k in ("error_lb", "error_ub")]
+        err = max((a - b).abs().max().item() for a, b in floats + sums)
+        rel = max(((a - b).abs().max() / b.abs().max().clamp(min=1)).item()
+                  for a, b in floats)
+        sums_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                       for a, b in sums)
+        ppb = C.partitions_per_band(psmi)
+        r2, n_data = 2 * (ppb + 1), 2 * ppb * (C.PARTITION_WIDTH_FM - 1)
+        soft_bytes = sum(ko[k].shape[1] for k in soft)
+        timing = step() if carry else None
+        check("sync_fm_c", err, "angle and Costas rows 1e-5 of max(|plain|, "
+              "1), the MER sums 1e-4 of the largest (the twins' MER "
+              "tolerance: 3600-5000 positive terms summed in another "
+              "order); ref_ok, bc, psmi, samperr (and the carry's ints) "
+              "exact; pm, px1, px2 within 1 on at most 0.1 % of values",
+              lambda: SF.sync_fm_c(*a18, timing),
+              lambda: SF.sync_fm_c_plain(*a18, timing),
+              bound(s_n * (C.BLKSZ * (r2 + n_data) * 8 + 4 * C.FFT_FM * 4
+                           + soft_bytes + r2 * 9 + 16),
+                    s_n * (r2 * C.BLKSZ * 60 + C.BLKSZ * n_data * 40
+                           + soft_bytes * 6)),
+              None, [s_n, C.BLKSZ, C.FFT_FM], plain_reps=3, plain_inner=2,
+              ok=exact and rel <= 1e-5 and sums_rel <= 1e-4 and all(
+                  m <= 1 and share <= 1e-3 for m, share in soft.values()),
+              case=case, psmi=psmi, ints_exact=exact, float_rel_err=rel,
+              mer_sums_rel_err=sums_rel,
+              soft_max_diff={k: v[0] for k, v in soft.items()},
+              soft_diff_share={k: v[1] for k, v in soft.items()},
+              registers=registers_of(regs.get("sync_fm_c"),
+                                     "sync_fm_c_kernel"),
+              stack_frame_bytes=frame_of(kernel_frames, "sync_fm_c",
+                                         "sync_fm_c_kernel"))
+
+    k18_line(samples, 1)
+    k18_line(mp3_x, MP3_PSMI, case=f"psmi{MP3_PSMI}")
+    k18_line(torch.from_numpy(mp3["rc_psmi11"]).to(dev), 11, case="psmi11")
+    k18_line(samples, 1, case="carry", carry=True)
+
+    # K19 and K20 at block 1 of the MA1 chain (K12's arguments there)
+    xa = torch.view_as_complex(am_x.contiguous())
+    a19 = (xa, fold_args[1], torch.view_as_complex(fold_args[2].contiguous()),
+           (C.FFTCP_AM // 2 + fold_args[3]).to(torch.int32), fold_args[4],
+           fold_args[5])
+    got19 = ACQ.demod_am_c(*a19)
+    want19 = ACQ.demod_am_c_plain(*a19)
+    row_max = want19[0].abs().amax(dim=-1, keepdim=True)
+    err = ((got19[0] - want19[0]).abs() / row_max).max().item()
+    mag_err = ((got19[1] - want19[1]).abs().max()
+               / want19[1].abs().max()).item()
+    rest = max((got19[i] - want19[i]).abs().max().item() for i in (2, 3))
+    keep_same = torch.equal(got19[4], want19[4])
+    fft_in = torch.randn(s_n, C.BLKSZ, C.FFT_AM, dtype=torch.complex64,
+                         device=dev)
+    check("am_demod_c", err, "spectra 2e-5 of each row's largest "
+          "magnitude, mag_sums 2e-5 of their largest; phase_out and "
+          "prev_angle_out 1e-5; keep exact",
+          lambda: ACQ.demod_am_c(*a19), lambda: ACQ.demod_am_c_plain(*a19),
+          bound(s_n * (nsamp_am * 8 + fold_out + C.FFT_AM * 4 + 32),
+                s_n * 2 * C.BLKSZ * (5 * C.FFT_AM * 8 + C.FFTCP_AM * 20)),
+          None, [s_n, C.BLKSZ, C.FFT_AM], plain_reps=3, plain_inner=2,
+          ok=err <= 2e-5 and mag_err <= 2e-5 and rest <= 1e-5 and keep_same,
+          mag_sums_rel_err=mag_err, phase_angle_max_abs_err=rest,
+          keep_exact=keep_same,
+          fft_stage_cufft_ms=time_ms(
+              torch, lambda: (torch.fft.fft(fft_in, dim=-1),
+                              torch.fft.fft(fft_in, dim=-1)), graph=True),
+          fft_stage_call="torch.fft.fft over [16, 32, 256] complex64 "
+          "(cuFFT) twice, the two passes' FFT stage alone",
+          registers=registers_of(regs.get("am_demod_c"),
+                                 "am_demod_c_kernel"),
+          stack_frame_bytes=frame_of(kernel_frames, "am_demod_c",
+                                     "am_demod_c_kernel"))
+    spec_am = want19[0]
+    for ma3, case in ((False, None), (True, "ma3"), (False, "carry")):
+        carry_k = carry_p = timing = None
+        if case == "carry":
+            def am_step():
+                return (got19[4].clone(), a19[1].clone(), a19[3].clone())
+            carry_k, carry_p, timing = am_step(), am_step(), am_step()
+        ko = SAM.sync_am_c(spec_am, ma3, carry_k)
+        po = SAM.sync_am_c_plain(spec_am, ma3, carry_p)
+        diff = {k: int((ko[k] != po[k]).sum()) for k in po}
+        if carry_k is not None:
+            diff["carry"] = sum(int((a != b).sum())
+                                for a, b in zip(carry_k, carry_p))
+        out_bytes = sum(v.numel() * v.element_size() for v in ko.values())
+        check("sync_am_c", float(sum(diff.values())),
+              "exact: codes, PIDS codes, reference bits, samperr and the "
+              "carry",
+              lambda ma3=ma3, t=timing: SAM.sync_am_c(spec_am, ma3, t),
+              lambda ma3=ma3, t=timing: SAM.sync_am_c_plain(spec_am, ma3, t),
+              bound(spec_am.numel() * 8 + out_bytes,
+                    s_n * C.BLKSZ * 4 * C.PARTITION_WIDTH_AM * 60),
+              None, list(spec_am.shape), plain_reps=3, plain_inner=2,
+              case=case, ma3=ma3, differing=diff,
+              ok=sum(diff.values()) == 0,
+              registers=registers_of(regs.get("sync_am_c"),
+                                     "sync_am_c_kernel"),
+              stack_frame_bytes=frame_of(kernel_frames, "sync_am_c",
+                                         "sync_am_c_kernel"))
+    del xc, xa, fft_in, spec_am, got19, want19
+
     # --- splits: each kernel of the calls that run two (K9; K6 on P1, and
     # its PIDS line beside them), timed by the profiler.  After every
     # kernel line, because a profiler session leaves its tracing on and
@@ -5768,7 +6162,8 @@ def main() -> int:
           and gate["turbo_hdc_equal"] and gate["turbo_p1_pids_equal"]
           and gate["hdc_packets"] > 0
           and set(fm_block["launches"]) == set(BLOCK_FM_KERNELS)
-          and set(fm_turbo["launches"]) == set(BLOCK_FM_KERNELS)
+          and set(BLOCK_FM_KERNELS) <= set(fm_turbo["launches"])
+          <= set(BLOCK_TURBO_KERNELS)
           and not fm_block["plain_calls"] and not fm_turbo["plain_calls"]
           and all(r["pass"] for r in px_runs))
     emit({"phase": "receiver_fm", "card": smi, **gate,

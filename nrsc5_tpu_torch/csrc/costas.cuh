@@ -1,6 +1,7 @@
 // The reference-subcarrier Costas PLL step, shared by K10 (cfo_scan.cu, the
 // cold start's CFO scan) and K4 (sync_block.cu), so that the two kernels
-// track bit-identically.
+// track bit-identically; K18 (sync_fm_c.cu) takes costas_advance_c, the
+// same step with the complex chain's phase detector.
 //
 // One step on reference sample v with phase ph and frequency fr:
 //   v2     = v*v
@@ -43,6 +44,21 @@ __device__ __forceinline__ void costas_advance(float a, float& ph, float& fr,
 __device__ __forceinline__ float2 costas_derot(float2 v, float ph) {
   const float c = cosf(-ph), s = sinf(-ph);
   return make_float2(v.x * c - v.y * s, v.x * s + v.y * c);
+}
+
+// the step of the complex chain's costas_track (nrsc5_tpu/ops/sync_fm.py):
+// err = 0.5 * angle(v^2 e^{-2i ph}), with the cosine and sine of -2 ph
+// inside the recursion, then the same frequency and phase updates (cf = 0)
+__device__ __forceinline__ void costas_advance_c(float2 v, float& ph,
+                                                 float& fr, float alpha,
+                                                 float beta, float two_pi) {
+  const float v2r = v.x * v.x - v.y * v.y;
+  const float v2i = v.x * v.y + v.y * v.x;
+  const float t = -2.0f * ph;
+  const float c = cosf(t), s = sinf(t);
+  const float err = 0.5f * atan2f(v2r * s + v2i * c, v2r * c - v2i * s);
+  fr = fminf(fmaxf(fr + beta * err, -0.5f), 0.5f);
+  ph = wrap_pi(ph + fr + alpha * err, two_pi);
 }
 
 }  // namespace nrsc5

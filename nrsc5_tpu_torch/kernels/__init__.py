@@ -135,7 +135,24 @@ SIGNATURES = {
     "block_carry": (P,) * 10 + (I, I, I, I, P),
     # keep, offset, n_stations, window, stream
     "block_carry_am": (P, P, I, I, P),
+    # the complex chain's block step, K17-K20:
+    # samples (complex64), n_samples, offset, phase (complex64), samperr,
+    # angle, cfo, shape, twiddle (complex64 [1024]), two_pi_over_fft,
+    # spectra (complex64), phase_out, keep, n_stations, stream
+    "fm_demod_c": (P, L, P, P, P, P, P, P, P, F, P, P, P, I, P),
+    # samples (complex64), n_samples, offset, phase (complex64), samperr,
+    # prev_angle, cfo, shape, twiddle (complex64 [128]), two_pi, spectra
+    # (complex64), mag_sums, phase_out, prev_angle_out, keep, n_stations,
+    # stream
+    "am_demod_c": (P, L, P, P, P, P, P, P, P, F, P, P, P, P, P, I, P),
+    # spectra (complex64), plan (host int32 [4, 12], K13's), codes, pids,
+    # ref_bits, samperr, n_stations, ma3, then the loop's carry step (all
+    # null: none): keep, offset, samperr_next, window, half_fftcp; stream
+    "sync_am_c": (P, P, P, P, P, P, I, I, P, P, P, I, I, P),
 }
+# K18 takes sync_block's arguments: the kernel is K4's with the complex
+# chain's phase detector
+SIGNATURES["sync_fm_c"] = SIGNATURES["sync_block"]
 # kernel name -> the csrc/ source (without ".cu") that holds it, where that
 # is not a file of the kernel's own name
 SOURCES = {"am_tone": "am_coldstart", "am_coarse": "am_coldstart",

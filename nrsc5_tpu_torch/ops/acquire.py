@@ -13,9 +13,18 @@ the 32 fftshifted symbol spectra of one L1 block:
     estimates;
   * the derotation ramp in closed form, its integer-CFO part in exact
     modular int32 arithmetic;
-  * the cyclic-prefix fold and a batched FFT over the 32 symbols
-    (``torch.fft.fft`` on complex64, as the reference leaves it to XLA,
-    outside any kernel).
+  * the cyclic-prefix fold and a batched FFT over the 32 symbols.
+
+The demodulation after the timing (the ramp, the fold, the FFT and the
+fftshift; AM's two passes with the pilot regression between them) runs
+as kernel K17 (:func:`demod_fm_c`, ``csrc/fm_demod_c.cu``) and K19
+(:func:`demod_am_c`, ``csrc/am_demod_c.cu``) on a card, batched over
+stations, each reading its window straight from the station's sample
+buffer, with an FFT of its own (no cuFFT); their plain versions
+(:func:`demod_fm_c_plain`, :func:`demod_am_c_plain`) loop over the
+stations through ``_demod`` and ``_am_process``, whose FFT is
+``torch.fft.fft`` (pocketfft on the CPU).  The coarse timing stays plain
+PyTorch on either device (ROADMAP queue 2, K22-K23).
 
 The reference chooses COARSE or FINE with ``lax.cond`` on a device bool;
 its receivers pass ``fine`` from the host, and here it is a host bool.
@@ -153,6 +162,21 @@ def _coarse_timing(buf: torch.Tensor, am: bool = False):
     return samperr, v[i_max]
 
 
+def window_at(samples: torch.Tensor, offset: torch.Tensor, n: int):
+    """``samples[offset:offset + n]`` as ``lax.dynamic_slice`` cuts it (the
+    start clamped into the buffer), by a gather: no host read-back."""
+    start = dynamic_start(offset.long(), samples.shape[0], n)
+    return samples[start + torch.arange(n, device=samples.device)]
+
+
+@functools.lru_cache(maxsize=8)
+def twiddles(n: int, device: str) -> torch.Tensor:
+    """The n/2 twiddles e^{-2 pi i k / n} of K17's and K19's FFT
+    (``csrc/fft_c.cuh``), computed in float64 and rounded to complex64."""
+    w = np.exp(-2j * np.pi * np.arange(n // 2) / n).astype(np.complex64)
+    return torch.from_numpy(w).to(device)
+
+
 def _symbols(buf: torch.Tensor, samperr: torch.Tensor, fftcp: int):
     """The 32 symbols [32, fftcp] from ``samperr`` on, as
     ``lax.dynamic_slice`` cuts them (the start clamped into the window;
@@ -216,7 +240,7 @@ def acquire_fm(window, state: AcquireState, fine: bool, sync_samperr,
     sync_samperr/sync_angle: the previous sync block's feedback; cfo: the
     accumulated integer CFO in bins.  Returns (spectra [32, 2048]
     complex64 fftshifted, new_state, samperr int32, angle float32, keep
-    int32)."""
+    int32).  On a card the demodulation is K17 at one station."""
     fftcp = C.FFTCP_FM
     dev = window.device
     sync_samperr = _scalar(sync_samperr, torch.int32, dev)
@@ -229,14 +253,15 @@ def acquire_fm(window, state: AcquireState, fine: bool, sync_samperr,
     else:
         samperr, max_v = _coarse_timing(buf)
         angle = _smoothed_angle(state.prev_angle, max_v)
-    return _demod(buf, state, samperr, angle, cfo)
-
-
-def acquire_fm_fine(window, state: AcquireState, sync_samperr, sync_angle,
-                    cfo):
-    """FINE-only acquire step of the fused chain: :func:`acquire_fm` with
-    ``fine`` true (no coarse search).  Same returns."""
-    return acquire_fm(window, state, True, sync_samperr, sync_angle, cfo)
+    if dev.type == "cpu":
+        return _demod(buf, state, samperr, angle, cfo)
+    # K17 at one station, the window its whole buffer
+    spectra, phase_out, keep = demod_fm_c(
+        window[None], torch.zeros(1, dtype=torch.int32, device=dev),
+        state.phase.reshape(1), samperr.reshape(1), angle.reshape(1),
+        cfo.reshape(1))
+    return (spectra[0], AcquireState(phase=phase_out[0], prev_angle=angle),
+            samperr, angle, keep[0])
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +297,8 @@ def acquire_am(window, state: AcquireState, fine: bool, sync_samperr,
 
     Returns (spectra [32, 256], new_state, samperr, keep int32, mag_sums
     [256] for the coarse CFO search, coarse_meas int32: this block's raw
-    timing measurement, -1 in FINE)."""
+    timing measurement, -1 in FINE).  On a card the two demodulation
+    passes are K19 at one station."""
     fftcp = C.FFTCP_AM
     dev = window.device
     sync_samperr = _scalar(sync_samperr, torch.int32, dev)
@@ -288,14 +314,17 @@ def acquire_am(window, state: AcquireState, fine: bool, sync_samperr,
         samperr = torch.where(coarse_override >= 0,
                               coarse_override % fftcp, meas)
         prev_angle = _smoothed_angle(state.prev_angle, max_v)
-    return _am_process(window, state, samperr, prev_angle, cfo_bins) \
-        + (meas,)
-
-
-def acquire_am_fine(window, state: AcquireState, sync_samperr, cfo_bins):
-    """FINE-only AM acquire of the fused chain (no coarse search): the
-    first five returns of :func:`acquire_am` with ``fine`` true."""
-    return acquire_am(window, state, True, sync_samperr, cfo_bins, -1)[:5]
+    if dev.type == "cpu":
+        return _am_process(window, state, samperr, prev_angle, cfo_bins) \
+            + (meas,)
+    # K19 at one station, the window its whole buffer
+    spectra, mag_sums, phase_out, angle_out, keep = demod_am_c(
+        window[None], torch.zeros(1, dtype=torch.int32, device=dev),
+        state.phase.reshape(1), samperr.reshape(1), prev_angle.reshape(1),
+        cfo_bins.reshape(1))
+    return (spectra[0], AcquireState(phase=phase_out[0],
+                                     prev_angle=angle_out[0]),
+            samperr, keep[0], mag_sums[0], meas)
 
 
 def _am_process(window, state, samperr, prev_angle, cfo_bins):
@@ -330,3 +359,145 @@ def _am_process(window, state, samperr, prev_angle, cfo_bins):
     prev_angle_out = (angle2 + 2 * math.pi * cfo_bins.float()).float()
     return (spectra, AcquireState(phase=phase_out, prev_angle=prev_angle_out),
             samperr, keep, mag_sums)
+
+
+# ---------------------------------------------------------------------------
+# K17 and K19: the complex chain's demodulation, batched over stations
+# ---------------------------------------------------------------------------
+
+def _check_demod(samples, window: int, **per_station) -> int:
+    s = samples.shape[0]
+    if samples.ndim != 2 or samples.shape[1] < window:
+        raise ValueError(f"samples: expected [S, >= {window}], got "
+                         f"{tuple(samples.shape)}")
+    for name, t in per_station.items():
+        if tuple(t.shape) != (s,):
+            raise ValueError(f"{name}: expected shape ({s},), got "
+                             f"{tuple(t.shape)}")
+    return s
+
+
+def demod_fm_c_plain(samples, offset, phase, samperr, angle, cfo):
+    """Plain version of K17: for each station, its window at ``offset``
+    (:func:`window_at`), conjugated as the FM ingest does, through
+    ``_demod``.  samples [S, N] complex64 (unconjugated); offset, samperr,
+    cfo int32, angle float32, phase complex64, all [S].  Returns (spectra
+    [S, 32, 2048] complex64 fftshifted, phase_out [S] complex64, keep [S]
+    int32)."""
+    _check_demod(samples, WINDOW_FM, offset=offset, phase=phase,
+                 samperr=samperr, angle=angle, cfo=cfo)
+    rows = []
+    for i in range(samples.shape[0]):
+        buf = window_at(samples[i], offset[i], WINDOW_FM).conj()
+        spectra, st, _, _, keep = _demod(
+            buf, AcquireState(phase=phase[i], prev_angle=angle[i]),
+            samperr[i], angle[i], cfo[i])
+        rows.append((spectra, st.phase, keep))
+    return tuple(torch.stack(col) for col in zip(*rows))
+
+
+def demod_fm_c(samples, offset, phase, samperr, angle, cfo, out=None):
+    """K17: the arguments and results of :func:`demod_fm_c_plain`, written
+    into ``out`` = (spectra, phase_out, keep) where it is given.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (a CTA of 256 threads a symbol of a station: its samples read
+    at the clamped window and slice starts, conjugated, derotated and
+    folded on load, a 2048-point radix-2 FFT in shared memory, the
+    fftshift on store)."""
+    if samples.device.type == "cpu":
+        res = demod_fm_c_plain(samples, offset, phase, samperr, angle, cfo)
+        return res if out is None else K.into(out, res)
+    s = _check_demod(samples, WINDOW_FM, offset=offset, phase=phase,
+                     samperr=samperr, angle=angle, cfo=cfo)
+    for name, t, dtype in (("samples", samples, torch.complex64),
+                           ("offset", offset, torch.int32),
+                           ("phase", phase, torch.complex64),
+                           ("samperr", samperr, torch.int32),
+                           ("angle", angle, torch.float32),
+                           ("cfo", cfo, torch.int32)):
+        K.check(t, name, dtype)
+    dev = samples.device
+    if out is None:
+        out = (torch.empty(s, NSYM, C.FFT_FM, dtype=torch.complex64,
+                           device=dev),
+               torch.empty(s, dtype=torch.complex64, device=dev),
+               torch.empty(s, dtype=torch.int32, device=dev))
+    spectra, phase_out, keep = out
+    K.check(spectra, "spectra", torch.complex64, (s, NSYM, C.FFT_FM))
+    K.check(phase_out, "phase_out", torch.complex64, (s,))
+    K.check(keep, "keep", torch.int32, (s,))
+    K.launch("fm_demod_c", samples.data_ptr(), samples.shape[1],
+             offset.data_ptr(), phase.data_ptr(), samperr.data_ptr(),
+             angle.data_ptr(), cfo.data_ptr(),
+             _tables(str(dev))["shape_fm"].data_ptr(),
+             twiddles(C.FFT_FM, str(dev)).data_ptr(),
+             2 * math.pi / C.FFT_FM, spectra.data_ptr(),
+             phase_out.data_ptr(), keep.data_ptr(), s, device=dev)
+    return spectra, phase_out, keep
+
+
+def demod_am_c_plain(samples, offset, phase, samperr, prev_angle, cfo):
+    """Plain version of K19: for each station, its window at ``offset``
+    (:func:`window_at`) through ``_am_process``.  samples [S, N]
+    complex64; offset, samperr (the symbol timing itself), cfo (integer
+    bins) int32, prev_angle float32, phase complex64, all [S].  Returns
+    (spectra [S, 32, 256] complex64 fftshifted (pass 2), mag_sums [S, 256]
+    float32 (pass 1), phase_out [S] complex64, prev_angle_out [S]
+    float32, keep [S] int32)."""
+    _check_demod(samples, WINDOW_AM, offset=offset, phase=phase,
+                 samperr=samperr, prev_angle=prev_angle, cfo=cfo)
+    rows = []
+    for i in range(samples.shape[0]):
+        spectra, st, _, keep, mag_sums = _am_process(
+            window_at(samples[i], offset[i], WINDOW_AM),
+            AcquireState(phase=phase[i], prev_angle=prev_angle[i]),
+            samperr[i], prev_angle[i], cfo[i])
+        rows.append((spectra, mag_sums, st.phase, st.prev_angle, keep))
+    return tuple(torch.stack(col) for col in zip(*rows))
+
+
+def demod_am_c(samples, offset, phase, samperr, prev_angle, cfo, out=None):
+    """K19: the arguments and results of :func:`demod_am_c_plain`, written
+    into ``out`` = (spectra, mag_sums, phase_out, prev_angle_out, keep)
+    where it is given.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (a CTA of 256 threads a station: both passes' 32 x 256 points
+    in shared memory, a 256-point radix-2 FFT a symbol, the pilot fit on
+    one warp between the passes)."""
+    if samples.device.type == "cpu":
+        res = demod_am_c_plain(samples, offset, phase, samperr, prev_angle,
+                               cfo)
+        return res if out is None else K.into(out, res)
+    s = _check_demod(samples, WINDOW_AM, offset=offset, phase=phase,
+                     samperr=samperr, prev_angle=prev_angle, cfo=cfo)
+    for name, t, dtype in (("samples", samples, torch.complex64),
+                           ("offset", offset, torch.int32),
+                           ("phase", phase, torch.complex64),
+                           ("samperr", samperr, torch.int32),
+                           ("prev_angle", prev_angle, torch.float32),
+                           ("cfo", cfo, torch.int32)):
+        K.check(t, name, dtype)
+    dev = samples.device
+    if out is None:
+        out = (torch.empty(s, NSYM, C.FFT_AM, dtype=torch.complex64,
+                           device=dev),
+               torch.empty(s, C.FFT_AM, dtype=torch.float32, device=dev),
+               torch.empty(s, dtype=torch.complex64, device=dev),
+               torch.empty(s, dtype=torch.float32, device=dev),
+               torch.empty(s, dtype=torch.int32, device=dev))
+    spectra, mag_sums, phase_out, angle_out, keep = out
+    K.check(spectra, "spectra", torch.complex64, (s, NSYM, C.FFT_AM))
+    K.check(mag_sums, "mag_sums", torch.float32, (s, C.FFT_AM))
+    K.check(phase_out, "phase_out", torch.complex64, (s,))
+    K.check(angle_out, "prev_angle_out", torch.float32, (s,))
+    K.check(keep, "keep", torch.int32, (s,))
+    K.launch("am_demod_c", samples.data_ptr(), samples.shape[1],
+             offset.data_ptr(), phase.data_ptr(), samperr.data_ptr(),
+             prev_angle.data_ptr(), cfo.data_ptr(),
+             _tables(str(dev))["shape_am"].data_ptr(),
+             twiddles(C.FFT_AM, str(dev)).data_ptr(), 2 * math.pi,
+             spectra.data_ptr(), mag_sums.data_ptr(), phase_out.data_ptr(),
+             angle_out.data_ptr(), keep.data_ptr(), s, device=dev)
+    return spectra, mag_sums, phase_out, angle_out, keep

@@ -6,10 +6,14 @@ helpers (lines 37-80; pinned equal by tests/test_torch_tables.py): the
 Gray level tables, the training points and rows, the Gray demaps and the
 phase wraps; the QAM demaps ``qam64_map``, ``qam16_map``, ``qpsk_map`` and
 the complex sync block ``sync_am_block`` with its ``train_mult`` (lines
-52-213), plain PyTorch on complex64, which the per-block AM receiver runs
-on the card and on the CPU alike.  The rc chain's sync block is kernel
-K13 (:func:`nrsc5_tpu_torch.pipeline.scan_chain_am_rc.
-sync_am_block_rc`).  And a numpy copy of the reference's host functions
+52-213), plain PyTorch on complex64, which the per-block AM receiver and
+the complex AM chain run on the CPU; on a card the block runs as kernel
+K20 (:func:`sync_am_c`, ``csrc/sync_am_c.cu``: K13's kernel body with
+this chain's arithmetic), batched over stations, and
+:func:`sync_am_c_plain` loops :func:`sync_am_block` over the stations.
+The rc chain's sync block is kernel K13 (:func:`nrsc5_tpu_torch.pipeline.
+scan_chain_am_rc.sync_am_block_rc`); both kernels read the plan
+:func:`sync_am_plan`.  And a numpy copy of the reference's host functions
 of lines 215-269, which the cold start and the per-block receiver run on
 each block's reference bits: :func:`timing_consensus`, :func:`find_ref_am` and
 :func:`find_block_am` (pinned equal by tests/test_torch_am_coldstart.py).
@@ -33,7 +37,9 @@ import numpy as np
 import torch
 
 from nrsc5_tpu_torch import constants as C
+from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops import rcplx as rc
+from nrsc5_tpu_torch.ops.acquire_rc import WINDOW_AM
 
 AM_EQ_INTERP = True
 
@@ -199,6 +205,159 @@ def sync_am_block(spectra: torch.Tensor, ma3: bool = False) -> dict:
     return {"ref_bits": ref_bits, "pids": pids, "pl": pl_c.reshape(-1),
             "pu": pu_c.reshape(-1), "s": s_c.reshape(-1),
             "t": t_c.reshape(-1), "samperr": samperr}
+
+
+# ---------------------------------------------------------------------------
+# K13 and K20: the plan of a station's four CTAs
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=4)
+def partitions(ma3: bool) -> tuple:
+    """The four data partitions in output order (pl, pu, s, t): one
+    ``(first bin, bin step, training point, levels)`` each, levels 8
+    (QAM64), 4 (QAM16) or 2 (QPSK); and the two PIDS bins."""
+    c = CENTER
+    primary = C.OUTER_PARTITION_START_AM if not ma3 \
+        else C.INNER_PARTITION_START_AM
+    secondary = C.MIDDLE_PARTITION_START_AM
+    tertiary = C.INNER_PARTITION_START_AM if not ma3 \
+        else C.MIDDLE_PARTITION_START_AM
+    if ma3:
+        parts = ((c - primary, -1, TRAIN_QAM64, 8),
+                 (c + primary, 1, TRAIN_QAM64, 8),
+                 (c + secondary, 1, TRAIN_QAM64, 8),
+                 (c - tertiary, -1, TRAIN_QAM64, 8))
+        pids = (c - C.PIDS_INNER_INDEX_AM, c + C.PIDS_INNER_INDEX_AM)
+    else:
+        parts = ((c - primary, -1, TRAIN_QAM64, 8),
+                 (c + primary, 1, TRAIN_QAM64, 8),
+                 (c + secondary, 1, TRAIN_QAM16, 4),
+                 (c + tertiary, 1, TRAIN_QPSK, 2))
+        pids = (c + C.PIDS_INNER_INDEX_AM, c + C.PIDS_OUTER_INDEX_AM)
+    return parts, pids
+
+
+# K13's and K20's plan: ints a CTA (csrc/sync_am_block.cuh's Plan)
+PLAN_INTS = 12
+# the extras of a station's four CTAs (pl, pu, s, t): the CTA that demaps
+# PIDS column k (either mode), the one that writes the reference bits
+# (MA1, MA3), each beside its partition's bins so that its reads stay two
+# contiguous runs a row; pl forms samperr from its own mults and pu's,
+# which it forms again from pu's training rows
+_PIDS_CTA = (3, 2)
+_REF_CTA = {False: 3, True: 1}
+
+
+@functools.lru_cache(maxsize=2)
+def sync_am_plan(ma3: bool) -> np.ndarray:
+    """K13's and K20's plan, int32 [4, PLAN_INTS]: for each CTA of a station (one a
+    partition, pl, pu, s, t) its partition's first bin, bin step, levels
+    and twice its training point (re, im); the PIDS bin it demaps (-1:
+    none) and that column's index; 1 where it writes the reference bits;
+    and, for the CTA that forms samperr, the other primary partition's
+    first bin, step and twice its training point (-1: none).  The kernel
+    reads it by value, so it is the only statement of which CTA reads
+    what."""
+    parts, pids = partitions(ma3)
+    plan = np.full((4, PLAN_INTS), -1, np.int32)
+    for p, (first, step, nominal, levels) in enumerate(parts):
+        plan[p, :5] = (first, step, levels, round(2 * nominal.real),
+                       round(2 * nominal.imag))
+        plan[p, 7] = int(p == _REF_CTA[ma3])
+    for k, (p, b) in enumerate(zip(_PIDS_CTA, pids)):
+        plan[p, 5:7] = b, k
+    first, step, nominal, _ = parts[1]
+    plan[0, 8:] = (first, step, round(2 * nominal.real),
+                   round(2 * nominal.imag))
+    return plan
+
+
+
+# ---------------------------------------------------------------------------
+# K20: the sync block batched over stations
+# ---------------------------------------------------------------------------
+
+_PARTS = ("pl", "pu", "s", "t")
+
+
+def sync_am_c_shapes(s: int) -> dict:
+    """{key: (shape, dtype)} of K20's outputs for ``s`` stations."""
+    return {"codes": ((s, 4, C.BLKSZ * W), torch.uint8),
+            "pids": ((s, C.BLKSZ, 2), torch.uint8),
+            "ref_bits": ((s, C.BLKSZ), torch.uint8),
+            "samperr": ((s,), torch.int32)}
+
+
+def sync_am_c_plain(spectra: torch.Tensor, ma3: bool = False, carry=None):
+    """Plain version of K20: :func:`sync_am_block` for each station.
+    spectra [S, 32, 256] complex64.  ``carry`` (the block loop's (keep,
+    offset, samperr_next) int32 [S], else None): the loop's carry step, in
+    place, ``offset += WINDOW_AM - keep`` and ``samperr_next =
+    FFTCP_AM // 2 + samperr``.  Returns ``codes`` uint8 [S, 4, 800] (pl,
+    pu, s, t), ``pids`` uint8 [S, 32, 2], ``ref_bits`` uint8 [S, 32] and
+    ``samperr`` int32 [S]."""
+    rows = [sync_am_block(x, ma3) for x in spectra]
+    out = {"codes": torch.stack([torch.stack([r[k] for k in _PARTS])
+                                 for r in rows]),
+           **{k: torch.stack([r[k] for r in rows])
+              for k in ("pids", "ref_bits", "samperr")}}
+    if carry is not None:
+        keep, offset, samperr_next = carry
+        offset.add_(WINDOW_AM - keep)
+        samperr_next.copy_(C.FFTCP_AM // 2 + out["samperr"])
+    return out
+
+
+def sync_am_c(spectra: torch.Tensor, ma3: bool = False, carry=None,
+              out=None) -> dict:
+    """K20: the arguments and results of :func:`sync_am_c_plain`, written
+    into ``out`` (a dict of every key it returns) where it is given.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (K13's four CTAs a station, one a partition, on the bins
+    :func:`sync_am_plan` gives each, with the complex chain's division and
+    fit weights; with ``carry``, thread 0 of a station's first CTA adds to
+    its offset and the lane that forms samperr sets the next block's)."""
+    if spectra.device.type == "cpu":
+        res = sync_am_c_plain(spectra, ma3, carry)
+        return res if out is None else K.into(out, res)
+    if spectra.ndim != 3 or spectra.shape[1:] != (C.BLKSZ, C.FFT_AM):
+        raise ValueError(f"spectra: expected [S, {C.BLKSZ}, {C.FFT_AM}], "
+                         f"got {tuple(spectra.shape)}")
+    K.check(spectra, "spectra", torch.complex64)
+    s, dev = spectra.shape[0], spectra.device
+    shapes = sync_am_c_shapes(s)
+    if out is None:
+        out = {k: torch.empty(shape, dtype=dtype, device=dev)
+               for k, (shape, dtype) in shapes.items()}
+    if set(out) != set(shapes):
+        raise ValueError(f"out: expected keys {sorted(shapes)}, got "
+                         f"{sorted(out)}")
+    for k, (shape, dtype) in shapes.items():
+        K.check(out[k], k, dtype, shape)
+    step = (None, None, None)
+    if carry is not None:
+        for name, t in zip(("keep", "offset", "samperr_next"), carry):
+            K.check(t, name, torch.int32, (s,))
+        step = tuple(t.data_ptr() for t in carry)
+    K.launch("sync_am_c", spectra.data_ptr(),
+             sync_am_plan(bool(ma3)).ctypes.data,
+             *(out[k].data_ptr() for k in ("codes", "pids", "ref_bits",
+                                           "samperr")),
+             s, int(ma3), *step, WINDOW_AM, C.FFTCP_AM // 2, device=dev)
+    return out
+
+
+def sync_am_step(spectra: torch.Tensor, ma3: bool = False) -> dict:
+    """One station's block as :func:`sync_am_block` takes and returns it
+    (the per-block receiver's call): the plain version on a CPU tensor,
+    K20 at one station on a CUDA tensor."""
+    if spectra.device.type == "cpu":
+        return sync_am_block(spectra, ma3)
+    out = sync_am_c(spectra[None], ma3)
+    return {"ref_bits": out["ref_bits"][0], "pids": out["pids"][0],
+            **{k: out["codes"][0, i] for i, k in enumerate(_PARTS)},
+            "samperr": out["samperr"][0]}
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,12 @@ chain (:mod:`nrsc5_tpu_torch.pipeline.scan_chain`) run on the card and on
 the CPU alike: the per-reference-subcarrier Costas loops advance in
 lockstep over the 32 symbols, then the pi-ambiguity fix, the control-word
 decode, the partition equalization, the sample-clock regression, the MER
-and the int8 soft demap (reference: src/sync.c:339-609).  The rc chain's
-sync block is kernel K4 (:mod:`nrsc5_tpu_torch.pipeline.scan_chain_rc`).
+and the int8 soft demap (reference: src/sync.c:339-609).  On a card the
+block runs as kernel K18 (:func:`sync_fm_c`, ``csrc/sync_fm_c.cu``, K4's
+kernel with this chain's phase detector), batched over stations;
+:func:`sync_fm_c_plain` loops :func:`sync_fm_block` over the stations.
+The rc chain's sync block is kernel K4
+(:mod:`nrsc5_tpu_torch.pipeline.scan_chain_rc`).
 The reference's ``NRSC5_EQ_MMSE`` switch is not read: the port always
 applies its default, the per-bin channel-power LLR weighting.
 """
@@ -28,6 +32,7 @@ import torch
 from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops import rcplx as rc
+from nrsc5_tpu_torch.ops.acquire_rc import WINDOW_FM
 
 # Costas loop constants (reference: src/sync.c:832-841)
 _LOOP_BW = 0.05
@@ -288,3 +293,254 @@ def sync_fm_block(spectra, state: SyncState, psmi: int, timing_adj):
     new_freq = state.costas_freq.clone()
     new_freq[bins] = fr_out
     return out, SyncState(costas_phase=new_phase, costas_freq=new_freq)
+
+
+# ---------------------------------------------------------------------------
+# K4 and K18: the FM sync block's kernel, its tables, checks and launcher
+# ---------------------------------------------------------------------------
+
+# the per-station scalars the FM carry step (K5, and K4 and K18 in the block
+# loop) reads and writes
+FM_STATE = ("offset", "prev_angle", "samperr_fb", "angle_fb", "samperr",
+            "angle", "timing_adj")
+
+
+def check_psmi(psmi: int) -> None:
+    """A service-mode index the chain decodes: any entry of the
+    compatibility-mode table."""
+    if not 0 <= psmi < len(C.COMPATIBILITY_MODE):
+        raise ValueError(f"psmi {psmi} is not a service mode index")
+
+
+@functools.lru_cache(maxsize=64)
+def px_columns(psmi: int) -> tuple[tuple, tuple]:
+    """The partitions each PX channel demaps, in output order: one
+    ``(side, partition, mult_side)`` per column for px1 and for px2, with
+    side 0 lower and 1 upper, and the MER multiplier of ``mult_side``
+    (rc twin of the reference's src/sync.c:537-595; its px2 takes the lower
+    sideband's multiplier on both sidebands)."""
+    cm = C.COMPATIBILITY_MODE[psmi]
+    px1 = {2: ((0, 10, 0), (1, 10, 1)),
+           3: ((0, 10, 0), (0, 11, 0), (1, 11, 1), (1, 10, 1)),
+           11: ((0, 10, 0), (0, 11, 0), (1, 11, 1), (1, 10, 1))}.get(cm, ())
+    px2 = ((0, 12, 0), (0, 13, 0), (1, 13, 0), (1, 12, 0)) if cm == 11 \
+        else ()
+    return px1, px2
+
+
+@functools.lru_cache(maxsize=8)
+def sync_tables(ppb: int, device: str) -> dict:
+    """The tables of K4, K18 and K4's plain version for ``ppb`` partitions
+    a band on ``device``, cached."""
+    r = ppb + 1
+    part = np.arange(ppb)
+    kk = np.arange(1, W)
+    low_bins = C.LB_START + part[:, None] * W + kk[None, :]
+    up_bins = C.UB_END - (part[:, None] + 1) * W + kk[None, :]
+    vals, known = _needles(ppb)
+    vals_mask, known_mask = needle_masks(ppb)
+    tables = {
+        "bins": _ref_bins(ppb).astype(np.int64),
+        "sync_signs": _sync_signs(),
+        "vals": np.ascontiguousarray(vals.T),  # [32, R]
+        "known": np.ascontiguousarray(known.T),
+        "lo_idx": np.concatenate([np.arange(ppb), r + np.arange(ppb) + 1]),
+        "hi_idx": np.concatenate([np.arange(ppb) + 1, r + np.arange(ppb)]),
+        "data_bins": np.concatenate([low_bins, up_bins]).astype(np.int64),
+        "wbc": np.array([8, 4, 2, 1], np.int32),
+        "wps": np.array([32, 16, 8, 4, 2, 1], np.int32),
+        "k": np.arange(1, W, dtype=np.float32),
+        # the needles as bit masks (bit k = symbol k), as K4 reads them
+        "vals_mask": vals_mask,
+        "known_mask": known_mask,
+    }
+    out = {k: torch.from_numpy(v).to(device) for k, v in tables.items()}
+    out["k_rel"] = (out["bins"] - C.FFT_FM // 2).float()
+    # the PX columns of every service mode with this ppb, as K4 reads them:
+    # side + 2 * mult_side + 4 * partition, px1's then px2's
+    out["px_cols"] = {
+        psmi: torch.tensor([side + 2 * ms + 4 * part for cols in
+                            px_columns(psmi) for side, part, ms in cols]
+                           + [0], dtype=torch.int32, device=device)
+        for psmi in range(len(C.COMPATIBILITY_MODE))
+        if C.partitions_per_band(psmi) == ppb}
+    return out
+
+
+def sync_block_shapes(s: int, psmi: int) -> dict:
+    """{key: (shape, dtype)} of K4's per-station outputs for ``s`` stations
+    of service mode ``psmi``."""
+    r2 = 2 * (C.partitions_per_band(psmi) + 1)
+    shapes = {"pm": ((s, C.PM_BLOCK_SIZE), torch.int8),
+              "ref_ok": ((s, r2), torch.bool),
+              "ref_bc": ((s, r2), torch.int32),
+              "ref_psmi": ((s, r2), torch.int32),
+              "samperr": ((s,), torch.int32),
+              "angle": ((s,), torch.float32),
+              "error_lb": ((s,), torch.float32),
+              "error_ub": ((s,), torch.float32)}
+    for key, cols in zip(("px1", "px2"), px_columns(psmi)):
+        if cols:
+            shapes[key] = ((s, C.BLKSZ * len(cols) * 2 * (W - 1)),
+                           torch.int8)
+    return shapes
+
+
+def check_sync(spectra, costas_phase, costas_freq, timing_adj):
+    if spectra.ndim != 4 or spectra.shape[1:] != (C.BLKSZ, C.FFT_FM, 2):
+        raise ValueError(f"spectra: expected [S, {C.BLKSZ}, {C.FFT_FM}, 2],"
+                         f" got {tuple(spectra.shape)}")
+    s = spectra.shape[0]
+    for name, t, shape in (("costas_phase", costas_phase, (s, C.FFT_FM)),
+                           ("costas_freq", costas_freq, (s, C.FFT_FM)),
+                           ("timing_adj", timing_adj, (s,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+
+
+def check_carry(carry: dict, s: int, timing_adj) -> None:
+    """The block loop's carry step handed to K4 or K18: every name of
+    :data:`FM_STATE` and ``keep``, each an [S] tensor, its ``timing_adj``
+    not the one the kernel reads."""
+    for name in FM_STATE + ("keep",):
+        t = carry[name]
+        if tuple(t.shape) != (s,):
+            raise ValueError(f"carry {name}: expected shape {(s,)}, got "
+                             f"{tuple(t.shape)}")
+    if carry["timing_adj"] is timing_adj:
+        raise ValueError("carry timing_adj: the next block's, not the one "
+                         "K4 reads (ping-pong them)")
+
+
+def block_carry_plain(keep, k4_samperr, k4_angle, state: dict,
+                      first: bool) -> None:
+    """Plain version of :func:`~nrsc5_tpu_torch.pipeline.block_graph.
+    block_carry`: the same step in torch, in place on ``state``'s
+    tensors."""
+    if not first:
+        state["offset"].add_(WINDOW_FM - keep)
+        state["prev_angle"].copy_(state["angle"])
+        state["samperr_fb"].copy_(k4_samperr)
+        state["angle_fb"].copy_(k4_angle)
+    state["samperr"].copy_(C.FFTCP_FM // 2 + state["samperr_fb"])
+    state["angle"].copy_(state["prev_angle"] - state["angle_fb"])
+    state["timing_adj"].copy_(C.FFTCP_FM // 2 - state["samperr"])
+
+
+def launch_sync_block(kernel: str, spectra, costas_phase, costas_freq,
+                      psmi: int, timing_adj, carry: dict | None, out):
+    """Launch K4 (``kernel`` "sync_block") or K18 ("sync_fm_c", the same
+    kernel with the complex chain's phase detector) on CUDA tensors:
+    spectra [S, 32, 2048, 2] float32 (K18's complex64 spectra through
+    ``torch.view_as_real``), the rest as :func:`~nrsc5_tpu_torch.pipeline.
+    scan_chain_rc.sync_block_rc` takes them."""
+    check_psmi(psmi)
+    check_sync(spectra, costas_phase, costas_freq, timing_adj)
+    K.check(spectra, "spectra", torch.float32)
+    K.check(costas_phase, "costas_phase", torch.float32)
+    K.check(costas_freq, "costas_freq", torch.float32)
+    K.check(timing_adj, "timing_adj", torch.int32)
+    ppb = C.partitions_per_band(psmi)
+    dev = spectra.device
+    t = sync_tables(ppb, str(dev))
+    s = spectra.shape[0]
+
+    shapes = sync_block_shapes(s, psmi)
+    if out is None:
+        out = ({k: torch.empty(shape, dtype=dtype, device=dev)
+                for k, (shape, dtype) in shapes.items()},
+               torch.empty_like(costas_phase), torch.empty_like(costas_freq))
+    out, new_phase, new_freq = out
+    if set(out) != set(shapes):
+        raise ValueError(f"out: expected keys {sorted(shapes)}, got "
+                         f"{sorted(out)}")
+    for k, (shape, dtype) in shapes.items():
+        K.check(out[k], k, dtype, shape)
+    K.check(new_phase, "new_phase", torch.float32, (s, C.FFT_FM))
+    K.check(new_freq, "new_freq", torch.float32, (s, C.FFT_FM))
+    step = (None,) * 8
+    if carry is not None:
+        check_carry(carry, s, timing_adj)
+        for name in ("keep",) + FM_STATE:
+            K.check(carry[name], name, torch.float32 if "angle" in name
+                    else torch.int32, (s,))
+        step = tuple(carry[name].data_ptr() for name in ("keep",) + FM_STATE)
+    px1, px2 = px_columns(psmi)
+    K.launch(kernel, spectra.data_ptr(), costas_phase.data_ptr(),
+             costas_freq.data_ptr(), timing_adj.data_ptr(),
+             t["sync_signs"].data_ptr(), t["vals_mask"].data_ptr(),
+             t["known_mask"].data_ptr(),
+             *(out[k].data_ptr() for k in (
+                 "pm", "ref_ok", "ref_bc", "ref_psmi", "samperr", "angle",
+                 "error_lb", "error_ub")),
+             new_phase.data_ptr(), new_freq.data_ptr(),
+             *(out[k].data_ptr() if k in out else None
+               for k in ("px1", "px2")),
+             t["px_cols"][psmi].data_ptr(), len(px1), len(px2), s, ppb,
+             ALPHA, BETA, 2 * math.pi, math.pi, 2 * math.pi / C.FFT_FM,
+             *step, WINDOW_FM, C.FFTCP_FM // 2, device=dev)
+    return out, new_phase, new_freq
+
+
+# ---------------------------------------------------------------------------
+# K18: the sync block batched over stations
+# ---------------------------------------------------------------------------
+
+def sync_fm_c_plain(spectra, costas_phase, costas_freq, psmi: int,
+                    timing_adj, carry: dict | None = None):
+    """Plain version of K18: :func:`sync_fm_block` for each station.
+    spectra [S, 32, 2048] complex64; costas_phase/costas_freq [S, 2048];
+    timing_adj int32 [S].  ``carry`` (the block loop's, else None): the
+    carry step after this block, in place, as K18 takes it
+    (:func:`block_carry_plain`).
+    Returns (out dict of per-station tensors with the keys, shapes and
+    dtypes of :func:`sync_block_shapes`, new_phase, new_freq)."""
+    rows, phases, freqs = [], [], []
+    for i in range(spectra.shape[0]):
+        out, st = sync_fm_block(spectra[i], SyncState(costas_phase[i],
+                                                      costas_freq[i]),
+                                psmi, timing_adj[i])
+        rows.append(out)
+        phases.append(st.costas_phase)
+        freqs.append(st.costas_freq)
+    shapes = sync_block_shapes(spectra.shape[0], psmi)
+    out = {k: torch.stack([r[k] for r in rows]).to(dtype)
+           for k, (_, dtype) in shapes.items()}
+    if carry is not None:
+        block_carry_plain(carry["keep"], out["samperr"], out["angle"], carry,
+                          False)
+    return out, torch.stack(phases), torch.stack(freqs)
+
+
+def sync_fm_c(spectra, costas_phase, costas_freq, psmi: int, timing_adj,
+              carry: dict | None = None, out=None):
+    """K18: the arguments and results of :func:`sync_fm_c_plain`, written
+    into ``out`` = (out dict, new_phase, new_freq) where it is given.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (K4's cluster of 8 CTAs a station with the complex chain's
+    phase detector; with ``carry``, CTA 0 then takes the block loop's
+    carry step: the names of :data:`FM_STATE` and K17's ``keep``)."""
+    if spectra.device.type == "cpu":
+        res = sync_fm_c_plain(spectra, costas_phase, costas_freq, psmi,
+                              timing_adj, carry)
+        return res if out is None else K.into(out, res)
+    K.check(spectra, "spectra", torch.complex64)
+    return launch_sync_block("sync_fm_c", torch.view_as_real(spectra),
+                             costas_phase, costas_freq, psmi, timing_adj,
+                             carry, out)
+
+
+def sync_fm_step(spectra, state: SyncState, psmi: int, timing_adj):
+    """One station's block as :func:`sync_fm_block` takes and returns it
+    (the per-block receivers' call): the plain version on a CPU tensor,
+    K18 at one station on a CUDA tensor."""
+    if spectra.device.type == "cpu":
+        return sync_fm_block(spectra, state, psmi, timing_adj)
+    tadj = torch.as_tensor(timing_adj, dtype=torch.int32,
+                           device=spectra.device).reshape(1)
+    out, phase, freq = sync_fm_c(spectra[None], state.costas_phase[None],
+                                 state.costas_freq[None], psmi, tadj)
+    return ({k: v[0] for k, v in out.items()},
+            SyncState(costas_phase=phase[0], costas_freq=freq[0]))

@@ -15,8 +15,8 @@ depth-2 pipeline of ``n_frames + 1`` steps with one fill bubble.  The
 exchanges follow :mod:`nrsc5_tpu_torch.parallel.receive` (gloo with CUDA
 tensors stages ``pm`` through pinned host memory).  Stage 0 runs the
 complex chain's :func:`~nrsc5_tpu_torch.pipeline.scan_chain.
-fm_frontend_scan`; stage 1 the P1 and PIDS decodes (K6, K7 and K8 on a
-card).  At the end the decoded frames come from stage 1 and the final
+fm_frontend_scan` (K17 and K18 a block on a card); stage 1 the P1 and
+PIDS decodes (K6, K7 and K8 on a card).  At the end the decoded frames come from stage 1 and the final
 carry from stage 0, and both ranks return both.
 """
 

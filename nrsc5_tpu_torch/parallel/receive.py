@@ -23,8 +23,10 @@ array:
 
 Each shard runs what the reference ``vmap``s: the complex chains'
 :func:`~nrsc5_tpu_torch.pipeline.scan_chain.fm_chain_batch` and
-:func:`~nrsc5_tpu_torch.pipeline.scan_chain_am.am_chain_batch` (the FEC
-through K6, K7 and K8, K11 and K15 on a card), or, self-synchronizing, the
+:func:`~nrsc5_tpu_torch.pipeline.scan_chain_am.am_chain_batch` (on a card
+the block step K17 and K18, or K19 and K20, for the shard's stations at
+once, then the FEC through K6, K7 and K8, K11 and K15), or,
+self-synchronizing, the
 rc chain's on-device cold start
 (:func:`~nrsc5_tpu_torch.pipeline.scan_chain_rc.cold_start_device_rc`: K9,
 K2, the DFT kernel, K10 and K4), its block loop and the P1 decode.

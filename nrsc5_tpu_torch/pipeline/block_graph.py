@@ -54,9 +54,10 @@ import torch
 from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops.acquire_rc import WINDOW_AM, WINDOW_FM
-# the per-station scalars the FM carry step reads and writes
-FM_STATE = ("offset", "prev_angle", "samperr_fb", "angle_fb", "samperr",
-            "angle", "timing_adj")
+# the per-station scalars the FM carry step reads and writes, and its plain
+# version (K4 and K18 take the step too)
+from nrsc5_tpu_torch.ops.sync_fm import (FM_STATE,  # noqa: F401
+                                         block_carry_plain)
 
 
 def run_into(kernel, plain_fn, plain: bool, args: tuple, out):
@@ -71,20 +72,6 @@ def run_into(kernel, plain_fn, plain: bool, args: tuple, out):
 # ---------------------------------------------------------------------------
 # K5: the carry step
 # ---------------------------------------------------------------------------
-
-def block_carry_plain(keep, k4_samperr, k4_angle, state: dict,
-                      first: bool) -> None:
-    """Plain version of :func:`block_carry`: the same step in torch, in
-    place on ``state``'s tensors."""
-    if not first:
-        state["offset"].add_(WINDOW_FM - keep)
-        state["prev_angle"].copy_(state["angle"])
-        state["samperr_fb"].copy_(k4_samperr)
-        state["angle_fb"].copy_(k4_angle)
-    state["samperr"].copy_(C.FFTCP_FM // 2 + state["samperr_fb"])
-    state["angle"].copy_(state["prev_angle"] - state["angle_fb"])
-    state["timing_adj"].copy_(C.FFTCP_FM // 2 - state["samperr"])
-
 
 def block_carry(keep, k4_samperr, k4_angle, state: dict, first: bool,
                 plain: bool = False) -> None:

@@ -11,7 +11,8 @@ bits go to ``on_frame(channel, bits, margin)`` as numpy arrays (-1 PIDS,
 :mod:`nrsc5_tpu_torch.transport`.
 
 This is the correctness path, one block a call and a read-back each: on a
-card each block runs the complex ops as many small PyTorch launches, then
+card each block runs K17 (``acquire_fm``'s demodulation, after the coarse
+timing on a COARSE block) and K18 (``sync_fm_step``) at one station, then
 ``pids_decode`` on [1, 23040] (K6, K7, K8), each P1 frame ``p1_decode`` on
 [1, 368640] (K6, K7, K8) and each PX block pair ``px_decode`` (K11, K7,
 K8).  The fused paths are :mod:`nrsc5_tpu_torch.pipeline.turbo` (a frame a
@@ -34,7 +35,7 @@ from nrsc5_tpu_torch.ops.acquire import (WINDOW_FM, AcquireState, acquire_fm,
                                          acquire_init_state)
 from nrsc5_tpu_torch.ops.decode_fm import p1_decode, pids_decode, px_decode
 from nrsc5_tpu_torch.ops.detect_cfo import CFO_RANGE, detect_cfo_scan
-from nrsc5_tpu_torch.ops.sync_fm import (SyncState, sync_fm_block,
+from nrsc5_tpu_torch.ops.sync_fm import (SyncState, sync_fm_step,
                                          sync_init_state)
 
 SYNC_NONE, SYNC_COARSE, SYNC_FINE = 0, 1, 2
@@ -164,8 +165,8 @@ class FMReceiver:
         timing_adj = C.FFTCP_FM // 2 - samperr
         prev_sync = self.sync_arrays
         psmi_used = self.psmi
-        out, self.sync_arrays = sync_fm_block(spectra, prev_sync, psmi_used,
-                                              timing_adj)
+        out, self.sync_arrays = sync_fm_step(spectra, prev_sync, psmi_used,
+                                             timing_adj)
 
         consumed = WINDOW_FM - (int(keep) + self.keep_extra)
         self.keep_extra = 0
@@ -177,7 +178,7 @@ class FMReceiver:
             if self.sync_state == SYNC_FINE and self.psmi != psmi_used:
                 # the lock block itself is demodulated with the latched
                 # service mode (it is bc=0 of the PX cycle)
-                out, self.sync_arrays = sync_fm_block(
+                out, self.sync_arrays = sync_fm_step(
                     spectra, prev_sync, self.psmi, timing_adj)
         if self.sync_state == SYNC_FINE:
             self._fine_step(out)

@@ -3,8 +3,9 @@
 PyTorch counterpart of ``nrsc5_tpu/pipeline/receiver_am.py``, the AM
 (MA1/MA3) twin of :class:`~nrsc5_tpu_torch.pipeline.receiver.FMReceiver`:
 the device side is the complex acquire and sync functions of
-:mod:`nrsc5_tpu_torch.ops` and the AM decode (K15, K7 at K=9 and K8 on a
-card); this receiver owns the NONE/COARSE/FINE state machine driven by the
+:mod:`nrsc5_tpu_torch.ops` (on a card the demodulation K19 and the sync
+block K20 at one station, after the coarse timing on a COARSE block) and
+the AM decode (K15, K7 at K=9 and K8 on a card); this receiver owns the NONE/COARSE/FINE state machine driven by the
 reference subcarrier's block counts (history 0x5670; reference:
 src/sync.c:635-666), the coarse-timing consensus latch, the integer-CFO
 latch, the per-frame code matrices, the diversity-delay warm-up and the
@@ -30,7 +31,7 @@ from nrsc5_tpu_torch.ops.acquire import (WINDOW_AM, AcquireState, acquire_am,
 from nrsc5_tpu_torch.ops.decode_am import (DD, AMDecodeState,
                                            am_frame_decode, am_pids_decode)
 from nrsc5_tpu_torch.ops.sync_am import (find_block_am, find_ref_am,
-                                         sync_am_block, timing_consensus)
+                                         sync_am_step, timing_consensus)
 
 SYNC_NONE, SYNC_COARSE, SYNC_FINE = 0, 1, 2
 
@@ -149,7 +150,7 @@ class AMReceiver:
         self.ring = self.ring[consumed:]
 
         ma3 = self.psmi == C.SERVICE_MODE_MA3
-        out = sync_am_block(spectra, ma3)
+        out = sync_am_step(spectra, ma3)
         ref_bits = out["ref_bits"].cpu().numpy()
 
         if self.sync_state == SYNC_COARSE:
@@ -185,7 +186,7 @@ class AMReceiver:
             self.on_event("sync", {"psmi": self.psmi})
             if (self.psmi == C.SERVICE_MODE_MA3) != ma3:
                 ma3 = self.psmi == C.SERVICE_MODE_MA3
-                out = sync_am_block(spectra, ma3)
+                out = sync_am_step(spectra, ma3)
 
         # FINE ---------------------------------------------------------
         found = find_block_am(ref_bits)

@@ -11,15 +11,25 @@ demap, then the batched FEC):
         p1 bits [F, 146176], pids bits [B, 80], PX bits by block pair
 
 with the carried state (sample offset, acquire phase, Costas phase and
-frequency, timing feedback) an explicit :class:`ChainCarry`.  The
-reference's ``lax.scan`` over blocks is a Python loop of the complex ops
-(:mod:`nrsc5_tpu_torch.ops.acquire`, :mod:`nrsc5_tpu_torch.ops.sync_fm`),
-plain PyTorch on either device; its ``vmap`` over stations is a loop.
-P1, PIDS and PX decode through :func:`~nrsc5_tpu_torch.ops.decode_fm.
-p1_decode`, :func:`~nrsc5_tpu_torch.ops.decode_fm.pids_decode` and
+frequency, timing feedback) an explicit :class:`ChainCarry`.
+
+The reference's ``vmap`` over stations is the batch dimension and its
+``lax.scan`` over blocks a loop (:func:`scan_blocks_c`) of two kernels a
+block for all stations at once: K17 (:func:`~nrsc5_tpu_torch.ops.acquire.
+demod_fm_c`: each station's window read at its own offset, derotated,
+folded and transformed by its own FFT) and K18 (:func:`~nrsc5_tpu_torch.
+ops.sync_fm.sync_fm_c`: the sync block, which also takes the loop's carry
+step, so that nothing is read back to the host), after one K5 step ahead
+of block 0; the FEC is then flat-batched over stations x frames (or block
+pairs).  One station is the same path at S = 1.  P1, PIDS and PX decode
+through :func:`~nrsc5_tpu_torch.ops.decode_fm.p1_decode`,
+:func:`~nrsc5_tpu_torch.ops.decode_fm.pids_decode` and
 :func:`~nrsc5_tpu_torch.ops.decode_fm.px_deinterleave` /
-:func:`~nrsc5_tpu_torch.ops.decode_fm.px_fec`: kernels K6, K7, K8 and
-K11 on a card, their plain versions on the CPU.  The turbo receiver
+:func:`~nrsc5_tpu_torch.ops.decode_fm.px_fec`: kernels K6, K7, K8 and K11.
+On the CPU every kernel wrapper takes its plain version (the complex ops
+of :mod:`nrsc5_tpu_torch.ops.acquire` and :mod:`nrsc5_tpu_torch.ops.
+sync_fm`, looped over the stations); ``plain=True`` takes the block
+step's plain versions on a card too.  The turbo receiver
 (:mod:`nrsc5_tpu_torch.pipeline.turbo`) runs it a frame a dispatch; the
 rc chain of the serving path is :mod:`nrsc5_tpu_torch.pipeline.
 scan_chain_rc`.
@@ -40,14 +50,15 @@ import torch
 from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops import interleavers as IL
-from nrsc5_tpu_torch.ops.acquire import (WINDOW_FM, AcquireState,
-                                         acquire_fm_fine, acquire_init_state)
-from nrsc5_tpu_torch.ops.acquire_rc import dynamic_start
-from nrsc5_tpu_torch.ops.bits import pack_out
+from nrsc5_tpu_torch.ops.acquire import (AcquireState, acquire_init_state,
+                                         demod_fm_c, demod_fm_c_plain)
 from nrsc5_tpu_torch.ops.decode_fm import (p1_decode, pids_decode,
                                            px_deinterleave, px_fec)
-from nrsc5_tpu_torch.ops.sync_fm import (SyncState, sync_fm_block,
+from nrsc5_tpu_torch.ops.sync_fm import (SyncState, sync_block_shapes,
+                                         sync_fm_c, sync_fm_c_plain,
                                          sync_init_state)
+from nrsc5_tpu_torch.pipeline.block_graph import (block_carry, run_into,
+                                                  station_major)
 
 SLACK = C.FFTCP_FM  # offset headroom for clock drift over a scan
 
@@ -113,76 +124,141 @@ def px_init_state(psmi: int, *, device="cuda") -> PxState:
                    px2_phase=zeros((), torch.int32))
 
 
-def px_scan_pairs(px_scanned, n_blocks: int, first_bc: int, fl1: int,
-                  fl2: int, states: dict):
-    """The PX channels' interleaver-IV calls over pair-aligned block soft
-    bits, then their Viterbis: ``px_scanned`` holds each active channel's
-    [n_blocks, frame_len] int8 soft bits (px1 first), ``states`` maps
-    ``"px1"``/``"px2"`` to their ``(iv_internal, call_phase)``.  A block
-    pair is one IV call (K11 takes every pair of the call at once, in
-    order), and each pair's frame decodes through K7 and K8.  Returns
-    ``(outputs, new_states)``, outputs holding ``pxN`` bits [pairs,
-    frame_len] and ``pxN_margin`` [pairs]."""
-    assert first_bc % 2 == 0 and n_blocks % 2 == 0, \
-        "PX decode needs pair-aligned blocks"
-    out, new_states = {}, {}
-    idx = 0
-    for key, fl in (("px1", fl1), ("px2", fl2)):
-        if not fl:
-            continue
-        llr = px_scanned[idx].reshape(1, n_blocks, fl)
-        idx += 1
-        internal, phase = states[key]
-        ext, internal, phase = px_deinterleave(
-            llr.contiguous(), internal.reshape(1, -1),
-            phase.to(torch.int32).reshape(1))
-        out[key], out[key + "_margin"] = px_fec(ext, fl)
-        new_states[key] = (internal[0], phase[0])
-    return out, new_states
+def _one(tree):
+    """A tree of tensors with a station axis of one added."""
+    return tree_rebuild(tree, iter([x[None] for x in tree_leaves(tree)]))
 
 
-def _window(samples: torch.Tensor, offset: torch.Tensor, n: int):
-    """``samples[offset:offset + n]`` as ``lax.dynamic_slice`` cuts it (the
-    start clamped into the buffer), by a gather: no host read-back."""
-    start = dynamic_start(offset.long(), samples.shape[0], n)
-    return samples[start + torch.arange(n, device=samples.device)]
+def _first(tree):
+    """Station 0 of a tree of stacked tensors (dicts walked by key)."""
+    if isinstance(tree, dict):
+        return {k: _first(v) for k, v in tree.items()}
+    return index_tree(tree, 0)
+
+
+def scan_blocks_c(samples: torch.Tensor, carries: ChainCarry,
+                  n_blocks: int, psmi: int = 1, plain: bool = False):
+    """The block loop for every station at once: samples [S, N]
+    complex64, carries stacked along a leading station axis.  Block 0's
+    inputs come from K5's step (:func:`~nrsc5_tpu_torch.pipeline.
+    block_graph.block_carry`); each block then runs K17 (its spectra,
+    phase and keep into reused buffers) and K18 (its pm, PX soft bits and
+    diagnostics straight into slot b of block-major buffers, then the
+    carry step for the next block).  ``plain`` runs the kernels' plain
+    versions instead.  Returns (pm int8 [S, n_blocks, 23040], diag dict of
+    [S, n_blocks] tensors, px tuple of the PX channels' soft bits [S,
+    n_blocks, 2304 or 4608] (px1 first; empty for MP1 and MP5/MP6), new
+    carries)."""
+    s, dev = samples.shape[0], samples.device
+    shapes = sync_block_shapes(s, psmi)
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    pm = empty((n_blocks,) + shapes["pm"][0], torch.int8)
+    diag = {k: empty((n_blocks, s), shapes[k][1])
+            for k in ("samperr", "error_lb", "error_ub")}
+    px = {k: empty((n_blocks,) + shapes[k][0], torch.int8)
+          for k in ("px1", "px2") if k in shapes}
+    ref = {k: empty(*shapes[k]) for k in ("ref_ok", "ref_bc", "ref_psmi")}
+    k18_angle = empty((s,))
+    state = {"offset": carries.offset.clone(),
+             "prev_angle": carries.acq.prev_angle.clone(),
+             "samperr_fb": carries.samperr_fb.clone(),
+             "angle_fb": carries.angle_fb.clone()}
+    # ping-pong pairs: block b reads [b % 2] and writes [(b + 1) % 2]
+    tadj = (empty((s,), torch.int32), empty((s,), torch.int32))
+    state.update(samperr=empty((s,), torch.int32), angle=empty((s,)),
+                 timing_adj=tadj[0])
+    phase = (carries.acq.phase.clone(), empty((s,), torch.complex64))
+    cph = (carries.sync.costas_phase.clone(), empty((s, C.FFT_FM)))
+    cfr = (carries.sync.costas_freq.clone(), empty((s, C.FFT_FM)))
+    spectra = empty((s, C.BLKSZ, C.FFT_FM), torch.complex64)
+    keep = empty((s,), torch.int32)
+    cfo = torch.zeros(s, dtype=torch.int32, device=dev)
+    block_carry(None, None, None, state, True, plain)
+    for b in range(n_blocks):
+        i, j = b % 2, (b + 1) % 2
+        run_into(demod_fm_c, demod_fm_c_plain, plain,
+                 (samples, state["offset"], phase[i], state["samperr"],
+                  state["angle"], cfo), (spectra, phase[j], keep))
+        out = {"pm": pm[b], "angle": k18_angle, **ref,
+               **{k: v[b] for k, v in diag.items()},
+               **{k: v[b] for k, v in px.items()}}
+        step = {**state, "timing_adj": tadj[j], "keep": keep}
+        run_into(sync_fm_c, sync_fm_c_plain, plain,
+                 (spectra, cph[i], cfr[i], psmi, tadj[i], step),
+                 (out, cph[j], cfr[j]))
+    last = n_blocks % 2
+    diag = {k: station_major(v) for k, v in diag.items()}
+    diag["error"] = diag["error_lb"] + diag["error_ub"]
+    new = ChainCarry(
+        offset=state["offset"],
+        acq=AcquireState(phase=phase[last], prev_angle=state["prev_angle"]),
+        sync=SyncState(costas_phase=cph[last], costas_freq=cfr[last]),
+        samperr_fb=state["samperr_fb"], angle_fb=state["angle_fb"])
+    return (station_major(pm),
+            {k: diag[k] for k in ("samperr", "error", "error_lb",
+                                  "error_ub")},
+            tuple(station_major(v) for v in px.values()), new)
+
+
+def fm_decode_c(pm, diag, px_scanned, n_blocks: int, psmi: int = 1,
+                first_bc: int = 0, px_states: PxState | None = None,
+                packed: bool = False):
+    """The FEC after :func:`scan_blocks_c`, flat-batched over stations ×
+    frames (P1) and stations × block pairs (PX): the outputs of
+    :func:`fm_chain_batch` from the loop's results."""
+    s = pm.shape[0]
+    out = {"pids": pids_decode(pm, packed=packed).reshape(s, n_blocks, -1),
+           "diag": diag}
+    skip = (C.P1_FM_BLOCKS - first_bc) % C.P1_FM_BLOCKS
+    n_frames = (n_blocks - skip) // C.P1_FM_BLOCKS
+    if n_frames > 0:
+        frames = pm[:, skip:skip + n_frames * C.P1_FM_BLOCKS].reshape(
+            s, n_frames, -1)
+        p1, margin, errors = p1_decode(frames, packed=packed)
+        out["p1"] = p1.reshape(s, n_frames, -1)
+        out["p1_margin"] = margin.reshape(s, n_frames)
+        out["p1_bit_errors"] = errors.reshape(s, n_frames)
+    if px_states is not None:
+        fl1, fl2 = px_frame_lens(psmi)
+        assert fl1 or fl2, "px_state passed but psmi has no PX channels"
+        assert first_bc % 2 == 0 and n_blocks % 2 == 0, \
+            "PX decode needs pair-aligned blocks"
+        new_px = px_states._asdict()
+        for key, llr in zip(("px1", "px2"), px_scanned):
+            fl = llr.shape[-1]
+            ext, internal, phase = px_deinterleave(
+                llr, new_px[f"{key}_internal"],
+                new_px[f"{key}_phase"].to(torch.int32))
+            bits, margin = px_fec(ext, fl, packed=packed)
+            out[key] = bits.reshape(s, n_blocks // 2, -1)
+            out[key + "_margin"] = margin.reshape(s, n_blocks // 2)
+            new_px[f"{key}_internal"], new_px[f"{key}_phase"] = \
+                internal, phase
+        out["px_state"] = PxState(**new_px)
+    return out
 
 
 def fm_frontend_scan(samples: torch.Tensor, carry: ChainCarry,
-                     n_blocks: int, psmi: int = 1):
-    """Run ``n_blocks`` FINE-state L1 blocks over ``samples``.
+                     n_blocks: int, psmi: int = 1, plain: bool = False):
+    """Run ``n_blocks`` FINE-state L1 blocks over ``samples``:
+    :func:`scan_blocks_c` at one station.
 
     samples: [buffer_len(n_blocks)] complex64 at 744187.5 S/s; the first
     OFDM symbol starts ``FFTCP//2 + carry.offset`` samples in.  Returns
     (pm [n_blocks, 23040] int8, diag dict, px_scanned tuple of per-block
     PX1/PX2 soft bits (empty for MP1 and MP5/MP6), new_carry)."""
-    fftcp = C.FFTCP_FM
-    cy = carry
-    zero = torch.zeros((), dtype=torch.int32, device=samples.device)
-    rows = []
-    for _ in range(n_blocks):
-        window = _window(samples, cy.offset, WINDOW_FM)
-        spectra, acq, samperr, _, keep = acquire_fm_fine(
-            window, cy.acq, cy.samperr_fb, cy.angle_fb, zero)
-        out, sync = sync_fm_block(spectra, cy.sync, psmi,
-                                  fftcp // 2 - samperr)
-        cy = ChainCarry(offset=(cy.offset + WINDOW_FM - keep).to(torch.int32),
-                        acq=acq, sync=sync, samperr_fb=out["samperr"],
-                        angle_fb=out["angle"])
-        rows.append(out)
-
-    def stacked(key):
-        return torch.stack([r[key] for r in rows])
-    pm = stacked("pm")
-    elb, eub = stacked("error_lb"), stacked("error_ub")
-    px = tuple(stacked(k) for k in ("px1", "px2") if k in rows[0])
-    return pm, {"samperr": stacked("samperr"), "error": elb + eub,
-                "error_lb": elb, "error_ub": eub}, px, cy
+    pm, diag, px, cy = scan_blocks_c(samples[None], _one(carry), n_blocks,
+                                     psmi, plain)
+    return pm[0], _first(diag), tuple(x[0] for x in px), _first(cy)
 
 
 def fm_chain_scan(samples: torch.Tensor, carry: ChainCarry, n_blocks: int,
                   psmi: int = 1, first_bc: int = 0,
-                  px_state: PxState | None = None, packed: bool = False):
+                  px_state: PxState | None = None, packed: bool = False,
+                  plain: bool = False):
     """The full fused chain: :func:`fm_frontend_scan`, then PIDS for every
     block and P1 for every complete frame (16 aligned blocks) inside the
     scan; ``first_bc`` is the block count of the buffer's first block.
@@ -193,32 +269,11 @@ def fm_chain_scan(samples: torch.Tensor, carry: ChainCarry, n_blocks: int,
     ``packed`` packs the decoded bits 8 to a byte (:func:`~nrsc5_tpu_torch.
     ops.bits.pack_out`).  Returns (dict with p1 [F, 146176] uint8,
     p1_margin [F], p1_bit_errors [F], pids [n_blocks, 80] uint8, diag;
-    new carry)."""
-    pm, diag, px_scanned, carry = fm_frontend_scan(samples, carry,
-                                                   n_blocks, psmi)
-    out = {"pids": pids_decode(pm), "diag": diag}
-    skip = (C.P1_FM_BLOCKS - first_bc) % C.P1_FM_BLOCKS
-    n_frames = (n_blocks - skip) // C.P1_FM_BLOCKS
-    if n_frames > 0:
-        frames = pm[skip:skip + n_frames * C.P1_FM_BLOCKS].reshape(
-            n_frames, -1)
-        out["p1"], out["p1_margin"], out["p1_bit_errors"] = p1_decode(frames)
-    if px_state is not None:
-        fl1, fl2 = px_frame_lens(psmi)
-        assert fl1 or fl2, "px_state passed but psmi has no PX channels"
-        states = {k: (getattr(px_state, f"{k}_internal"),
-                      getattr(px_state, f"{k}_phase"))
-                  for k, fl in (("px1", fl1), ("px2", fl2)) if fl}
-        px_out, new_states = px_scan_pairs(px_scanned, n_blocks, first_bc,
-                                           fl1, fl2, states)
-        out.update(px_out)
-        new_px = px_state._asdict()
-        for k, (internal, ph) in new_states.items():
-            new_px[f"{k}_internal"], new_px[f"{k}_phase"] = internal, ph
-        out["px_state"] = PxState(**new_px)
-    if packed:
-        out = pack_out(out)
-    return out, carry
+    new carry).  This is :func:`fm_chain_batch` at one station."""
+    out, cy = fm_chain_batch(samples[None], _one(carry), n_blocks, psmi,
+                             first_bc, None if px_state is None
+                             else _one(px_state), packed, plain)
+    return _first(out), _first(cy)
 
 
 def tree_leaves(tree):
@@ -247,28 +302,18 @@ def stack_trees(trees: list):
     return tree_rebuild(trees[0], iter([torch.stack(c) for c in cols]))
 
 
-def _stack_outputs(outs: list):
-    first = outs[0]
-    if isinstance(first, dict):
-        return {k: _stack_outputs([o[k] for o in outs]) for k in first}
-    if isinstance(first, tuple):
-        return stack_trees(outs)
-    return torch.stack(outs)
-
-
 def fm_chain_batch(samples: torch.Tensor, carries: ChainCarry,
                    n_blocks: int, psmi: int = 1, first_bc: int = 0,
-                   px_states: PxState | None = None, packed: bool = False):
-    """Several stations: :func:`fm_chain_scan` for each (the reference's
-    ``vmap``).  samples [S, buffer_len]; carries (and px_states) stacked
-    along a leading station axis.  Returns the outputs and carries
-    stacked likewise."""
-    results = [fm_chain_scan(
-        samples[i], index_tree(carries, i), n_blocks, psmi, first_bc,
-        None if px_states is None else index_tree(px_states, i), packed)
-        for i in range(samples.shape[0])]
-    return (_stack_outputs([r[0] for r in results]),
-            stack_trees([r[1] for r in results]))
+                   px_states: PxState | None = None, packed: bool = False,
+                   plain: bool = False):
+    """Several stations (the reference's ``vmap``): samples [S,
+    buffer_len]; carries (and px_states) stacked along a leading station
+    axis.  Returns the outputs and carries stacked likewise: every
+    station at once, :func:`scan_blocks_c` then :func:`fm_decode_c`.
+    ``plain`` runs the block step's plain versions (the FEC as always)."""
+    pm, diag, px, cy = scan_blocks_c(samples, carries, n_blocks, psmi, plain)
+    return fm_decode_c(pm, diag, px, n_blocks, psmi, first_bc, px_states,
+                       packed), cy
 
 
 def rebase_carry(carry: ChainCarry, consumed: int) -> ChainCarry:

@@ -56,6 +56,8 @@ from nrsc5_tpu_torch.ops import decode_am as DA
 from nrsc5_tpu_torch.ops import rcplx as rc
 from nrsc5_tpu_torch.ops import sync_am as SA
 from nrsc5_tpu_torch.ops.acquire_rc import WINDOW_AM, dynamic_start
+from nrsc5_tpu_torch.ops.sync_am import (PLAN_INTS, partitions,  # noqa: F401
+                                         sync_am_plan)
 from nrsc5_tpu_torch.pipeline import block_graph
 from nrsc5_tpu_torch.pipeline.block_graph import (block_carry_am_plain,
                                                   run_into, station_major)
@@ -282,67 +284,6 @@ def acquire_am_fine_rc(samples, offset, phase, samperr_fb, prev_angle, cfo,
 # ---------------------------------------------------------------------------
 # K13: the AM sync block
 # ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=4)
-def partitions(ma3: bool) -> tuple:
-    """The four data partitions in output order (pl, pu, s, t): one
-    ``(first bin, bin step, training point, levels)`` each, levels 8
-    (QAM64), 4 (QAM16) or 2 (QPSK); and the two PIDS bins."""
-    c = SA.CENTER
-    primary = C.OUTER_PARTITION_START_AM if not ma3 \
-        else C.INNER_PARTITION_START_AM
-    secondary = C.MIDDLE_PARTITION_START_AM
-    tertiary = C.INNER_PARTITION_START_AM if not ma3 \
-        else C.MIDDLE_PARTITION_START_AM
-    if ma3:
-        parts = ((c - primary, -1, SA.TRAIN_QAM64, 8),
-                 (c + primary, 1, SA.TRAIN_QAM64, 8),
-                 (c + secondary, 1, SA.TRAIN_QAM64, 8),
-                 (c - tertiary, -1, SA.TRAIN_QAM64, 8))
-        pids = (c - C.PIDS_INNER_INDEX_AM, c + C.PIDS_INNER_INDEX_AM)
-    else:
-        parts = ((c - primary, -1, SA.TRAIN_QAM64, 8),
-                 (c + primary, 1, SA.TRAIN_QAM64, 8),
-                 (c + secondary, 1, SA.TRAIN_QAM16, 4),
-                 (c + tertiary, 1, SA.TRAIN_QPSK, 2))
-        pids = (c + C.PIDS_INNER_INDEX_AM, c + C.PIDS_OUTER_INDEX_AM)
-    return parts, pids
-
-
-# K13's plan: ints a CTA (csrc/sync_am_block.cu's Plan)
-PLAN_INTS = 12
-# the extras of a station's four CTAs (pl, pu, s, t): the CTA that demaps
-# PIDS column k (either mode), the one that writes the reference bits
-# (MA1, MA3), each beside its partition's bins so that its reads stay two
-# contiguous runs a row; pl forms samperr from its own mults and pu's,
-# which it forms again from pu's training rows
-_PIDS_CTA = (3, 2)
-_REF_CTA = {False: 3, True: 1}
-
-
-@functools.lru_cache(maxsize=2)
-def sync_am_plan(ma3: bool) -> np.ndarray:
-    """K13's plan, int32 [4, PLAN_INTS]: for each CTA of a station (one a
-    partition, pl, pu, s, t) its partition's first bin, bin step, levels
-    and twice its training point (re, im); the PIDS bin it demaps (-1:
-    none) and that column's index; 1 where it writes the reference bits;
-    and, for the CTA that forms samperr, the other primary partition's
-    first bin, step and twice its training point (-1: none).  The kernel
-    reads it by value, so it is the only statement of which CTA reads
-    what."""
-    parts, pids = partitions(ma3)
-    plan = np.full((4, PLAN_INTS), -1, np.int32)
-    for p, (first, step, nominal, levels) in enumerate(parts):
-        plan[p, :5] = (first, step, levels, round(2 * nominal.real),
-                       round(2 * nominal.imag))
-        plan[p, 7] = int(p == _REF_CTA[ma3])
-    for k, (p, b) in enumerate(zip(_PIDS_CTA, pids)):
-        plan[p, 5:7] = b, k
-    first, step, nominal, _ = parts[1]
-    plan[0, 8:] = (first, step, round(2 * nominal.real),
-                   round(2 * nominal.imag))
-    return plan
-
 
 @functools.lru_cache(maxsize=8)
 def _sync_tables(ma3: bool, device: str) -> dict:

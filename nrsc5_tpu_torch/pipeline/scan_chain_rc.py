@@ -44,7 +44,6 @@ the kernel wrappers take the plain versions anyway.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple
 
@@ -54,8 +53,7 @@ import torch
 from nrsc5_tpu_torch import constants as C
 from nrsc5_tpu_torch import kernels as K
 from nrsc5_tpu_torch.ops import rcplx as rc
-from nrsc5_tpu_torch.ops import sync_fm as SF
-from nrsc5_tpu_torch.ops.acquire_rc import (WINDOW_FM, coarse_timing_rc,
+from nrsc5_tpu_torch.ops.acquire_rc import (coarse_timing_rc,
                                             coarse_timing_rc_plain,
                                             demod_fold_bf16,
                                             demod_fold_bf16_plain)
@@ -63,7 +61,11 @@ from nrsc5_tpu_torch.ops.costas import TWO_PI, costas_track_rc_plain, wrap_pi
 from nrsc5_tpu_torch.ops.decode_fm import (p1_decode, pids_decode,
                                            px_deinterleave, px_fec)
 from nrsc5_tpu_torch.ops.detect_cfo import CFO_RANGE, detect_cfo_scan_rc
-from nrsc5_tpu_torch.pipeline.block_graph import (FM_STATE, block_carry,
+from nrsc5_tpu_torch.ops.sync_fm import (check_carry, check_psmi,
+                                         check_sync, launch_sync_block,
+                                         px_columns, sync_block_shapes,
+                                         sync_tables)
+from nrsc5_tpu_torch.pipeline.block_graph import (block_carry,
                                                   block_carry_plain, run_into,
                                                   station_major)
 from nrsc5_tpu_torch.pipeline.scan_chain import iv_state_len, px_frame_lens
@@ -85,13 +87,6 @@ class ChainCarryRC(NamedTuple):
     px1_phase: torch.Tensor  # int32 [S] IV call phase
     px2_internal: torch.Tensor  # int8 [S, N or 0]
     px2_phase: torch.Tensor  # int32 [S]
-
-
-def check_psmi(psmi: int) -> None:
-    """A service-mode index the chain decodes: any entry of the
-    compatibility-mode table."""
-    if not 0 <= psmi < len(C.COMPATIBILITY_MODE):
-        raise ValueError(f"psmi {psmi} is not a service mode index")
 
 
 def check_px_state(carry: ChainCarryRC, psmi: int) -> None:
@@ -160,77 +155,6 @@ def acquire_fine_rc(samples, offset, phase, prev_angle, sync_samperr,
 # K4: sync block (any partitions-per-band, with the PX demaps)
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=64)
-def px_columns(psmi: int) -> tuple[tuple, tuple]:
-    """The partitions each PX channel demaps, in output order: one
-    ``(side, partition, mult_side)`` per column for px1 and for px2, with
-    side 0 lower and 1 upper, and the MER multiplier of ``mult_side``
-    (rc twin of the reference's src/sync.c:537-595; its px2 takes the lower
-    sideband's multiplier on both sidebands)."""
-    cm = C.COMPATIBILITY_MODE[psmi]
-    px1 = {2: ((0, 10, 0), (1, 10, 1)),
-           3: ((0, 10, 0), (0, 11, 0), (1, 11, 1), (1, 10, 1)),
-           11: ((0, 10, 0), (0, 11, 0), (1, 11, 1), (1, 10, 1))}.get(cm, ())
-    px2 = ((0, 12, 0), (0, 13, 0), (1, 13, 0), (1, 12, 0)) if cm == 11 \
-        else ()
-    return px1, px2
-
-@functools.lru_cache(maxsize=8)
-def _sync_tables(ppb: int, device: str) -> dict:
-    r = ppb + 1
-    part = np.arange(ppb)
-    kk = np.arange(1, W)
-    low_bins = C.LB_START + part[:, None] * W + kk[None, :]
-    up_bins = C.UB_END - (part[:, None] + 1) * W + kk[None, :]
-    vals, known = SF._needles(ppb)
-    vals_mask, known_mask = SF.needle_masks(ppb)
-    tables = {
-        "bins": SF._ref_bins(ppb).astype(np.int64),
-        "sync_signs": SF._sync_signs(),
-        "vals": np.ascontiguousarray(vals.T),  # [32, R]
-        "known": np.ascontiguousarray(known.T),
-        "lo_idx": np.concatenate([np.arange(ppb), r + np.arange(ppb) + 1]),
-        "hi_idx": np.concatenate([np.arange(ppb) + 1, r + np.arange(ppb)]),
-        "data_bins": np.concatenate([low_bins, up_bins]).astype(np.int64),
-        "wbc": np.array([8, 4, 2, 1], np.int32),
-        "wps": np.array([32, 16, 8, 4, 2, 1], np.int32),
-        "k": np.arange(1, W, dtype=np.float32),
-        # the needles as bit masks (bit k = symbol k), as K4 reads them
-        "vals_mask": vals_mask,
-        "known_mask": known_mask,
-    }
-    out = {k: torch.from_numpy(v).to(device) for k, v in tables.items()}
-    out["k_rel"] = (out["bins"] - C.FFT_FM // 2).float()
-    # the PX columns of every service mode with this ppb, as K4 reads them:
-    # side + 2 * mult_side + 4 * partition, px1's then px2's
-    out["px_cols"] = {
-        psmi: torch.tensor([side + 2 * ms + 4 * part for cols in
-                            px_columns(psmi) for side, part, ms in cols]
-                           + [0], dtype=torch.int32, device=device)
-        for psmi in range(len(C.COMPATIBILITY_MODE))
-        if C.partitions_per_band(psmi) == ppb}
-    return out
-
-
-def sync_block_shapes(s: int, psmi: int) -> dict:
-    """{key: (shape, dtype)} of K4's per-station outputs for ``s`` stations
-    of service mode ``psmi``."""
-    r2 = 2 * (C.partitions_per_band(psmi) + 1)
-    shapes = {"pm": ((s, C.PM_BLOCK_SIZE), torch.int8),
-              "ref_ok": ((s, r2), torch.bool),
-              "ref_bc": ((s, r2), torch.int32),
-              "ref_psmi": ((s, r2), torch.int32),
-              "samperr": ((s,), torch.int32),
-              "angle": ((s,), torch.float32),
-              "error_lb": ((s,), torch.float32),
-              "error_ub": ((s,), torch.float32)}
-    for key, cols in zip(("px1", "px2"), px_columns(psmi)):
-        if cols:
-            shapes[key] = ((s, C.BLKSZ * len(cols) * 2 * (W - 1)),
-                           torch.int8)
-    return shapes
-
-
 def _warp_sum(x):
     """Sum over the last axis in the order one warp of K4 does: lane l adds
     elements l, l + 32, ... in turn, then the 32 lane sums meet in a
@@ -248,33 +172,6 @@ def _demod(z, mult):
     return torch.round(torch.clamp(z, -1, 1) * mult).to(torch.int8)
 
 
-def _check_sync(spectra, costas_phase, costas_freq, timing_adj):
-    if spectra.ndim != 4 or spectra.shape[1:] != (C.BLKSZ, C.FFT_FM, 2):
-        raise ValueError(f"spectra: expected [S, {C.BLKSZ}, {C.FFT_FM}, 2],"
-                         f" got {tuple(spectra.shape)}")
-    s = spectra.shape[0]
-    for name, t, shape in (("costas_phase", costas_phase, (s, C.FFT_FM)),
-                           ("costas_freq", costas_freq, (s, C.FFT_FM)),
-                           ("timing_adj", timing_adj, (s,))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected shape {shape}, got "
-                             f"{tuple(t.shape)}")
-
-
-def _check_carry(carry: dict, s: int, timing_adj) -> None:
-    """The block loop's carry step handed to K4: every name of
-    :data:`~nrsc5_tpu_torch.pipeline.block_graph.FM_STATE` and ``keep``,
-    each an [S] tensor, its ``timing_adj`` not the one K4 reads."""
-    for name in FM_STATE + ("keep",):
-        t = carry[name]
-        if tuple(t.shape) != (s,):
-            raise ValueError(f"carry {name}: expected shape {(s,)}, got "
-                             f"{tuple(t.shape)}")
-    if carry["timing_adj"] is timing_adj:
-        raise ValueError("carry timing_adj: the next block's, not the one "
-                         "K4 reads (ping-pong them)")
-
-
 def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
                         timing_adj, carry: dict | None = None):
     """Plain version of K4.  spectra: [S, 32, 2048, 2];
@@ -289,11 +186,11 @@ def sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi: int,
     float32 [S], and for the modes that carry them ``px1`` int8 [S, 2304]
     (MP2) or [S, 4608] (MP3/MP11) and ``px2`` int8 [S, 4608] (MP11)."""
     check_psmi(psmi)
-    _check_sync(spectra, costas_phase, costas_freq, timing_adj)
+    check_sync(spectra, costas_phase, costas_freq, timing_adj)
     if carry is not None:
-        _check_carry(carry, spectra.shape[0], timing_adj)
+        check_carry(carry, spectra.shape[0], timing_adj)
     ppb = C.partitions_per_band(psmi)
-    t = _sync_tables(ppb, str(spectra.device))
+    t = sync_tables(ppb, str(spectra.device))
     s = spectra.shape[0]
     bins, k_rel = t["bins"], t["k_rel"]
     r2 = bins.shape[0]
@@ -431,52 +328,8 @@ def sync_block_rc(spectra, costas_phase, costas_freq, psmi: int, timing_adj,
         res = sync_block_rc_plain(spectra, costas_phase, costas_freq, psmi,
                                   timing_adj, carry)
         return res if out is None else K.into(out, res)
-    check_psmi(psmi)
-    _check_sync(spectra, costas_phase, costas_freq, timing_adj)
-    K.check(spectra, "spectra", torch.float32)
-    K.check(costas_phase, "costas_phase", torch.float32)
-    K.check(costas_freq, "costas_freq", torch.float32)
-    K.check(timing_adj, "timing_adj", torch.int32)
-    ppb = C.partitions_per_band(psmi)
-    dev = spectra.device
-    t = _sync_tables(ppb, str(dev))
-    s = spectra.shape[0]
-
-    shapes = sync_block_shapes(s, psmi)
-    if out is None:
-        out = ({k: torch.empty(shape, dtype=dtype, device=dev)
-                for k, (shape, dtype) in shapes.items()},
-               torch.empty_like(costas_phase), torch.empty_like(costas_freq))
-    out, new_phase, new_freq = out
-    if set(out) != set(shapes):
-        raise ValueError(f"out: expected keys {sorted(shapes)}, got "
-                         f"{sorted(out)}")
-    for k, (shape, dtype) in shapes.items():
-        K.check(out[k], k, dtype, shape)
-    K.check(new_phase, "new_phase", torch.float32, (s, C.FFT_FM))
-    K.check(new_freq, "new_freq", torch.float32, (s, C.FFT_FM))
-    step = (None,) * 8
-    if carry is not None:
-        _check_carry(carry, s, timing_adj)
-        for name in ("keep",) + FM_STATE:
-            K.check(carry[name], name, torch.float32 if "angle" in name
-                    else torch.int32, (s,))
-        step = tuple(carry[name].data_ptr() for name in ("keep",) + FM_STATE)
-    px1, px2 = px_columns(psmi)
-    K.launch("sync_block", spectra.data_ptr(), costas_phase.data_ptr(),
-             costas_freq.data_ptr(), timing_adj.data_ptr(),
-             t["sync_signs"].data_ptr(), t["vals_mask"].data_ptr(),
-             t["known_mask"].data_ptr(),
-             *(out[k].data_ptr() for k in (
-                 "pm", "ref_ok", "ref_bc", "ref_psmi", "samperr", "angle",
-                 "error_lb", "error_ub")),
-             new_phase.data_ptr(), new_freq.data_ptr(),
-             *(out[k].data_ptr() if k in out else None
-               for k in ("px1", "px2")),
-             t["px_cols"][psmi].data_ptr(), len(px1), len(px2), s, ppb,
-             SF.ALPHA, SF.BETA, TWO_PI, math.pi, TWO_PI / C.FFT_FM,
-             *step, WINDOW_FM, C.FFTCP_FM // 2, device=dev)
-    return out, new_phase, new_freq
+    return launch_sync_block("sync_block", spectra, costas_phase,
+                             costas_freq, psmi, timing_adj, carry, out)
 
 
 # ---------------------------------------------------------------------------

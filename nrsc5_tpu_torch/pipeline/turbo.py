@@ -12,7 +12,8 @@ state passes from the per-block receiver into the fused chain
 (:class:`~nrsc5_tpu_torch.pipeline.scan_chain.PxState`), so MP2, MP3 and
 MP11 decode their P3 frames in the same call as PM.  A link whose P1 bit
 error rate passes 15 % drops back to re-acquisition.  On a card the fused
-chain's outputs are bit-packed before they are read back, as the
+chain runs K17 and K18 a block (after K5's step ahead of block 0), and
+its outputs are bit-packed by K8 before they are read back, as the
 reference packs them on an accelerator.
 """
 

@@ -2031,3 +2031,205 @@ def test_session_file_worker(card, tmp_path):
     assert lots and bytes(lots[0].data) == chip_smoke.GOLDEN_LOT_DATA
     assert sum(e.type.name == "HDC" and not e.crc_error for e in got) == 96
     assert any(e.type.name == "LOST_DEVICE" for e in got)  # at EOF
+
+
+# ---------------------------------------------------------------------------
+# K17-K20: the complex chain's block step
+# ---------------------------------------------------------------------------
+
+def _spectra_close(got, want, tol):
+    """Complex spectra [..., rows, n]: every row within ``tol`` of its
+    largest magnitude (an FFT of its own against cuFFT: the same sums in
+    another order).  Returns the largest such relative error."""
+    scale = want.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+    err = float(((got - want).abs() / scale).max())
+    assert err <= tol, err
+    return err
+
+
+def _fm_stations_c(card, psmi=1, n_blocks=2):
+    """Three FM stations at 25 dB (CFOs 0, +20, -35 Hz) as the complex
+    chain's input [3, N] complex64 (unconjugated)."""
+    rng = np.random.default_rng(40 + psmi)
+    caps = [_capture(rng, psmi, 0, f, n_blocks=n_blocks)
+            for f in (0.0, 20.0, -35.0)]
+    x = np.stack([c[..., 0] - 1j * c[..., 1] for c in caps])
+    return torch.from_numpy(x.astype(np.complex64)).to(card)
+
+
+@pytest.mark.parametrize("s", [1, 3, 16])
+def test_fm_demod_c(card, s):
+    """K17 against its plain version (``_demod`` through ``torch.fft``) at
+    1, 3 and 16 stations of noise with moved states: offsets inside, past
+    the end (clamped) and negative, samperr feedback -20..+20 (the slice's
+    clamp), CFOs -38..+38 bins (negative ones through the floor mod),
+    angles and phasors at random.  Spectra within 2e-5 of each row's
+    largest magnitude, phase_out within 1e-5, keep exact; one launch.
+    Prints the spectra's largest relative error (``-rP``)."""
+    from nrsc5_tpu_torch.ops import acquire as TA
+    g = torch.Generator().manual_seed(170 + s)
+    n = TA.WINDOW_FM + 3000
+    x = torch.view_as_complex(torch.randn(s, n, 2, generator=g)).to(card)
+    ang = 2 * math.pi * torch.rand(s, generator=g)
+    offset = torch.randint(-4000, 4000, (s,), generator=g, dtype=torch.int32)
+    offset[0] = 0
+    args = (x, offset.to(card), torch.polar(torch.ones(s), ang).to(card),
+            (C.FFTCP_FM // 2 + torch.randint(-20, 21, (s,), generator=g,
+                                             dtype=torch.int32)).to(card),
+            (0.2 * torch.randn(s, generator=g)).to(card),
+            torch.randint(-38, 39, (s,), generator=g,
+                          dtype=torch.int32).to(card))
+    before = K.COUNTS["fm_demod_c"]
+    got = TA.demod_fm_c(*args)
+    assert K.COUNTS["fm_demod_c"] == before + 1
+    want = TA.demod_fm_c_plain(*args)
+    err = _spectra_close(got[0], want[0], 2e-5)
+    _close(torch.view_as_real(got[1]), torch.view_as_real(want[1]), 1e-5)
+    assert torch.equal(got[2], want[2])
+    print(json.dumps({"fm_demod_c_rel_err": err, "stations": s}))
+    with pytest.raises(ValueError):
+        TA.demod_fm_c(torch.view_as_real(x), *args[1:])
+
+
+def _sync_fm_c_args(card, psmi):
+    """Block 1 of three stations' complex chains (block 0 through the
+    plain versions), K18's inputs: the spectra K17 makes, the Costas
+    state block 0 left, timing_adj moved by 0, +2 and -3 samples."""
+    from nrsc5_tpu_torch.ops import acquire as TA
+    from nrsc5_tpu_torch.pipeline import scan_chain as sc
+    x = _fm_stations_c(card, psmi, n_blocks=3)
+    carries = sc.stack_trees([sc.chain_init_carry(device=card)] * 3)
+    _, _, _, cy = sc.scan_blocks_c(x, carries, 1, psmi, plain=True)
+    samperr = C.FFTCP_FM // 2 + cy.samperr_fb + torch.tensor(
+        [0, 2, -3], dtype=torch.int32, device=card)
+    spectra = TA.demod_fm_c_plain(
+        x, cy.offset, cy.acq.phase, samperr, cy.acq.prev_angle - cy.angle_fb,
+        torch.zeros(3, dtype=torch.int32, device=card))[0]
+    return (spectra, cy.sync.costas_phase, cy.sync.costas_freq, psmi,
+            (C.FFTCP_FM // 2 - samperr).to(torch.int32))
+
+
+@pytest.mark.parametrize("psmi", [1, 2, 3, 5, 11])
+def test_sync_fm_c(card, psmi):
+    """K18 against ``sync_fm_block`` for each station, at block 1 of three
+    stations' chains: ref_ok, ref_bc, ref_psmi and samperr exact, the int8
+    soft bits within ±1 on at most 0.1 % (a product on a .5 edge: PyTorch's
+    reductions and complex kernels round apart from the kernel's ordered
+    sums), the floats within 1e-5 of their largest value (at least 1); one
+    launch."""
+    from nrsc5_tpu_torch.ops import sync_fm as TS
+    args = _sync_fm_c_args(card, psmi)
+    before = K.COUNTS["sync_fm_c"]
+    got = TS.sync_fm_c(*args)
+    assert K.COUNTS["sync_fm_c"] == before + 1
+    _sync_check(*got, *TS.sync_fm_c_plain(*args))
+
+
+def test_sync_fm_c_carry(card):
+    """K18's carry step against the plain version's
+    (``block_carry_plain`` after the block): the integer fields and
+    prev_angle (a copy of the block's angle) exact, angle_fb and the next
+    angle (the block's mean Costas frequency, K18's float32 against
+    PyTorch's reduction) within 1e-5."""
+    from nrsc5_tpu_torch.ops import sync_fm as TS
+    from nrsc5_tpu_torch.pipeline.block_graph import FM_STATE
+    args = _sync_fm_c_args(card, 1)
+    g = torch.Generator().manual_seed(18)
+
+    def state():
+        st = {k: torch.randint(-50, 50, (3,), generator=g,
+                               dtype=torch.int32).to(card)
+              for k in FM_STATE if "angle" not in k}
+        st.update({k: torch.rand(3, generator=g).to(card)
+                   for k in FM_STATE if "angle" in k})
+        st["keep"] = torch.full((3,), 2160, dtype=torch.int32, device=card)
+        return st
+    a = state()
+    b = {k: v.clone() for k, v in a.items()}
+    TS.sync_fm_c(*args, carry=a)
+    TS.sync_fm_c_plain(*args, carry=b)
+    for k in FM_STATE:
+        if k in ("angle_fb", "angle"):
+            _close(a[k], b[k], 1e-5)
+        else:
+            assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("s", [1, 3, 16])
+def test_am_demod_c(card, s):
+    """K19 against its plain version (``_am_process`` through
+    ``torch.fft``, both passes) at 1, 3 and 16 stations: the first three
+    real MA1 stations, the rest noise; offsets, samperr -4..+4 around the
+    steady 135, CFOs -2..+2 bins, phasors and angles at random.  Spectra
+    within 2e-5 of each row's largest magnitude on the MA1 stations; on
+    the noise stations within 1e-4 (the complex chain's twins' float
+    tolerance): pass 2 runs at the pilot fit's phase and angle, and the fit
+    on a pilot of noise (an atan2 a symbol, their running sum) carries the
+    two FFTs' float rounding into every pass-2 value.  The magnitude sums
+    (pass 1) within 2e-5 of their largest, phase_out and prev_angle_out
+    within 1e-5 (1e-4 on noise), keep exact; one launch."""
+    from nrsc5_tpu_torch.ops import acquire as TA
+    x, _ = _am_stations(card)
+    x = torch.view_as_complex(x.contiguous())
+    g = torch.Generator().manual_seed(190 + s)
+    if s > 3:
+        noise = torch.randn(s - 3, x.shape[1], 2, generator=g) * 0.05
+        x = torch.cat([x, torch.view_as_complex(noise).to(card)])
+    x = x[:s].contiguous()
+    ang = 2 * math.pi * torch.rand(s, generator=g)
+    args = (x, torch.randint(-300, 300, (s,), generator=g,
+                             dtype=torch.int32).to(card),
+            torch.polar(torch.ones(s), ang).to(card),
+            (C.FFTCP_AM // 2 + torch.randint(-4, 5, (s,), generator=g,
+                                             dtype=torch.int32)).to(card),
+            (0.02 * torch.randn(s, generator=g)).to(card),
+            torch.randint(-2, 3, (s,), generator=g,
+                          dtype=torch.int32).to(card))
+    before = K.COUNTS["am_demod_c"]
+    got = TA.demod_am_c(*args)
+    assert K.COUNTS["am_demod_c"] == before + 1
+    want = TA.demod_am_c_plain(*args)
+    real = slice(0, min(s, 3))
+    err = _spectra_close(got[0][real], want[0][real], 2e-5)
+    _close(got[1], want[1], 2e-5)
+    _close(torch.view_as_real(got[2][real]),
+           torch.view_as_real(want[2][real]), 1e-5)
+    _close(got[3][real], want[3][real], 1e-5)
+    noise_err = None
+    if s > 3:
+        noise_err = _spectra_close(got[0][3:], want[0][3:], 1e-4)
+        _close(torch.view_as_real(got[2][3:]),
+               torch.view_as_real(want[2][3:]), 1e-4)
+        _close(got[3][3:], want[3][3:], 1e-4)
+    assert torch.equal(got[4], want[4])
+    print(json.dumps({"am_demod_c_rel_err": err,
+                      "noise_rel_err": noise_err, "stations": s}))
+
+
+@pytest.mark.parametrize("ma3", [False, True])
+@pytest.mark.parametrize("s", [1, 3, 17])
+def test_sync_am_c(card, s, ma3):
+    """K20 against ``sync_am_block`` for each station: on the spectra of
+    three stations' first block at 35 dB (K19's plain version), and at 17
+    stations those and random spectra.  Every output exact: codes, PIDS
+    codes, reference bits and samperr; one launch."""
+    from nrsc5_tpu_torch.ops import acquire as TA
+    from nrsc5_tpu_torch.ops import sync_am as TSA
+    x, cy = _am_stations(card, ma3)
+    x = torch.view_as_complex(x.contiguous())
+    zero = torch.zeros(3, dtype=torch.int32, device=card)
+    spectra = TA.demod_am_c_plain(
+        x, cy.offset, torch.ones(3, dtype=torch.complex64, device=card),
+        zero + C.FFTCP_AM // 2, cy.prev_angle, zero)[0]
+    if s > 3:
+        g = torch.Generator().manual_seed(200 + s)
+        noise = torch.randn(s - 3, C.BLKSZ, C.FFT_AM, 2, generator=g)
+        spectra = torch.cat([spectra, torch.view_as_complex(noise).to(card)])
+    spectra = spectra[:s].contiguous()
+    before = K.COUNTS["sync_am_c"]
+    got = TSA.sync_am_c(spectra, ma3)
+    assert K.COUNTS["sync_am_c"] == before + 1
+    want = TSA.sync_am_c_plain(spectra, ma3)
+    for k in ("codes", "pids", "ref_bits", "samperr"):
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
